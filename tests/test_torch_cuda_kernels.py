@@ -1,0 +1,184 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU and ``nvcc``; without them every test here skips.
+They cover shapes off the main path (odd head dims, one or eight heads per
+group, fp32 pools, windows, offsets) that ``chip_smoke.py`` does not.  This
+file imports no JAX, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: fp32 kernels against fp32 plain versions 2e-5 (sums in another
+order); bf16 outputs one bf16 ulp (rtol 1e-2) plus 2e-3 absolute, as in
+chip_smoke.py.  Committed pools and caches must be bit-equal.
+"""
+
+import pytest
+import torch
+
+from vats_tpu_torch.ops import cache_append as ca
+from vats_tpu_torch.ops import decode_attention as da
+from vats_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+       torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's hand-written kernels)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def rand(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize(
+    "dtype,g,n,hd,ps,lengths",
+    [
+        (torch.bfloat16, 8, 3, 60, 128, [0, 1, 127, 128, 129, 384]),  # 384 = capacity
+        (torch.float32, 2, 1, 12, 128, [5, 200, 0]),
+        (torch.bfloat16, 1, 8, 128, 256, [255, 256, 511]),
+        (torch.float32, 4, 2, 64, 128, [300, 17]),
+    ],
+)
+def test_paged_decode_commit_matches_plain(gen, dtype, g, n, hd, ps, lengths):
+    b = len(lengths)
+    pps = -(-max(lengths + [1]) // ps)
+    hdp = -(-hd // 8) * 8
+    pool = rand(gen, 3, b * pps, 2, g, ps, hdp, dtype=dtype)
+    pool[..., hd:] = 0
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+    table = table.reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, g * n, hd, dtype=dtype)
+    kc, vc = rand(gen, b, g, hd, dtype=dtype), rand(gen, b, g, hd, dtype=dtype)
+    pk, pp = pool.clone(), pool.clone()
+    n0 = da.paged_decode_attention_commit.launches
+    out = da.paged_decode_attention_commit(q, pk, 2, table, lens, scale=0.2,
+                                           k_cur=kc, v_cur=vc)
+    ref = da.paged_decode_attention_ref(q, pp[2], table, lens, scale=0.2,
+                                        k_cur=kc, v_cur=vc)
+    da.PagedKVCache(pp, table, lens).append_token(2, kc, vc)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_commit.launches == n0 + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(pk, pp)
+    # K1' (no commit) writes nothing; it attends the committed pool, whose
+    # clamped slot changed for a row at capacity
+    before = pk.clone()
+    out2 = da.paged_decode_attention(q, pk, 2, table, lens, scale=0.2,
+                                     k_cur=kc, v_cur=vc)
+    ref2 = da.paged_decode_attention_ref(q, pp[2], table, lens, scale=0.2,
+                                         k_cur=kc, v_cur=vc)
+    torch.cuda.synchronize()
+    assert torch.equal(before, pk)
+    torch.testing.assert_close(out2.float(), ref2.float(), **TOL[dtype])
+
+
+FLASH_CASES = [
+    (torch.bfloat16, 60, dict(causal=True)),
+    (torch.float32, 16, dict(causal=True, left_window=33)),
+    (torch.float32, 100, dict(causal=False, left_window=40, right_window=9)),
+    (torch.float32, 64, dict(causal=False)),
+    (torch.float32, 32, dict(causal=True, q_pos_offset=70, s=200)),
+    (torch.float32, 64, dict(causal=True, valid=True)),
+    (torch.bfloat16, 64, dict(causal=True, segments=True)),
+]
+
+
+@pytest.mark.parametrize("dtype,hd,case", FLASH_CASES)
+def test_flash_forward_matches_plain(gen, dtype, hd, case):
+    b, t, hq, g = 2, 150, 6, 2
+    case = dict(case)
+    s = case.pop("s", t)
+    q = rand(gen, b, t, hq, hd, dtype=dtype)
+    k, v = rand(gen, b, s, g, hd, dtype=dtype), rand(gen, b, s, g, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, **case)
+    if kw.pop("valid", False):
+        valid = torch.rand((b, s), generator=gen, device="cuda") > 0.3
+        valid[1, :9] = False  # causal rows 0..8 of batch row 1 attend nothing
+        kw["kv_valid"] = valid
+    if kw.pop("segments", False):
+        seg = (torch.arange(t, device="cuda") // 37).expand(b, t).contiguous()
+        kw["q_segment_ids"] = kw["kv_segment_ids"] = seg
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    if "kv_valid" in kw:
+        assert bool((out[1, :9] == 0).all())
+
+
+def test_flash_forward_refuses_gradients(gen):
+    q = rand(gen, 1, 8, 2, 16).requires_grad_()
+    k = rand(gen, 1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="K5"):
+        fa.flash_attention(q, k, k, scale=0.25, causal=True)
+    with torch.no_grad():
+        fa.flash_attention(q, k, k, scale=0.25, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [0, 99, 100, 250])  # S = 100: 100 and 250 clamp
+def test_cache_append_matches_plain(gen, dtype, pos):
+    k, v = rand(gen, 3, 2, 4, 16, 100, dtype=dtype), rand(gen, 3, 2, 4, 16, 100, dtype=dtype)
+    kn, vn = rand(gen, 2, 4, 16, dtype=dtype), rand(gen, 2, 4, 16, dtype=dtype)
+    length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    ka, va, kb, vb = k.clone(), v.clone(), k.clone(), v.clone()
+    ca.append_token_inplace(ka, va, 1, kn, vn, length)
+    ca.append_token_ref(kb, vb, 1, kn, vn, length)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+def test_wrappers_reject_bad_inputs(gen):
+    k = rand(gen, 1, 2, 2, 8, 16)
+    kn = rand(gen, 2, 2, 8)
+    with pytest.raises(ValueError, match="int32"):
+        ca.append_token_inplace(k, k.clone(), 0, kn, kn,
+                                torch.tensor(1, device="cuda"))  # int64 length
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.append_token_inplace(k, k.clone(), 0, kn.transpose(0, 1).contiguous()
+                                .transpose(0, 1), kn,
+                                torch.tensor(1, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("left_window", [-1, 100])  # 100: dense ring cache
+def test_tiny_model_on_the_card_matches_the_cpu(gen, left_window):
+    """fp32 end to end: paged prefill (through K2 via attention_impl='flash')
+    and decode (K1), dense decode (K3; a ring cache when windowed), on the
+    card against the plain versions on the CPU."""
+    from vats_tpu_torch.configs import ModelArgs
+    from vats_tpu_torch.inference import generate, generate_paged
+    from vats_tpu_torch.models import TextLM
+
+    cfg = ModelArgs(d_model=64, num_heads=4, query_groups=2, d_ffn=128,
+                    num_layers=2, dropout=0.0, vocab_size=97, max_seq_len=320,
+                    left_window=left_window, num_experts=4, top_k=2,
+                    capacity_factor=1.25,
+                    dtype="float32", attention_impl="flash")
+    gpu = TextLM(cfg, device="cuda", seed=3).eval()
+    cpu = TextLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    ids = torch.randint(1, 97, (2, 260), generator=torch.Generator().manual_seed(1))
+    mask = torch.arange(260)[None, :] < torch.tensor([[260], [201]])
+    ids = torch.where(mask, ids, 0)
+    kw = dict(max_new_tokens=6, do_sample=False, temperature=0.0, pad_token_id=0)
+    counts = (fa.flash_attention.launches, da.paged_decode_attention_commit.launches,
+              ca.append_token_inplace.launches)
+    for fn in (generate_paged, generate):
+        tc, lc = fn(cpu, ids, mask, None, **kw)
+        tg, lg = fn(gpu, ids.cuda(), mask.cuda(), None, **kw)
+        assert torch.equal(lc, lg.cpu())
+        assert torch.equal(tc, tg.cpu())
+    # the paged prefill takes K2; so does the dense ring prefill when windowed
+    prefills = 2 if left_window > 0 else 1
+    assert fa.flash_attention.launches == counts[0] + prefills * cfg.num_layers
+    assert da.paged_decode_attention_commit.launches == counts[1] + 6 * cfg.num_layers
+    assert ca.append_token_inplace.launches == counts[2] + 6 * cfg.num_layers

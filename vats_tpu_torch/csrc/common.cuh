@@ -1,0 +1,77 @@
+// Helpers shared by the port's CUDA kernels: element conversion, 8-wide
+// vector loads and warp reductions.  Kernels are instantiated for bf16 (the
+// serving dtype) and fp32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace vats {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Load 8 consecutive elements (16-byte aligned for bf16, 32 for fp32) as floats.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  float4 a = *reinterpret_cast<const float4*>(p);
+  float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// Unpack one 16-byte chunk: 8 bf16 or 4 fp32 values (the pointer is a type tag).
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out,
+                                         const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, const float*) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+}  // namespace vats
+
+// Every library exports this so the Python wrapper can name a failed launch.
+extern "C" const char* vats_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
