@@ -17,6 +17,14 @@ Phases:
            before and read just after; each must equal 20 layers x calls.
   parity   full width, 2 layers: ``generate_paged`` and ``generate`` on the
            card (kernels) against the CPU (plain versions), same weights.
+  train    the training step at the JAX bench's ``medium_dense`` tier (d1440,
+           20 layers, vocab 65536, B=16, T=512, remat 'dots', fused CE 128,
+           bf16 AdamW mu): one warm-up step, timed steps with launch counts
+           of K2', K5a and K5b, a profiled step; then ``medium_moe`` (d768,
+           12 layers, 8 experts, top-2) for a few steps.
+  train_parity  2 layers at full width, B=2, T=512, dropout 0: three train
+           steps on the card (flash kernels) and on the CPU from the same
+           weights and batch; loss, grad norm and params after each step.
 
 The last two lines of standard output are one JSON object listing every
 kernel, then ``{"ok": true, "device": {...}}``.  Any failed phase raises and
@@ -34,7 +42,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "main", "parity")
+PHASES = ("build", "kernels", "main", "parity", "train", "train_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 
@@ -81,22 +89,40 @@ def _device_us(prof) -> dict:
     return out
 
 
-def device_ms(fn, iters=20) -> float:
-    """Per-call device time: the summed duration of every kernel, copy and
-    memset the call puts on the card (torch.profiler), host gaps excluded."""
+def profiled(fn, iters=1, tries=3):
+    """({kernel name: (device us, count)}, wall s of the last try) over
+    ``iters`` calls under torch.profiler.  The profiler now and then records
+    no device activity for a window; such a window is profiled again, up to
+    ``tries`` times, and {} means it never recorded any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per = _device_us(prof)
+        if per:
+            return per, wall
+    return {}, wall
+
+
+def device_ms(fn, iters=20) -> float:
+    """Per-call device time: the summed duration of every kernel, copy and
+    memset the call puts on the card (torch.profiler), host gaps excluded.
+    Where the profiler records nothing, the CUDA-event time, said so."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(us for us, _ in _device_us(prof).values())
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total / iters / 1e3
+    per, _ = profiled(fn, iters)
+    if not per:
+        log("  (torch.profiler recorded no device time: CUDA-event time instead)")
+        return cuda_ms(fn, iters)
+    return sum(us for us, _ in per.values()) / iters / 1e3
 
 
 def timed(fn):
@@ -141,6 +167,7 @@ def check_k1(gen):
 
     from vats_tpu_torch.ops.decode_attention import (
         PagedKVCache,
+        paged_decode_attention,
         paged_decode_attention_commit,
         paged_decode_attention_ref,
     )
@@ -187,6 +214,19 @@ def check_k1(gen):
         PagedKVCache(pool_p, table, lengths).append_token(layer, k_cur, v_cur)
 
     (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+    # K1': the same kernel without the commit (paged_decode_attention)
+    n0 = paged_decode_attention.launches
+    out_n = paged_decode_attention(q, pool_k, layer, table, lengths, scale=scale,
+                                   k_cur=k_cur, v_cur=v_cur)
+    torch.cuda.synchronize()
+    require(paged_decode_attention.launches == n0 + 1, "K1' did not launch")
+    err_n = expect_close("K1' out", out_n, paged_decode_attention_ref(
+        q, pool_k[layer], table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur),
+        BF16_ATOL, BF16_RTOL)
+    ms_n, call_ms_n = timed(lambda: paged_decode_attention(
+        q, pool_k, layer, table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur))
+    plain_ms_n, _ = timed(lambda: paged_decode_attention_ref(
+        q, pool_k[layer], table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur))
     tokens = int(lengths.sum())
     nbytes = (
         2 * q.numel() * 2  # q in, out
@@ -196,6 +236,11 @@ def check_k1(gen):
     )
     flops = 4 * G * N * hd * (tokens + B)  # q.k and p.v per attended column
     b_ms, by = bound(nbytes, flops)
+    b_ms_n, by_n = bound(nbytes - 2 * k_cur.numel() * 2, flops)  # no commit write
+    log(f"K1' paged decode without commit, same inputs: max_abs_err={err_n:.3e} "
+        f"kernel_ms={ms_n:.4f} plain_ms={plain_ms_n:.4f} bound_ms={b_ms_n:.5f} "
+        f"({by_n}); per call with host "
+        f"overhead {call_ms_n:.4f}")
     log(f"K1 paged decode+commit B={B} Hq={G * N} hd={hd} ps={ps} "
         f"lengths<=576: max_abs_err={err:.3e} pool bit-equal; kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host "
@@ -206,7 +251,6 @@ def check_k1(gen):
 
 def check_k2(gen):
     import torch
-    import torch.nn.functional as F
 
     from vats_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
 
@@ -233,16 +277,7 @@ def check_k2(gen):
     ms, call_ms = timed(lambda: flash_attention(q, k, v, **kw))
     plain_ms, plain_call_ms = timed(lambda: flash_attention_ref(q, k, v, **kw))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
-                                       enable_gqa=True)
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
-    except TypeError:  # a PyTorch without enable_gqa: repeat K/V beforehand
-        kr, vr = (x.repeat_interleave(Hq // G, dim=1) for x in (kt, vt))
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kr, vr, is_causal=True, scale=scale)
-    library_ms, library_call_ms = timed(lib)
+    library_ms, library_call_ms = timed(lambda: _sdpa(qt, kt, vt, scale))
     pairs = B * T * (T + 1) // 2
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
     flops = 4 * Hq * hd * pairs
@@ -282,12 +317,368 @@ def check_k3(gen):
     plain_ms, plain_call_ms = timed(lambda: append_token_ref(kb, vb, 5, kn, vn, length))
     nbytes = 2 * kn.numel() * 2 * 2 + 4  # new K/V read, the same written
     b_ms, by = bound(nbytes, 0)
+    # library yardstick: Tensor.scatter_ of each row's K and V at its position
+    idx = torch.full((B, G, hdp, 1), 300, dtype=torch.int64, device=dev)
+    kc, vc = k.clone(), v.clone()
+
+    def scatter():
+        kc[5].scatter_(-1, idx, kn[..., None])
+        vc[5].scatter_(-1, idx, vn[..., None])
+
+    scatter()
+    kd, vd = k.clone(), v.clone()
+    append_token_ref(kd, vd, 5, kn, vn, length)
+    if not (torch.equal(kc, kd) and torch.equal(vc, vd)):
+        raise AssertionError("K3: scatter_ yardstick writes another cache")
+    library_ms, library_call_ms = timed(scatter)
     log(f"K3 dense append cache [{L},{B},{G},{hdp},{S}]: bit-equal at "
         f"positions 0/127/300/S-1/clamped; kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({by}); per call with host "
-        f"overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (two scatter_) "
+        f"bound_ms={b_ms:.6f} ({by}); per call with host overhead: kernel "
+        f"{call_ms:.4f} plain {plain_call_ms:.4f} library {library_call_ms:.4f}")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=library_ms)
+
+
+# K2' and K5 at the training shapes: medium_dense attention, B=16, T=512.
+TRAIN_B, TRAIN_T, TRAIN_HQ, TRAIN_G, TRAIN_HD = 16, 512, 24, 8, 60
+# The backward kernels and their plain versions both compute in fp32 from the
+# same bf16 inputs and differ only in the order of their sums (512 keys or
+# 3 x 512 queries), ~1e-6 on gradients of O(1); a fault in a mask or a tile
+# bound gives errors of O(1).
+BWD_ATOL, BWD_RTOL = 1e-4, 1e-4
+
+
+def _train_attention_inputs(gen, b, t, hq, g, hd):
+    import torch
+
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    return mk(b, t, hq, hd), mk(b, t, g, hd), mk(b, t, g, hd), mk(b, t, hq, hd)
+
+
+def _sdpa(q, k, v, scale):
+    """scaled_dot_product_attention on [B, H, T, D] views, causal, GQA."""
+    import torch.nn.functional as F
+
+    try:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                              enable_gqa=True)
+    except TypeError:  # a PyTorch without enable_gqa: repeat K/V
+        r = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(r, dim=1), v.repeat_interleave(r, dim=1),
+            is_causal=True, scale=scale)
+
+
+def check_k2_lse(gen):
+    import torch
+
+    from vats_tpu_torch.ops.flash_attention import (
+        flash_attention_lse,
+        flash_attention_lse_ref,
+    )
+
+    B, T, Hq, G, hd = TRAIN_B, TRAIN_T, TRAIN_HQ, TRAIN_G, TRAIN_HD
+    scale = 1.0 / hd**0.5
+    q, k, v, _ = _train_attention_inputs(gen, B, T, Hq, G, hd)
+    kw = dict(scale=scale, causal=True)
+    n0 = flash_attention_lse.launches
+    o_k, lse_k = flash_attention_lse(q, k, v, **kw)
+    o_p, lse_p = flash_attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(flash_attention_lse.launches == n0 + 1, "K2' did not launch")
+    err = expect_close("K2' out", o_k, o_p, BF16_ATOL, BF16_RTOL)
+    err_l = expect_close("K2' lse", lse_k, lse_p, 1e-4, 1e-5)
+    # small padded case: dead rows (lse 1e30, output 0), segments, a window
+    qs, ks, vs, _ = _train_attention_inputs(gen, 2, 200, 6, 2, hd)
+    valid = torch.rand((2, 200), generator=gen, device="cuda") > 0.2
+    valid[1, :7] = False
+    seg = (torch.arange(200, device="cuda") // 45).expand(2, 200).contiguous()
+    kw2 = dict(scale=scale, causal=True, left_window=70, kv_valid=valid,
+               q_segment_ids=seg, kv_segment_ids=seg)
+    o2k, l2k = flash_attention_lse(qs, ks, vs, **kw2)
+    o2p, l2p = flash_attention_lse_ref(qs, ks, vs, **kw2)
+    err2 = max(expect_close("K2' padded out", o2k, o2p, BF16_ATOL, BF16_RTOL),
+               expect_close("K2' padded lse", l2k, l2p, 1e-4, 1e-5))
+    require(bool((l2k[1, :, :7] == 1e30).all()) and bool((o2k[1, :7] == 0).all()),
+            "K2': a row with no key must give lse 1e30 and output 0")
+
+    ms, call_ms = timed(lambda: flash_attention_lse(q, k, v, **kw))
+    plain_ms, _ = timed(lambda: flash_attention_lse_ref(q, k, v, **kw))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms, _ = timed(lambda: _sdpa(qt, kt, vt, scale))
+    pairs = B * T * (T + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * T * 4
+    b_ms, by = bound(nbytes, 4 * Hq * hd * pairs)
+    log(f"K2' flash forward + lse B={B} T={T} Hq={Hq} G={G} hd={hd} causal: "
+        f"max_abs_err out {err:.3e} lse {err_l:.3e} (padded/window/segments "
+        f"{err2:.3e}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (SDPA forward) bound_ms={b_ms:.5f} ({by}); "
+        f"per call with host overhead {call_ms:.4f}")
+    return dict(max_abs_err=max(err, err_l, err2), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+
+
+def check_k5(gen):
+    """K5a and K5b against the plain backward at the training shapes, plus a
+    small padded/segmented/windowed case; returns one result per kernel."""
+    import torch
+
+    from vats_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_lse_ref,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    def case(b, t, hq, g, **kw):
+        q, k, v, do = _train_attention_inputs(gen, b, t, hq, g, TRAIN_HD)
+        o, lse = flash_attention_lse_ref(q, k, v, kv_valid=kw.get("kv_valid"),
+                                         q_segment_ids=kw.get("q_seg"),
+                                         kv_segment_ids=kw.get("kv_seg"),
+                                         **{x: kw[x] for x in kw if x not in
+                                            ("kv_valid", "q_seg", "kv_seg")})
+        di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, do, lse, di
+
+    scale = 1.0 / TRAIN_HD**0.5
+    B, T, Hq, G = TRAIN_B, TRAIN_T, TRAIN_HQ, TRAIN_G
+    kw = dict(scale=scale, causal=True)
+    q, k, v, do, lse, di = case(B, T, Hq, G, **kw)
+    n0 = (flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    got = flash_attention_bwd(q, k, v, do, lse, di, **kw)
+    want = flash_attention_bwd_ref(q, k, v, do, lse, di, **kw)
+    torch.cuda.synchronize()
+    require((flash_bwd_dkv.launches, flash_bwd_dq.launches) == (n0[0] + 1, n0[1] + 1),
+            "K5a/K5b did not launch")
+    errs = [expect_close(f"K5 {n}", a, b_, BWD_ATOL, BWD_RTOL)
+            for n, a, b_ in zip(("dq", "dk", "dv"), got, want)]
+    # small case: dead rows, padding, segments, window, GQA ratio 3
+    valid = torch.rand((2, 200), generator=gen, device="cuda") > 0.2
+    valid[1, :7] = False
+    seg = (torch.arange(200, device="cuda") // 45).expand(2, 200).contiguous()
+    kw2 = dict(scale=scale, causal=True, left_window=70)
+    masks = dict(kv_valid=valid, q_seg=seg, kv_seg=seg)
+    args2 = case(2, 200, 6, 2, **kw2, **masks)
+    got2 = flash_attention_bwd(*args2, valid, seg, seg, **kw2)
+    want2 = flash_attention_bwd_ref(*args2, valid, seg, seg, **kw2)
+    errs2 = [expect_close(f"K5 padded {n}", a, b_, BWD_ATOL, BWD_RTOL)
+             for n, a, b_ in zip(("dq", "dk", "dv"), got2, want2)]
+
+    # timing at the kernels' head dim (the wrapper pads 60 -> 64 once)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 64 - TRAIN_HD)).contiguous()  # noqa: E731
+    qp, kp, vp, dop = map(pad, (q, k, v, do))
+    ms_kv, call_kv = timed(lambda: flash_bwd_dkv(qp, kp, vp, dop, lse, di, **kw))
+    ms_q, call_q = timed(lambda: flash_bwd_dq(qp, kp, vp, dop, lse, di, **kw))
+    plain_ms, _ = timed(lambda: flash_attention_bwd_ref(q, k, v, do, lse, di, **kw))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = _sdpa(qt, kt, vt, scale)
+    dot = do.transpose(1, 2)
+    library_ms, _ = timed(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                      retain_graph=True))
+    pairs = B * T * (T + 1) // 2
+    hd = TRAIN_HD
+    stats = 2 * B * Hq * T * 4  # lse and di
+    in_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + stats
+    b_kv, by_kv = bound(in_bytes + 2 * k.numel() * 4, 8 * Hq * hd * pairs)
+    b_q, by_q = bound(in_bytes + q.numel() * 4, 6 * Hq * hd * pairs)
+    err_a = max(errs[1], errs[2], errs2[1], errs2[2])
+    err_b = max(errs[0], errs2[0])
+    log(f"K5 flash backward B={B} T={T} Hq={Hq} G={G} hd={hd} causal: max_abs_err "
+        f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (padded/window/"
+        f"segments {max(errs2):.3e}); K5a dK/dV kernel_ms={ms_kv:.4f} "
+        f"bound_ms={b_kv:.5f} ({by_kv}); K5b dQ kernel_ms={ms_q:.4f} "
+        f"bound_ms={b_q:.5f} ({by_q}); plain backward (dq, dk, dv together) "
+        f"{plain_ms:.4f}; SDPA backward (dq, dk, dv together) {library_ms:.4f}; "
+        f"per call with host overhead: K5a {call_kv:.4f} K5b {call_q:.4f}")
+    return (dict(max_abs_err=err_a, ms=ms_kv, plain_ms=plain_ms, bound_ms=b_kv,
+                 bound_by=by_kv, library_ms=library_ms),
+            dict(max_abs_err=err_b, ms=ms_q, plain_ms=plain_ms, bound_ms=b_q,
+                 bound_by=by_q, library_ms=library_ms))
+
+
+# --- phase: train -----------------------------------------------------------
+
+
+def train_cfg(tier, **kw):
+    """The JAX bench's training tiers (tools/bench_train.py)."""
+    from vats_tpu_torch.configs import nlp_medium
+
+    base = dict(dropout=0.1, left_window=-1, use_mqa=False, gradient_checkpointing=True,
+                capacity_factor=1.25, max_seq_len=TRAIN_T, remat_policy="dots")
+    if tier == "medium_dense":
+        base.update(num_experts=1, top_k=1)
+    else:  # medium_moe
+        base.update(d_model=768, num_heads=12, query_groups=4, d_ffn=3072,
+                    num_layers=12, num_experts=8, top_k=2)
+    base.update(kw)
+    return nlp_medium(**base)
+
+
+def train_args(**kw):
+    from vats_tpu_torch.configs import TrainingArgs
+
+    base = dict(grad_accum_steps=1, fused_ce_chunk=128, adam_mu_dtype="bfloat16")
+    base.update(kw)
+    return TrainingArgs(**base)
+
+
+def run_train(counters):
+    import torch
+
+    from vats_tpu_torch.data import synthetic_lm_batches
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    B, T, timed_steps = TRAIN_B, TRAIN_T, 5
+    cfg = train_cfg("medium_dense")
+    targs = train_args()
+    t0 = time.perf_counter()
+    model = TextLM(cfg, device="cuda", seed=0)
+    state = create_train_state(model, create_optimizer(targs, 1000))
+    step = make_train_step(model, targs)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = list(synthetic_lm_batches(gen, vocab_size=cfg.vocab_size, batch_size=B,
+                                        seq_len=T, num_batches=timed_steps + 2))
+    torch.cuda.synchronize()
+    log(f"train: medium_dense d{cfg.d_model}/{cfg.num_layers}L vocab {cfg.vocab_size} "
+        f"{n_params / 1e9:.3f}B params, B={B} T={T}, remat {cfg.remat_policy}, fused "
+        f"CE {targs.fused_ce_chunk}, mu {targs.adam_mu_dtype}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0], 100)  # warm-up
+    torch.cuda.synchronize()
+    log(f"train: warm-up step {time.perf_counter() - t0:.2f}s loss "
+        f"{float(m['loss']):.4f}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(timed_steps):
+        state, m = step(state, batches[1 + i], 101 + i)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    L = cfg.num_layers
+    want = {"flash_attention_lse": 2 * L * timed_steps, "flash_bwd_dkv": L * timed_steps,
+            "flash_bwd_dq": L * timed_steps, "flash_attention": 0}
+    for name, n in want.items():
+        if counts.get(name) != n:
+            raise AssertionError(f"train: {name} launched {counts.get(name)} times, "
+                                 f"expected {n}")
+    import math
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: non-finite loss or grad norm {losses} {norms}")
+    require(int(state.step) == timed_steps + 1 and int(state.skipped_steps) == 0,
+            "train: step or skip counters wrong")
+    ms_step = wall / timed_steps * 1e3
+    log(f"train: launches over {timed_steps} steps {json.dumps(counts)} = per step "
+        f"K2' {counts['flash_attention_lse'] // timed_steps} (20 forward + 20 "
+        f"recomputed under remat), K5a {counts['flash_bwd_dkv'] // timed_steps}, "
+        f"K5b {counts['flash_bwd_dq'] // timed_steps}")
+    log(f"train: losses {[round(x, 4) for x in losses]} grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"train: ms_per_step={ms_step:.1f} tokens_per_s={B * T / (ms_step / 1e3):.1f} "
+        f"peak_mem_gb={peak_gb:.2f}")
+    profile_breakdown("train step", lambda: step(state, batches[-1], 200), top=12)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+
+    cfg = train_cfg("medium_moe")
+    model = TextLM(cfg, device="cuda", seed=0)
+    state = create_train_state(model, create_optimizer(targs, 1000))
+    step = make_train_step(model, targs)
+    n_params = sum(p.numel() for p in model.parameters())
+    report = []
+    t0 = time.perf_counter()
+    for i, batch in enumerate(synthetic_lm_batches(gen, vocab_size=cfg.vocab_size,
+                                                   batch_size=B, seq_len=T,
+                                                   num_batches=3)):
+        state, m = step(state, batch, 300 + i)
+        report.append((float(m["loss"]), float(m["aux_loss"])))
+    torch.cuda.synchronize()
+    if not all(math.isfinite(a) and math.isfinite(b) and b > 0 for a, b in report):
+        raise AssertionError(f"train: medium_moe loss/aux not finite: {report}")
+    log(f"train: medium_moe d{cfg.d_model}/{cfg.num_layers}L E{cfg.num_experts} "
+        f"top-{cfg.top_k} ({n_params / 1e9:.3f}B params) B={B} T={T}, 3 steps in "
+        f"{time.perf_counter() - t0:.2f}s: (loss, aux) "
+        f"{[(round(a, 4), round(b, 4)) for a, b in report]}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --- phase: train_parity ----------------------------------------------------
+
+# bf16 compute on both sides; the card and the CPU round their matmul sums at
+# other places.  The loss is a mean over 1022 tokens of ~ln(65536) = 11.1:
+# 0.02 is 0.2%.  The global norm sums those rounding differences over every
+# gradient: 5% relative.  Adam normalises each step to at most ~lr per
+# element whatever the gradient's size, so two runs whose small gradients
+# differ in sign can part by at most 2 lr per applied step: params are held
+# to 2 x (sum of the lr applied so far) + 1e-6.
+PARITY_LOSS_ATOL, PARITY_NORM_RTOL = 0.02, 0.05
+
+
+def run_train_parity():
+    import torch
+
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    B, T = 2, TRAIN_T
+    cfg = train_cfg("medium_dense", num_layers=2, dropout=0.0)
+    targs = train_args()
+    gpu = TextLM(cfg, device="cuda", seed=5)
+    cpu = TextLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    # warmup int(0.05 * 20) = 1: step 0 runs at lr 0, steps 1-2 at ~6e-4
+    opt = lambda: create_optimizer(targs, 20)  # noqa: E731
+    sched = opt().schedule
+    runs = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        runs[name] = (model, create_train_state(model, opt()), make_train_step(model, targs))
+    g = torch.Generator().manual_seed(11)
+    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g, dtype=torch.int32)
+    lens = torch.tensor([T, T - 40])
+    mask = torch.arange(T)[None, :] < lens[:, None]
+    ids = torch.where(mask, ids, 0)
+    labels = torch.cat([ids[:, 1:], torch.full((B, 1), -100, dtype=torch.int32)], 1)
+    labels = torch.where(torch.arange(T)[None, :] < (lens - 1)[:, None], labels, -100)
+    batch = {"input_ids": ids, "labels": labels, "padding_mask": mask}
+    lr_sum = 0.0
+    report = []
+    for i in range(3):
+        out = {}
+        for name, (model, state, step) in runs.items():
+            dev_batch = {k: v.to(model.device) for k, v in batch.items()}
+            state, m = step(state, dev_batch, 0)
+            out[name] = (float(m["loss"]), float(m["grad_norm"]))
+        lr_sum += float(sched(i))
+        diffs = [(a.detach().cpu().float() - b.detach().float()).abs()
+                 for a, b in zip(gpu.parameters(), cpu.parameters())]
+        dp = max(float(d.max()) for d in diffs)
+        mean_dp = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
+        (lg, ng), (lc, nc) = out["cuda"], out["cpu"]
+        tol_p = 2 * lr_sum + 1e-6
+        report.append(f"step {i}: loss card {lg:.5f} cpu {lc:.5f}; grad norm card "
+                      f"{ng:.5f} cpu {nc:.5f}; max |param diff| {dp:.3e} (limit "
+                      f"{tol_p:.3e}), mean {mean_dp:.3e}")
+        if not (abs(lg - lc) <= PARITY_LOSS_ATOL and abs(ng - nc) <= PARITY_NORM_RTOL * nc
+                and dp <= tol_p):
+            raise AssertionError("train_parity: " + report[-1])
+    log("train_parity (2 layers, full width, B=2, T=512, card vs CPU): "
+        + "; ".join(report))
+    del gpu, cpu, runs
+    torch.cuda.empty_cache()
 
 
 # --- phase: main ------------------------------------------------------------
@@ -418,17 +809,13 @@ def run_main(counters):
 
 def profile_breakdown(label, fn, top=10):
     """Device busy time, idle share and the heaviest kernels of one call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per = _device_us(prof)
+    per, wall = profiled(fn)
+    if not per:
+        log(f"profiled {label}: wall_s={wall:.3f}; idle share not measured "
+            f"(torch.profiler recorded no device time in 3 tries)")
+        return
     busy = sum(us for us, _ in per.values()) / 1e6
-    log(f"main: profiled {label}: wall_s={wall:.3f} (profiler on) "
+    log(f"profiled {label}: wall_s={wall:.3f} (profiler on) "
         f"device_busy_s={busy:.3f} idle_share={1 - busy / wall:.3f}")
     for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {us / 1e3:10.3f} ms {n:7d}x  {name[:100]}")
@@ -592,9 +979,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from vats_tpu_torch.ops import kernels
+    from vats_tpu_torch.ops import flash_attention as fa
     from vats_tpu_torch.ops.cache_append import append_token_inplace
     from vats_tpu_torch.ops.decode_attention import paged_decode_attention_commit
-    from vats_tpu_torch.ops.flash_attention import flash_attention
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -609,35 +996,56 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # path: which phase's run counts the row's launches
     kernel_rows = [
         dict(name="paged_decode_attention_commit", route="cuda",
              source="vats_tpu_torch/csrc/decode_attention.cu",
              replaces="vats_tpu/ops/decode_attention.py:371", fn=paged_decode_attention_commit,
-             check=check_k1),
+             path="main"),
         dict(name="flash_attention_forward", route="cuda",
              source="vats_tpu_torch/csrc/flash_attention.cu",
-             replaces="vats_tpu/ops/flash_attention.py:67", fn=flash_attention,
-             check=check_k2),
+             replaces="vats_tpu/ops/flash_attention.py:67", fn=fa.flash_attention,
+             path="main"),
         dict(name="dense_cache_append", route="cuda",
              source="vats_tpu_torch/csrc/cache_append.cu",
              replaces="vats_tpu/ops/cache_append.py:47", fn=append_token_inplace,
-             check=check_k3),
+             path="main"),
+        dict(name="flash_attention_forward_lse", route="cuda",
+             source="vats_tpu_torch/csrc/flash_attention.cu",
+             replaces="vats_tpu/ops/flash_attention.py:207", fn=fa.flash_attention_lse,
+             path="train"),
+        dict(name="flash_attention_backward_dkv", route="cuda",
+             source="vats_tpu_torch/csrc/flash_backward.cu",
+             replaces="vats_tpu/ops/flash_attention.py:230", fn=fa.flash_bwd_dkv,
+             path="train"),
+        dict(name="flash_attention_backward_dq", route="cuda",
+             source="vats_tpu_torch/csrc/flash_backward.cu",
+             replaces="vats_tpu/ops/flash_attention.py:344", fn=fa.flash_bwd_dq,
+             path="train"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     if "kernels" in phases:
-        for row in kernel_rows:
-            results[row["name"]] = row["check"](gen)
-    counts = {}
+        results["paged_decode_attention_commit"] = check_k1(gen)
+        results["flash_attention_forward"] = check_k2(gen)
+        results["dense_cache_append"] = check_k3(gen)
+        results["flash_attention_forward_lse"] = check_k2_lse(gen)
+        (results["flash_attention_backward_dkv"],
+         results["flash_attention_backward_dq"]) = check_k5(gen)
+    counts = {"main": {}, "train": {}}
     if "main" in phases:
-        counts = run_main([row["fn"] for row in kernel_rows])
+        counts["main"] = run_main([r["fn"] for r in kernel_rows if r["path"] == "main"])
     if "parity" in phases:
         run_parity()
+    if "train" in phases:
+        counts["train"] = run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention])
+    if "train_parity" in phases:
+        run_train_parity()
 
     line = []
     for row in kernel_rows:
         entry = {k: row[k] for k in ("name", "route", "source", "replaces")}
-        entry["launches"] = counts.get(row["fn"].__name__)
+        entry["launches"] = counts[row["path"]].get(row["fn"].__name__)
         entry.update(results.get(row["name"], {}))
         line.append(entry)
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

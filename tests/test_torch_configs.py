@@ -25,7 +25,7 @@ def _fields(cls):
     ]
 
 
-@pytest.mark.parametrize("name", ["ModelArgs", "GenerationArgs"])
+@pytest.mark.parametrize("name", ["ModelArgs", "GenerationArgs", "TrainingArgs"])
 def test_dataclass_fields_and_defaults_match(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
 

@@ -115,13 +115,99 @@ def test_flash_forward_matches_plain(gen, dtype, hd, case):
         assert bool((out[1, :9] == 0).all())
 
 
-def test_flash_forward_refuses_gradients(gen):
-    q = rand(gen, 1, 8, 2, 16).requires_grad_()
-    k = rand(gen, 1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="K5"):
-        fa.flash_attention(q, k, k, scale=0.25, causal=True)
-    with torch.no_grad():
-        fa.flash_attention(q, k, k, scale=0.25, causal=True)
+@pytest.mark.parametrize("dtype,hd,case", FLASH_CASES)
+def test_flash_lse_and_backward_match_plain(gen, dtype, hd, case):
+    """K2' (output and row logsumexp) and K5a/K5b (dq, dk, dv from the saved
+    statistics) against their plain versions; both backward sides compute
+    in fp32, so the bf16 cases differ only by the order of their sums."""
+    b, t, hq, g = 2, 150, 6, 2
+    case = dict(case)
+    s = case.pop("s", t)
+    q = rand(gen, b, t, hq, hd, dtype=dtype)
+    k, v = rand(gen, b, s, g, hd, dtype=dtype), rand(gen, b, s, g, hd, dtype=dtype)
+    do = rand(gen, b, t, hq, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, **case)
+    masks = {}
+    if kw.pop("valid", False):
+        valid = torch.rand((b, s), generator=gen, device="cuda") > 0.3
+        valid[1, :9] = False
+        masks["kv_valid"] = valid
+    if kw.pop("segments", False):
+        seg = (torch.arange(t, device="cuda") // 37).expand(b, t).contiguous()
+        masks["q_segment_ids"] = masks["kv_segment_ids"] = seg
+    n0 = fa.flash_attention_lse.launches
+    out, lse = fa.flash_attention_lse(q, k, v, **kw, **masks)
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw, **masks)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_lse.launches == n0 + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if "kv_valid" in masks:
+        assert bool((lse[1, :, :9] == 1e30).all())
+    di = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse_ref, di, masks.get("kv_valid"),
+            masks.get("q_segment_ids"), masks.get("kv_segment_ids"))
+    n1 = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    got = fa.flash_attention_bwd(*args, **kw)
+    want = fa.flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (n1[0] + 1, n1[1] + 1)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_autograd_on_the_card(gen):
+    """flash_attention with a gradient goes through K2', K5a and K5b and
+    gives the plain attention's gradients (fp32, head dim 60 padded)."""
+    from vats_tpu_torch.ops.attention_ref import dot_product_attention
+
+    q = rand(gen, 2, 140, 6, 60).requires_grad_()
+    k, v = rand(gen, 2, 140, 2, 60).requires_grad_(), rand(gen, 2, 140, 2, 60).requires_grad_()
+    kw = dict(scale=0.13, causal=True, left_window=50)
+    n0 = (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches,
+          fa.flash_bwd_dq.launches)
+    g1 = torch.autograd.grad((fa.flash_attention(q, k, v, **kw) ** 2).sum(), (q, k, v))
+    g2 = torch.autograd.grad((dot_product_attention(q, k, v, **kw) ** 2).sum(), (q, k, v))
+    assert (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == tuple(n + 1 for n in n0)
+    for a, b_ in zip(g1, g2):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+
+
+def test_tiny_train_steps_on_the_card_match_the_cpu(gen):
+    """Three fp32 train steps (flash attention with K2'/K5, remat 'dots',
+    fused CE, bf16 mu, dropout 0: a card generator's masks are not the
+    CPU's) on the card against the CPU from the same weights: losses and
+    params agree to fp32 rounding (atol 2e-5 on O(1) losses)."""
+    from vats_tpu_torch.configs import ModelArgs, TrainingArgs
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    cfg = ModelArgs(d_model=64, num_heads=4, query_groups=2, d_ffn=128, num_layers=2,
+                    dropout=0.0, vocab_size=97, max_seq_len=320, left_window=-1,
+                    num_experts=4, top_k=2, capacity_factor=1.25, dtype="float32",
+                    attention_impl="flash", gradient_checkpointing=True,
+                    remat_policy="dots")
+    targs = TrainingArgs(grad_accum_steps=1, fused_ce_chunk=64, adam_mu_dtype="bfloat16")
+    gpu = TextLM(cfg, device="cuda", seed=3)
+    cpu = TextLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(1, 97, (2, 260), generator=g, dtype=torch.int32)
+    labels = torch.cat([ids[:, 1:], torch.full((2, 1), -100, dtype=torch.int32)], 1)
+    batch = {"input_ids": ids, "labels": labels}
+    runs = [(m, create_train_state(m, create_optimizer(targs, 10)), make_train_step(m, targs))
+            for m in (gpu, cpu)]
+    n0 = fa.flash_attention_lse.launches
+    for i in range(3):
+        (_, sg, fg), (_, sc, fc) = runs
+        sg, mg = fg(sg, {k: v.cuda() for k, v in batch.items()}, 7 + i)
+        sc, mc = fc(sc, batch, 7 + i)
+        torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], atol=2e-5, rtol=1e-5)
+    # per step: one forward and one recompute of each layer's attention
+    assert fa.flash_attention_lse.launches == n0 + 3 * 2 * cfg.num_layers
+    for a, b_ in zip(gpu.parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b_.detach(), atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -2,6 +2,7 @@ from vats_tpu_torch.configs.nlp import (
     NLP_TIERS,
     GenerationArgs,
     ModelArgs,
+    TrainingArgs,
     nlp_large,
     nlp_medium,
     nlp_small,
@@ -14,6 +15,7 @@ __all__ = [
     "NLP_TIERS",
     "GenerationArgs",
     "ModelArgs",
+    "TrainingArgs",
     "nlp_large",
     "nlp_medium",
     "nlp_small",

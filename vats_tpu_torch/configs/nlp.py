@@ -3,16 +3,19 @@
 The port's own copy of ``vats_tpu/configs/nlp.py``: the same field names,
 defaults, validation and size tiers, so a config moves between the two
 packages unchanged (``tests/test_torch_configs.py`` checks the fields).
-Fields that only the JAX package reads (``scan_layers``, ``remat_policy``,
-``gradient_checkpointing``) are kept for that reason and ignored here.
-``TrainingArgs`` comes with training.
+``gradient_checkpointing`` and ``remat_policy`` are honoured by the training
+forward (``models/text_lm.py``: 'full' checkpoints each block, 'dots' saves
+the weight-matmul outputs); ``scan_layers`` is kept so configs carry over and
+is a no-op here (the layers are a Python loop).  ``dropout_rng_impl`` is a
+JAX PRNG choice and is ignored (dropout masks come from explicit
+``torch.Generator`` seeds).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import asdict, dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(unsafe_hash=True)
@@ -222,6 +225,37 @@ NLP_TIERS = {
     "large": nlp_large,
     "xlarge": nlp_xlarge,
 }
+
+
+@dataclass
+class TrainingArgs:
+    """The JAX package's training arguments, every field and default."""
+
+    learning_rate: float = 6e-4
+    batch_size: int = 32
+    epsilon: float = 1e-6
+    clip_grad_norm: float = 1.0
+    weight_decay: float = 5e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    warmup_ratio: float = 0.05
+    aux_loss_weight: float = 0.01
+    eta_min: float = 6e-7
+    num_cycles: float = 0.5
+    grad_accum_steps: int = 4
+    logging_steps: int = 100
+    eval_steps: int = 500
+    save_steps: int = 500
+    max_eval_batches: int = 250
+    max_skipped_steps: int = 1000
+    max_train_tokens: int = 1_000_000_000
+    seed: int = 42
+    # chunk size of the fused readout + cross-entropy
+    # (train/metrics.py:fused_linear_cross_entropy); None = full-logits CE
+    fused_ce_chunk: Optional[int] = None
+    # dtype of AdamW's first moment; None = fp32 (the second stays fp32)
+    adam_mu_dtype: Optional[str] = None
+    # the JAX package's dropout PRNG implementation; not read here
+    dropout_rng_impl: str = "rbg"
 
 
 @dataclass

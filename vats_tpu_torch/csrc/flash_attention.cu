@@ -1,8 +1,12 @@
-// K2: flash attention forward (online softmax, the [T, S] scores never
-// leave the chip's registers).
+// K2 and K2': flash attention forward (online softmax, the [T, S] scores
+// never leave the chip's registers).
 //
-// Replaces vats_tpu/ops/flash_attention.py:_fwd_kernel, driven by
-// _flash_forward and entered through flash_attention.
+// Replaces vats_tpu/ops/flash_attention.py:_fwd_kernel (K2, driven by
+// _flash_forward and entered through flash_attention) and _fwd_kernel_lse
+// (K2', the training forward under _flash_fwd_rule): one body, whose LSE
+// template flag also stores each row's logsumexp, fp32 [B, Hq, T], with the
+// sentinel 1e30 for a row that attends no key (the JAX kernel's rule, so the
+// backward's exp(s - lse) is 0 on such a row).
 //
 // Semantics (identical to the JAX kernel):
 //   * q [B, T, Hq, D], k/v [B, S, G, D] (the public layouts; head dim
@@ -33,12 +37,13 @@ namespace {
 constexpr int BQ = 128;  // query rows per block, one per thread
 constexpr int CH = 16;   // keys per online-softmax update
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_valid,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                 T* __restrict__ out, int Tq, int S, int Hq, int G, float scale,
+                 T* __restrict__ out, float* __restrict__ lse, int Tq, int S,
+                 int Hq, int G, float scale,
                  int causal, int left_window, int right_window,
                  int q_pos_offset, int use_segids) {
   constexpr int BK = D <= 64 ? 64 : 32;  // keys per shared-memory tile
@@ -167,40 +172,51 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = out + ((size_t)(b * Tq + qi) * Hq + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = vats::from_f<T>(o[d] * inv);
+    if constexpr (LSE) {
+      lse[((size_t)b * Hq + h) * Tq + qi] = (l == 0.f) ? 1e30f : m + logf(l);
+    }
   }
 }
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* kv_valid,
-             const void* q_seg, const void* kv_seg, void* out, int B, int Tq,
-             int S, int Hq, int G, float scale, int causal, int left_window,
-             int right_window, int q_pos_offset, int use_segids, void* stream) {
+             const void* q_seg, const void* kv_seg, void* out, void* lse, int B,
+             int Tq, int S, int Hq, int G, float scale, int causal,
+             int left_window, int right_window, int q_pos_offset,
+             int use_segids, void* stream) {
   dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, BQ, 0, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_valid,
-      (const int*)q_seg, (const int*)kv_seg, (T*)out, Tq, S, Hq, G, scale,
-      causal, left_window, right_window, q_pos_offset, use_segids);
+  if (lse != nullptr) {
+    flash_fwd_kernel<T, D, true><<<grid, BQ, 0, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)kv_valid,
+        (const int*)q_seg, (const int*)kv_seg, (T*)out, (float*)lse, Tq, S, Hq,
+        G, scale, causal, left_window, right_window, q_pos_offset, use_segids);
+  } else {
+    flash_fwd_kernel<T, D, false><<<grid, BQ, 0, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const int*)kv_valid,
+        (const int*)q_seg, (const int*)kv_seg, (T*)out, nullptr, Tq, S, Hq, G,
+        scale, causal, left_window, right_window, q_pos_offset, use_segids);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid,
-           const void* q_seg, const void* kv_seg, void* out, int B, int Tq,
-           int S, int Hq, int G, int D, float scale, int causal,
+           const void* q_seg, const void* kv_seg, void* out, void* lse, int B,
+           int Tq, int S, int Hq, int G, int D, float scale, int causal,
            int left_window, int right_window, int q_pos_offset, int use_segids,
            void* stream) {
   if (Hq % G != 0) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, k, v, kv_valid, q_seg, kv_seg, out, B, Tq, S,
+      return launch_d<T, 32>(q, k, v, kv_valid, q_seg, kv_seg, out, lse, B, Tq, S,
                              Hq, G, scale, causal, left_window, right_window,
                              q_pos_offset, use_segids, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, kv_valid, q_seg, kv_seg, out, B, Tq, S,
+      return launch_d<T, 64>(q, k, v, kv_valid, q_seg, kv_seg, out, lse, B, Tq, S,
                              Hq, G, scale, causal, left_window, right_window,
                              q_pos_offset, use_segids, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, kv_valid, q_seg, kv_seg, out, B, Tq, S,
+      return launch_d<T, 128>(q, k, v, kv_valid, q_seg, kv_seg, out, lse, B, Tq, S,
                               Hq, G, scale, causal, left_window, right_window,
                               q_pos_offset, use_segids, stream);
     default:
@@ -212,24 +228,26 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid,
 
 extern "C" int vats_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                    const void* kv_valid, const void* q_seg,
-                                   const void* kv_seg, void* out, int B, int Tq,
-                                   int S, int Hq, int G, int D, float scale,
+                                   const void* kv_seg, void* out, void* lse,
+                                   int B, int Tq, int S, int Hq, int G, int D,
+                                   float scale,
                                    int causal, int left_window,
                                    int right_window, int q_pos_offset,
                                    int use_segids, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, kv_valid, q_seg, kv_seg, out, B, Tq, S,
+  return launch<__nv_bfloat16>(q, k, v, kv_valid, q_seg, kv_seg, out, lse, B, Tq, S,
                                Hq, G, D, scale, causal, left_window,
                                right_window, q_pos_offset, use_segids, stream);
 }
 
 extern "C" int vats_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   const void* kv_valid, const void* q_seg,
-                                  const void* kv_seg, void* out, int B, int Tq,
-                                  int S, int Hq, int G, int D, float scale,
+                                  const void* kv_seg, void* out, void* lse,
+                                  int B, int Tq, int S, int Hq, int G, int D,
+                                  float scale,
                                   int causal, int left_window, int right_window,
                                   int q_pos_offset, int use_segids,
                                   void* stream) {
-  return launch<float>(q, k, v, kv_valid, q_seg, kv_seg, out, B, Tq, S, Hq, G,
+  return launch<float>(q, k, v, kv_valid, q_seg, kv_seg, out, lse, B, Tq, S, Hq, G,
                        D, scale, causal, left_window, right_window,
                        q_pos_offset, use_segids, stream);
 }

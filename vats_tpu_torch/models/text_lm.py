@@ -6,21 +6,37 @@ Counterpart of ``vats_tpu/models/text_lm.py``:
   -> lm_head (optionally tied to the embedding)
 
 returning ``(logits, cache, total_aux_loss)``.  Caches are updated in place
-and also returned, so call sites read like the JAX ones.  ``scan_layers``
-and rematerialization are training concerns and are not ported.
+and also returned, so call sites read like the JAX ones.
+
+Training (``deterministic=False`` under autograd, no cache): dropout masks
+come from ``dropout_seed`` and each (layer, site) (``nn/dropout.py``), and
+``gradient_checkpointing`` wraps each block in
+``torch.utils.checkpoint.checkpoint`` as ``_remat_block`` wraps it in
+``nn.remat``: ``remat_policy='full'`` saves the block inputs only, 'dots'
+also saves every weight-matmul output (``aten.mm`` / ``aten.addmm``, the
+products with no batch dimension, as ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest, attention included.  ``scan_layers`` is a no-op:
+the layers are a Python loop either way.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from vats_tpu_torch.configs.nlp import ModelArgs
 from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.nn.attention import AttentionBlock, dense
+from vats_tpu_torch.nn.dropout import SITE_EMBED, dropout
 from vats_tpu_torch.nn.initializers import embed_init_, head_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.moe import MoEBlock
@@ -82,6 +98,7 @@ class TransformerBlock(nn.Module):
         paged_cache=None,
         layer_idx: int = 0,
         deterministic: bool = True,
+        dropout_seed: Optional[int] = None,
     ):
         cfg = self.cfg
         x, new_cache = self.attn_block(
@@ -95,9 +112,31 @@ class TransformerBlock(nn.Module):
             layer_idx=layer_idx,
             segment_ids=segment_ids,
             deterministic=deterministic,
+            dropout_seed=dropout_seed,
         )
-        x, aux_loss = self.moe_block(x, deterministic=deterministic)
+        x, aux_loss = self.moe_block(x, deterministic=deterministic,
+                                     dropout_seed=dropout_seed, layer_idx=layer_idx)
         return x, new_cache, aux_loss
+
+
+#: ops whose outputs remat_policy='dots' keeps for the backward
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context_fn(policy: str):
+    """``context_fn`` for ``checkpoint`` under a ``remat_policy``; None for
+    'full' (save the block inputs only)."""
+    if policy == "full":
+        return None
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    raise ValueError(f"unknown remat_policy {policy!r}")
 
 
 class TextLM(nn.Module):
@@ -152,6 +191,7 @@ class TextLM(nn.Module):
         deterministic: bool = True,
         readout_positions: Optional[torch.Tensor] = None,
         return_hidden: bool = False,
+        dropout_seed: Optional[int] = None,
     ):
         """input_ids [B, T] -> (logits [B, T, V] fp32, cache, aux_loss).
 
@@ -160,10 +200,24 @@ class TextLM(nn.Module):
         and advanced by T (a paged cache by each row's true count).
         readout_positions [B]: logits only at these positions ([B, 1, V]).
         return_hidden: return the post-norm hidden states instead of logits.
+        dropout_seed: the step's dropout seed (the JAX ``rngs={'dropout':
+        key}``); drawn from the default CPU generator when dropout is on and
+        none is given.
         """
         cfg = self.cfg
+        if not deterministic and cfg.dropout > 0 and dropout_seed is None:
+            dropout_seed = int(torch.randint(0, 1 << 62, (1,)))
         x = F.embedding(input_ids.long(), self.token_embed.weight).to(self.dtype)
-        x = F.dropout(x, cfg.dropout, training=not deterministic)
+        x = dropout(x, cfg.dropout, deterministic=deterministic,
+                    seed=dropout_seed, layer=-1, site=SITE_EMBED)
+        remat = (cfg.gradient_checkpointing and not deterministic
+                 and torch.is_grad_enabled() and cache is None
+                 and paged_cache is None)
+        if remat:
+            ckpt = dict(use_reentrant=False, preserve_rng_state=False)
+            context_fn = _remat_context_fn(cfg.remat_policy)
+            if context_fn is not None:
+                ckpt["context_fn"] = context_fn
         total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_cache = cache
         new_paged = paged_cache
@@ -173,9 +227,12 @@ class TextLM(nn.Module):
         for i, layer in enumerate(self.layers):
             if fresh0 and i > 0:
                 new_paged.fresh = True
-            x, returned, aux = layer(
-                x, padding_mask, new_cache, segment_ids, new_paged, i, deterministic
-            )
+            args = (x, padding_mask, new_cache, segment_ids, new_paged, i,
+                    deterministic, dropout_seed)
+            if remat:
+                x, returned, aux = checkpoint(layer, *args, **ckpt)
+            else:
+                x, returned, aux = layer(*args)
             if paged_cache is not None:
                 new_paged = returned
             else:

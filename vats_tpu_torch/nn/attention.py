@@ -7,8 +7,10 @@ Counterpart of ``vats_tpu/nn/attention.py`` (``Attention``,
   -> RoPE at absolute positions -> grouped attention -> output projection.
 
 Attention runs by one of these paths:
-  * uncached: K2 (``ops/flash_attention.py``) or the plain PyTorch
-    attention, chosen by :func:`select_attention_impl`;
+  * uncached: ``ops/flash_attention.flash_attention`` (K2, or K2' with K5a
+    and K5b under autograd when training) or the plain PyTorch attention,
+    chosen by :func:`select_attention_impl`; key padding and segment ids
+    reach it as in the JAX module;
   * dense cache (``nn/kv_cache.KVCache``): the plain cached attention over
     the buffer, or over the ring (``_ring_cached_attention``);
   * paged cache (``ops/decode_attention.PagedKVCache``): T == 1 through K1,
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vats_tpu_torch.nn.dropout import SITE_ATTN, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
@@ -385,7 +388,10 @@ class AttentionBlock(nn.Module):
             self.norm.weight.fill_(1.0)
         self.attn.reset_parameters(generator)
 
-    def forward(self, x, *, deterministic: bool = True, **kw) -> Tuple:
+    def forward(self, x, *, deterministic: bool = True,
+                dropout_seed: Optional[int] = None, **kw) -> Tuple:
         out, new_cache = self.attn(self.norm(x), **kw)
-        out = F.dropout(out, self.dropout, training=not deterministic)
+        out = dropout(out, self.dropout, deterministic=deterministic,
+                      seed=dropout_seed, layer=kw.get("layer_idx", 0),
+                      site=SITE_ATTN)
         return x + out, new_cache

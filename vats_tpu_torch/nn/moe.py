@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
 
@@ -176,7 +177,8 @@ class MoELayer(nn.Module):
         onehot_elems = n * self.top_k * self.num_experts * self._capacity(n)
         return "scatter" if onehot_elems <= (1 << 24) else "sort"
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True):
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                dropout_seed: Optional[int] = None, layer_idx: int = 0):
         b, t, d = x.shape
         if self.norm is not None:
             x = self.norm(x)
@@ -196,7 +198,8 @@ class MoELayer(nn.Module):
         else:
             out = self._scatter_dispatch(flat, weights, indices, capacity)
         out = out.reshape(b, t, d)
-        out = F.dropout(out, self.dropout, training=not deterministic)
+        out = dropout(out, self.dropout, deterministic=deterministic,
+                      seed=dropout_seed, layer=layer_idx, site=SITE_MOE_LAYER)
         return out.to(self.dtype), aux_loss
 
     def _sort_dispatch(self, flat, weights, indices, capacity):
@@ -285,7 +288,10 @@ class MoEBlock(nn.Module):
             self.norm.weight.fill_(1.0)
         self.moe.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True) -> Tuple:
-        out, aux = self.moe(self.norm(x), deterministic=deterministic)
-        out = F.dropout(out, self.dropout, training=not deterministic)
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                dropout_seed: Optional[int] = None, layer_idx: int = 0) -> Tuple:
+        out, aux = self.moe(self.norm(x), deterministic=deterministic,
+                            dropout_seed=dropout_seed, layer_idx=layer_idx)
+        out = dropout(out, self.dropout, deterministic=deterministic,
+                      seed=dropout_seed, layer=layer_idx, site=SITE_MOE_BLOCK)
         return x + out, aux

@@ -11,6 +11,9 @@ partitioning boxes already unwrapped) and returns a ``state_dict`` for
   * a scan-mode tree (``layers/block`` stacked on axis 0) is first unstacked
     into ``layer_{i}`` subtrees, in numpy, as ``TextLM.unstack_scan_params``
     does.
+
+A gradient tree has the params' structure, so the same function carries JAX
+gradients across for a leaf-by-leaf comparison with the port's ``.grad``.
 """
 
 from __future__ import annotations
