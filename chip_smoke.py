@@ -17,6 +17,17 @@ Phases:
            before and read just after; each must equal 20 layers x calls.
   parity   full width, 2 layers: ``generate_paged`` and ``generate`` on the
            card (kernels) against the CPU (plain versions), same weights.
+  serve    the continuous-batching ``ServingEngine`` at full width
+           (nlp_medium, 8 experts, top-2, bf16): 64 requests (32 sharing a
+           256-token prefix) through 32 rows, a 129-page pool (requests queue
+           and rows are preempted), prefix caching, 4-step decode blocks,
+           greedy; run three times: bf16 KV (K1), int8 KV (K4), int8 weights
+           + int8 KV.  Throughput, request latency, pages, preemptions,
+           prefix hits, peak memory, a profiled window; launch counts of K1
+           and K4 against the decode forwards this script counts.
+  serve_parity  2 layers at full width: one int8-KV stream of 8 requests
+           (prefix sharing, a preemption) on the card (K4) and on the CPU
+           (plain version); per-forward logit error and token agreement.
   train    the training step at the JAX bench's ``medium_dense`` tier (d1440,
            20 layers, vocab 65536, B=16, T=512, remat 'dots', fused CE 128,
            bf16 AdamW mu): one warm-up step, timed steps with launch counts
@@ -37,12 +48,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "main", "parity", "train", "train_parity")
+PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
+          "train_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 
@@ -78,14 +93,16 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 
 
 def _device_us(prof) -> dict:
-    """{kernel name: (total device us, count)} from a profiler run."""
+    """{kernel name: (total device us, count)} from a profiler run, summed
+    over its raw device events (``key_averages()`` first builds an event
+    tree in Python: tens of seconds for a serve stream's ~10^5 launches)."""
+    from torch.autograd import DeviceType
+
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            out[e.key] = (us, e.count)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, n = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     return out
 
 
@@ -160,6 +177,9 @@ def expect_close(name, got, want, atol, rtol):
 # bf16 once; their sums run in another order, so they may differ by one bf16
 # ulp (2^-8 relative) of the output, plus a small absolute floor near zero.
 BF16_ATOL, BF16_RTOL = 2e-3, 1e-2
+# K4 with fp32 queries and output: the same dequantized fp32 softmax, sums in
+# another order (the bound the JAX tests hold their kernel to)
+K4_F32_ATOL, K4_F32_RTOL = 2e-5, 2e-4
 
 
 def check_k1(gen):
@@ -246,6 +266,91 @@ def check_k1(gen):
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host "
         f"overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=None)
+
+
+def check_k4(gen):
+    """K4 (int8 pool) at the serving shapes of K1: output against the plain
+    version, the committed int8 pool byte-equal and the scales equal to the
+    plain append's (quantize_kv)."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import (
+        PagedKVCache,
+        paged_decode_attention_commit_int8,
+        paged_decode_attention_ref,
+        quantize_kv,
+    )
+
+    dev = "cuda"
+    L, B, G, N, hd, hdp, ps, pps = 20, 32, 8, 3, 60, 64, 128, 5
+    layer, scale = 7, 1.0 / hd**0.5
+    P = B * pps
+    hist = torch.randn((L, P, 2, G, ps, hd), generator=gen, device=dev)
+    q8, sc = quantize_kv(hist)  # every slot holds a quantized token
+    pool = torch.zeros((L, P, 2, G, ps, hdp), dtype=torch.int8, device=dev)
+    pool[..., :hd] = q8
+    del hist, q8
+    lens = torch.randint(1, 577, (B,), generator=gen, device=dev)
+    lens[:6] = torch.tensor([0, 1, 127, 128, 576, pps * ps], device=dev)
+    lengths = lens.to(torch.int32)
+    table = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, pps)
+    q = torch.randn((B, G * N, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k_cur = torch.randn((B, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v_cur = torch.randn((B, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+
+    pool_k, pool_p, sc_k, sc_p = pool.clone(), pool.clone(), sc.clone(), sc.clone()
+    n0 = paged_decode_attention_commit_int8.launches
+    out_k = paged_decode_attention_commit_int8(
+        q, pool_k, sc_k, layer, table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur)
+    out_p = paged_decode_attention_ref(q, pool_p[layer], table, lengths, scale=scale,
+                                       k_cur=k_cur, v_cur=v_cur, kv_scales=sc_p[layer])
+    PagedKVCache(pool_p, table, lengths, sc_p).append_token(layer, k_cur, v_cur)
+    torch.cuda.synchronize()
+    require(paged_decode_attention_commit_int8.launches == n0 + 1, "K4 did not launch")
+    err = expect_close("K4 out", out_k, out_p, BF16_ATOL, BF16_RTOL)
+    if not torch.equal(pool_k, pool_p):
+        raise AssertionError("K4 committed int8 pool differs from the plain append")
+    sc_err = float(((sc_k - sc_p).abs() / sc_p.abs().clamp(min=1e-30)).max())
+    require(sc_err <= 1e-6, f"K4 committed scales differ: max rel err {sc_err:.3e}")
+    # fp32 queries: the output in fp32, no bf16 rounding to hide behind
+    q32 = q.float() + 1e-3 * torch.randn(q.shape, generator=gen, device=dev)
+    err32 = expect_close(
+        "K4 fp32 out",
+        paged_decode_attention_commit_int8(q32, pool_k.clone(), sc_k.clone(), layer,
+                                           table, lengths, scale=scale,
+                                           k_cur=k_cur.float(), v_cur=v_cur.float()),
+        paged_decode_attention_ref(q32, pool_k[layer], table, lengths, scale=scale,
+                                   k_cur=k_cur.float(), v_cur=v_cur.float(),
+                                   kv_scales=sc_k[layer]),
+        K4_F32_ATOL, K4_F32_RTOL)
+
+    def kern():
+        paged_decode_attention_commit_int8(q, pool_k, sc_k, layer, table, lengths,
+                                           scale=scale, k_cur=k_cur, v_cur=v_cur)
+
+    def plain():
+        paged_decode_attention_ref(q, pool_p[layer], table, lengths, scale=scale,
+                                   k_cur=k_cur, v_cur=v_cur, kv_scales=sc_p[layer])
+        PagedKVCache(pool_p, table, lengths, sc_p).append_token(layer, k_cur, v_cur)
+
+    (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+    tokens = int(lengths.sum())
+    nbytes = (
+        2 * q.numel() * 2  # q in, out (bf16)
+        + k_cur.numel() * 2 * 2  # current K/V in (bf16)
+        + 2 * B * G * (hdp + 4)  # committed int8 K/V and their scales out
+        + tokens * 2 * G * (hdp + 4)  # settled int8 history and scales, read once
+        + table.numel() * 4 + B * 4
+    )
+    flops = 4 * G * N * hd * (tokens + B)
+    b_ms, by = bound(nbytes, flops)
+    log(f"K4 int8 paged decode+commit B={B} Hq={G * N} hd={hd} ps={ps} "
+        f"lengths<=576: max_abs_err={err:.3e} (fp32 queries {err32:.3e}), int8 pool "
+        f"byte-equal, scales max rel err {sc_err:.1e}; kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host "
+        f"overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+    return dict(max_abs_err=max(err, err32), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=None)
 
 
@@ -808,17 +913,19 @@ def run_main(counters):
 
 
 def profile_breakdown(label, fn, top=10):
-    """Device busy time, idle share and the heaviest kernels of one call."""
+    """Device busy time, idle share and the heaviest kernels of one call;
+    returns the busy seconds (None where the profiler recorded nothing)."""
     per, wall = profiled(fn)
     if not per:
         log(f"profiled {label}: wall_s={wall:.3f}; idle share not measured "
             f"(torch.profiler recorded no device time in 3 tries)")
-        return
+        return None
     busy = sum(us for us, _ in per.values()) / 1e6
     log(f"profiled {label}: wall_s={wall:.3f} (profiler on) "
         f"device_busy_s={busy:.3f} idle_share={1 - busy / wall:.3f}")
     for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {us / 1e3:10.3f} ms {n:7d}x  {name[:100]}")
+    return busy
 
 
 # --- phase: parity ----------------------------------------------------------
@@ -955,6 +1062,219 @@ def run_parity():
     log("parity (2 layers, full width, card vs CPU): " + "; ".join(report))
 
 
+# --- phase: serve -----------------------------------------------------------
+
+SERVE_ROWS, SERVE_CONTEXT, SERVE_PAGES, SERVE_BLOCK = 32, 1024, 129, 4
+
+
+def serve_stream(seed, vocab, n_shared, n_alone, prefix_len, shared_own, alone_own,
+                 new_tokens):
+    """[(prompt ids, max_new_tokens)], shared-prefix and unshared requests
+    interleaved, every length and token drawn from ``seed`` (numpy, so the
+    stream is the same on any device)."""
+    rs = np.random.RandomState(seed)
+    prefix = rs.randint(1, vocab, prefix_len).tolist()
+    kinds = [True] * n_shared + [False] * n_alone
+    rs.shuffle(kinds)
+    out = []
+    for shared in kinds:
+        lo, hi = shared_own if shared else alone_own
+        own = rs.randint(1, vocab, rs.randint(lo, hi + 1)).tolist()
+        out.append(((prefix if shared else []) + own,
+                    int(rs.randint(new_tokens[0], new_tokens[1] + 1))))
+    return out
+
+
+def common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def count_decode_forwards(model):
+    """A counter of the model's decode forwards (one token per row), kept by
+    a hook on the first block: independent of the engine's bookkeeping."""
+    from vats_tpu_torch.inference import QuantizedModel
+
+    blocks = (model.model if isinstance(model, QuantizedModel) else model).layers
+    box = {"n": 0}
+
+    def hook(mod, args):
+        if args[0].shape[1] == 1:
+            box["n"] += 1
+
+    return box, blocks[0].register_forward_pre_hook(hook)
+
+
+def drive(engine, stream):
+    """Submit the stream, step the engine to the end; returns ({rid: tokens},
+    {rid: seconds from submission to retirement}, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for prompt, n in stream:
+        engine.submit(prompt, max_new_tokens=n)
+    outs, done_s = {}, {}
+    while engine.queue or any(r is not None for r in engine.row_request):
+        for req in engine.step():
+            outs[req.rid] = req.output_ids
+            done_s[req.rid] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return outs, done_s, time.perf_counter() - t0
+
+
+def run_serve(kernel_fns):
+    import torch
+
+    from vats_tpu_torch.inference import QuantizedModel, ServingEngine, quantized_bytes
+    from vats_tpu_torch.models import TextLM
+
+    cfg = medium_cfg()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = TextLM(cfg, device="cuda", seed=0).eval()
+    torch.cuda.synchronize()
+    log(f"serve: nlp_medium E8/top-2 bf16 {L} layers, built in "
+        f"{time.perf_counter() - t0:.1f}s; engine max_batch={SERVE_ROWS} max_context="
+        f"{SERVE_CONTEXT} page_size=128 total_pages={SERVE_PAGES} prefix_caching "
+        f"decode_block_steps={SERVE_BLOCK} greedy")
+    stream = serve_stream(2024, cfg.vocab_size, 32, 32, 256, (44, 256), (300, 512),
+                          (32, 64))
+    n_new = sum(n for _, n in stream)
+    log(f"serve: 64 requests, prompts {min(len(p) for p, _ in stream)}.."
+        f"{max(len(p) for p, _ in stream)} tokens (32 share a 256-token prefix), "
+        f"{n_new} new tokens in all")
+    k1, k4 = kernel_fns["paged_decode_attention_commit"], kernel_fns[
+        "paged_decode_attention_commit_int8"]
+    engine_kw = dict(max_batch=SERVE_ROWS, max_context=SERVE_CONTEXT, page_size=128,
+                     total_pages=SERVE_PAGES, prefix_caching=True,
+                     decode_block_steps=SERVE_BLOCK)
+    runs, counts = {}, {}
+    for name, kv_quant in (("bf16 KV", None), ("int8 KV", "int8"),
+                           ("int8 weights + int8 KV", "int8")):
+        if name.startswith("int8 weights"):
+            model = QuantizedModel(model)
+            log(f"serve: int8 weights resident {quantized_bytes(model.qparams) / 1e9:.3f} "
+                f"GB (bf16 {sum(p.numel() for p in model.qparams.values()) * 2 / 1e9:.3f}"
+                f" GB)")
+        # an untimed drive of the whole stream warms this configuration up
+        # (allocator, cuBLAS choices for every prefill group and decode shape)
+        drive(ServingEngine(model, kv_quant=kv_quant, **engine_kw), stream)
+        box, handle = count_decode_forwards(model)
+        engine = ServingEngine(model, kv_quant=kv_quant, **engine_kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        outs, done_s, wall = drive(engine, stream)
+        got = {f.__name__: f.launches for f in kernel_fns.values()}
+        handle.remove()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # gates: every request whole, every page back, ids in the vocabulary,
+        # the decode kernel of this pool launched once per layer per forward
+        require(len(outs) == len(stream), f"serve {name}: {len(outs)} of 64 finished")
+        for rid, (prompt, n) in enumerate(stream):
+            require(len(outs[rid]) == n, f"serve {name}: request {rid} has "
+                    f"{len(outs[rid])} tokens, not {n}")
+        toks = np.concatenate([np.asarray(outs[r]) for r in range(len(stream))])
+        require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+                f"serve {name}: out-of-vocabulary ids")
+        engine.allocator.free(engine.prefix_cache.reclaim(engine.allocator.capacity))
+        require(engine.allocator.num_used == 0, f"serve {name}: pages leaked")
+        decode_fw = box["n"]
+        want_k1, want_k4 = (L * decode_fw, 0) if kv_quant is None else (0, L * decode_fw)
+        require(decode_fw == engine.forwards["decode"] and decode_fw > 0,
+                f"serve {name}: {decode_fw} decode forwards counted, engine says "
+                f"{engine.forwards['decode']}")
+        require(got[k1.__name__] == want_k1 and got[k4.__name__] == want_k4,
+                f"serve {name}: K1 {got[k1.__name__]} (want {want_k1}), K4 "
+                f"{got[k4.__name__]} (want {want_k4}) launches")
+        require(engine.preemptions >= 1, f"serve {name}: no preemption")
+        lat = np.asarray(list(done_s.values()))
+        log(f"serve [{name}]: tokens_per_s={toks.size / wall:.1f} wall_s={wall:.3f} "
+            f"request_latency_s p50={np.percentile(lat, 50):.3f} "
+            f"p99={np.percentile(lat, 99):.3f}; page_high_water="
+            f"{engine.allocator.high_water}/{engine.allocator.capacity} preemptions="
+            f"{engine.preemptions} prefix_hit_tokens={engine.prefix_cache.hit_tokens}/"
+            f"{engine.prefix_cache.query_tokens} peak_mem_gb={peak:.2f}; forwards "
+            f"{json.dumps(engine.forwards)}; launches {json.dumps(got)}")
+        # the timed run's own load, warm, once more under the profiler; its
+        # device time over the unprofiled wall is the timed run's idle share
+        busy = profile_breakdown(f"serve [{name}], the whole stream again (warm)",
+                                 lambda: drive(ServingEngine(model, kv_quant=kv_quant,
+                                                             **engine_kw), stream))
+        if busy is not None:
+            log(f"serve [{name}]: device_busy_s={busy:.3f} over the timed wall_s="
+                f"{wall:.3f}: idle_share={1 - busy / wall:.3f}")
+        runs[name], counts[name] = outs, got
+    pairs = [(runs["bf16 KV"][r], runs["int8 KV"][r]) for r in runs["bf16 KV"]]
+    same = sum(int(x == y) for a, b in pairs for x, y in zip(a, b))
+    first = sum(common_prefix(a, b) for a, b in pairs)
+    log(f"serve: greedy tokens of int8 KV equal to bf16 KV at {same}/{n_new} positions "
+        f"({same / n_new:.3f}); equal up to the first difference: {first}/{n_new}")
+    del model, engine
+    torch.cuda.empty_cache()
+    # the kernels line reports the int8 KV run's launches for K4
+    return {**counts["bf16 KV"], k4.__name__: counts["int8 KV"][k4.__name__]}
+
+
+# --- phase: serve_parity ----------------------------------------------------
+
+
+def run_serve_parity():
+    import torch
+
+    from vats_tpu_torch.inference import ServingEngine
+    from vats_tpu_torch.models import TextLM
+
+    cfg = medium_cfg(num_layers=2)
+    gpu = TextLM(cfg, device="cuda", seed=11).eval()
+    cpu = TextLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    cpu.eval()
+    # the unshared prompts end just below a page boundary, so their rows
+    # grow into a second page and the 7-page pool runs dry
+    stream = serve_stream(77, cfg.vocab_size, 4, 4, 128, (8, 40), (118, 127), (10, 16))
+    engine_kw = dict(max_batch=4, max_context=512, page_size=128, total_pages=1 + 7,
+                     prefix_caching=True, kv_quant="int8", decode_block_steps=2,
+                     prompt_buckets=(64, 128, 256))
+    res = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        logits = []
+        handle = model.register_forward_hook(
+            lambda m, a, out: logits.append(out[0][:, -1].float().cpu()))
+        engine = ServingEngine(model, **engine_kw)
+        rids = [engine.submit(p, max_new_tokens=n) for p, n in stream]
+        out = engine.run()
+        handle.remove()
+        res[name] = ([out[r] for r in rids], logits, engine)
+    (tok_g, lg_g, eng_g), (tok_c, lg_c, eng_c) = res["cuda"], res["cpu"]
+    require(eng_g.preemptions >= 1 and eng_g.prefix_cache.hit_tokens > 0,
+            "serve_parity: the stream made no preemption or no prefix hit")
+    require(len(lg_g) == len(lg_c), "serve_parity: the two engines ran other schedules")
+    errs = []
+    for a, b in zip(lg_g, lg_c):  # forwards up to the first differing argmax
+        require(bool(torch.isfinite(a).all()), "serve_parity: non-finite card logits")
+        errs.append(float((a - b).abs().max()))
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            break
+    n_tok = sum(len(t) for t in tok_c)
+    agree = sum(int(x == y) for tg, tc in zip(tok_g, tok_c) for x, y in zip(tg, tc))
+    log(f"serve_parity (2 layers, full width, int8 KV, card K4 vs CPU plain): 8 "
+        f"requests, preemptions {eng_g.preemptions}/{eng_c.preemptions}, prefix hits "
+        f"{eng_g.prefix_cache.hit_tokens}; per-forward max |logit err| over the "
+        f"{len(errs)} of {len(lg_g)} forwards before the first differing argmax: "
+        f"{[round(e, 4) for e in errs]}; greedy tokens equal {agree}/{n_tok} "
+        f"({agree / n_tok:.3f})")
+    require(agree / n_tok >= 0.9, f"serve_parity: token agreement {agree / n_tok:.3f}")
+    del gpu, cpu, res
+    torch.cuda.empty_cache()
+
+
 # --- entry point ------------------------------------------------------------
 
 
@@ -981,7 +1301,10 @@ def main(argv=None) -> int:
     from vats_tpu_torch.ops import kernels
     from vats_tpu_torch.ops import flash_attention as fa
     from vats_tpu_torch.ops.cache_append import append_token_inplace
-    from vats_tpu_torch.ops.decode_attention import paged_decode_attention_commit
+    from vats_tpu_torch.ops.decode_attention import (
+        paged_decode_attention_commit,
+        paged_decode_attention_commit_int8,
+    )
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -990,9 +1313,14 @@ def main(argv=None) -> int:
     secs = kernels.build_all()
     log(f"build: {len(kernels.SOURCES)} kernel libraries in {secs:.1f}s")
     for name in kernels.SOURCES:
+        entry = ""
         for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                # the kernel's name and its (mangled) template arguments
+                tag = re.sub(r"^.*?\d+(?=[a-z_]+kernel)", "", entry)[:40]
+                log(f"  {name} {tag}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1002,6 +1330,10 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/decode_attention.cu",
              replaces="vats_tpu/ops/decode_attention.py:371", fn=paged_decode_attention_commit,
              path="main"),
+        dict(name="paged_decode_attention_commit_int8", route="cuda",
+             source="vats_tpu_torch/csrc/decode_attention.cu",
+             replaces="vats_tpu/ops/decode_attention.py:371",
+             fn=paged_decode_attention_commit_int8, path="serve"),
         dict(name="flash_attention_forward", route="cuda",
              source="vats_tpu_torch/csrc/flash_attention.cu",
              replaces="vats_tpu/ops/flash_attention.py:67", fn=fa.flash_attention,
@@ -1027,20 +1359,28 @@ def main(argv=None) -> int:
     results = {}
     if "kernels" in phases:
         results["paged_decode_attention_commit"] = check_k1(gen)
+        results["paged_decode_attention_commit_int8"] = check_k4(gen)
         results["flash_attention_forward"] = check_k2(gen)
         results["dense_cache_append"] = check_k3(gen)
         results["flash_attention_forward_lse"] = check_k2_lse(gen)
         (results["flash_attention_backward_dkv"],
          results["flash_attention_backward_dq"]) = check_k5(gen)
-    counts = {"main": {}, "train": {}}
-    if "main" in phases:
-        counts["main"] = run_main([r["fn"] for r in kernel_rows if r["path"] == "main"])
-    if "parity" in phases:
-        run_parity()
-    if "train" in phases:
-        counts["train"] = run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention])
-    if "train_parity" in phases:
-        run_train_parity()
+        log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
+    counts = {"main": {}, "serve": {}, "train": {}}
+    runners = {
+        "main": lambda: run_main([r["fn"] for r in kernel_rows if r["path"] == "main"]),
+        "parity": run_parity,
+        "serve": lambda: run_serve({r["name"]: r["fn"] for r in kernel_rows}),
+        "serve_parity": run_serve_parity,
+        "train": lambda: run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention]),
+        "train_parity": run_train_parity,
+    }
+    for phase, run in runners.items():
+        if phase in phases:
+            got = run()
+            if phase in counts:
+                counts[phase] = got
+            log(f"phase {phase} ended at {time.perf_counter() - t_start:.1f}s")
 
     line = []
     for row in kernel_rows:

@@ -79,6 +79,95 @@ def test_paged_decode_commit_matches_plain(gen, dtype, g, n, hd, ps, lengths):
     torch.testing.assert_close(out2.float(), ref2.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize(
+    "qdtype,g,n,hd,ps,lengths",
+    [
+        (torch.bfloat16, 8, 3, 60, 128, [0, 1, 127, 128, 129, 384]),  # 384 = capacity
+        (torch.float32, 2, 1, 12, 128, [5, 200, 0]),
+        (torch.float32, 1, 8, 128, 256, [255, 256, 511]),
+        (torch.bfloat16, 4, 2, 40, 128, [300, 17]),  # hd 40 pads to 48
+    ],
+)
+def test_paged_decode_int8_commit_matches_plain(gen, qdtype, g, n, hd, ps, lengths):
+    """K4 against its plain version: output within fp32 rounding (bf16 cases
+    round it once more), the committed int8 pool byte-equal and the scales
+    equal to the plain append's (quantize_kv)."""
+    b = len(lengths)
+    pps = -(-max(lengths + [1]) // ps)
+    c = da.PagedKVCache.create(3, b * pps, ps, g, hd, page_size=ps, dtype=torch.int8,
+                               device="cuda")
+    hist = rand(gen, 3, b * pps * ps, 2, g, hd)
+    q8, sc = da.quantize_kv(hist)  # every slot written, stale ones included
+    c.kv_pages[..., :hd] = q8.reshape(3, b * pps, ps, 2, g, hd).permute(0, 1, 3, 4, 2, 5)
+    c.kv_scales[:] = sc.reshape(3, b * pps, ps, 2, g).permute(0, 1, 3, 4, 2)
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+    table = table.reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, g * n, hd, dtype=qdtype)
+    kc, vc = rand(gen, b, g, hd, dtype=qdtype), rand(gen, b, g, hd, dtype=qdtype)
+    pk, pp = c.kv_pages.clone(), c.kv_pages.clone()
+    sk, sp = c.kv_scales.clone(), c.kv_scales.clone()
+    n0 = da.paged_decode_attention_commit_int8.launches
+    out = da.paged_decode_attention_commit(q, pk, 2, table, lens, scale=0.2,
+                                           k_cur=kc, v_cur=vc, kv_scales=sk)
+    ref = da.paged_decode_attention_ref(q, pp[2], table, lens, scale=0.2,
+                                        k_cur=kc, v_cur=vc, kv_scales=sp[2])
+    da.PagedKVCache(pp, table, lens, sp).append_token(2, kc, vc)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_commit_int8.launches == n0 + 1
+    assert out.dtype == qdtype
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[qdtype])
+    assert torch.equal(pk, pp)
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0)
+    # K4 without the commit writes nothing
+    before, before_s = pk.clone(), sk.clone()
+    n1 = da.paged_decode_attention_int8.launches
+    out2 = da.paged_decode_attention(q, pk, 2, table, lens, scale=0.2, k_cur=kc,
+                                     v_cur=vc, kv_scales=sk)
+    ref2 = da.paged_decode_attention_ref(q, pp[2], table, lens, scale=0.2, k_cur=kc,
+                                         v_cur=vc, kv_scales=sp[2])
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_int8.launches == n1 + 1
+    assert torch.equal(before, pk) and torch.equal(before_s, sk)
+    torch.testing.assert_close(out2.float(), ref2.float(), **TOL[qdtype])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_int8_engine_on_the_card_matches_the_cpu(gen, overlap):
+    """fp32 model, int8 KV pages: the serving engine with prefix caching and
+    a preemption gives the same greedy tokens on the card (K4) and on the
+    CPU (plain version); with overlap_scheduling the card queues each block
+    before it reads the previous one (pinned copies, one stream's order)."""
+    from vats_tpu_torch.configs import ModelArgs
+    from vats_tpu_torch.inference import ServingEngine
+    from vats_tpu_torch.models import TextLM
+
+    cfg = ModelArgs(d_model=64, num_heads=4, query_groups=2, d_ffn=128, num_layers=2,
+                    dropout=0.0, vocab_size=128, max_seq_len=512, left_window=-1,
+                    num_experts=1, top_k=1, dtype="float32", use_mqa=False,
+                    gradient_checkpointing=False)
+    gpu = TextLM(cfg, device="cuda", seed=3).eval()
+    cpu = TextLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    sys_prompt = [(13 * i) % 120 + 1 for i in range(300)]
+    stream = [(sys_prompt + [3, 1, 4], 12), ([(5 * i) % 120 + 1 for i in range(122)], 14),
+              (sys_prompt + [2, 7, 1, 8], 6), ([7, 7, 23, 45], 5)]
+    outs, engines = [], []
+    n0 = da.paged_decode_attention_commit_int8.launches
+    for model in (gpu, cpu):
+        eng = ServingEngine(model, max_batch=2, max_context=512, prefix_caching=True,
+                            total_pages=1 + 4, kv_quant="int8", decode_block_steps=2,
+                            overlap_scheduling=overlap)
+        rids = [eng.submit(p, max_new_tokens=n) for p, n in stream]
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+        engines.append(eng)
+    assert engines[0].preemptions >= 1 and engines[0].prefix_cache.hit_tokens > 0
+    assert outs[0] == outs[1]
+    assert (da.paged_decode_attention_commit_int8.launches - n0
+            == cfg.num_layers * engines[0].forwards["decode"])
+
+
 FLASH_CASES = [
     (torch.bfloat16, 60, dict(causal=True)),
     (torch.float32, 16, dict(causal=True, left_window=33)),

@@ -145,7 +145,10 @@ def test_quantize_kv_matches_jax():
 
 
 def test_page_size_rule_and_int8_not_ported():
+    """Pages are whole 128-token tiles; int8 pools (K4, ported since) come
+    with their scales pool and pad the head dim to 16 bytes of int8."""
     with pytest.raises(ValueError):
         tda.PagedKVCache.create(1, 1, 256, 2, 8, page_size=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
-        tda.PagedKVCache.create(1, 1, 256, 2, 8, dtype=torch.int8, device="cpu")
+    c = tda.PagedKVCache.create(1, 1, 256, 2, 8, dtype=torch.int8, device="cpu")
+    assert c.kv_pages.shape == (1, 2, 2, 2, 128, 16) and c.kv_pages.dtype == torch.int8
+    assert c.kv_scales.shape == (1, 2, 2, 2, 128) and c.kv_scales.dtype == torch.float32

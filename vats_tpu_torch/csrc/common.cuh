@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA kernels: element conversion, 8-wide
 // vector loads and warp reductions.  Kernels are instantiated for bf16 (the
-// serving dtype) and fp32.
+// serving dtype) and fp32; the paged decode kernel also for int8 pools.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,11 +12,19 @@ namespace vats {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+template <typename T> struct is_int8 { static constexpr bool value = false; };
+template <> struct is_int8<int8_t> { static constexpr bool value = true; };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// x is already an integer in [-127, 127]
+template <> __device__ __forceinline__ int8_t from_f<int8_t>(float x) {
+  return static_cast<int8_t>(__float2int_rn(x));
 }
 
 // Load 8 consecutive elements (16-byte aligned for bf16, 32 for fp32) as floats.
@@ -38,7 +46,8 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-// Unpack one 16-byte chunk: 8 bf16 or 4 fp32 values (the pointer is a type tag).
+// Unpack one 16-byte chunk: 8 bf16, 4 fp32 or 16 int8 values (the pointer is a
+// type tag).
 __device__ __forceinline__ void unpack16(const uint4& raw, float* out,
                                          const __nv_bfloat16*) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -55,6 +64,13 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* out, const flo
   out[1] = __uint_as_float(raw.y);
   out[2] = __uint_as_float(raw.z);
   out[3] = __uint_as_float(raw.w);
+}
+
+// 16 int8 values
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, const int8_t*) {
+  const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = (float)v[i];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -4,8 +4,13 @@ Counterpart of ``vats_tpu/inference/generate.py``:
   * :func:`generate`: dense KV cache (a sliding-window ring for windowed
     models), every row at the same buffer positions.
   * :func:`generate_paged`: paged KV cache, rows advance by their true
-    lengths; K2 serves long fresh prefills and K1 every decode step.
-  * :class:`TokenGenerator`: the tokenizer-facing wrapper.
+    lengths; K2 serves long fresh prefills and K1 every decode step (K4
+    with ``kv_quant='int8'``).
+  * :class:`TokenGenerator`: the tokenizer-facing wrapper, with int8
+    weights (``quantize='int8'``, ``inference/quantize.QuantizedModel``)
+    and int8 KV pages.
+
+Every entry takes a ``TextLM`` or a ``QuantizedModel``.
 
 The JAX package compiles the loop into one ``while_loop``; here it is a
 Python loop whose tensors (tokens, validity, lengths, caches) stay on the
@@ -26,7 +31,8 @@ from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.inference.sampling import sample_logits
 from vats_tpu_torch.models.text_lm import TextLM
 from vats_tpu_torch.nn.kv_cache import ring_slots_for_window
-from vats_tpu_torch.ops.decode_attention import INT8_KV_TODO, PagedKVCache
+from vats_tpu_torch.inference.quantize import QuantizedModel
+from vats_tpu_torch.ops.decode_attention import PagedKVCache
 
 
 def _prepare(model, input_ids, attention_mask, pad_token_id, total_len):
@@ -143,10 +149,10 @@ def generate_paged(
     Rows advance by their true lengths (per-row page tables, lengths and
     RoPE positions).  Returns (tokens [B, total_len] laid out compactly per
     row, lengths [B]).  ``prefill_row_chunk`` runs the prompt forward in
-    waves of that many rows sharing one page pool."""
-    if kv_quant == "int8":
-        raise NotImplementedError(INT8_KV_TODO)
-    if kv_quant is not None:
+    waves of that many rows sharing one page pool.  ``kv_quant='int8'``
+    stores the pages in int8 with per-(token, group) scales; the current
+    token always attends at full precision (K4)."""
+    if kv_quant not in (None, "int8"):
         raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
     b, t_prompt = input_ids.shape
     cfg = model.cfg
@@ -158,7 +164,8 @@ def generate_paged(
     cache = PagedKVCache.create(
         num_layers=cfg.num_layers, batch_size=b, max_seq_len=total_len,
         kv_heads=cfg.query_groups, head_dim=cfg.head_dim, page_size=page_size,
-        dtype=resolve_dtype(cfg.dtype), device=model.device,
+        dtype=torch.int8 if kv_quant == "int8" else resolve_dtype(cfg.dtype),
+        device=model.device,
     )
     last_idx = torch.clamp(prompt_lens - 1, min=0)
     if prefill_row_chunk is None or prefill_row_chunk >= b:
@@ -177,6 +184,7 @@ def generate_paged(
                 kv_pages=cache.kv_pages,  # one pool, shared by every wave
                 page_table=cache.page_table[lo:lo + rc],
                 lengths=cache.lengths[lo:lo + rc],
+                kv_scales=cache.kv_scales,
                 head_dim=cache.head_dim,
                 fresh=cache.fresh,
             )
@@ -223,7 +231,10 @@ class TokenGenerator:
     ``params`` is a state dict for :class:`TextLM` (for instance from
     ``utils.convert.params_from_jax``); without one the model is built from
     ``seed``.  Prompt lengths are bucketed to powers of two, as in the JAX
-    package.  Runs on the card unless ``device="cpu"``."""
+    package.  ``quantize='int8'``: weight-only int8 serving
+    (:class:`QuantizedModel`, dequantized into bf16 layer by layer);
+    ``kv_quant='int8'``: int8 KV pages (needs ``use_paged``).  Runs on the
+    card unless ``device="cpu"``."""
 
     def __init__(
         self,
@@ -237,17 +248,10 @@ class TokenGenerator:
         device=None,
     ):
         self.device = resolve_device(device)
-        if quantize is not None:
-            if quantize != "int8":
-                raise ValueError(f"unsupported quantize mode: {quantize!r}")
-            raise NotImplementedError(
-                "quantize='int8' (int8 weights) is not ported yet: see "
-                "ROADMAP.md, queue 1, item 13"
-            )
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quant is not None and not use_paged:
             raise ValueError("kv_quant requires use_paged=True")
-        if kv_quant == "int8":
-            raise NotImplementedError(INT8_KV_TODO)
         self.model_args = model_args
         if params is None:
             self.model = TextLM(model_args, device=self.device, seed=seed)
@@ -261,6 +265,8 @@ class TokenGenerator:
                 if p.dtype == torch.float32:
                     p.data = p.data.to(cdt)
         self.model.eval()
+        if quantize is not None:
+            self.model = QuantizedModel(self.model)
         self.use_paged = use_paged
         self.kv_quant = kv_quant
         self._generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -298,6 +304,7 @@ class TokenGenerator:
             self.model_args.max_seq_len, bucket + generation_args.max_new_tokens
         )
         gen_fn = generate_paged if self.use_paged else generate
+        extra = {"kv_quant": self.kv_quant} if self.use_paged else {}
         tokens, lengths = gen_fn(
             self.model,
             input_ids,
@@ -312,6 +319,7 @@ class TokenGenerator:
             pad_token_id=int(pad_id),
             eos_token_id=generation_args.eos_token_id,
             total_len=total_len,
+            **extra,
         )
         row = tokens[0].cpu().tolist()
         n_valid = int(lengths[0])

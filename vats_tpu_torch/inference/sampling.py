@@ -5,7 +5,12 @@ temperature (0 = greedy), exact top-k, top-p with the keep-first shift, and
 categorical draws, vectorized over the batch.  Draws come from an explicit
 ``torch.Generator``; they are not JAX's bits, so sampled outputs agree with
 the JAX package in distribution only (greedy decoding agrees exactly).
-``sample_logits_per_row`` comes with the serving engine.
+
+:func:`sample_logits_per_row` serves the continuous-batching engine: each
+row has its own temperature / top-k / top-p, and a seeded row draws from a
+counter-based stream keyed by (seed, position), computed on the device with
+integer hashing: reproducible whatever the batch composition or preemption,
+but not JAX's threefry bits.
 """
 
 from __future__ import annotations
@@ -136,3 +141,82 @@ def sample_logits(
     if do_sample:
         return _categorical(generator, logits).to(torch.int32)
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), without int64 overflow."""
+    hi = ((x >> 16) * c) & 0xFFFF
+    return ((hi << 16) + (x & 0xFFFF) * c) & _MASK32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finaliser (xorshift-multiply, "lowbias32")."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keyed_uniform(seeds: torch.Tensor, positions: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] float32 uniforms in (0, 1), a function of (seeds[b],
+    positions[b], j) only: row b's stream at a position is the same in any
+    batch, on any device.  seeds are uint32 values (held in any int dtype)."""
+    seed = seeds.to(torch.int64) & _MASK32
+    pos = positions.to(torch.int64) & _MASK32
+    j = torch.arange(n, device=seeds.device, dtype=torch.int64)
+    h = _hash32(seed)[:, None]
+    h = _hash32(h ^ pos[:, None])
+    h = _hash32(h ^ _mul32(j[None, :] + 1, 0x9E3779B9))
+    # 24 random bits, centred in their cell: never 0 or 1
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_logits_per_row(
+    generator: Optional[torch.Generator],
+    logits: torch.Tensor,
+    *,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    row_seeds: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    kmax: int = 64,
+) -> torch.Tensor:
+    """Per-row sampling for continuous batching: logits [B, V];
+    temperature/top_p float32 [B]; top_k int32 [B] -> [B] int32.
+
+      * temperature <= 0 or top_k == 1 => greedy (argmax);
+      * top_k in [1, kmax] => exact top-k restriction;
+      * top_k == 0 => no explicit top-k, but sampling stays within the
+        top-``kmax`` logits (a static bound, as in the JAX package);
+      * top_p in (0, 1) => nucleus over the sorted subspace, keep-first.
+
+    With ``row_seeds``/``positions``, row i draws Gumbel noise from
+    :func:`keyed_uniform` (seed i, position i); otherwise every row draws
+    from ``generator``."""
+    logits = logits.float()
+    kmax = min(kmax, logits.shape[-1])
+    vals, idx = exact_top_k(logits, kmax)  # sorted descending
+    pos = torch.arange(kmax, device=logits.device)[None, :]
+    k_eff = torch.where(top_k > 0, torch.clamp(top_k, max=kmax), kmax)
+    vals = torch.where(pos < k_eff[:, None], vals, NEG_INF)
+    greedy = (temperature <= 0.0) | (top_k == 1)
+    safe_t = torch.where(greedy, 1.0, torch.clamp(temperature, min=1e-6))
+    vals = vals / safe_t[:, None]
+    cum = torch.cumsum(torch.softmax(vals, dim=-1), dim=-1)
+    remove = cum > top_p[:, None]
+    remove = torch.cat([torch.zeros_like(remove[:, :1]), remove[:, :-1]], dim=-1)
+    use_p = (top_p > 0.0) & (top_p < 1.0)
+    vals = torch.where(use_p[:, None] & remove, NEG_INF, vals)
+    if row_seeds is not None:
+        u = keyed_uniform(row_seeds, positions, kmax)
+        choice = torch.argmax(vals - torch.log(-torch.log(u)), dim=-1)
+    else:
+        choice = _categorical(generator, vals)
+    # sorted-descending subspace: index 0 IS the argmax for greedy rows
+    choice = torch.where(greedy, 0, choice)
+    return torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)

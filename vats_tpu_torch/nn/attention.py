@@ -13,11 +13,13 @@ Attention runs by one of these paths:
     reach it as in the JAX module;
   * dense cache (``nn/kv_cache.KVCache``): the plain cached attention over
     the buffer, or over the ring (``_ring_cached_attention``);
-  * paged cache (``ops/decode_attention.PagedKVCache``): T == 1 through K1,
-    which attends and commits the token in one launch; a fresh-cache
-    prefill through K2 or the plain attention, then a whole-page append; a
+  * paged cache (``ops/decode_attention.PagedKVCache``): T == 1 through K1
+    (K4 for an int8 pool, with its scales), which attends and commits the
+    token in one launch; a fresh-cache prefill through K2 or the plain
+    attention, then a whole-page append (quantized for an int8 pool); a
     prefill into a non-fresh cache through ``append_tokens`` +
-    ``gather_dense_t`` + ``cached_decode_attention``.
+    ``gather_dense_t`` (int8 pages dequantized into bf16) +
+    ``cached_decode_attention``.
 
 Only 1-D RoPE and ``context_parallel='none'`` are ported; the other modes
 raise.  The JAX module's logical-sharding constraints have no counterpart in
@@ -299,6 +301,7 @@ class Attention(nn.Module):
             out = paged_decode_attention_commit(
                 q[:, 0], paged_cache.kv_pages, layer_idx, paged_cache.page_table,
                 lengths, scale=scale, k_cur=k[:, 0], v_cur=v[:, 0],
+                kv_scales=paged_cache.kv_scales,
             )
             paged_cache.fresh = False
             return out[:, None], paged_cache
