@@ -6,10 +6,14 @@
 
 Phases:
   build    build every CUDA kernel from ``vats_tpu_torch/csrc`` (one nvcc per
-           source, all at once); print the card's name and power limit.
+           source, all at once); print the card's name and power limit and
+           ptxas's registers, shared memory and spills; fail unless the bf16
+           flash forward holds tensor-core instructions (HGMMA).
   kernels  hold each kernel against its plain PyTorch version on the card at
            the shapes of the main path, and time kernel, plain version,
-           bound and (K2) the library call ``scaled_dot_product_attention``.
+           bound and (K2, K2', K5) the library call
+           ``scaled_dot_product_attention``; K2 and K2' in turns with it
+           (ratio, TFLOP/s, share of the bound), K2 also at T=S=2048.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -156,6 +160,38 @@ def bound(nbytes: float, flops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_instructions(kernels):
+    """({bf16 flash forward instantiation: tensor-core instructions}, the
+    instruction counted): HGMMA in ``cuobjdump -sass`` of the built library
+    where the toolkit has cuobjdump, else wgmma.mma_async in the PTX that
+    nvcc emits for the same source."""
+    nvcc = kernels.nvcc_path()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if os.path.exists(tool):
+        text = subprocess.run([tool, "-sass", str(kernels.lib_path("flash_attention"))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        head, marker = r"Function : (\S+)", "HGMMA"
+    else:
+        ptx = kernels.BUILD_DIR / "flash_attention.ptx"
+        subprocess.run([nvcc, "-ptx", "-arch=compute_90a", "-std=c++17", "-O3", "-o",
+                        str(ptx), str(kernels.CSRC_DIR / "flash_attention.cu")],
+                       check=True, timeout=300)
+        text = ptx.read_text()
+        head, marker = r"\.entry (\w+)", "wgmma.mma_async"
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(head, line)
+        if m:
+            fn = m.group(1)
+            k = re.search(r"wgmma_kernelILi(\d+)ELb(\d)", fn)
+            fn = f"D={k.group(1)}{' LSE' if k.group(2) == '1' else ''}" if k else None
+            if fn:
+                counts[fn] = 0
+        elif fn and marker in line:
+            counts[fn] += 1
+    return counts, marker
 
 
 def expect_close(name, got, want, atol, rtol):
@@ -378,22 +414,54 @@ def check_k2(gen):
                q_segment_ids=seg, kv_segment_ids=seg)
     err2 = expect_close("K2 masked out", flash_attention(q, k, v, **kw2),
                         flash_attention_ref(q, k, v, **kw2), BF16_ATOL, BF16_RTOL)
+    # the ring's steady state: T = S = 2048, up to 16 key tiles a query tile
+    TL, BL = 2048, 2
+    ql, kl, vl = mk(BL, TL, Hq, hd), mk(BL, TL, G, hd), mk(BL, TL, G, hd)
+    err3 = expect_close("K2 T=S=2048 out", flash_attention(ql, kl, vl, **kw),
+                        flash_attention_ref(ql, kl, vl, **kw), BF16_ATOL, BF16_RTOL)
 
-    ms, call_ms = timed(lambda: flash_attention(q, k, v, **kw))
+    call_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms, plain_call_ms = timed(lambda: flash_attention_ref(q, k, v, **kw))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms, library_call_ms = timed(lambda: _sdpa(qt, kt, vt, scale))
-    pairs = B * T * (T + 1) // 2
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
-    flops = 4 * Hq * hd * pairs
-    b_ms, by = bound(nbytes, flops)
+    b_ms, by = bound(nbytes, flash_flops(B, T, Hq, hd))
+    ms, library_ms = flash_vs_sdpa(f"K2 B={B} T={T}", lambda: flash_attention(q, k, v, **kw),
+                                   q, k, v, scale, b_ms, flash_flops(B, T, Hq, hd))
+    b_l, by_l = bound(nbytes, flash_flops(BL, TL, Hq, hd))  # same element count
+    flash_vs_sdpa(f"K2 B={BL} T=S={TL} (bound {b_l:.5f} ms, {by_l})",
+                  lambda: flash_attention(ql, kl, vl, **kw), ql, kl, vl, scale, b_l,
+                  flash_flops(BL, TL, Hq, hd))
     log(f"K2 flash forward B={B} T={T} Hq={Hq} G={G} hd={hd} causal: "
-        f"max_abs_err={err:.3e} (padded/window/segments {err2:.3e}); "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({by}); per call with host overhead: kernel "
-        f"{call_ms:.4f} plain {plain_call_ms:.4f} library {library_call_ms:.4f}")
-    return dict(max_abs_err=max(err, err2), ms=ms, plain_ms=plain_ms,
+        f"max_abs_err={err:.3e} (padded/window/segments {err2:.3e}, T=S=2048 "
+        f"{err3:.3e}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"{library_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host overhead: "
+        f"kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+    return dict(max_abs_err=max(err, err2, err3), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+
+
+def flash_flops(b, t, hq, hd):
+    """Logical FLOPs of causal attention: q.k and p.v over the attended pairs."""
+    return 4 * hq * hd * b * t * (t + 1) // 2
+
+
+def flash_vs_sdpa(label, kern, q, k, v, scale, b_ms, flops):
+    """Device ms of ``kern`` and of SDPA on the same inputs, timed in turns
+    (kernel, SDPA, SDPA, kernel; each the whole call, the wrapper's head-dim
+    pad included), with the ratio, achieved TFLOP/s and share of the bound
+    printed, and the forward kernel's own time beside.  Returns the two
+    means."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = lambda: _sdpa(qt, kt, vt, scale)  # noqa: E731
+    k1, l1, l2, k2 = device_ms(kern), device_ms(lib), device_ms(lib), device_ms(kern)
+    ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+    per, _ = profiled(kern, iters=20)
+    alone = sum(us for name, (us, _) in per.items() if "flash_fwd" in name) / 20 / 1e3
+    own = (f"the forward kernel alone {alone:.4f} ms ({flops / alone / 1e9:.1f} TFLOP/s, "
+           f"{b_ms / alone:.3f} of the bound)" if alone else "kernel alone not measured")
+    log(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms in turns: "
+        f"{ms / lib_ms:.2f}x SDPA; {flops / ms / 1e9:.1f} TFLOP/s (SDPA "
+        f"{flops / lib_ms / 1e9:.1f}), {b_ms / ms:.3f} of the bound; {own}")
+    return ms, lib_ms
 
 
 def check_k3(gen):
@@ -508,13 +576,13 @@ def check_k2_lse(gen):
     require(bool((l2k[1, :, :7] == 1e30).all()) and bool((o2k[1, :7] == 0).all()),
             "K2': a row with no key must give lse 1e30 and output 0")
 
-    ms, call_ms = timed(lambda: flash_attention_lse(q, k, v, **kw))
+    call_ms = cuda_ms(lambda: flash_attention_lse(q, k, v, **kw))
     plain_ms, _ = timed(lambda: flash_attention_lse_ref(q, k, v, **kw))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms, _ = timed(lambda: _sdpa(qt, kt, vt, scale))
-    pairs = B * T * (T + 1) // 2
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * T * 4
-    b_ms, by = bound(nbytes, 4 * Hq * hd * pairs)
+    b_ms, by = bound(nbytes, flash_flops(B, T, Hq, hd))
+    ms, library_ms = flash_vs_sdpa(f"K2' B={B} T={T}",
+                                   lambda: flash_attention_lse(q, k, v, **kw), q, k, v,
+                                   scale, b_ms, flash_flops(B, T, Hq, hd))
     log(f"K2' flash forward + lse B={B} T={T} Hq={Hq} G={G} hd={hd} causal: "
         f"max_abs_err out {err:.3e} lse {err_l:.3e} (padded/window/segments "
         f"{err2:.3e}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -693,7 +761,8 @@ def run_train(counters):
         f"{[round(x, 4) for x in norms]}")
     log(f"train: ms_per_step={ms_step:.1f} tokens_per_s={B * T / (ms_step / 1e3):.1f} "
         f"peak_mem_gb={peak_gb:.2f}")
-    profile_breakdown("train step", lambda: step(state, batches[-1], 200), top=12)
+    profile_breakdown("train step", lambda: step(state, batches[-1], 200), top=12,
+                      also=("flash_fwd", "flash_bwd"))
     del model, state, step, batches
     torch.cuda.empty_cache()
 
@@ -904,7 +973,8 @@ def run_main(counters):
         f"{B * steps / total_s:.1f} peak_mem_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; dense TokenGenerator B=1 "
         f"{steps} tokens: {dense_s:.3f}s ({steps / dense_s:.1f} tokens/s)")
-    profile_breakdown("generate_paged", lambda: generate_paged(model, ids, mask, gen, **kw))
+    profile_breakdown("generate_paged", lambda: generate_paged(model, ids, mask, gen, **kw),
+                      also=("flash_fwd",))
     profile_breakdown("dense TokenGenerator",
                       lambda: tg.generate_tokens(prompt, ga, StubTokenizer()))
     del model, tg
@@ -912,9 +982,10 @@ def run_main(counters):
     return counts
 
 
-def profile_breakdown(label, fn, top=10):
-    """Device busy time, idle share and the heaviest kernels of one call;
-    returns the busy seconds (None where the profiler recorded nothing)."""
+def profile_breakdown(label, fn, top=10, also=()):
+    """Device busy time, idle share and the heaviest kernels of one call, and
+    any other kernel whose name holds one of ``also``; returns the busy
+    seconds (None where the profiler recorded nothing)."""
     per, wall = profiled(fn)
     if not per:
         log(f"profiled {label}: wall_s={wall:.3f}; idle share not measured "
@@ -923,8 +994,10 @@ def profile_breakdown(label, fn, top=10):
     busy = sum(us for us, _ in per.values()) / 1e6
     log(f"profiled {label}: wall_s={wall:.3f} (profiler on) "
         f"device_busy_s={busy:.3f} idle_share={1 - busy / wall:.3f}")
-    for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"  {us / 1e3:10.3f} ms {n:7d}x  {name[:100]}")
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (us, n)) in enumerate(ranked):
+        if i < top or any(a in name for a in also):
+            log(f"  {us / 1e3:10.3f} ms {n:7d}x  {name[:100]}")
     return busy
 
 
@@ -1321,6 +1394,12 @@ def main(argv=None) -> int:
                 # the kernel's name and its (mangled) template arguments
                 tag = re.sub(r"^.*?\d+(?=[a-z_]+kernel)", "", entry)[:40]
                 log(f"  {name} {tag}: {line.strip()}")
+    counts, marker = tensor_core_instructions(kernels)
+    require(bool(counts) and all(n > 0 for n in counts.values()),
+            f"build: the bf16 flash forward has no tensor-core instruction ({marker}): "
+            f"{counts}")
+    log(f"build: {marker} instructions in the bf16 flash forward: " + ", ".join(
+        f"{n} in {fn}" for fn, n in counts.items()))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -245,6 +245,61 @@ def test_flash_lse_and_backward_match_plain(gen, dtype, hd, case):
         torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
 
 
+# Edges of the bf16 forward (128-row query tiles, 128-key tiles through a TMA
+# ring): T and S off the tile with B = 3, every head dim, one and eight heads
+# per group, S > T with an offset, windows across tile edges, a batch row
+# with no valid key, and T = S = 2048 (16 key tiles for the last query tile).
+FLASH_BF16_EDGES = {
+    "ragged_b3": dict(b=3, t=200, s=333, hq=6, g=2, hd=64, kw=dict(causal=False)),
+    "ragged_b3_causal": dict(b=3, t=333, s=333, hq=6, g=2, hd=60, kw=dict(causal=True)),
+    "d32": dict(b=2, t=300, s=300, hq=4, g=2, hd=32, kw=dict(causal=True)),
+    "d128": dict(b=2, t=300, s=300, hq=4, g=2, hd=128, kw=dict(causal=True)),
+    "d128_bidirectional": dict(b=2, t=130, s=260, hq=4, g=4, hd=128, kw=dict(causal=False)),
+    "one_head_per_group": dict(b=2, t=256, s=256, hq=4, g=4, hd=64, kw=dict(causal=True)),
+    "eight_heads_per_group": dict(b=2, t=256, s=256, hq=8, g=1, hd=64,
+                                  kw=dict(causal=True)),
+    "offset_s_gt_t": dict(b=2, t=100, s=420, hq=6, g=2, hd=64,
+                          kw=dict(causal=True, q_pos_offset=320)),
+    "left_window_across_tiles": dict(b=2, t=400, s=400, hq=6, g=2, hd=64,
+                                     kw=dict(causal=True, left_window=150)),
+    "two_sided_window": dict(b=2, t=400, s=400, hq=6, g=2, hd=64,
+                             kw=dict(causal=False, left_window=70, right_window=200)),
+    "dead_batch_row": dict(b=3, t=200, s=200, hq=6, g=2, hd=64, kw=dict(causal=True),
+                           dead_row=1),
+    "long_2048": dict(b=2, t=2048, s=2048, hq=6, g=2, hd=64, kw=dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_BF16_EDGES))
+def test_flash_bf16_forward_edges(gen, name):
+    """K2 and K2' (one body) against the plain version: the output within
+    one bf16 ulp, the LSE to fp32 rounding, the same output with and without
+    the LSE; a batch row with no valid key gives exactly 0 and 1e30."""
+    c = FLASH_BF16_EDGES[name]
+    b, t, s, hq, g, hd = (c[x] for x in ("b", "t", "s", "hq", "g", "hd"))
+    q = rand(gen, b, t, hq, hd, dtype=torch.bfloat16)
+    k = rand(gen, b, s, g, hd, dtype=torch.bfloat16)
+    v = rand(gen, b, s, g, hd, dtype=torch.bfloat16)
+    kw = dict(scale=hd**-0.5, **c["kw"])
+    if "dead_row" in c:
+        valid = torch.rand((b, s), generator=gen, device="cuda") > 0.2
+        valid[c["dead_row"]] = False
+        kw["kv_valid"] = valid
+    n0 = (fa.flash_attention.launches, fa.flash_attention_lse.launches)
+    out = fa.flash_attention(q, k, v, **kw)
+    out_l, lse = fa.flash_attention_lse(q, k, v, **kw)
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_lse.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    assert torch.equal(out, out_l)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if "dead_row" in c:
+        assert bool((out[c["dead_row"]] == 0).all())
+        assert bool((lse[c["dead_row"]] == 1e30).all())
+
+
 def test_flash_attention_autograd_on_the_card(gen):
     """flash_attention with a gradient goes through K2', K5a and K5b and
     gives the plain attention's gradients (fp32, head dim 60 padded)."""

@@ -97,7 +97,10 @@ def flash_attention_lse_ref(
     q_pos_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2': masked fp32 softmax attention whose fully masked
-    rows output 0, and the row logsumexp [B, Hq, T] (1e30 on such rows)."""
+    rows output 0, and the row logsumexp [B, Hq, T] (1e30 on such rows).
+
+    The JAX kernel's arithmetic: the normaliser sums the fp32 p, and p is
+    rounded to v's dtype before the product with v (a no-op for fp32)."""
     b, t, hq, d = q.shape
     _, s, g, _ = k.shape
     n = hq // g
@@ -112,7 +115,8 @@ def flash_attention_lse_ref(
     m = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.where(mask, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bgnts,bsgd->btgnd", p / torch.where(l == 0.0, 1.0, l),
+    p_v = p.to(v.dtype).float()
+    out = torch.einsum("bgnts,bsgd->btgnd", p_v / torch.where(l == 0.0, 1.0, l),
                        v.float())
     lse = torch.where(l == 0.0, LSE_EMPTY_ROW, m + torch.log(l))[..., 0]
     return out.reshape(b, t, hq, d).to(q.dtype), lse.reshape(b, hq, t)
@@ -166,7 +170,7 @@ def _launch_fwd(q, k, v, kw, want_lse: bool):
     kernels.require(dt in _FWD_ENTRY, f"unsupported dtype {dt}")
     dp = _kernel_head_dim(d)
     kernels.require(dp in _KERNEL_HEAD_DIMS, f"head dim {d} > {_KERNEL_HEAD_DIMS[-1]}")
-    qp, kp, vp = (_pad_head(x.to(dt), dp).contiguous() for x in (q, k, v))
+    qp, kp, vp = (_aligned(_pad_head(x.to(dt), dp).contiguous()) for x in (q, k, v))
     valid, q_seg, kv_seg = _mask_args(kw, b, t, s, q.device)
     kernels.check_cuda_tensor(kp, "k", shape=(b, s, g, dp))
     kernels.check_cuda_tensor(vp, "v", shape=(b, s, g, dp))
@@ -186,6 +190,12 @@ def _launch_fwd(q, k, v, kw, want_lse: bool):
 
 def _opt_ptr(t):
     return kernels.ptr(t) if t is not None else None
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, copied if its data is not 16-byte aligned (the bf16 forward loads
+    tiles with TMA, the fp32 one with 16-byte vectors)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _mask_args(kw, b, t, s, device):

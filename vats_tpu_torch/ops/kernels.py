@@ -50,7 +50,9 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` with these sources and
+    flags lives."""
     h = hashlib.sha256()
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         if src.suffix == ".cuh" or src.stem == name:
@@ -63,7 +65,7 @@ def _lib_path(name: str) -> Path:
 def _start_build(name: str):
     """Start ``nvcc`` for ``name`` unless its library exists; returns a
     pending build ``(proc, log_file, tmp_path, lib_path)`` or None."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -116,7 +118,7 @@ def load(name: str) -> ctypes.CDLL:
             proc = _start_build(name)
             if proc is not None:
                 _finish_build(name, proc)
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             lib.vats_error_string.argtypes = [ctypes.c_int]
             lib.vats_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
