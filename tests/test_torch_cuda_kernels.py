@@ -23,6 +23,11 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
        torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
+# The bf16 flash backward (fp32 gradients): kernel and plain version round
+# the same fp32 p and ds to bf16 before their products; sums in another
+# order flip a rounding now and then, one bf16 ulp (2^-8) of a p or ds times
+# an input of |x| <= ~5 (chip_smoke.py's BWD_ATOL / BWD_RTOL).
+BWD_BF16_TOL = dict(atol=4e-3, rtol=1e-2)
 
 
 @pytest.fixture
@@ -207,8 +212,9 @@ def test_flash_forward_matches_plain(gen, dtype, hd, case):
 @pytest.mark.parametrize("dtype,hd,case", FLASH_CASES)
 def test_flash_lse_and_backward_match_plain(gen, dtype, hd, case):
     """K2' (output and row logsumexp) and K5a/K5b (dq, dk, dv from the saved
-    statistics) against their plain versions; both backward sides compute
-    in fp32, so the bf16 cases differ only by the order of their sums."""
+    statistics) against their plain versions; the fp32 backward differs
+    only by the order of its sums (1e-4), the bf16 one by the roundings of
+    p and ds that a sum in another order flips (BWD_BF16_TOL)."""
     b, t, hq, g = 2, 150, 6, 2
     case = dict(case)
     s = case.pop("s", t)
@@ -241,8 +247,9 @@ def test_flash_lse_and_backward_match_plain(gen, dtype, hd, case):
     want = fa.flash_attention_bwd_ref(*args, **kw)
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (n1[0] + 1, n1[1] + 1)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
     for a, b_ in zip(got, want):
-        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a, b_, **tol)
 
 
 # Edges of the bf16 forward (128-row query tiles, 128-key tiles through a TMA
@@ -298,6 +305,54 @@ def test_flash_bf16_forward_edges(gen, name):
     if "dead_row" in c:
         assert bool((out[c["dead_row"]] == 0).all())
         assert bool((lse[c["dead_row"]] == 1e30).all())
+
+
+# Edges of the bf16 backward (K5b: 128 query rows a CTA, key tiles of 128,
+# 64 at D = 128; K5a: 128 keys a CTA, query tiles of 64, 32 at D = 128): the
+# forward's edges, and segments.
+FLASH_BF16_BWD_EDGES = dict(
+    FLASH_BF16_EDGES,
+    segments=dict(b=2, t=300, s=300, hq=6, g=2, hd=64, kw=dict(causal=True), segments=True),
+)
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_BF16_BWD_EDGES))
+def test_flash_bf16_backward_edges(gen, name):
+    """K5a and K5b against the plain backward (which rounds p and ds to bf16
+    where the kernels do) from the plain forward's lse and di, one launch
+    each; a batch row with no valid key gives dq = 0, and invalid keys dk =
+    dv = 0, exactly."""
+    c = FLASH_BF16_BWD_EDGES[name]
+    b, t, s, hq, g, hd = (c[x] for x in ("b", "t", "s", "hq", "g", "hd"))
+    q = rand(gen, b, t, hq, hd, dtype=torch.bfloat16)
+    k = rand(gen, b, s, g, hd, dtype=torch.bfloat16)
+    v = rand(gen, b, s, g, hd, dtype=torch.bfloat16)
+    do = rand(gen, b, t, hq, hd, dtype=torch.bfloat16)
+    kw = dict(scale=hd**-0.5, **c["kw"])
+    masks = {}
+    if "dead_row" in c:
+        valid = torch.rand((b, s), generator=gen, device="cuda") > 0.2
+        valid[c["dead_row"]] = False
+        masks["kv_valid"] = valid
+    if c.get("segments"):
+        seg = (torch.arange(t, device="cuda") // 45).expand(b, t).contiguous()
+        masks["q_segment_ids"] = masks["kv_segment_ids"] = seg
+    o, lse = fa.flash_attention_lse_ref(q, k, v, **kw, **masks)
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, di, masks.get("kv_valid"), masks.get("q_segment_ids"),
+            masks.get("kv_segment_ids"))
+    n0 = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    got = fa.flash_attention_bwd(*args, **kw)
+    want = fa.flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (n0[0] + 1, n0[1] + 1)
+    for a, b_ in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b_, **BWD_BF16_TOL)
+    if "dead_row" in c:
+        r = c["dead_row"]
+        assert bool((got[0][r] == 0).all())
+        assert bool((got[1][~valid] == 0).all()) and bool((got[2][~valid] == 0).all())
 
 
 def test_flash_attention_autograd_on_the_card(gen):

@@ -110,6 +110,43 @@ def test_plain_lse_forward_and_backward_match_jax_kernels_interpret(name):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_bf16_backward_matches_jax_kernels_interpret(name):
+    """bf16 inputs: the plain backward follows the JAX kernels' arithmetic
+    (bf16 products summed in fp32, ds from the fp32 p, p rounded to bf16
+    before dV and ds before dK and dQ).  Both sides round the same fp32
+    values, so they differ where a sum taken in another order flips one
+    rounding: one bf16 ulp (2^-8) of a p or ds times an input of |x| <= ~4.
+    Tolerance 3e-3 absolute, 1e-3 relative (measured up to 2.4e-3, most
+    cases ~1e-6), and a mean error of 2e-5 for the rounding as a whole.
+    Without the rounding the plain backward sits 2.9e-3 to 1.2e-2 from the
+    JAX kernels (mean ~1e-3)."""
+    case = CASES[name]
+    (q, k, v, do), kw, valid, q_seg, kv_seg = _inputs(name, case)
+    use_segids = bool(case.get("segments"))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    tvalid = torch.from_numpy(valid)
+    tseg = dict(q_segment_ids=torch.from_numpy(q_seg), kv_segment_ids=torch.from_numpy(kv_seg)) \
+        if use_segids else {}
+    o, lse = flash_attention_lse_ref(tq, tk, tv, kv_valid=tvalid, **tseg, **kw)
+    di = (tdo.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    jq, jk, jv, jdo = (jnp.asarray(_jax_layout(x.float().numpy()), dtype=jnp.bfloat16)
+                       for x in (tq, tk, tv, tdo))
+    jgrads = _flash_bwd_kernels(
+        jq, jk, jv, jdo, jnp.asarray(lse.numpy()), jnp.asarray(di.numpy()),
+        jnp.asarray(valid, jnp.int32), jnp.asarray(q_seg), jnp.asarray(kv_seg),
+        scale=kw["scale"], causal=kw["causal"], left_window=kw["left_window"],
+        right_window=kw["right_window"], block_q=16, block_k=16, interpret=True,
+        use_segids=use_segids, q_pos_offset=kw["q_pos_offset"])
+    segs = (tseg.get("q_segment_ids"), tseg.get("kv_segment_ids"))
+    got = flash_attention_bwd_ref(tq, tk, tv, tdo, lse, di, tvalid, *segs, **kw)
+    for a, want in zip(got, jgrads):
+        assert a.dtype == torch.float32
+        want = np.transpose(np.asarray(want, dtype=np.float32), (0, 2, 1, 3))
+        np.testing.assert_allclose(a.numpy(), want, atol=3e-3, rtol=1e-3)
+        assert float(np.abs(a.numpy() - want).mean()) <= 2e-5
+
+
 def _grads_both(q, k, v, jax_kw, torch_kw, jax_fn):
     def loss(q_, k_, v_):
         return jnp.sum(jax_fn(q_, k_, v_, **jax_kw) ** 2)

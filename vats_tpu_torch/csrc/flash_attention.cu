@@ -254,10 +254,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
-struct Tile {
-  static constexpr int SW = D >= 64 ? 128 : 2 * D;  // bytes per row of a column chunk (= swizzle)
-  static constexpr int CW = SW / 2;                 // bf16 columns per chunk
-  static constexpr int NCH = D / CW;                // column chunks per row
+struct Tile : sm90::SwizzledCols<D> {
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;
   // offsets from a 1024-byte aligned base
@@ -268,17 +265,7 @@ struct Tile {
   static constexpr int OFF_FLAG = OFF_SEG + STAGES * BN * 4;
   static constexpr int OFF_BAR = OFF_FLAG + 16 * STAGES;
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
-  static_assert(D % CW == 0 && (D == 32 || D == 64 || D == 128), "head dim");
 };
-
-// PV for the head dims: d[64 x D] += p[64 x 16] * v[16 x D]
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) sm90::wgmma_rs_m64n32(o, a, db);
-  else if constexpr (D == 64) sm90::wgmma_rs_m64n64(o, a, db);
-  else sm90::wgmma_rs_m64n128(o, a, db);
-}
 
 template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -493,8 +480,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        wgmma_pv<D>(o, pa[kk],
-                    sm90::make_desc(v_s(st) + kk * 16 * C::SW, BN * C::SW, 8 * C::SW, C::SW));
+        sm90::wgmma_rs<D>(
+            o, pa[kk], sm90::make_desc(v_s(st) + kk * 16 * C::SW, BN * C::SW, 8 * C::SW, C::SW));
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();

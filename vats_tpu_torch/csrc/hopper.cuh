@@ -113,6 +113,18 @@ inline bool make_map_bf16_3d(EncodeTiledFn enc, CUtensorMap* map, const void* pt
 
 // --- wgmma --------------------------------------------------------------------
 
+// A bf16 tile of D columns as TMA writes it to shared memory: column chunks
+// of one swizzle span, SW bytes (the box width and the swizzle mode; a D=64
+// row is 128 bytes, D=128 two such chunks, D=32 rows are 64 bytes), CW
+// columns each, NCH chunks.  A chunk holds every row of the tile.
+template <int D>
+struct SwizzledCols {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;
+  static constexpr int CW = SW / 2;
+  static constexpr int NCH = D / CW;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+};
+
 // Shared-memory matrix descriptor.  ``swizzle`` is the span in bytes of the
 // tile's rows (128 or 64, as the TMA wrote them); the tile base must be
 // aligned to 8 such rows.  K-major operands: ``lbo`` is unused (16), ``sbo``
@@ -134,6 +146,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N of the latest committed groups are pending (every
+// earlier group is complete: groups complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pin a register array at this point of the program: the compiler may not
@@ -181,6 +199,49 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= a[64 x 16] * b[16 x 32]: a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= a[64 x 16] * b[16 x 64]: a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x N] (+)= a[64 x 16] * b[16 x N] for N in {32, 64, 128}, both K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 32) wgmma_ss_m64n32(d, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_ss_m64n64(d, da, db, accumulate);
+  else wgmma_ss_m64n128(d, da, db, accumulate);
 }
 
 // d[64 x 32] += a[64 x 16] * b[16 x 32]: a in registers (bf16 pairs), b
@@ -244,6 +305,16 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x N] += a[64 x 16] * b[16 x N] for N in {32, 64, 128}: a in
+// registers, b MN-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_m64n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_m64n64(d, a, db);
+  else wgmma_rs_m64n128(d, a, db);
 }
 
 // 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0).

@@ -135,7 +135,11 @@ def flash_attention_bwd_ref(
 ):
     """Plain version of K5a + K5b: (dq [B,T,Hq,D], dk, dv [B,S,G,D]), fp32,
     with p rebuilt from ``lse`` and ``di`` = sum(do * o) per row, both
-    [B, Hq, T] fp32.  Same arguments as :func:`flash_attention_bwd`."""
+    [B, Hq, T] fp32.  Same arguments as :func:`flash_attention_bwd`.
+
+    The JAX kernels' arithmetic: ds is formed from the fp32 p, and p (for dV)
+    and ds (for dK and dQ) are rounded to the input dtype before their
+    products (a no-op for fp32)."""
     b, t, hq, d = q.shape
     _, s, g, _ = k.shape
     n = hq // g
@@ -150,9 +154,9 @@ def flash_attention_bwd_ref(
     di5 = di.float().reshape(b, g, n, t)[..., None]
     scores = torch.einsum("btgnd,bsgd->bgnts", qg, kf) * scale
     p = torch.where(mask, torch.exp(torch.where(mask, scores, 0.0) - lse5), 0.0)
-    dv = torch.einsum("bgnts,btgnd->bsgd", p, dog)
+    dv = torch.einsum("bgnts,btgnd->bsgd", p.to(do.dtype).float(), dog)
     dp = torch.einsum("btgnd,bsgd->bgnts", dog, vf)
-    ds = p * (dp - di5) * scale
+    ds = (p * (dp - di5) * scale).to(q.dtype).float()
     dq = torch.einsum("bgnts,bsgd->btgnd", ds, kf).reshape(b, t, hq, d)
     dk = torch.einsum("bgnts,btgnd->bsgd", ds, qg)
     return dq, dk, dv
@@ -193,8 +197,8 @@ def _opt_ptr(t):
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x, copied if its data is not 16-byte aligned (the bf16 forward loads
-    tiles with TMA, the fp32 one with 16-byte vectors)."""
+    """x, copied if its data is not 16-byte aligned (the bf16 kernels load
+    tiles with TMA, the fp32 ones with 16-byte vectors)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
@@ -259,6 +263,7 @@ def _launch_bwd(which, q, k, v, do, lse, di, kw):
     for name, x, shape in (("q", q, (b, t, hq, dp)), ("k", k, (b, s, g, dp)),
                            ("v", v, (b, s, g, dp)), ("do", do, (b, t, hq, dp))):
         kernels.check_cuda_tensor(x, name, dtype=dt, shape=shape)
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     for name, x in (("lse", lse), ("di", di)):
         kernels.check_cuda_tensor(x, name, dtype=torch.float32, shape=(b, hq, t))
     valid, q_seg, kv_seg = _mask_args(kw, b, t, s, q.device)
@@ -374,7 +379,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kv_valid, q_seg, kv_seg = ctx.saved_tensors
-        di = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)  # [B, Hq, T]
+        # [B, Hq, T]; o is promoted to fp32 inside the product (no fp32 copy)
+        di = (do.float() * o).sum(dim=-1).transpose(1, 2)
         dq, dk, dv = flash_attention_bwd(q, k, v, do.to(q.dtype), lse, di,
                                          kv_valid, q_seg, kv_seg, **ctx.kw)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 8
