@@ -15,14 +15,20 @@ Phases:
            bound and (K2, K2', K5) the library call
            ``scaled_dot_product_attention``; K2, K2' and the whole backward
            (di, K5a, K5b, casts) in turns with it (ratio, TFLOP/s, share of
-           the bound), K2 and the backward also at T=S=2048.
+           the bound), K2 and the backward also at T=S=2048.  K1, K1' and K4
+           at the serving shape (B=32, lengths <= 576) and at nlp_medium's
+           max_seq_len (B=8, lengths <= 4096), the kernel alone beside the
+           call, and K1 with every row at one length (where its time goes).
+           Each check draws its inputs from its own seed.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
            the dense ``TokenGenerator``.  Launch counters are zeroed just
            before and read just after; each must equal 20 layers x calls.
   parity   full width, 2 layers: ``generate_paged`` and ``generate`` on the
-           card (kernels) against the CPU (plain versions), same weights.
+           card (kernels) against the CPU (plain versions), same weights;
+           at most one (row, step) whose MoE router picks other experts on
+           a near tie is excused from the logit bound, and reported.
   serve    the continuous-batching ``ServingEngine`` at full width
            (nlp_medium, 8 experts, top-2, bf16): 64 requests (32 sharing a
            256-token prefix) through 32 rows, a 129-page pool (requests queue
@@ -201,16 +207,26 @@ def tensor_core_instructions(kernels, name):
     return counts, marker
 
 
-def expect_close(name, got, want, atol, rtol):
+def expect_close(name, got, want, atol, rtol, extra=None):
+    """Max |got - want|; raises beyond atol + rtol * |want| (+ ``extra``, a
+    per-element allowance, where given: then the elements that needed it are
+    counted and printed)."""
     import torch
 
     err = (got.float() - want.float()).abs()
     lim = atol + rtol * want.float().abs()
+    over = 0
+    if extra is not None:
+        over = int((err > lim).sum())
+        lim = lim + extra
     if not bool(torch.isfinite(got.float()).all()) or bool((err > lim).any()):
         raise AssertionError(
             f"{name}: max |err| {float(err.max()):.3e} beyond atol {atol} + "
-            f"rtol {rtol} * |ref|"
+            f"rtol {rtol} * |ref|" + (" + the allowance" if extra is not None else "")
         )
+    if extra is not None:
+        log(f"  {name}: {over} elements beyond {atol} + {rtol}*|ref|, all within the "
+            f"p flip allowance (largest {float(extra.max()):.3e})")
     return float(err.max())
 
 
@@ -220,12 +236,123 @@ def expect_close(name, got, want, atol, rtol):
 # bf16 once; their sums run in another order, so they may differ by one bf16
 # ulp (2^-8 relative) of the output, plus a small absolute floor near zero.
 BF16_ATOL, BF16_RTOL = 2e-3, 1e-2
+
+
+def p_flip_allowance(q, k, v, **kw):
+    """Per output element of the bf16 flash forward (K2, K2'): how far two
+    flipped roundings of p could move it.  Kernel and plain version round
+    the same fp32 p to bf16 before P.V, and their fp32 p differ in the last
+    bits (exp2 on the special-function unit, sums in another order), so now
+    and then a rounding flips: one bf16 ulp, at most 2^-7 p_j, moves the
+    output by at most 2^-7 (p_j / l) |v_j|.  The allowance is two such flips
+    at the row's largest (p_j / l) |v_j|, dimension by dimension, from the
+    plain version's own probabilities: up to 2^-6 |v| in a row over one or
+    two keys (a segment's or a window's first queries), where one flip
+    exceeds a bf16 ulp of the output, and small in a row over many keys.  A
+    key wrongly in or out of the mask moves the output by (p_j / l)
+    |v_j - out|: beyond this wherever p_j |v_j - out| exceeds 2^-6 of the
+    row's largest p_i |v_i|."""
+    import torch
+
+    from vats_tpu_torch.ops.flash_attention import flash_attention_ref
+
+    b, s, g, d = v.shape
+    hq = q.shape[2]
+    # the plain version's p_j / l, [B, T, Hq, S]: its output over one-hot
+    # values, d keys a call
+    probs = torch.empty((b, q.shape[1], hq, s), device=q.device)
+    for c in range(0, s, d):
+        w = torch.arange(min(d, s - c), device=v.device)
+        onehot = torch.zeros_like(v)
+        onehot[:, c + w, :, w] = 1
+        probs[..., c:c + len(w)] = flash_attention_ref(q, k, onehot, **kw)[..., :len(w)].float()
+    va = v.float().abs()
+    top = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for h in range(hq):  # max_j (p_j / l) |v_j| per (row, query, dim), a head at a time
+        top[:, :, h] = (probs[:, :, h, :, None] * va[:, None, :, h // (hq // g)]).amax(2)
+    return 2.0**-6 * top
+
+
+def flip_noise(ref_fn, q, k, v, scale, **kw):
+    """The plain version against itself with the scale moved by 1e-6 (the
+    size of the fp32 differences between kernel and plain version): max
+    |difference| and the elements beyond the bf16 tolerance without the
+    flip allowance."""
+    want = ref_fn(q, k, v, scale=scale, **kw).float()
+    d = (ref_fn(q, k, v, scale=scale * (1 + 1e-6), **kw).float() - want).abs()
+    return float(d.max()), int((d > BF16_ATOL + BF16_RTOL * want.abs()).sum())
 # K4 with fp32 queries and output: the same dequantized fp32 softmax, sums in
 # another order (the bound the JAX tests hold their kernel to)
 K4_F32_ATOL, K4_F32_RTOL = 2e-5, 2e-4
 
 
+def kernel_alone_ms(fn, key, iters=20):
+    """Device ms per call of the kernels whose name holds ``key`` alone
+    (torch.profiler events), or None where the profiler recorded nothing."""
+    fn()
+    per, _ = profiled(fn, iters)
+    got = sum(us for name, (us, _) in per.items() if key in name)
+    return got / iters / 1e3 if got else None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+# K1/K4 shapes: nlp_medium's decode attention (Hq 24, G 8, hd 60 -> 64) at
+# the serving batch (B=32, lengths <= 576) and at nlp_medium's max_seq_len
+# 4096 (B=8, up to 32 tiles a row).
+DECODE_SHAPES = (("B=32 lengths<=576", 32, 5, (0, 1, 127, 128, 576, 640), 577),
+                 ("B=8 lengths<=4096", 8, 32, (0, 129, 2047, 4096), 4097))
+DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP, DECODE_PS, DECODE_L = 8, 3, 60, 64, 128, 20
+
+
+def _decode_inputs(gen, B, pps, fixed, hi, int8):
+    """A pool of every slot written (int8 pools with their scales), ragged
+    lengths (the fixed ones first), a random page table, bf16 q and current
+    token, at nlp_medium's decode shapes."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import quantize_kv
+
+    dev = "cuda"
+    L, G, N, hd, hdp, ps = (DECODE_L, DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP,
+                            DECODE_PS)
+    P = B * pps
+    sc = None
+    if int8:  # every slot holds a quantized token
+        pool = torch.zeros((L, P, 2, G, ps, hdp), dtype=torch.int8, device=dev)
+        sc = torch.empty((L, P, 2, G, ps), device=dev)
+        for layer in range(L):  # a layer at a time: the fp32 history is large
+            q8, sc[layer] = quantize_kv(torch.randn((P, 2, G, ps, hd), generator=gen,
+                                                    device=dev))
+            pool[layer, ..., :hd] = q8
+    else:
+        pool = torch.randn((L, P, 2, G, ps, hdp), generator=gen, device=dev).to(torch.bfloat16)
+        pool[..., hd:] = 0  # stored pad rows are zero
+    lens = torch.randint(1, hi, (B,), generator=gen, device=dev)
+    lens[:len(fixed)] = torch.tensor(fixed, device=dev)
+    table = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, pps)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    return pool, sc, table, lens.to(torch.int32), mk(B, G * N, hd), mk(B, G, hd), mk(B, G, hd)
+
+
+def _decode_bytes(lengths, B, cap, int8, commit):
+    """Bytes a call must move: q in and out, the current K/V in (bf16), the
+    settled history read once (int8 with its fp32 scales), the committed
+    K/V out, the page table and lengths."""
+    G, N, hd, hdp = DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP
+    tokens = int(lengths.clamp(max=cap).sum())
+    per_tok = 2 * G * (hdp + 4) if int8 else 2 * G * hdp * 2
+    return (2 * B * G * N * hd * 2 + 2 * B * G * hd * 2 + tokens * per_tok
+            + (B * per_tok if commit else 0) + B * (cap // DECODE_PS) * 4 + B * 4), tokens
+
+
 def check_k1(gen):
+    """K1 (and K1', without the commit) against the plain version at both
+    decode shapes: output within the bf16 tolerance, the committed pool
+    bit-equal; device time of the call and of the kernel alone, the plain
+    version's, and the bound."""
     import torch
 
     from vats_tpu_torch.ops.decode_attention import (
@@ -235,166 +362,149 @@ def check_k1(gen):
         paged_decode_attention_ref,
     )
 
-    dev = "cuda"
-    L, B, G, N, hd, hdp, ps, pps = 20, 32, 8, 3, 60, 64, 128, 5
-    layer, scale = 7, 1.0 / hd**0.5
-    P = B * pps
-    pool = torch.randn((L, P, 2, G, ps, hdp), generator=gen, device=dev).to(torch.bfloat16)
-    pool[..., hd:] = 0  # stored pad rows are zero
-    # ragged lengths up to 576: empty, page edges, one past an edge, capacity
-    lens = torch.randint(1, 577, (B,), generator=gen, device=dev)
-    lens[:6] = torch.tensor([0, 1, 127, 128, 576, pps * ps], device=dev)
-    lengths = lens.to(torch.int32)
-    table = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, pps)
-    q = torch.randn((B, G * N, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k_cur = torch.randn((B, G, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v_cur = torch.randn((B, G, hd), generator=gen, device=dev).to(torch.bfloat16)
-
-    pool_k, pool_p = pool.clone(), pool.clone()
-    n0 = paged_decode_attention_commit.launches
-    out_k = paged_decode_attention_commit(
-        q, pool_k, layer, table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur
-    )
-    out_p = paged_decode_attention_ref(
-        q, pool_p[layer], table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur
-    )
-    PagedKVCache(pool_p, table, lengths).append_token(layer, k_cur, v_cur)
-    torch.cuda.synchronize()
-    require(paged_decode_attention_commit.launches == n0 + 1, "K1 did not launch")
-    err = expect_close("K1 out", out_k, out_p, BF16_ATOL, BF16_RTOL)
-    if not torch.equal(pool_k, pool_p):
-        raise AssertionError("K1 committed pool differs from the plain append")
-
-    def kern():
-        paged_decode_attention_commit(
-            q, pool_k, layer, table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur
-        )
-
-    def plain():
-        paged_decode_attention_ref(
-            q, pool_p[layer], table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur
-        )
+    layer, scale = 7, 1.0 / DECODE_HD**0.5
+    result = None
+    for label, B, pps, fixed, hi in DECODE_SHAPES:
+        pool, _, table, lengths, q, k_cur, v_cur = _decode_inputs(gen, B, pps, fixed, hi,
+                                                                 int8=False)
+        kw = dict(scale=scale, k_cur=k_cur, v_cur=v_cur)
+        pool_k, pool_p = pool.clone(), pool.clone()
+        del pool
+        n0 = paged_decode_attention_commit.launches
+        out_k = paged_decode_attention_commit(q, pool_k, layer, table, lengths, **kw)
+        out_p = paged_decode_attention_ref(q, pool_p[layer], table, lengths, **kw)
         PagedKVCache(pool_p, table, lengths).append_token(layer, k_cur, v_cur)
+        torch.cuda.synchronize()
+        require(paged_decode_attention_commit.launches == n0 + 1, "K1 did not launch")
+        err = expect_close(f"K1 out {label}", out_k, out_p, BF16_ATOL, BF16_RTOL)
+        if not torch.equal(pool_k, pool_p):
+            raise AssertionError(f"K1 committed pool differs from the plain append ({label})")
 
-    (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
-    # K1': the same kernel without the commit (paged_decode_attention)
-    n0 = paged_decode_attention.launches
-    out_n = paged_decode_attention(q, pool_k, layer, table, lengths, scale=scale,
-                                   k_cur=k_cur, v_cur=v_cur)
-    torch.cuda.synchronize()
-    require(paged_decode_attention.launches == n0 + 1, "K1' did not launch")
-    err_n = expect_close("K1' out", out_n, paged_decode_attention_ref(
-        q, pool_k[layer], table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur),
-        BF16_ATOL, BF16_RTOL)
-    ms_n, call_ms_n = timed(lambda: paged_decode_attention(
-        q, pool_k, layer, table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur))
-    plain_ms_n, _ = timed(lambda: paged_decode_attention_ref(
-        q, pool_k[layer], table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur))
-    tokens = int(lengths.sum())
-    nbytes = (
-        2 * q.numel() * 2  # q in, out
-        + 2 * k_cur.numel() * 2 * 2  # current K/V in, committed K/V out
-        + tokens * 2 * G * hdp * 2  # settled history, read once
-        + table.numel() * 4 + B * 4
-    )
-    flops = 4 * G * N * hd * (tokens + B)  # q.k and p.v per attended column
-    b_ms, by = bound(nbytes, flops)
-    b_ms_n, by_n = bound(nbytes - 2 * k_cur.numel() * 2, flops)  # no commit write
-    log(f"K1' paged decode without commit, same inputs: max_abs_err={err_n:.3e} "
-        f"kernel_ms={ms_n:.4f} plain_ms={plain_ms_n:.4f} bound_ms={b_ms_n:.5f} "
-        f"({by_n}); per call with host "
-        f"overhead {call_ms_n:.4f}")
-    log(f"K1 paged decode+commit B={B} Hq={G * N} hd={hd} ps={ps} "
-        f"lengths<=576: max_abs_err={err:.3e} pool bit-equal; kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host "
-        f"overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=None)
+        def kern():
+            paged_decode_attention_commit(q, pool_k, layer, table, lengths, **kw)
+
+        def plain():
+            paged_decode_attention_ref(q, pool_p[layer], table, lengths, **kw)
+            PagedKVCache(pool_p, table, lengths).append_token(layer, k_cur, v_cur)
+
+        (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+        alone = kernel_alone_ms(kern, "paged_decode")
+        # K1': the same kernel without the commit (paged_decode_attention)
+        n0 = paged_decode_attention.launches
+        out_n = paged_decode_attention(q, pool_k, layer, table, lengths, **kw)
+        torch.cuda.synchronize()
+        require(paged_decode_attention.launches == n0 + 1, "K1' did not launch")
+        err_n = expect_close(f"K1' out {label}", out_n, paged_decode_attention_ref(
+            q, pool_k[layer], table, lengths, **kw), BF16_ATOL, BF16_RTOL)
+        nocommit = lambda: paged_decode_attention(q, pool_k, layer, table, lengths, **kw)  # noqa: E731
+        ms_n, call_ms_n = timed(nocommit)
+        alone_n = kernel_alone_ms(nocommit, "paged_decode")
+        plain_ms_n, _ = timed(lambda: paged_decode_attention_ref(
+            q, pool_k[layer], table, lengths, **kw))
+        cap = pps * DECODE_PS
+        nbytes, tokens = _decode_bytes(lengths, B, cap, int8=False, commit=True)
+        flops = 4 * DECODE_G * DECODE_N * DECODE_HD * (tokens + B)  # q.k and p.v a column
+        b_ms, by = bound(nbytes, flops)
+        b_ms_n, by_n = bound(_decode_bytes(lengths, B, cap, int8=False, commit=False)[0],
+                             flops)
+        log(f"K1' paged decode without commit {label}: max_abs_err={err_n:.3e} "
+            f"kernel_ms={ms_n:.4f} (kernel alone {_fmt(alone_n)}) plain_ms={plain_ms_n:.4f} "
+            f"bound_ms={b_ms_n:.5f} ({by_n}); per call with host overhead {call_ms_n:.4f}")
+        log(f"K1 paged decode+commit {label} Hq={DECODE_G * DECODE_N} hd={DECODE_HD} "
+            f"ps={DECODE_PS}, {tokens} tokens: max_abs_err={err:.3e} pool bit-equal; "
+            f"kernel_ms={ms:.4f} (kernel alone {_fmt(alone)}; bound share "
+            f"{b_ms / ms:.3f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call "
+            f"with host overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+        if result is None:  # the kernels line keeps the serving shape
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=by, library_ms=None)
+            # where the time goes: every row at one length (tiles a row)
+            parts = []
+            for uni in (0, 1, 128, 129, 256, 576):
+                lens_u = torch.full_like(lengths, uni)
+                run = lambda: paged_decode_attention_commit(  # noqa: E731
+                    q, pool_k, layer, table, lens_u, **kw)
+                parts.append(f"{uni}: {_fmt(kernel_alone_ms(run, 'paged_decode'))}")
+            log(f"K1 kernel alone {label.split()[0]} with every row at one length: "
+                + ", ".join(parts) + " ms")
+        result["max_abs_err"] = max(result["max_abs_err"], err, err_n)
+        del pool_k, pool_p
+        torch.cuda.empty_cache()
+    return result
 
 
 def check_k4(gen):
-    """K4 (int8 pool) at the serving shapes of K1: output against the plain
-    version, the committed int8 pool byte-equal and the scales equal to the
-    plain append's (quantize_kv)."""
+    """K4 (int8 pool) at both decode shapes: output against the plain
+    version (bf16 queries, and fp32 queries at the fp32 tolerance), the
+    committed int8 pool byte-equal and the scales equal to the plain
+    append's (quantize_kv)."""
     import torch
 
     from vats_tpu_torch.ops.decode_attention import (
         PagedKVCache,
         paged_decode_attention_commit_int8,
         paged_decode_attention_ref,
-        quantize_kv,
     )
 
     dev = "cuda"
-    L, B, G, N, hd, hdp, ps, pps = 20, 32, 8, 3, 60, 64, 128, 5
-    layer, scale = 7, 1.0 / hd**0.5
-    P = B * pps
-    hist = torch.randn((L, P, 2, G, ps, hd), generator=gen, device=dev)
-    q8, sc = quantize_kv(hist)  # every slot holds a quantized token
-    pool = torch.zeros((L, P, 2, G, ps, hdp), dtype=torch.int8, device=dev)
-    pool[..., :hd] = q8
-    del hist, q8
-    lens = torch.randint(1, 577, (B,), generator=gen, device=dev)
-    lens[:6] = torch.tensor([0, 1, 127, 128, 576, pps * ps], device=dev)
-    lengths = lens.to(torch.int32)
-    table = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, pps)
-    q = torch.randn((B, G * N, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k_cur = torch.randn((B, G, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v_cur = torch.randn((B, G, hd), generator=gen, device=dev).to(torch.bfloat16)
-
-    pool_k, pool_p, sc_k, sc_p = pool.clone(), pool.clone(), sc.clone(), sc.clone()
-    n0 = paged_decode_attention_commit_int8.launches
-    out_k = paged_decode_attention_commit_int8(
-        q, pool_k, sc_k, layer, table, lengths, scale=scale, k_cur=k_cur, v_cur=v_cur)
-    out_p = paged_decode_attention_ref(q, pool_p[layer], table, lengths, scale=scale,
-                                       k_cur=k_cur, v_cur=v_cur, kv_scales=sc_p[layer])
-    PagedKVCache(pool_p, table, lengths, sc_p).append_token(layer, k_cur, v_cur)
-    torch.cuda.synchronize()
-    require(paged_decode_attention_commit_int8.launches == n0 + 1, "K4 did not launch")
-    err = expect_close("K4 out", out_k, out_p, BF16_ATOL, BF16_RTOL)
-    if not torch.equal(pool_k, pool_p):
-        raise AssertionError("K4 committed int8 pool differs from the plain append")
-    sc_err = float(((sc_k - sc_p).abs() / sc_p.abs().clamp(min=1e-30)).max())
-    require(sc_err <= 1e-6, f"K4 committed scales differ: max rel err {sc_err:.3e}")
-    # fp32 queries: the output in fp32, no bf16 rounding to hide behind
-    q32 = q.float() + 1e-3 * torch.randn(q.shape, generator=gen, device=dev)
-    err32 = expect_close(
-        "K4 fp32 out",
-        paged_decode_attention_commit_int8(q32, pool_k.clone(), sc_k.clone(), layer,
-                                           table, lengths, scale=scale,
-                                           k_cur=k_cur.float(), v_cur=v_cur.float()),
-        paged_decode_attention_ref(q32, pool_k[layer], table, lengths, scale=scale,
-                                   k_cur=k_cur.float(), v_cur=v_cur.float(),
-                                   kv_scales=sc_k[layer]),
-        K4_F32_ATOL, K4_F32_RTOL)
-
-    def kern():
-        paged_decode_attention_commit_int8(q, pool_k, sc_k, layer, table, lengths,
-                                           scale=scale, k_cur=k_cur, v_cur=v_cur)
-
-    def plain():
-        paged_decode_attention_ref(q, pool_p[layer], table, lengths, scale=scale,
-                                   k_cur=k_cur, v_cur=v_cur, kv_scales=sc_p[layer])
+    layer, scale = 7, 1.0 / DECODE_HD**0.5
+    result = None
+    for label, B, pps, fixed, hi in DECODE_SHAPES:
+        pool, sc, table, lengths, q, k_cur, v_cur = _decode_inputs(gen, B, pps, fixed, hi,
+                                                                  int8=True)
+        kw = dict(scale=scale, k_cur=k_cur, v_cur=v_cur)
+        pool_k, pool_p, sc_k, sc_p = pool.clone(), pool.clone(), sc.clone(), sc.clone()
+        del pool, sc
+        n0 = paged_decode_attention_commit_int8.launches
+        out_k = paged_decode_attention_commit_int8(q, pool_k, sc_k, layer, table, lengths,
+                                                   **kw)
+        out_p = paged_decode_attention_ref(q, pool_p[layer], table, lengths,
+                                           kv_scales=sc_p[layer], **kw)
         PagedKVCache(pool_p, table, lengths, sc_p).append_token(layer, k_cur, v_cur)
+        torch.cuda.synchronize()
+        require(paged_decode_attention_commit_int8.launches == n0 + 1, "K4 did not launch")
+        err = expect_close(f"K4 out {label}", out_k, out_p, BF16_ATOL, BF16_RTOL)
+        if not torch.equal(pool_k, pool_p):
+            raise AssertionError(f"K4 committed int8 pool differs from the plain append "
+                                 f"({label})")
+        sc_err = float(((sc_k - sc_p).abs() / sc_p.abs().clamp(min=1e-30)).max())
+        require(sc_err <= 1e-6, f"K4 committed scales differ: max rel err {sc_err:.3e}")
+        # fp32 queries: the output in fp32, no bf16 rounding to hide behind
+        q32 = q.float() + 1e-3 * torch.randn(q.shape, generator=gen, device=dev)
+        kw32 = dict(scale=scale, k_cur=k_cur.float(), v_cur=v_cur.float())
+        err32 = expect_close(
+            f"K4 fp32 out {label}",
+            paged_decode_attention_commit_int8(q32, pool_k.clone(), sc_k.clone(), layer,
+                                               table, lengths, **kw32),
+            paged_decode_attention_ref(q32, pool_k[layer], table, lengths,
+                                       kv_scales=sc_k[layer], **kw32),
+            K4_F32_ATOL, K4_F32_RTOL)
 
-    (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
-    tokens = int(lengths.sum())
-    nbytes = (
-        2 * q.numel() * 2  # q in, out (bf16)
-        + k_cur.numel() * 2 * 2  # current K/V in (bf16)
-        + 2 * B * G * (hdp + 4)  # committed int8 K/V and their scales out
-        + tokens * 2 * G * (hdp + 4)  # settled int8 history and scales, read once
-        + table.numel() * 4 + B * 4
-    )
-    flops = 4 * G * N * hd * (tokens + B)
-    b_ms, by = bound(nbytes, flops)
-    log(f"K4 int8 paged decode+commit B={B} Hq={G * N} hd={hd} ps={ps} "
-        f"lengths<=576: max_abs_err={err:.3e} (fp32 queries {err32:.3e}), int8 pool "
-        f"byte-equal, scales max rel err {sc_err:.1e}; kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host "
-        f"overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
-    return dict(max_abs_err=max(err, err32), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=None)
+        def kern():
+            paged_decode_attention_commit_int8(q, pool_k, sc_k, layer, table, lengths, **kw)
+
+        def plain():
+            paged_decode_attention_ref(q, pool_p[layer], table, lengths,
+                                       kv_scales=sc_p[layer], **kw)
+            PagedKVCache(pool_p, table, lengths, sc_p).append_token(layer, k_cur, v_cur)
+
+        (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+        alone = kernel_alone_ms(kern, "paged_decode")
+        nbytes, tokens = _decode_bytes(lengths, B, pps * DECODE_PS, int8=True, commit=True)
+        b_ms, by = bound(nbytes, 4 * DECODE_G * DECODE_N * DECODE_HD * (tokens + B))
+        log(f"K4 int8 paged decode+commit {label} Hq={DECODE_G * DECODE_N} hd={DECODE_HD} "
+            f"ps={DECODE_PS}, {tokens} tokens: max_abs_err={err:.3e} (fp32 queries "
+            f"{err32:.3e}), int8 pool byte-equal, scales max rel err {sc_err:.1e}; "
+            f"kernel_ms={ms:.4f} (kernel alone {_fmt(alone)}; bound share "
+            f"{b_ms / ms:.3f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per "
+            f"call with host overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+        if result is None:  # the kernels line keeps the serving shape
+            result = dict(max_abs_err=max(err, err32), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=by, library_ms=None)
+        result["max_abs_err"] = max(result["max_abs_err"], err, err32)
+        del pool_k, pool_p, sc_k, sc_p
+        torch.cuda.empty_cache()
+    return result
 
 
 def check_k2(gen):
@@ -420,7 +530,9 @@ def check_k2(gen):
     kw2 = dict(scale=scale, causal=True, left_window=100, kv_valid=valid,
                q_segment_ids=seg, kv_segment_ids=seg)
     err2 = expect_close("K2 masked out", flash_attention(q, k, v, **kw2),
-                        flash_attention_ref(q, k, v, **kw2), BF16_ATOL, BF16_RTOL)
+                        flash_attention_ref(q, k, v, **kw2), BF16_ATOL, BF16_RTOL,
+                        p_flip_allowance(q, k, v, **kw2))
+    noise = flip_noise(flash_attention_ref, q, k, v, **kw2)
     # the ring's steady state: T = S = 2048, up to 16 key tiles a query tile
     TL, BL = 2048, 2
     ql, kl, vl = mk(BL, TL, Hq, hd), mk(BL, TL, G, hd), mk(BL, TL, G, hd)
@@ -439,7 +551,10 @@ def check_k2(gen):
                   flash_flops(BL, TL, Hq, hd))
     log(f"K2 flash forward B={B} T={T} Hq={Hq} G={G} hd={hd} causal: "
         f"max_abs_err={err:.3e} (padded/window/segments {err2:.3e}, T=S=2048 "
-        f"{err3:.3e}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"{err3:.3e}; within {BF16_ATOL} + {BF16_RTOL}*|ref|, the padded case + the p "
+        f"flip allowance; the plain version against itself with scale*(1+1e-6) there: "
+        f"max {noise[0]:.3e}, {noise[1]} elements beyond {BF16_ATOL} + {BF16_RTOL}*|ref|)"
+        f"; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
         f"{library_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call with host overhead: "
         f"kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
     return dict(max_abs_err=max(err, err2, err3), ms=ms, plain_ms=plain_ms,
@@ -570,7 +685,8 @@ def check_k2_lse(gen):
     o_p, lse_p = flash_attention_lse_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     require(flash_attention_lse.launches == n0 + 1, "K2' did not launch")
-    err = expect_close("K2' out", o_k, o_p, BF16_ATOL, BF16_RTOL)
+    err = expect_close("K2' out", o_k, o_p, BF16_ATOL, BF16_RTOL,
+                       p_flip_allowance(q, k, v, **kw))
     err_l = expect_close("K2' lse", lse_k, lse_p, 1e-4, 1e-5)
     # small padded case: dead rows (lse 1e30, output 0), segments, a window
     qs, ks, vs, _ = _train_attention_inputs(gen, 2, 200, 6, 2, hd)
@@ -581,7 +697,8 @@ def check_k2_lse(gen):
                q_segment_ids=seg, kv_segment_ids=seg)
     o2k, l2k = flash_attention_lse(qs, ks, vs, **kw2)
     o2p, l2p = flash_attention_lse_ref(qs, ks, vs, **kw2)
-    err2 = max(expect_close("K2' padded out", o2k, o2p, BF16_ATOL, BF16_RTOL),
+    err2 = max(expect_close("K2' padded out", o2k, o2p, BF16_ATOL, BF16_RTOL,
+                            p_flip_allowance(qs, ks, vs, **kw2)),
                expect_close("K2' padded lse", l2k, l2p, 1e-4, 1e-5))
     require(bool((l2k[1, :, :7] == 1e30).all()) and bool((o2k[1, :7] == 0).all()),
             "K2': a row with no key must give lse 1e30 and output 0")
@@ -1070,6 +1187,80 @@ def profile_breakdown(label, fn, top=10, also=()):
 # and two layers at d_model 1440 carry that to the logits.  Logits are
 # O(1) here (tied readout of std-0.02 embeddings over a unit-RMS state).
 LOGIT_ATOL = 0.08
+# An MoE router picks its top-2 experts from fp32 probabilities that the
+# card and the CPU compute slightly apart (bf16 upstream).  Where the k-th
+# and the next expert are closer than that, the two sides pick different
+# experts for the token, and its FFN output, so its logits, move by far more
+# than LOGIT_ATOL.  Such a flip is excused only as a near tie on both sides:
+# every flipped expert's probability within twice the token's own card-CPU
+# probability gap of the k-th (a rounding flip always is).  It excuses the
+# logit bound at its row's step and, when it was below the last layer (whose
+# K/V carry it), at that row's later steps; at most ROUTER_EXCUSED (row,
+# step) pairs may be excused, and the greedy tokens are held at every step.
+ROUTER_EXCUSED = 1
+
+
+def router_log(model):
+    """Forward hooks on the model's routers: returns (calls, handles); every
+    router call appends (experts [tokens, k], probabilities [tokens, E]) on
+    the CPU to ``calls``.  The hook recomputes the router's probabilities
+    with the router's own expression and checks that they give its experts
+    and weights bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from vats_tpu_torch.nn.moe import TopKRouter
+
+    calls = []
+
+    def hook(mod, args, out):
+        probs = torch.softmax(F.linear(args[0].float(), mod.router.weight.float(),
+                                       mod.router.bias.float()), dim=-1)
+        vals, idx = torch.topk(probs, mod.top_k, dim=-1)
+        weights = (vals / vals.sum(dim=-1, keepdim=True)).to(mod.dtype)
+        if not (torch.equal(idx, out[1]) and torch.equal(weights, out[0])):
+            raise AssertionError("router hook: probabilities other than the router's")
+        calls.append((out[1].cpu(), probs.cpu()))
+
+    return calls, [m.register_forward_hook(hook) for m in model.modules()
+                   if isinstance(m, TopKRouter)]
+
+
+def router_flips(name, calls_g, calls_c, layers, t, last, steps):
+    """The (row, step) pairs a router flip excuses, a report of every flip,
+    and the largest card-CPU probability gap at each layer's router.
+    Router call j is layer j % layers of forward j // layers (0: the prefill
+    of t tokens a row, read out at ``last``; then one decode step a
+    forward).  Raises on a flip that is not a near tie on both sides, and on
+    more than ROUTER_EXCUSED excused pairs."""
+    excused, seen, gap_max = set(), [], [0.0] * layers
+    for j, ((eg, pg), (ec, pc)) in enumerate(zip(calls_g, calls_c)):
+        step, layer = divmod(j, layers)
+        k = eg.shape[1]
+        gaps = (pg - pc).abs().amax(dim=-1)  # [tokens]
+        gap_max[layer] = max(gap_max[layer], float(gaps.max()))
+        for tok in range(eg.shape[0]):
+            diff = set(eg[tok].tolist()) ^ set(ec[tok].tolist())
+            if not diff:
+                continue
+            gap = float(gaps[tok])
+            for probs in (pg[tok], pc[tok]):
+                kth = float(probs.topk(k).values[-1])
+                if any(abs(float(probs[e]) - kth) > 2 * gap for e in diff):
+                    raise AssertionError(f"{name}: router call {j} token {tok} picks other "
+                                         f"experts on the card and the CPU, not a near tie")
+            row, pos = divmod(tok, t) if step == 0 else (tok, None)
+            seen.append(f"forward {step} layer {layer} row {row}"
+                        + (f" position {pos}" if pos is not None else "")
+                        + f" (gap {gap:.1e})")
+            if step == 0 and pos != int(last[row]):
+                continue  # a prefill position the readout does not read
+            excused.update((row, s) for s in range(step, steps if layer < layers - 1
+                                                    else step + 1))
+    if len(excused) > ROUTER_EXCUSED:
+        raise AssertionError(f"{name}: router flips excuse (row, step) {sorted(excused)}, "
+                             f"more than {ROUTER_EXCUSED}")
+    return excused, seen, gap_max
 
 
 def _paged_logits(model, ids, mask, gen_tokens, steps):
@@ -1184,15 +1375,32 @@ def run_parity():
         gen_c = torch.stack([tc[r, int(start[r]):int(start[r]) + steps] for r in range(2)])
         gen_g = torch.stack([tg.cpu()[r, int(start[r]):int(start[r]) + steps]
                              for r in range(2)])
-        logit_c = logits_fn(cpu, ids, mask, gen_c, steps)
-        logit_g = logits_fn(gpu, ids.cuda(), mask.cuda(), gen_c.cuda(), steps)
-        err = float((logit_c - logit_g).abs().max())
+        runs = {}
+        for side, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+            calls, handles = router_log(model)
+            logits = logits_fn(model, ids.to(dev), mask.to(dev), gen_c.to(dev), steps)
+            for h in handles:
+                h.remove()
+            runs[side] = (logits, calls)
+        (logit_c, calls_c), (logit_g, calls_g) = runs["cpu"], runs["cuda"]
+        excused, flips, gap_max = router_flips(name, calls_g, calls_c, cfg.num_layers, T,
+                                               mask.sum(1) - 1, steps)
+        errs = (logit_c - logit_g).abs().amax(dim=-1)  # [B, steps]
+        held = torch.ones_like(errs, dtype=torch.bool)
+        for r, s_ in excused:
+            held[r, s_] = False
+        err = float(errs[held].max())
         if not err <= LOGIT_ATOL or not bool(torch.isfinite(logit_g).all()):
             raise AssertionError(f"{name}: step logits differ by {err:.3e} > {LOGIT_ATOL}")
         exact, ties, free = _compare_greedy(name, gen_g, gen_c, logit_c, logit_g)
         report.append(
             f"{name}: max |logit err| {err:.3e} over {steps} steps "
-            f"(|logits| <= {float(logit_c.abs().max()):.2f}); teacher-forced greedy "
+            f"(|logits| <= {float(logit_c.abs().max()):.2f}); router card-CPU "
+            f"probability gap at most {', '.join(f'{x:.2e}' for x in gap_max)} by layer; "
+            f"near-tie expert flips "
+            f"{len(flips)} ({', '.join(flips) or 'none'}), excusing (row, step) "
+            f"{sorted(excused)} (max |logit err| there "
+            f"{float(errs[~held].max()) if excused else 0.0:.3e}); teacher-forced greedy "
             f"tokens {exact}/{2 * steps} equal, {ties} near ties; free-running "
             f"tokens equal for the first {free}/{2 * steps}")
     log("parity (2 layers, full width, card vs CPU): " + "; ".join(report))
@@ -1498,16 +1706,18 @@ def main(argv=None) -> int:
              replaces="vats_tpu/ops/flash_attention.py:344", fn=fa.flash_bwd_dq,
              path="train"),
     ]
-    gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     if "kernels" in phases:
-        results["paged_decode_attention_commit"] = check_k1(gen)
-        results["paged_decode_attention_commit_int8"] = check_k4(gen)
-        results["flash_attention_forward"] = check_k2(gen)
-        results["dense_cache_append"] = check_k3(gen)
-        results["flash_attention_forward_lse"] = check_k2_lse(gen)
+        # each check draws its inputs from its own seed, so a change to one
+        # check leaves the others' inputs as they were
+        gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+        results["paged_decode_attention_commit"] = check_k1(gen(0))
+        results["paged_decode_attention_commit_int8"] = check_k4(gen(1))
+        results["flash_attention_forward"] = check_k2(gen(2))
+        results["dense_cache_append"] = check_k3(gen(3))
+        results["flash_attention_forward_lse"] = check_k2_lse(gen(4))
         (results["flash_attention_backward_dkv"],
-         results["flash_attention_backward_dq"]) = check_k5(gen)
+         results["flash_attention_backward_dq"]) = check_k5(gen(5))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}}
     runners = {

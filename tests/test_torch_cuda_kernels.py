@@ -42,15 +42,28 @@ def rand(gen, *shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize(
-    "dtype,g,n,hd,ps,lengths",
+    "dtype,qdtype,g,n,hd,ps,lengths",
     [
-        (torch.bfloat16, 8, 3, 60, 128, [0, 1, 127, 128, 129, 384]),  # 384 = capacity
-        (torch.float32, 2, 1, 12, 128, [5, 200, 0]),
-        (torch.bfloat16, 1, 8, 128, 256, [255, 256, 511]),
-        (torch.float32, 4, 2, 64, 128, [300, 17]),
+        # 384 = capacity: the commit clamps to the last slot
+        (torch.bfloat16, torch.bfloat16, 8, 3, 60, 128, [0, 1, 127, 128, 129, 384]),
+        # long and ragged: up to 32 tiles a row combined in the kernel, 4096 at capacity
+        (torch.bfloat16, torch.bfloat16, 8, 3, 60, 128, [0, 1, 128, 129, 2047, 4096]),
+        (torch.bfloat16, torch.bfloat16, 8, 3, 60, 256, [0, 255, 256, 257, 1000]),
+        (torch.bfloat16, torch.float32, 8, 3, 60, 128, [0, 129, 700]),  # fp32 q, bf16 pool
+        (torch.float32, torch.float32, 2, 1, 12, 128, [5, 200, 0]),
+        (torch.bfloat16, torch.bfloat16, 1, 8, 128, 256, [255, 256, 511]),
+        (torch.bfloat16, torch.bfloat16, 2, 8, 128, 128, [0, 130, 1500]),
+        (torch.float32, torch.float32, 4, 2, 64, 128, [300, 17]),
+        (torch.float32, torch.bfloat16, 4, 2, 64, 128, [300, 17]),  # bf16 q, fp32 pool
     ],
 )
-def test_paged_decode_commit_matches_plain(gen, dtype, g, n, hd, ps, lengths):
+def test_paged_decode_commit_matches_plain(gen, dtype, qdtype, g, n, hd, ps, lengths):
+    """K1 and K1' against the tiled plain version: output (in q's dtype),
+    the committed pool bit-equal; K1' writes nothing.  Either side of a
+    bf16 pool rounds p to bf16, and their fp32 p differ in the last bits
+    (sums in another order), which now and then flips one rounding: an fp32
+    output over a bf16 pool is held to the bf16 tolerance."""
+    tol = TOL[torch.float32 if dtype == qdtype == torch.float32 else torch.bfloat16]
     b = len(lengths)
     pps = -(-max(lengths + [1]) // ps)
     hdp = -(-hd // 8) * 8
@@ -59,8 +72,8 @@ def test_paged_decode_commit_matches_plain(gen, dtype, g, n, hd, ps, lengths):
     table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
     table = table.reshape(b, pps)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    q = rand(gen, b, g * n, hd, dtype=dtype)
-    kc, vc = rand(gen, b, g, hd, dtype=dtype), rand(gen, b, g, hd, dtype=dtype)
+    q = rand(gen, b, g * n, hd, dtype=qdtype)
+    kc, vc = rand(gen, b, g, hd, dtype=qdtype), rand(gen, b, g, hd, dtype=qdtype)
     pk, pp = pool.clone(), pool.clone()
     n0 = da.paged_decode_attention_commit.launches
     out = da.paged_decode_attention_commit(q, pk, 2, table, lens, scale=0.2,
@@ -70,7 +83,8 @@ def test_paged_decode_commit_matches_plain(gen, dtype, g, n, hd, ps, lengths):
     da.PagedKVCache(pp, table, lens).append_token(2, kc, vc)
     torch.cuda.synchronize()
     assert da.paged_decode_attention_commit.launches == n0 + 1
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert out.dtype == qdtype
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
     assert torch.equal(pk, pp)
     # K1' (no commit) writes nothing; it attends the committed pool, whose
     # clamped slot changed for a row at capacity
@@ -81,15 +95,99 @@ def test_paged_decode_commit_matches_plain(gen, dtype, g, n, hd, ps, lengths):
                                          k_cur=kc, v_cur=vc)
     torch.cuda.synchronize()
     assert torch.equal(before, pk)
-    torch.testing.assert_close(out2.float(), ref2.float(), **TOL[dtype])
+    torch.testing.assert_close(out2.float(), ref2.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_paged_decode_repeats_bit_equal_and_clamps_past_capacity(gen, dtype):
+    """Three calls on the same inputs give equal bits (the per-row counters
+    reset, the tiles combine in tile order, not arrival order), as do
+    strided q / k_cur / v_cur views; rows past the table's capacity attend
+    its whole capacity and commit into the last slot, as the plain version
+    does."""
+    b, g, n, hd, ps, pps = 5, 8, 3, 60, 128, 6
+    lengths = [900, 768, 767, 2000, 129]  # capacity 768: two rows past it
+    c = da.PagedKVCache.create(3, b * pps, ps, g, hd, page_size=ps, dtype=dtype,
+                               device="cuda")
+    hist = rand(gen, 3, b * pps * ps, 2, g, hd)
+    if dtype == torch.int8:
+        q8, sc = da.quantize_kv(hist)
+        c.kv_pages[..., :hd] = q8.reshape(3, b * pps, ps, 2, g, hd).permute(0, 1, 3, 4, 2, 5)
+        c.kv_scales[:] = sc.reshape(3, b * pps, ps, 2, g).permute(0, 1, 3, 4, 2)
+    else:
+        c.kv_pages[..., :hd] = hist.reshape(3, b * pps, ps, 2, g, hd).permute(
+            0, 1, 3, 4, 2, 5).to(dtype)
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+    table = table.reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qkv = rand(gen, b, g * (n + 2), hd, dtype=torch.bfloat16)  # one fused projection
+    q, kc, vc = qkv[:, :g * n], qkv[:, g * n:g * (n + 1)], qkv[:, g * (n + 1):]
+    assert not q.is_contiguous() and not kc.is_contiguous()
+    runs = []
+    for _ in range(3):
+        pk = c.kv_pages.clone()
+        sk = c.kv_scales.clone() if c.quantized else None
+        runs.append((da.paged_decode_attention_commit(
+            q, pk, 1, table, lens, scale=0.2, k_cur=kc, v_cur=vc, kv_scales=sk), pk, sk))
+    torch.cuda.synchronize()
+    for out, pk, sk in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(pk, runs[0][1])
+        assert sk is None or torch.equal(sk, runs[0][2])
+    out_c = da.paged_decode_attention_commit(
+        q.contiguous(), c.kv_pages.clone(), 1, table, lens, scale=0.2,
+        k_cur=kc.contiguous(), v_cur=vc.contiguous(),
+        kv_scales=c.kv_scales.clone() if c.quantized else None)
+    assert torch.equal(out_c, runs[0][0])
+    sc_l = c.kv_scales[1] if c.quantized else None
+    ref = da.paged_decode_attention_ref(q, c.kv_pages[1], table, lens, scale=0.2,
+                                        k_cur=kc, v_cur=vc, kv_scales=sc_l)
+    torch.testing.assert_close(out_c.float(), ref.float(), **TOL[torch.bfloat16])
+    da.PagedKVCache(c.kv_pages, table, lens, c.kv_scales).append_token(1, kc, vc)
+    assert torch.equal(runs[0][1], c.kv_pages)
+    if c.quantized:
+        torch.testing.assert_close(runs[0][2], c.kv_scales, rtol=1e-6, atol=0)
+
+
+def test_paged_decode_on_two_streams_at_once(gen):
+    """Calls on two streams that overlap on the card: each stream keeps its
+    own per-row counters, so every output equals the same call made alone
+    (a shared counter would combine rows before all their tiles arrived)."""
+    b, g, n, hd, ps, pps = 6, 8, 3, 60, 128, 8
+    pool = rand(gen, 2, b * pps, 2, g, ps, 64, dtype=torch.bfloat16)
+    pool[..., hd:] = 0
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+    table = table.reshape(b, pps)
+    lens = torch.tensor([1000, 5, 129, 700, 1024, 300], dtype=torch.int32, device="cuda")
+    args = [[rand(gen, b, g * k, hd, dtype=torch.bfloat16) for k in (n, 1, 1)]
+            for _ in range(2)]
+
+    def call(q, kc, vc):
+        return da.paged_decode_attention(q, pool, 1, table, lens, scale=0.2,
+                                         k_cur=kc, v_cur=vc)
+
+    want = [call(*a) for a in args]
+    streams = [torch.cuda.Stream() for _ in args]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(call(*args[i]))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        for out in got:
+            assert torch.equal(out, want[i])
 
 
 @pytest.mark.parametrize(
     "qdtype,g,n,hd,ps,lengths",
     [
         (torch.bfloat16, 8, 3, 60, 128, [0, 1, 127, 128, 129, 384]),  # 384 = capacity
+        (torch.bfloat16, 8, 3, 60, 128, [0, 1, 128, 129, 2047, 4096]),  # up to 32 tiles
+        (torch.bfloat16, 8, 3, 60, 256, [0, 255, 256, 257, 1000]),
         (torch.float32, 2, 1, 12, 128, [5, 200, 0]),
         (torch.float32, 1, 8, 128, 256, [255, 256, 511]),
+        (torch.float32, 2, 8, 128, 128, [0, 130, 1500]),
         (torch.bfloat16, 4, 2, 40, 128, [300, 17]),  # hd 40 pads to 48
     ],
 )
@@ -467,3 +565,27 @@ def test_tiny_model_on_the_card_matches_the_cpu(gen, left_window):
     assert fa.flash_attention.launches == counts[0] + prefills * cfg.num_layers
     assert da.paged_decode_attention_commit.launches == counts[1] + 6 * cfg.num_layers
     assert ca.append_token_inplace.launches == counts[2] + 6 * cfg.num_layers
+
+
+def test_fused_ce_bf16_on_the_card_matches_the_cpu(gen):
+    """The bf16 readout product with fp32 logits: one GEMM with fp32 output
+    on the card, upcast operands on the CPU; both sum exact bf16 products in
+    fp32 (in another order), so the loss agrees to fp32 rounding and each
+    bf16-rounded gradient to a bf16 ulp of its largest element."""
+    from vats_tpu_torch.train.metrics import fused_linear_cross_entropy
+
+    hidden = rand(gen, 2, 70, 96)
+    readout = 0.3 * rand(gen, 500, 96)
+    labels = torch.randint(0, 500, (2, 70), generator=gen, device="cuda")
+    labels[0, -9:] = -100
+    res = []
+    for dev in ("cuda", "cpu"):
+        h = hidden.to(dev).requires_grad_()
+        w = readout.to(dev).requires_grad_()
+        loss = fused_linear_cross_entropy(h, w, labels.to(dev), chunk=32,
+                                          compute_dtype=torch.bfloat16)
+        res.append((loss, *torch.autograd.grad(loss, (h, w))))
+    (lg, *gg), (lc, *gc) = res
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+    for a, b_ in zip(gg, gc):
+        torch.testing.assert_close(a.cpu(), b_, rtol=0, atol=1e-2 * float(b_.abs().max()))

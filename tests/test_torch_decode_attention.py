@@ -27,13 +27,13 @@ def to_jax_layout(pool):
     return np.swapaxes(pool.numpy(), -1, -2)
 
 
-def filled_caches(b, g, hd, s, lengths, seed):
+def filled_caches(b, g, hd, s, lengths, seed, page_size=PS):
     """Both packages' caches with every slot of layer 1 written, then the
     given lengths (slots past a length hold stale values the masks hide)."""
     rs = np.random.RandomState(seed)
     ks = rs.randn(b, s, g, hd).astype(np.float32)
     vs = rs.randn(b, s, g, hd).astype(np.float32)
-    jc = jda.PagedKVCache.create(2, b, s, g, hd, page_size=PS, dtype=jnp.float32)
+    jc = jda.PagedKVCache.create(2, b, s, g, hd, page_size=page_size, dtype=jnp.float32)
     jc = jc.append_tokens(1, jnp.asarray(ks), jnp.asarray(vs))
     jc = jc.replace(lengths=jnp.asarray(lengths, jnp.int32))
     tc = tda.PagedKVCache(
@@ -97,6 +97,84 @@ def test_plain_decode_matches_jax_pallas_kernel_interpret():
     )
     assert torch.equal(before, tc.kv_pages)
     np.testing.assert_allclose(out2.numpy(), out.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("page_size,lengths", [
+    (128, [0, 127, 128, 129, 1000]),  # up to 8 tiles, ragged last tiles
+    (256, [0, 255, 256, 257, 1000]),  # two tiles a page
+])
+def test_tiled_plain_decode_fp32_matches_jax_oracle(page_size, lengths):
+    """fp32 pools: the plain version's 128-token tiles, each against its own
+    max and merged through the LSE, give the XLA oracle's one softmax to
+    fp32 rounding (p stays fp32), and commit into the clamped slot."""
+    b, hq, g, hd, s = len(lengths), 6, 2, 12, 1024
+    jc, tc = filled_caches(b, g, hd, s, lengths, seed=7, page_size=page_size)
+    rs = np.random.RandomState(8)
+    q = rs.randn(b, hq, hd).astype(np.float32)
+    kc = rs.randn(b, g, hd).astype(np.float32)
+    vc = rs.randn(b, g, hd).astype(np.float32)
+    ref = jda.paged_decode_attention_xla(
+        jnp.asarray(q), jc.kv_pages[1], jc.page_table, jc.lengths, scale=0.3,
+        k_cur=jnp.asarray(kc), v_cur=jnp.asarray(vc),
+    )
+    ref_pool = jc.append_token(1, jnp.asarray(kc), jnp.asarray(vc)).kv_pages
+    out = tda.paged_decode_attention_commit(
+        torch.from_numpy(q), tc.kv_pages, 1, tc.page_table, tc.lengths,
+        scale=0.3, k_cur=torch.from_numpy(kc), v_cur=torch.from_numpy(vc),
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
+    np.testing.assert_array_equal(to_jax_layout(tc.kv_pages), np.asarray(ref_pool))
+
+
+def test_plain_decode_bf16_pool_rounds_p_like_the_jax_kernel():
+    """bf16 pools: the plain version rounds each tile's p to bf16 before p.v,
+    as the JAX kernel (interpret mode) rounds p before its bf16 P.V product.
+    fp32 q and current token, so the output stays fp32 and the rounding
+    shows.  B=4 and an odd pages_per_seq make the JAX kernel stream one page
+    (one 128-token tile) per chunk, so its p is rounded per tile too, but
+    against its running max, not the tile's own: the two agree to the bf16
+    rounding of p (measured max 4.3e-4, mean 3.8e-5), closer than with p
+    kept in fp32 (max 7.9e-4, mean 8.4e-5).  The committed pool is
+    bit-equal."""
+    b, g, n, hd, s = 4, 8, 3, 60, 5 * PS
+    lengths = [0, 129, 384, 600]
+    rs = np.random.RandomState(21)
+    ks = rs.randn(b, s, g, hd).astype(np.float32)
+    vs = rs.randn(b, s, g, hd).astype(np.float32)
+    jc = jda.PagedKVCache.create(2, b, s, g, hd, page_size=PS, dtype=jnp.bfloat16)
+    jc = jc.append_tokens(1, jnp.asarray(ks), jnp.asarray(vs))
+    jc = jc.replace(lengths=jnp.asarray(lengths, jnp.int32))
+    pool = torch.from_numpy(np.swapaxes(np.asarray(jc.kv_pages, np.float32), -1, -2).copy())
+    tc = tda.PagedKVCache(
+        kv_pages=pool.to(torch.bfloat16),
+        page_table=torch.from_numpy(np.array(jc.page_table)),
+        lengths=torch.tensor(lengths, dtype=torch.int32), head_dim=hd,
+    )
+    q = rs.randn(b, g * n, hd).astype(np.float32)
+    kc = rs.randn(b, g, hd).astype(np.float32)
+    vc = rs.randn(b, g, hd).astype(np.float32)
+    ref, ref_pool = jda.paged_decode_attention_commit(
+        jnp.asarray(q), jc.kv_pages, 1, jc.page_table, jc.lengths, scale=hd**-0.5,
+        k_cur=jnp.asarray(kc), v_cur=jnp.asarray(vc), interpret=True,
+    )
+    ref = np.asarray(ref)
+    assert ref.dtype == np.float32
+    # p kept in fp32: the same tiles over the bf16 values, read as fp32
+    rounded = lambda x: torch.from_numpy(x).to(torch.bfloat16).float()  # noqa: E731
+    fp32_p = tda.paged_decode_attention_ref(
+        rounded(q), tc.kv_pages[1].float(), tc.page_table, tc.lengths, scale=hd**-0.5,
+        k_cur=rounded(kc), v_cur=rounded(vc),
+    ).numpy()
+    out = tda.paged_decode_attention_commit(
+        torch.from_numpy(q), tc.kv_pages, 1, tc.page_table, tc.lengths, scale=hd**-0.5,
+        k_cur=torch.from_numpy(kc), v_cur=torch.from_numpy(vc),
+    )
+    assert out.dtype == torch.float32
+    err = np.abs(out.numpy() - ref)
+    assert err.max() <= 2e-3
+    assert err.mean() < np.abs(fp32_p - ref).mean()
+    np.testing.assert_array_equal(
+        np.swapaxes(tc.kv_pages.float().numpy(), -1, -2), np.asarray(ref_pool, np.float32))
 
 
 def test_paged_cache_appends_match_jax():

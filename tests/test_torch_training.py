@@ -251,6 +251,39 @@ def test_compute_loss_and_fused_ce_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=1e-7, rtol=1e-5)
 
 
+@pytest.mark.parametrize("w_std", [0.2, 0.8])
+def test_fused_ce_bf16_product_gives_fp32_logits_like_jax(w_std):
+    """compute_dtype=bf16: bf16 operands, fp32 logits, as the JAX version's
+    ``preferred_element_type=float32``.  The loss equals JAX's to fp32
+    rounding (rtol 1e-6: the same exact products, sums in fp32; measured
+    1.4e-7 and 0).  Gradients: both round each to bf16 (the operands are bf16) and
+    sum the readout's over chunks in fp32; the port also rounds dlogits to
+    bf16 for its two backward products (bf16 GEMMs with fp32 output on the
+    card) where JAX keeps them fp32, so the two differ by about one bf16 ulp
+    of the largest element: held to 1e-2 * max|g| (measured 4.1e-3 to
+    5.8e-3 of it)."""
+    rs = np.random.RandomState(4)
+    b, t, d, v = 2, 40, 64, 300
+    hidden = rs.randn(b, t, d).astype(np.float32)
+    readout = (w_std * rs.randn(v, d)).astype(np.float32)
+    labels = rs.randint(0, v, (b, t)).astype(np.int32)
+    labels[0, -7:] = IGNORE_INDEX
+    th = torch.from_numpy(hidden).requires_grad_()
+    tw = torch.from_numpy(readout).requires_grad_()
+    loss = fused_linear_cross_entropy(th, tw, torch.from_numpy(labels), chunk=16,
+                                      compute_dtype=torch.bfloat16)
+    grads = torch.autograd.grad(loss, (th, tw))
+    jf = jax.value_and_grad(
+        lambda h, w: j_fused_ce(h, w, jnp.asarray(labels), chunk=16,
+                                compute_dtype=jnp.bfloat16), argnums=(0, 1))
+    jval, jgrads = jf(jnp.asarray(hidden), jnp.asarray(readout))
+    np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-6)
+    for g, jg in zip(grads, jgrads):
+        jg = np.asarray(jg)
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), jg, rtol=0, atol=1e-2 * np.abs(jg).max())
+
+
 @pytest.mark.parametrize("mu_dtype", [None, "bfloat16"])
 def test_adamw_matches_optax_over_three_steps(mu_dtype):
     rs = np.random.RandomState(3)

@@ -6,11 +6,11 @@ Counterpart of ``vats_tpu/ops/decode_attention.py``.
     ``[layers, num_pages, 2, kv_heads, page_size, head_dim_pad]``.  This is
     the port's own layout: head-dim minor, with head_dim zero-padded to a
     whole number of 16-byte vectors (8 elements for bf16/fp32 pools, 60 ->
-    64; 16 for int8 pools), so one token's K (or V) row is contiguous (128
-    bytes at hd 64 bf16, 64 bytes int8) for the kernel's 16-byte loads.  The
-    JAX pool is sequence-minor ``[.., head_dim_pad, page_size]`` for the
-    TPU's (8, 128) tiling.  The semantics carry over: page tables, the clamp
-    at capacity, zero pad rows.  int8 pools carry ``kv_scales``
+    64; 16 for int8 pools), so one 128-token tile of one (page, K or V,
+    group) is one contiguous block for the kernel's bulk copies.  The JAX
+    pool is sequence-minor ``[.., head_dim_pad, page_size]`` for the TPU's
+    (8, 128) tiling.  The semantics carry over: page tables, the clamp at
+    capacity, zero pad rows.  int8 pools carry ``kv_scales``
     ``[layers, num_pages, 2, kv_heads, page_size]`` fp32, one symmetric
     scale per (token, K/V, group) (the JAX scales pad kv_heads to 8 for
     Mosaic; Hopper needs no pad).  The cache is updated in place (the JAX
@@ -21,8 +21,11 @@ Counterpart of ``vats_tpu/ops/decode_attention.py``.
     page, in one launch of ``csrc/decode_attention.cu`` on CUDA tensors --
     K1 for bf16/fp32 pools, K4 (:func:`paged_decode_attention_commit_int8`,
     its own launch count) for int8 pools, which quantizes the committed
-    token in the kernel.  :func:`paged_decode_attention` is the same kernel
-    without the commit.  On CPU tensors every entry runs the plain versions
+    token in the kernel.  The kernel splits each row's history into
+    128-token tiles over CTAs and combines them in the same launch; q, the
+    current token and the output stay at their logical head dim and dtype.
+    :func:`paged_decode_attention` is the same kernel without the commit.
+    On CPU tensors every entry runs the plain versions
     (:func:`paged_decode_attention_ref`, :meth:`PagedKVCache.append_token`).
 """
 
@@ -30,14 +33,11 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from vats_tpu_torch.ops import kernels
-
-DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, group) symmetric int8 quantization of [..., hd] K or V.
@@ -230,6 +230,11 @@ class PagedKVCache:
         return self
 
 
+#: tokens a tile: the kernel's unit of work, and the plain version's unit of
+#: softmax (pages are whole tiles)
+TILE = 128
+
+
 def paged_decode_attention_ref(
     q: torch.Tensor,
     kv_pages: torch.Tensor,
@@ -241,20 +246,28 @@ def paged_decode_attention_ref(
     v_cur: Optional[torch.Tensor] = None,
     kv_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of K1's and K4's attention (counterpart of
-    ``paged_decode_attention_xla``).
+    """Plain version of K1's and K4's attention: what the kernel computes.
 
     q [B, Hq, hd]; kv_pages: one layer's pool [P, 2, G, ps, hd_pad];
-    ``lengths`` counts settled history; k_cur/v_cur [B, G, hd] add the
-    current token as one extra, always-valid column.  The math is fp32.
-    bf16/fp32 pools (K1) take q and the current token in pool precision.
-    int8 pools pass ``kv_scales`` [P, 2, G, ps] (K4): the history is
-    dequantized (value * scale), and q and the current token stay in their
-    own precision, unquantized."""
+    ``lengths`` counts settled history (masked at the table's capacity);
+    k_cur/v_cur [B, G, hd] add the current token as one extra, always-valid
+    column.  bf16/fp32 pools (K1) take q and the current token in pool
+    precision.  int8 pools pass ``kv_scales`` [P, 2, G, ps] (K4): the
+    history is dequantized (value * scale), and q and the current token
+    stay in their own precision, unquantized.
+
+    The history is cut into 128-token tiles.  Each tile takes
+    p = exp(s - m_tile), m_tile the max of its valid columns; l sums the
+    fp32 p; a bf16 pool rounds p to bf16 for p.v (the JAX kernel's bf16
+    P.V operand), fp32 and int8 pools keep it in fp32.  The current token's
+    column seeds the softmax in fp32 (m = s_cur, l = 1, o = v_cur), and the
+    tiles combine with it through the LSE: M = the max of every m, then l
+    and o summed in tile order with weights exp(m - M)."""
     b, hq, hd = q.shape
     _, _, g, ps, hdp = kv_pages.shape
     n = hq // g
     pps = page_table.shape[1]
+    nt = pps * ps // TILE
     table = page_table.long()
     gathered = kv_pages[table].float()  # [B, pps, 2, G, ps, hdp]
     if kv_scales is not None:
@@ -262,25 +275,33 @@ def paged_decode_attention_ref(
         as_input = torch.float32  # q and the current token attend as given
     else:
         as_input = kv_pages.dtype
-    kv = gathered.permute(2, 0, 3, 1, 4, 5).reshape(2, b, g, pps * ps, hdp)
-    k_seq, v_seq = kv[0, ..., :hd], kv[1, ..., :hd]  # [B, G, S, hd]
-    valid = (
-        torch.arange(pps * ps, device=q.device)[None, :] < lengths[:, None]
-    )
-    if k_cur is not None:
-        k_seq = torch.cat([k_seq, k_cur.to(as_input).float()[:, :, None]], dim=2)
-        v_seq = torch.cat([v_seq, v_cur.to(as_input).float()[:, :, None]], dim=2)
-        valid = torch.cat(
-            [valid, torch.ones(b, 1, dtype=torch.bool, device=q.device)], dim=1
-        )
+    kv = gathered.permute(2, 0, 3, 1, 4, 5).reshape(2, b, g, nt, TILE, hdp)
+    k_t, v_t = kv[0, ..., :hd], kv[1, ..., :hd]  # [B, G, tiles, TILE, hd]
+    valid = torch.arange(pps * ps, device=q.device)[None, :] < lengths[:, None]
+    valid = valid.reshape(b, 1, nt, 1, TILE)
     qf = q.to(as_input).float().reshape(b, g, n, hd)
-    s = torch.einsum("bgnd,bgsd->bgns", qf, k_seq) * scale
-    vmask = valid[:, None, None, :]
-    s = torch.where(vmask, s, DEFAULT_MASK_VALUE)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(vmask, torch.exp(s - m), 0.0)
-    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bgns,bgsd->bgnd", p / denom, v_seq)
+    s = torch.einsum("bgnd,bgtsd->bgtns", qf, k_t) * scale  # [B, G, tiles, N, TILE]
+    m_t = torch.where(valid, s, -torch.inf).amax(dim=-1)  # -inf: an empty tile
+    p = torch.where(valid, torch.exp(s - m_t[..., None]), 0.0)
+    l_t = p.sum(dim=-1)
+    if kv_pages.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+    o_t = torch.einsum("bgtns,bgtsd->bgtnd", p, v_t)
+    if k_cur is not None:
+        kc = k_cur.to(as_input).float()[:, :, None]  # [B, G, 1, hd]
+        m0 = (qf * kc).sum(dim=-1) * scale  # [B, G, N]
+        l0 = torch.ones_like(m0)
+        o0 = v_cur.to(as_input).float()[:, :, None].expand(b, g, n, hd)
+    else:
+        m0 = torch.full((b, g, n), -torch.inf, device=q.device)
+        l0 = torch.zeros_like(m0)
+        o0 = torch.zeros((b, g, n, hd), device=q.device)
+    mx = torch.maximum(m0, m_t.amax(dim=2))
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)  # nothing to attend
+    w0, w_t = torch.exp(m0 - mx), torch.exp(m_t - mx[:, :, None])
+    l = w0 * l0 + (w_t * l_t).sum(dim=2)
+    o = w0[..., None] * o0 + (w_t[..., None] * o_t).sum(dim=2)
+    out = o / torch.where(l == 0, 1.0, l)[..., None]
     return out.reshape(b, hq, hd).to(q.dtype)
 
 
@@ -415,17 +436,34 @@ paged_decode_attention_commit.launches = 0
 paged_decode_attention_int8.launches = 0
 paged_decode_attention_commit_int8.launches = 0
 
-#: C entry per pool dtype; int8 pools (K4) take q, the current token and the
-#: output in fp32, the others in the pool dtype
+#: C entry per pool dtype (the body's storage type); each takes q, the
+#: current token and the output in q's dtype, bf16 or fp32
 _ENTRY = {
     torch.bfloat16: "vats_paged_decode_bf16",
     torch.float32: "vats_paged_decode_f32",
     torch.int8: "vats_paged_decode_int8",
 }
 
+#: per (device, stream): one int32 counter per (row, KV group), zero between
+#: calls (the kernel's last CTA of a row resets its own); grown, zeroed, when
+#: a call needs more.  Calls on one stream run in its order, so they never
+#: share a counter at once; calls on two streams use two buffers.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
 
 def _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale, k_cur,
             v_cur, *, commit: bool) -> torch.Tensor:
+    """One launch: checks, the output and the workspace from ``torch.empty``,
+    no other kernel."""
     b, hq, hd = q.shape
     l, p, _, g, ps, hdp = kv_pages.shape
     n = hq // g
@@ -434,34 +472,44 @@ def _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale, k_cur
     kernels.require(dt in _ENTRY, f"unsupported pool dtype {dt}")
     kernels.require((dt == torch.int8) == (kv_scales is not None),
                     "int8 pools, and only they, need kv_scales")
+    kernels.require(q.dtype in (torch.bfloat16, torch.float32),
+                    f"q must be bf16 or fp32, got {q.dtype}")
     kernels.require(hq % g == 0, f"{hq} query heads do not fold into {g} groups")
-    kernels.require(n <= 8 and hdp <= 128 and hdp == _pad_head_dim(hdp, dt),
-                    f"unsupported head shape: {n} heads/group, head dim {hdp}")
+    kernels.require(n <= 8 and hd <= hdp <= 128 and hdp == _pad_head_dim(hdp, dt),
+                    f"unsupported head shape: {n} heads/group, head dim {hd} "
+                    f"stored as {hdp}")
+    kernels.require(ps % TILE == 0, f"page_size {ps} is not a multiple of {TILE}")
+    kernels.require(b <= 65535, f"batch {b} beyond the grid")
     kernels.require(0 <= layer_idx < l, f"layer {layer_idx} out of range")
     kernels.check_cuda_tensor(kv_pages, "kv_pages")
+    kernels.require(kv_pages.data_ptr() % 16 == 0, "kv_pages must be 16-byte aligned")
     kernels.check_cuda_tensor(page_table, "page_table", dtype=torch.int32,
                               shape=(b, pps))
     kernels.check_cuda_tensor(lengths, "lengths", dtype=torch.int32, shape=(b,))
-    io_dt = torch.float32 if dt == torch.int8 else dt
+    for name, t, shape in (("q", q, (b, hq, hd)), ("k_cur", k_cur, (b, g, hd)),
+                           ("v_cur", v_cur, (b, g, hd))):
+        kernels.check_cuda_tensor(t, name, dtype=q.dtype, shape=shape, strided=True)
     sc_ptr = ctypes.c_void_p(None)
     if kv_scales is not None:
         kernels.check_cuda_tensor(kv_scales, "kv_scales", dtype=torch.float32,
                                   shape=(l, p, 2, g, ps))
         sc_ptr = kernels.ptr(kv_scales)
-    q_in = _pad_last(q.reshape(b, g, n, hd).to(io_dt), hdp).contiguous()
-    cur = torch.stack([_pad_last(k_cur, hdp), _pad_last(v_cur, hdp)], dim=1)
-    cur = cur.to(io_dt).contiguous()  # [B, 2, G, hd_pad]
-    kernels.check_cuda_tensor(cur, "k_cur/v_cur", shape=(b, 2, g, hdp))
-    out = torch.empty((b, g, n, hdp), dtype=io_dt, device=q.device)
+    out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
+    # per (row, group, tile, head): m, l and o[hd_pad], fp32
+    work = torch.empty(b * g * (pps * ps // TILE) * n * (hdp + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _lib()
     rc = getattr(lib, _ENTRY[dt])(
-        kernels.ptr(q_in), kernels.ptr(cur), kernels.ptr(kv_pages), sc_ptr,
-        kernels.ptr(page_table), kernels.ptr(lengths), kernels.ptr(out),
-        b, g, n, hdp, p, ps, pps, layer_idx, ctypes.c_float(scale),
-        int(commit), kernels.stream_ptr(q),
+        kernels.ptr(q), kernels.ptr(k_cur), kernels.ptr(v_cur), kernels.ptr(kv_pages),
+        sc_ptr, kernels.ptr(page_table), kernels.ptr(lengths), kernels.ptr(out),
+        kernels.ptr(work), kernels.ptr(_counters(q.device, b * g)),
+        int(q.dtype == torch.bfloat16), b, g, n, hd, hdp, p, ps, pps, layer_idx,
+        q.stride(0), q.stride(1), k_cur.stride(0), k_cur.stride(1),
+        v_cur.stride(0), v_cur.stride(1), ctypes.c_float(scale), int(commit),
+        kernels.stream_ptr(q),
     )
     kernels.check(lib, rc, "paged_decode_attention")
-    return out[..., :hd].reshape(b, hq, hd).to(q.dtype)
+    return out
 
 
 def _lib() -> ctypes.CDLL:
@@ -469,7 +517,7 @@ def _lib() -> ctypes.CDLL:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int

@@ -145,12 +145,18 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def check_cuda_tensor(t: torch.Tensor, name: str, dtype=None, shape=None) -> None:
-    """Device, dtype, shape and contiguity checks before a pointer is passed."""
+def check_cuda_tensor(t: torch.Tensor, name: str, dtype=None, shape=None,
+                      strided: bool = False) -> None:
+    """Device, dtype, shape and contiguity checks before a pointer is passed.
+    ``strided``: the kernel reads through the tensor's strides, so only the
+    last dimension must be contiguous."""
     require(t.is_cuda, f"{name} must be a CUDA tensor")
     if dtype is not None:
         require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
     if shape is not None:
         require(tuple(t.shape) == tuple(shape),
                 f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    require(t.is_contiguous(), f"{name} must be contiguous")
+    if strided:
+        require(t.stride(-1) == 1, f"{name} must have a unit last stride")
+    else:
+        require(t.is_contiguous(), f"{name} must be contiguous")

@@ -40,9 +40,53 @@ def compute_perplexity(loss: Union[torch.Tensor, float]) -> float:
     return math.exp(float(loss))
 
 
-def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Summed NLL of one chunk: [B, c, V] logits exist only in here."""
-    logits = F.linear(h_c.to(w.dtype), w).float()
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 output from bf16 (or fp16) operands: products exact,
+    sums in fp32.  On the card one GEMM with fp32 output; on the CPU the
+    operands upcast to fp32, which holds them exactly."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _ReadoutF32(torch.autograd.Function):
+    """logits = a @ w_lp^T in fp32 from low-precision a [M, d] and w_lp
+    [V, d] (``w`` cast once), as JAX's ``preferred_element_type=float32``.
+
+    The backward rounds the fp32 dlogits to a's dtype and takes both
+    products with fp32 output; each gradient is rounded to the operand's
+    dtype, as JAX's gradients of its bf16 operands are.  dw is returned in
+    ``w``'s own dtype, so autograd sums the chunks' bf16 gradients in it
+    (fp32 for an fp32 readout), as the JAX scan does.  JAX keeps dlogits in
+    fp32 for those products; rounding them is the fast choice (two bf16
+    GEMMs, no fp32 one), about one bf16 ulp of the largest gradient."""
+
+    @staticmethod
+    def forward(ctx, a, w, w_lp):
+        ctx.save_for_backward(a, w_lp)
+        ctx.w_dtype = w.dtype
+        return _mm_f32(a, w_lp.t())
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        a, w_lp = ctx.saved_tensors
+        g = dlogits.to(a.dtype)
+        da = _mm_f32(g, w_lp).to(a.dtype)
+        dw = _mm_f32(g.t(), a).to(w_lp.dtype).to(ctx.w_dtype)
+        return da, dw, None
+
+
+def _chunk_nll(
+    h_c: torch.Tensor, y_c: torch.Tensor, w: torch.Tensor, w_lp: torch.Tensor
+) -> torch.Tensor:
+    """Summed NLL of one chunk: [B, c, V] fp32 logits exist only in here.
+    w: the readout; w_lp: it in the compute dtype."""
+    if w_lp.dtype == torch.float32:
+        logits = F.linear(h_c.float(), w_lp)
+    else:
+        b, c, d = h_c.shape
+        a = h_c.to(w_lp.dtype).reshape(b * c, d)
+        logits = _ReadoutF32.apply(a, w, w_lp).reshape(b, c, -1)
     valid = y_c != IGNORE_INDEX
     safe = torch.where(valid, y_c, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -65,20 +109,24 @@ def fused_linear_cross_entropy(
 
     hidden [B, T, d] (after the final norm); readout [V, d] (the tied
     embedding, or the lm_head weight); labels [B, T] with -100 ignored.
-    The product runs in ``compute_dtype`` and its output is in that dtype
-    before the fp32 log-softmax (the JAX kernel asks XLA for fp32 output
-    from the same bf16 product).  Plain PyTorch: no Pallas kernel here."""
+    The product takes its operands in ``compute_dtype`` and gives fp32
+    logits, as the JAX version asks XLA for fp32 output from the same bf16
+    product (``_ReadoutF32``: one GEMM with fp32 output on the card, never
+    an fp32 GEMM).  Plain PyTorch: no Pallas kernel here."""
     b, t, d = hidden.shape
     pad = (-t) % chunk
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=IGNORE_INDEX)
-    w = readout.to(compute_dtype)  # cast once; its gradient flows to readout
+    if compute_dtype == torch.float32:
+        w = w_lp = readout.float()  # its gradient flows to readout
+    else:
+        w, w_lp = readout, readout.detach().to(compute_dtype)  # cast once
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, t + pad, chunk):
         h_c, y_c = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, h_c, y_c, w, use_reentrant=False)
+            total = total + checkpoint(_chunk_nll, h_c, y_c, w, w_lp, use_reentrant=False)
         else:
-            total = total + _chunk_nll(h_c, y_c, w)
+            total = total + _chunk_nll(h_c, y_c, w, w_lp)
     return total / (labels != IGNORE_INDEX).sum().clamp(min=1)
