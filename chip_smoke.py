@@ -23,22 +23,31 @@ Phases:
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
-           the dense ``TokenGenerator``.  Launch counters are zeroed just
+           the dense ``TokenGenerator``, every decode step after the first
+           replayed from a CUDA graph.  Launch counters are zeroed just
            before and read just after; each must equal 20 layers x calls.
+           Then the graph and the eager decode loop in turns (graph, eager,
+           eager, graph; equal tokens), each profiled; K3's device time in a
+           replayed dense graph beside an empty kernel of K3's grid.
   parity   full width, 2 layers: ``generate_paged`` and ``generate`` on the
-           card (kernels) against the CPU (plain versions), same weights;
-           at most one (row, step) whose MoE router picks other experts on
-           a near tie is excused from the logit bound, and reported.
+           card (kernels, decode replayed from graphs) against the CPU (plain
+           versions), same weights; at most one (row, step) whose MoE router
+           picks other experts on a near tie is excused from the logit
+           bound, and reported.
   serve    the continuous-batching ``ServingEngine`` at full width
            (nlp_medium, 8 experts, top-2, bf16): 64 requests (32 sharing a
            256-token prefix) through 32 rows, a 129-page pool (requests queue
            and rows are preempted), prefix caching, 4-step decode blocks,
-           greedy; run three times: bf16 KV (K1), int8 KV (K4), int8 weights
-           + int8 KV.  Throughput, request latency, pages, preemptions,
-           prefix hits, peak memory, a profiled window; launch counts of K1
-           and K4 against the decode forwards this script counts.
+           greedy; three configurations: bf16 KV (K1), int8 KV (K4), int8
+           weights + int8 KV.  Each is driven with its decode blocks replayed
+           from CUDA graphs and eagerly, in turns (equal tokens), each
+           drive profiled once more: throughput, request latency, capture
+           seconds, peak memory, device-busy time and idle share; pages,
+           preemptions, prefix hits; launch counts of K1 and K4 against the
+           decode forwards a hook counts.
   serve_parity  2 layers at full width: one int8-KV stream of 8 requests
-           (prefix sharing, a preemption) on the card (K4) and on the CPU
+           (prefix sharing, a preemption) on the card (K4, replayed graphs;
+           logits from an eager drive with equal tokens) and on the CPU
            (plain version); per-forward logit error and token agreement.
   train    the training step at the JAX bench's ``medium_dense`` tier (d1440,
            20 layers, vocab 65536, B=16, T=512, remat 'dots', fused CE 128,
@@ -1069,11 +1078,52 @@ def ragged_prompts(gen, b, t, t_min, vocab, dev):
     return torch.where(mask, ids, 0).to(torch.int32), mask
 
 
+class ReplayCount:
+    """Counts every ``StepGraph.replay`` while it is installed."""
+
+    def __init__(self):
+        from vats_tpu_torch.inference.graphs import StepGraph
+
+        self.n, self._cls, self._real = 0, StepGraph, StepGraph.replay
+
+        def replay(graph):
+            self.n += 1
+            self._real(graph)
+
+        StepGraph.replay = replay
+
+    def remove(self):
+        self._cls.replay = self._real
+
+
+def in_turns(label, runs, order=(0, 1, 1, 0)):
+    """Run ``runs`` ([(name, fn)]; fn returns a dict of numbers and a result)
+    in the order given, each time after a synchronize, with the peak memory
+    reset; returns {name: [(numbers, result), ...]} and logs each run."""
+    import torch
+
+    got = {name: [] for name, _ in runs}
+    for i in order:
+        name, fn = runs[i]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        nums, res = fn()
+        torch.cuda.synchronize()
+        nums["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        nums["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        got[name].append((nums, res))
+        log(f"{label} [{name}]: " + " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}" for k, v in nums.items()))
+    return got
+
+
 def run_main(counters):
     import torch
 
     from vats_tpu_torch.configs import GenerationArgs
     from vats_tpu_torch.inference import TokenGenerator, generate_paged
+    from vats_tpu_torch.inference.generate import _generate, _generate_paged
     from vats_tpu_torch.models import TextLM
     from vats_tpu_torch.ops.decode_attention import PagedKVCache
 
@@ -1094,6 +1144,9 @@ def run_main(counters):
                         top_k=None, top_p=None, repetition_penalty=None)
     prompt = " ".join(f"word{i}" for i in range(40))
 
+    # the counted drive: the entry points a user calls, every decode step
+    # after the first replayed from a CUDA graph
+    replays = ReplayCount()
     for c in counters:
         c.launches = 0
     tok_a, len_a = generate_paged(model, ids, mask, gen, **kw)
@@ -1102,6 +1155,7 @@ def run_main(counters):
     text = tg.generate_tokens(prompt, ga, StubTokenizer())
     torch.cuda.synchronize()
     counts = {c.__name__: c.launches for c in counters}
+    replays.remove()
 
     L = cfg.num_layers
     want = {
@@ -1112,6 +1166,8 @@ def run_main(counters):
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{name} launched {counts[name]} times, expected {n}")
+    require(replays.n == 3 * (steps - 1), f"main: {replays.n} graph replays, not "
+            f"{3 * (steps - 1)} (three calls, each step after the first)")
     want_len = mask.sum(1).to(torch.int32) + steps
     for tok, ln in ((tok_a, len_a), (tok_b, len_b)):
         if tok.shape != (B, T + steps) or not torch.equal(ln, want_len):
@@ -1121,9 +1177,11 @@ def run_main(counters):
     n_new = len(text.split())
     if n_new != steps:
         raise AssertionError(f"TokenGenerator returned {n_new} tokens, not {steps}")
-    log(f"main: launches {json.dumps(counts)} (expected {json.dumps(want)})")
+    log(f"main: launches {json.dumps(counts)} (expected {json.dumps(want)}); "
+        f"{replays.n} graph replays")
 
-    # timing (after the counted run): prefill alone, then the whole call
+    # prefill alone, then the whole call: graph and eager in turns, each
+    # drawing from the same generator state (their tokens must be equal)
     def prefill():
         cache = PagedKVCache.create(L, B, T + steps, cfg.query_groups, cfg.head_dim,
                                     page_size=128, dtype=torch.bfloat16, device="cuda")
@@ -1137,29 +1195,116 @@ def run_main(counters):
     prefill()
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    generate_paged(model, ids, mask, gen, **kw)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    decode_tps = B * steps / (total_s - prefill_s)
-    t0 = time.perf_counter()
-    tg.generate_tokens(prompt, ga, StubTokenizer())
-    torch.cuda.synchronize()
-    dense_s = time.perf_counter() - t0
-    log(f"main: generate_paged B={B} prompts {int(mask.sum(1).min())}..{T} tokens, "
-        f"{steps} steps: total_s={total_s:.3f} prefill_s={prefill_s:.3f} "
-        f"decode_tokens_per_s={decode_tps:.1f} end_to_end_tokens_per_s="
-        f"{B * steps / total_s:.1f} peak_mem_gb="
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; dense TokenGenerator B=1 "
-        f"{steps} tokens: {dense_s:.3f}s ({steps / dense_s:.1f} tokens/s)")
-    profile_breakdown("generate_paged", lambda: generate_paged(model, ids, mask, gen, **kw),
-                      also=("flash_fwd",))
-    profile_breakdown("dense TokenGenerator",
-                      lambda: tg.generate_tokens(prompt, ga, StubTokenizer()))
+    sample = dict(temperature=0.8, top_k=50, top_p=None, do_sample=True,
+                  repetition_penalty=None, approx_top_k=False)
+    paged_kw = dict(max_new_tokens=steps, pad_token_id=0, eos_token_id=None,
+                    total_len=None, page_size=128, kv_quant=None, prefill_row_chunk=None)
+
+    def paged(use_graph):
+        def call():
+            g = torch.Generator(device="cuda").manual_seed(77)
+            return _generate_paged(model, ids, mask, g, sample, use_graph=use_graph,
+                                   **paged_kw)
+
+        def run():
+            t0 = time.perf_counter()
+            tokens, lengths, graph = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return dict(wall_s=wall, decode_tokens_per_s=B * steps / (wall - prefill_s),
+                        capture_s=graph.capture_s if graph else 0.0), (tokens, lengths)
+        return call, run
+
+    calls = {"graph": paged(True), "eager": paged(False)}
+    got = in_turns(f"main: generate_paged B={B} prompts {int(mask.sum(1).min())}..{T}, "
+                   f"{steps} sampled steps, prefill_s={prefill_s:.3f}",
+                   [(k, v[1]) for k, v in calls.items()])
+    results = [r for runs in got.values() for _, r in runs]
+    require(all(torch.equal(r[0], results[0][0]) and torch.equal(r[1], results[0][1])
+                for r in results), "main: generate_paged tokens differ between graph "
+            "and eager")
+    for name, (call, _) in calls.items():
+        profile_breakdown(f"generate_paged [{name}]", call, also=("flash_fwd",))
+
+    # the dense TokenGenerator's call (B=1, a 40-token prompt in a 64 bucket)
+    ids1 = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    ids1[0, :40] = torch.tensor(StubTokenizer().encode(prompt), dtype=torch.int32)
+    mask1 = torch.arange(64, device="cuda")[None, :] < 40
+    greedy = dict(temperature=0.0, top_k=None, top_p=None, do_sample=False,
+                  repetition_penalty=None, approx_top_k=False)
+    dense_kw = dict(max_new_tokens=steps, pad_token_id=0, eos_token_id=None,
+                    total_len=64 + steps)
+
+    def dense(use_graph):
+        def call():
+            return _generate(tg.model, ids1, mask1, None, greedy, use_graph=use_graph,
+                             **dense_kw)
+
+        def run():
+            t0 = time.perf_counter()
+            tokens, lengths, graph = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return dict(wall_s=wall, tokens_per_s=steps / wall,
+                        capture_s=graph.capture_s if graph else 0.0), (tokens, lengths)
+        return call, run
+
+    calls = {"graph": dense(True), "eager": dense(False)}
+    got = in_turns(f"main: dense generate B=1 (the TokenGenerator's call), {steps} "
+                   f"greedy steps", [(k, v[1]) for k, v in calls.items()])
+    results = [r for runs in got.values() for _, r in runs]
+    require(all(torch.equal(r[0], results[0][0]) for r in results),
+            "main: dense tokens differ between graph and eager")
+    for name, (call, _) in calls.items():
+        profile_breakdown(f"dense generate B=1 [{name}]", call)
+    k3_in_graph(model, L, gen, steps)
     del model, tg
     torch.cuda.empty_cache()
     return counts
+
+
+def k3_in_graph(model, L, gen, steps):
+    """K3's device time per launch inside replayed dense ``generate`` graphs
+    (B=1, and B=16 over 512-token prompts: the kernels phase's cache), beside
+    an empty kernel launched with K3's grid, L launches a replay."""
+    import ctypes
+
+    import torch
+
+    from vats_tpu_torch.inference.generate import _generate
+    from vats_tpu_torch.ops import kernels
+
+    cfg = model.cfg
+    G, D = cfg.query_groups, -(-cfg.head_dim // 8) * 8
+    lib = kernels.load("cache_append")
+    empty = lib.vats_cache_append_empty
+    empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    greedy = dict(temperature=0.0, top_k=None, top_p=None, do_sample=False,
+                  repetition_penalty=None, approx_top_k=False)
+    for B, T in ((1, 64), (16, 512)):
+        ids, mask = ragged_prompts(gen, B, T, T // 2, cfg.vocab_size, "cuda")
+        per, _ = profiled(lambda: _generate(model, ids, mask, None, greedy, use_graph=True,
+                                            max_new_tokens=steps, pad_token_id=0,
+                                            eos_token_id=None, total_len=T + steps))
+        k3 = [v for name, v in per.items() if "append_kernel" in name]
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(L):
+                kernels.check(lib, empty(B, G, D, kernels.stream_ptr(ids)), "empty")
+        graph.replay()
+        per_e, _ = profiled(lambda: [graph.replay() for _ in range(steps)])
+        em = [v for name, v in per_e.items() if "empty_kernel" in name]
+        if not k3 or not em:
+            log(f"K3 in a replayed graph, B={B}: not measured (the profiler recorded "
+                f"no K3 or empty kernel)")
+            continue
+        (k3_us, k3_n), (em_us, em_n) = k3[0], em[0]
+        log(f"K3 in a replayed dense generate graph, B={B} (cache [{L},{B},{G},{D},"
+            f"{T + steps}], {k3_n} launches): {k3_us / k3_n / 1e3:.5f} ms a launch; an "
+            f"empty kernel of K3's grid ({-(-B * G * D // 256)} blocks of 256) in a "
+            f"replayed graph ({em_n} launches): {em_us / em_n / 1e3:.5f} ms")
 
 
 def profile_breakdown(label, fn, top=10, also=()):
@@ -1438,19 +1583,27 @@ def common_prefix(a, b) -> int:
     return n
 
 
-def count_decode_forwards(model):
+class ForwardCount:
     """A counter of the model's decode forwards (one token per row), kept by
-    a hook on the first block: independent of the engine's bookkeeping."""
-    from vats_tpu_torch.inference import QuantizedModel
+    a pre-hook on the first block: independent of the engine's bookkeeping.
+    The hook counts through ``kernels.count_launch``, as a kernel wrapper
+    does: a forward recorded into a CUDA graph counts once per replay."""
 
-    blocks = (model.model if isinstance(model, QuantizedModel) else model).layers
-    box = {"n": 0}
+    def __init__(self, model):
+        from vats_tpu_torch.inference import QuantizedModel
+        from vats_tpu_torch.ops import kernels
 
-    def hook(mod, args):
-        if args[0].shape[1] == 1:
-            box["n"] += 1
+        self.launches = 0
+        blocks = (model.model if isinstance(model, QuantizedModel) else model).layers
 
-    return box, blocks[0].register_forward_pre_hook(hook)
+        def hook(mod, args):
+            if args[0].shape[1] == 1:
+                kernels.count_launch(self)
+
+        self._handle = blocks[0].register_forward_pre_hook(hook)
+
+    def remove(self):
+        self._handle.remove()
 
 
 def drive(engine, stream):
@@ -1505,65 +1658,105 @@ def run_serve(kernel_fns):
             log(f"serve: int8 weights resident {quantized_bytes(model.qparams) / 1e9:.3f} "
                 f"GB (bf16 {sum(p.numel() for p in model.qparams.values()) * 2 / 1e9:.3f}"
                 f" GB)")
+
+        def engine(use_graphs):
+            eng = ServingEngine(model, kv_quant=kv_quant, **engine_kw)
+            eng._use_graphs = use_graphs
+            return eng
+
         # an untimed drive of the whole stream warms this configuration up
         # (allocator, cuBLAS choices for every prefill group and decode shape)
-        drive(ServingEngine(model, kv_quant=kv_quant, **engine_kw), stream)
-        box, handle = count_decode_forwards(model)
-        engine = ServingEngine(model, kv_quant=kv_quant, **engine_kw)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in kernel_fns.values():
-            fn.launches = 0
-        outs, done_s, wall = drive(engine, stream)
-        got = {f.__name__: f.launches for f in kernel_fns.values()}
-        handle.remove()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        # gates: every request whole, every page back, ids in the vocabulary,
-        # the decode kernel of this pool launched once per layer per forward
-        require(len(outs) == len(stream), f"serve {name}: {len(outs)} of 64 finished")
-        for rid, (prompt, n) in enumerate(stream):
-            require(len(outs[rid]) == n, f"serve {name}: request {rid} has "
-                    f"{len(outs[rid])} tokens, not {n}")
-        toks = np.concatenate([np.asarray(outs[r]) for r in range(len(stream))])
-        require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
-                f"serve {name}: out-of-vocabulary ids")
-        engine.allocator.free(engine.prefix_cache.reclaim(engine.allocator.capacity))
-        require(engine.allocator.num_used == 0, f"serve {name}: pages leaked")
-        decode_fw = box["n"]
-        want_k1, want_k4 = (L * decode_fw, 0) if kv_quant is None else (0, L * decode_fw)
-        require(decode_fw == engine.forwards["decode"] and decode_fw > 0,
-                f"serve {name}: {decode_fw} decode forwards counted, engine says "
-                f"{engine.forwards['decode']}")
-        require(got[k1.__name__] == want_k1 and got[k4.__name__] == want_k4,
-                f"serve {name}: K1 {got[k1.__name__]} (want {want_k1}), K4 "
-                f"{got[k4.__name__]} (want {want_k4}) launches")
-        require(engine.preemptions >= 1, f"serve {name}: no preemption")
-        lat = np.asarray(list(done_s.values()))
-        log(f"serve [{name}]: tokens_per_s={toks.size / wall:.1f} wall_s={wall:.3f} "
-            f"request_latency_s p50={np.percentile(lat, 50):.3f} "
-            f"p99={np.percentile(lat, 99):.3f}; page_high_water="
-            f"{engine.allocator.high_water}/{engine.allocator.capacity} preemptions="
-            f"{engine.preemptions} prefix_hit_tokens={engine.prefix_cache.hit_tokens}/"
-            f"{engine.prefix_cache.query_tokens} peak_mem_gb={peak:.2f}; forwards "
-            f"{json.dumps(engine.forwards)}; launches {json.dumps(got)}")
-        # the timed run's own load, warm, once more under the profiler; its
-        # device time over the unprofiled wall is the timed run's idle share
-        busy = profile_breakdown(f"serve [{name}], the whole stream again (warm)",
-                                 lambda: drive(ServingEngine(model, kv_quant=kv_quant,
-                                                             **engine_kw), stream))
-        if busy is not None:
-            log(f"serve [{name}]: device_busy_s={busy:.3f} over the timed wall_s="
-                f"{wall:.3f}: idle_share={1 - busy / wall:.3f}")
+        drive(engine(True), stream)
+        first = {}
+
+        def timed(use_graphs):
+            def run():
+                fwd = ForwardCount(model)
+                eng = engine(use_graphs)
+                torch.cuda.empty_cache()
+                for fn in kernel_fns.values():
+                    fn.launches = 0
+                outs, done_s, wall = drive(eng, stream)
+                got = {f.__name__: f.launches for f in kernel_fns.values()}
+                fwd.remove()
+                check_serve(name, eng, outs, stream, cfg, got, fwd.launches, kv_quant, L,
+                            k1, k4)
+                # what the report needs, not the engine: its pool would stay
+                # allocated through the next drives and raise their peaks
+                first.setdefault(use_graphs, (
+                    f"page_high_water={eng.allocator.high_water}/"
+                    f"{eng.allocator.capacity} preemptions={eng.preemptions} "
+                    f"prefix_hit_tokens={eng.prefix_cache.hit_tokens}/"
+                    f"{eng.prefix_cache.query_tokens}; forwards "
+                    f"{json.dumps(eng.forwards)}", got))
+                lat = np.asarray(list(done_s.values()))
+                nums = dict(
+                    tokens_per_s=n_new / wall, wall_s=wall,
+                    latency_p50_s=float(np.percentile(lat, 50)),
+                    latency_p99_s=float(np.percentile(lat, 99)),
+                    capture_s=sum(g.capture_s for g in eng.graphs.values()),
+                    replays=sum(g.replays for g in eng.graphs.values()),
+                    decode_forwards=eng.forwards["decode"])
+                del eng
+                return nums, outs
+            return run
+
+        got_runs = in_turns(f"serve [{name}]", [("graph", timed(True)),
+                                                ("eager", timed(False))])
+        tagged = [(f"{path} {i}", o) for path, rs in got_runs.items()
+                  for i, (_, o) in enumerate(rs)]
+        for tag, o in tagged[1:]:
+            diff = [r for r in o if o[r] != tagged[0][1][r]]
+            require(not diff, f"serve {name}: {tagged[0][0]} and {tag} drives give other "
+                    f"tokens for requests {diff[:8]} (first difference at "
+                    f"{[common_prefix(o[r], tagged[0][1][r]) for r in diff[:8]]})")
+        summary, got = first[True]
+        outs = got_runs["graph"][0][1]
+        log(f"serve [{name}]: {summary}; launches (graph) {json.dumps(got)}; the timed "
+            f"graph wall includes the capture")
+        # each path's own load, warm, once more under the profiler; its device
+        # time over the mean unprofiled wall of that path is its idle share
+        for path, use_graphs in (("graph", True), ("eager", False)):
+            busy = profile_breakdown(f"serve [{name}] [{path}], the whole stream again",
+                                     lambda: drive(engine(use_graphs), stream))
+            walls = [n["wall_s"] for n, _ in got_runs[path]]
+            if busy is not None:
+                log(f"serve [{name}] [{path}]: device_busy_s={busy:.3f} over the mean "
+                    f"timed wall_s={np.mean(walls):.3f}: idle_share="
+                    f"{1 - busy / np.mean(walls):.3f}")
         runs[name], counts[name] = outs, got
     pairs = [(runs["bf16 KV"][r], runs["int8 KV"][r]) for r in runs["bf16 KV"]]
     same = sum(int(x == y) for a, b in pairs for x, y in zip(a, b))
-    first = sum(common_prefix(a, b) for a, b in pairs)
+    first_diff = sum(common_prefix(a, b) for a, b in pairs)
     log(f"serve: greedy tokens of int8 KV equal to bf16 KV at {same}/{n_new} positions "
-        f"({same / n_new:.3f}); equal up to the first difference: {first}/{n_new}")
-    del model, engine
+        f"({same / n_new:.3f}); equal up to the first difference: {first_diff}/{n_new}")
+    del model
     torch.cuda.empty_cache()
     # the kernels line reports the int8 KV run's launches for K4
     return {**counts["bf16 KV"], k4.__name__: counts["int8 KV"][k4.__name__]}
+
+
+def check_serve(name, engine, outs, stream, cfg, got, decode_fw, kv_quant, L, k1, k4):
+    """Gates of one drive: every request whole, every page back, ids in the
+    vocabulary, the decode kernel of this pool launched once per layer per
+    decode forward counted by the hook, which the engine's own count equals."""
+    require(len(outs) == len(stream), f"serve {name}: {len(outs)} of 64 finished")
+    for rid, (prompt, n) in enumerate(stream):
+        require(len(outs[rid]) == n, f"serve {name}: request {rid} has "
+                f"{len(outs[rid])} tokens, not {n}")
+    toks = np.concatenate([np.asarray(outs[r]) for r in range(len(stream))])
+    require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+            f"serve {name}: out-of-vocabulary ids")
+    engine.allocator.free(engine.prefix_cache.reclaim(engine.allocator.capacity))
+    require(engine.allocator.num_used == 0, f"serve {name}: pages leaked")
+    want_k1, want_k4 = (L * decode_fw, 0) if kv_quant is None else (0, L * decode_fw)
+    require(decode_fw == engine.forwards["decode"] and decode_fw > 0,
+            f"serve {name}: {decode_fw} decode forwards counted, engine says "
+            f"{engine.forwards['decode']}")
+    require(got[k1.__name__] == want_k1 and got[k4.__name__] == want_k4,
+            f"serve {name}: K1 {got[k1.__name__]} (want {want_k1}), K4 "
+            f"{got[k4.__name__]} (want {want_k4}) launches")
+    require(engine.preemptions >= 1, f"serve {name}: no preemption")
 
 
 # --- phase: serve_parity ----------------------------------------------------
@@ -1586,17 +1779,26 @@ def run_serve_parity():
     engine_kw = dict(max_batch=4, max_context=512, page_size=128, total_pages=1 + 7,
                      prefix_caching=True, kv_quant="int8", decode_block_steps=2,
                      prompt_buckets=(64, 128, 256))
+    # the card's tokens come from its graph path; a hook cannot read logits
+    # inside a replay, so they come from an eager drive on the card, whose
+    # tokens must equal the graph drive's bit for bit
     res = {}
-    for name, model in (("cuda", gpu), ("cpu", cpu)):
+    for name, model, use_graphs in (("cuda", gpu, True), ("cuda eager", gpu, False),
+                                    ("cpu", cpu, False)):
         logits = []
-        handle = model.register_forward_hook(
+        handle = None if use_graphs else model.register_forward_hook(
             lambda m, a, out: logits.append(out[0][:, -1].float().cpu()))
         engine = ServingEngine(model, **engine_kw)
+        engine._use_graphs = use_graphs
         rids = [engine.submit(p, max_new_tokens=n) for p, n in stream]
         out = engine.run()
-        handle.remove()
+        if handle is not None:
+            handle.remove()
         res[name] = ([out[r] for r in rids], logits, engine)
-    (tok_g, lg_g, eng_g), (tok_c, lg_c, eng_c) = res["cuda"], res["cpu"]
+    (tok_g, _, eng_g), (tok_e, lg_g, _), (tok_c, lg_c, eng_c) = (
+        res["cuda"], res["cuda eager"], res["cpu"])
+    require(len(eng_g.graphs) > 0 and tok_g == tok_e,
+            "serve_parity: the card's graph and eager drives give other tokens")
     require(eng_g.preemptions >= 1 and eng_g.prefix_cache.hit_tokens > 0,
             "serve_parity: the stream made no preemption or no prefix hit")
     require(len(lg_g) == len(lg_c), "serve_parity: the two engines ran other schedules")
@@ -1608,7 +1810,8 @@ def run_serve_parity():
             break
     n_tok = sum(len(t) for t in tok_c)
     agree = sum(int(x == y) for tg, tc in zip(tok_g, tok_c) for x, y in zip(tg, tc))
-    log(f"serve_parity (2 layers, full width, int8 KV, card K4 vs CPU plain): 8 "
+    log(f"serve_parity (2 layers, full width, int8 KV, card K4 in replayed graphs, "
+        f"equal to the card's eager drive, vs CPU plain): 8 "
         f"requests, preemptions {eng_g.preemptions}/{eng_c.preemptions}, prefix hits "
         f"{eng_g.prefix_cache.hit_tokens}; per-forward max |logit err| over the "
         f"{len(errs)} of {len(lg_g)} forwards before the first differing argmax: "

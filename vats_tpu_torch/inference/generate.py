@@ -12,12 +12,19 @@ Counterpart of ``vats_tpu/inference/generate.py``:
 
 Every entry takes a ``TextLM`` or a ``QuantizedModel``.
 
-The JAX package compiles the loop into one ``while_loop``; here it is a
-Python loop whose tensors (tokens, validity, lengths, caches) stay on the
-model's device.  The loop reads nothing back to the host except, when an
-``eos_token_id`` is set, whether any row is still unfinished.  Without an
-EOS a row that runs out of buffer stops emitting tokens as in the JAX loop;
-the loop itself runs ``max_new_tokens`` steps.
+The JAX package compiles the loop into one ``while_loop``.  Here one
+decode step is a function of tensors that persist across steps (tokens,
+validity, the unfinished rows, the next logits, the cache and a step
+counter, all on the model's device), updated in place.  On the card the
+first step runs eagerly as the warm-up and every later step replays it,
+captured once per call as a CUDA graph (``inference/graphs.py``); on the CPU
+every step runs eagerly.  The loop reads nothing back to the host except,
+when an ``eos_token_id`` is set, whether any row is still unfinished, every
+``graphs.FINISH_CHECK_EVERY`` steps: a step after every row has finished
+changes neither tokens nor lengths, which are those the JAX loop, stopping
+at once, returns.  Without an EOS a row that runs out of buffer stops
+emitting tokens as in the JAX loop; the loop itself runs at most
+``max_new_tokens`` steps.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from vats_tpu_torch.configs.nlp import GenerationArgs, ModelArgs
 from vats_tpu_torch.device import resolve_device, resolve_dtype
+from vats_tpu_torch.inference.graphs import StepGraph, run_steps
 from vats_tpu_torch.inference.sampling import sample_logits
 from vats_tpu_torch.models.text_lm import TextLM
 from vats_tpu_torch.nn.kv_cache import ring_slots_for_window
@@ -51,9 +59,8 @@ def _prepare(model, input_ids, attention_mask, pad_token_id, total_len):
     return input_ids, attention_mask, tokens, valid, prompt_lens
 
 
-def _still_running(unfinished: torch.Tensor, eos_token_id) -> bool:
-    # only an EOS can finish every row early; the check costs a host sync
-    return eos_token_id is None or bool(unfinished.any())
+def _on_card(model) -> bool:
+    return model.device.type == "cuda"
 
 
 @torch.no_grad()
@@ -77,8 +84,26 @@ def generate(
     """Generate up to ``max_new_tokens`` after a right-padded prompt.
 
     input_ids [B, T_prompt]; attention_mask [B, T_prompt] bool or None.
-    Runs on the model's device.  Returns (tokens [B, total_len], lengths
-    [B]) with lengths counting valid tokens (prompt + generated) per row."""
+    Runs on the model's device, decode steps as a replayed CUDA graph on the
+    card.  Returns (tokens [B, total_len], lengths [B]) with lengths
+    counting valid tokens (prompt + generated) per row."""
+    sample = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                  do_sample=do_sample, repetition_penalty=repetition_penalty,
+                  approx_top_k=approx_top_k)
+    tokens, lengths, _ = _generate(
+        model, input_ids, attention_mask, generator, sample,
+        max_new_tokens=max_new_tokens, pad_token_id=pad_token_id,
+        eos_token_id=eos_token_id, total_len=total_len, use_graph=_on_card(model),
+    )
+    return tokens, lengths
+
+
+@torch.no_grad()
+def _generate(model, input_ids, attention_mask, generator, sample, *,
+              max_new_tokens, pad_token_id, eos_token_id, total_len,
+              use_graph: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[StepGraph]]:
+    """:func:`generate`; ``use_graph=False`` runs every step eagerly (on the
+    card, only to compare the two).  Also returns the step's graph."""
     b, t_prompt = input_ids.shape
     cfg = model.cfg
     if total_len is None:
@@ -100,27 +125,28 @@ def generate(
     logits, cache, _ = model(
         input_ids, padding_mask=valid, cache=cache, readout_positions=last_idx
     )
-    next_logits = logits[:, 0]
+    next_logits = logits[:, 0].clone()
     unfinished = torch.ones(b, dtype=torch.bool, device=tokens.device)
+    col = torch.full((1,), t_prompt, dtype=torch.int64, device=tokens.device)
 
-    for step in range(num_new):
-        if not _still_running(unfinished, eos_token_id):
-            break
-        next_tokens = sample_logits(
-            generator, next_logits, temperature=temperature, top_k=top_k,
-            top_p=top_p, do_sample=do_sample,
-            repetition_penalty=repetition_penalty, generated_ids=tokens,
-            generated_valid=valid, approx_top_k=approx_top_k,
-        )
-        next_tokens = torch.where(unfinished, next_tokens, pad_token_id).to(torch.int32)
-        pos = t_prompt + step
-        tokens[:, pos] = next_tokens
-        valid[:, pos] = unfinished
+    def step():
+        # every row writes column ``col``: a finished row writes a pad there,
+        # not valid, as the buffers already hold
+        nxt = sample_logits(generator, next_logits, generated_ids=tokens,
+                            generated_valid=valid, **sample)
+        nxt = torch.where(unfinished, nxt, pad_token_id).to(torch.int32)
+        tokens.index_copy_(1, col, nxt[:, None])
+        valid.index_copy_(1, col, unfinished[:, None])
         if eos_token_id is not None:
-            unfinished = unfinished & (next_tokens != eos_token_id)
-        logits, cache, _ = model(next_tokens[:, None], padding_mask=valid, cache=cache)
-        next_logits = logits[:, 0]
-    return tokens, valid.sum(dim=1).to(torch.int32)
+            unfinished.logical_and_(nxt != eos_token_id)
+        logits, _, _ = model(nxt[:, None], padding_mask=valid, cache=cache)
+        next_logits.copy_(logits[:, 0])
+        col.add_(1)
+
+    graph = run_steps(step, num_new, device=tokens.device, use_graph=use_graph,
+                      unfinished=unfinished if eos_token_id is not None else None,
+                      generator=generator)
+    return tokens, valid.sum(dim=1).to(torch.int32), graph
 
 
 @torch.no_grad()
@@ -151,7 +177,29 @@ def generate_paged(
     row, lengths [B]).  ``prefill_row_chunk`` runs the prompt forward in
     waves of that many rows sharing one page pool.  ``kv_quant='int8'``
     stores the pages in int8 with per-(token, group) scales; the current
-    token always attends at full precision (K4)."""
+    token always attends at full precision (K4).  Decode steps run as a
+    replayed CUDA graph on the card."""
+    sample = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                  do_sample=do_sample, repetition_penalty=repetition_penalty,
+                  approx_top_k=approx_top_k)
+    tokens, lengths, _ = _generate_paged(
+        model, input_ids, attention_mask, generator, sample,
+        max_new_tokens=max_new_tokens, pad_token_id=pad_token_id,
+        eos_token_id=eos_token_id, total_len=total_len, page_size=page_size,
+        kv_quant=kv_quant, prefill_row_chunk=prefill_row_chunk,
+        use_graph=_on_card(model),
+    )
+    return tokens, lengths
+
+
+@torch.no_grad()
+def _generate_paged(model, input_ids, attention_mask, generator, sample, *,
+                    max_new_tokens, pad_token_id, eos_token_id, total_len,
+                    page_size, kv_quant, prefill_row_chunk,
+                    use_graph: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                              Optional[StepGraph]]:
+    """:func:`generate_paged`; ``use_graph=False`` runs every step eagerly
+    (on the card, only to compare the two).  Also returns the step's graph."""
     if kv_quant not in (None, "int8"):
         raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
     b, t_prompt = input_ids.shape
@@ -173,17 +221,17 @@ def generate_paged(
             input_ids, padding_mask=attention_mask, paged_cache=cache,
             readout_positions=last_idx,
         )
-        next_logits = logits[:, 0]
+        next_logits = logits[:, 0].clone()
     else:
         rc = prefill_row_chunk
         if b % rc != 0:
             raise ValueError(f"prefill_row_chunk ({rc}) must divide batch ({b})")
-        chunk_logits, chunk_lens = [], []
+        chunk_logits = []
         for lo in range(0, b, rc):
             sub = PagedKVCache(
                 kv_pages=cache.kv_pages,  # one pool, shared by every wave
                 page_table=cache.page_table[lo:lo + rc],
-                lengths=cache.lengths[lo:lo + rc],
+                lengths=cache.lengths[lo:lo + rc],  # advanced in place
                 kv_scales=cache.kv_scales,
                 head_dim=cache.head_dim,
                 fresh=cache.fresh,
@@ -192,37 +240,34 @@ def generate_paged(
                 input_ids[lo:lo + rc], padding_mask=attention_mask[lo:lo + rc],
                 paged_cache=sub, readout_positions=last_idx[lo:lo + rc],
             )
-            chunk_lens.append(sub.lengths)
             chunk_logits.append(lg[:, 0])
-        cache.lengths = torch.cat(chunk_lens)
         cache.fresh = False
         next_logits = torch.cat(chunk_logits, dim=0)
 
     unfinished = torch.ones(b, dtype=torch.bool, device=tokens.device)
     rows = torch.arange(b, device=tokens.device)
-    for _ in range(max_new_tokens):
-        if not _still_running(unfinished, eos_token_id):
-            break
-        next_tokens = sample_logits(
-            generator, next_logits, temperature=temperature, top_k=top_k,
-            top_p=top_p, do_sample=do_sample,
-            repetition_penalty=repetition_penalty, generated_ids=tokens,
-            generated_valid=valid, approx_top_k=approx_top_k,
-        )
+
+    def step():
+        nxt = sample_logits(generator, next_logits, generated_ids=tokens,
+                            generated_valid=valid, **sample)
         # rows that would overflow their buffer stop generating
-        unfinished = unfinished & (cache.lengths < total_len)
-        next_tokens = torch.where(unfinished, next_tokens, pad_token_id).to(torch.int32)
+        unfinished.logical_and_(cache.lengths < total_len)
+        active = unfinished.clone()  # rows actually emitting a token this step
+        nxt = torch.where(active, nxt, pad_token_id).to(torch.int32)
         pos = torch.clamp(cache.lengths, max=total_len - 1).long()
-        active = unfinished  # rows actually emitting a token this step
-        tokens[rows, pos] = torch.where(active, next_tokens, tokens[rows, pos])
+        tokens[rows, pos] = torch.where(active, nxt, tokens[rows, pos])
         valid[rows, pos] = valid[rows, pos] | active
         if eos_token_id is not None:
-            unfinished = unfinished & (next_tokens != eos_token_id)
-        logits, cache, _ = model(next_tokens[:, None], paged_cache=cache)
+            unfinished.logical_and_(nxt != eos_token_id)
+        logits, _, _ = model(nxt[:, None], paged_cache=cache)
         # finished rows appended a pad; roll their length back
-        cache.lengths = torch.where(active, cache.lengths, cache.lengths - 1)
-        next_logits = logits[:, 0]
-    return tokens, valid.sum(dim=1).to(torch.int32)
+        cache.lengths.sub_((~active).to(torch.int32))
+        next_logits.copy_(logits[:, 0])
+
+    graph = run_steps(step, max_new_tokens, device=tokens.device, use_graph=use_graph,
+                      unfinished=unfinished if eos_token_id is not None else None,
+                      generator=generator)
+    return tokens, valid.sum(dim=1).to(torch.int32), graph
 
 
 class TokenGenerator:

@@ -19,16 +19,23 @@ What replaces the JAX machinery:
   * the pool (and the int8 scales pool) is one set of tensors updated in
     place by every forward (K1/K4 commit in the kernel, prefills append):
     no donated buffers;
-  * a k-step decode block is k forwards queued on the device with the
-    tokens kept there; the host syncs once per block, when it reads the
-    block's tokens (copied to pinned memory behind a CUDA event), in place
-    of the JAX ``fori_loop`` program;
+  * a k-step decode block is k forwards with the tokens kept on the
+    device, in place of the JAX ``fori_loop`` program.  It reads static
+    device buffers (tables, lengths, input tokens, the per-row sampling
+    values) and writes a static [B, k] output.  On the card each block
+    length in use (``decode_block_steps``, and 1 for the thin-margin
+    fallback) runs its first block eagerly as a warm-up and replays a CUDA
+    graph of it after that (``inference/graphs.py``); prefills and the
+    speculative verify forward stay eager.  The host syncs once per block,
+    when it reads the block's tokens (copied to pinned memory behind a
+    CUDA event);
   * overlap mode relies on the program order of one CUDA stream where the
     JAX engine relies on dispatch order: a page freed and reallocated on
     the host is written only by work queued later, which runs after every
-    queued forward that still reads it.  Host-to-device copies of the
-    tables, lengths and tokens go through pinned memory, so queuing a block
-    never waits for the one in flight.
+    queued forward that still reads it.  Host-to-device copies into the
+    static buffers go through pinned memory, so queuing a block never
+    waits for the one in flight; they are queued behind it, so they never
+    change what it reads.
 
 The engine runs on the device of the model it is given (a ``TextLM`` or a
 ``QuantizedModel``) and never moves it.  Greedy by default; a request
@@ -39,12 +46,14 @@ its batchmates, preemptions or prefix hits.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vats_tpu_torch.device import resolve_dtype
+from vats_tpu_torch.inference.graphs import StepGraph
 from vats_tpu_torch.inference.sampling import sample_logits, sample_logits_per_row
 from vats_tpu_torch.ops.decode_attention import PagedKVCache
 
@@ -338,6 +347,29 @@ class ServingEngine:
         #: token per row), 'verify' (spec_k windows)
         self.forwards = {"prefill": 0, "decode": 0, "verify": 0}
 
+        # the decode block's static device buffers: the host state of a
+        # block is copied in before it runs, its tokens read from ``_out``
+        def buf(dtype, *shape):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self._dev = {
+            "tables": buf(torch.int32, max_batch, self.pages_per_row),
+            "lengths": buf(torch.int32, max_batch),
+            "tokens": buf(torch.int32, max_batch),
+            "chain": buf(torch.bool, max_batch),
+        }
+        if per_request_sampling:
+            self._dev.update(temp=buf(torch.float32, max_batch),
+                             topk=buf(torch.int32, max_batch),
+                             topp=buf(torch.float32, max_batch),
+                             seed=buf(torch.int64, max_batch))
+        #: block length -> its [B, k] output
+        self._out: Dict[int, torch.Tensor] = {}
+        #: block length -> its graph; graphs share one side stream and pool
+        self.graphs: Dict[int, StepGraph] = {}
+        self._use_graphs = self.device.type == "cuda"
+        self._graph_stream = self._graph_pool = None
+
     # ---------------- public API ----------------
 
     def submit(
@@ -411,18 +443,24 @@ class ServingEngine:
 
     # ---------------- internals ----------------
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A device copy of a host array; on the card through pinned memory,
-        so the copy is queued behind the stream's work, never waits for it."""
+    def _to_device(self, arr: np.ndarray, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """A device copy of a host array, into ``out`` when given (a static
+        buffer); on the card through pinned memory, so the copy is queued
+        behind the stream's work, never waits for it."""
         t = torch.from_numpy(np.array(arr))  # a private copy
+        if out is not None:
+            return out.copy_(t.pin_memory() if out.is_cuda else t,
+                             non_blocking=out.is_cuda)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
     def _fetch(self, t: torch.Tensor):
-        """Start copying ``t`` to the host; returns (host tensor, event)."""
+        """Start copying ``t`` to the host; returns (host tensor, event).
+        ``t`` may be a static buffer that the next block overwrites."""
         if t.device.type != "cuda":
-            return t, None
+            return t.clone(), None
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         ev = torch.cuda.Event()
@@ -669,30 +707,53 @@ class ServingEngine:
         self._free_row(row)
 
     @torch.no_grad()
-    def _decode_block(self, k: int, tables, lengths, tokens) -> torch.Tensor:
-        """Queue k decode forwards, each sampling the next token on the
-        device; returns the [B, k] tokens (not yet on the host)."""
-        cache = self._cache(tables, lengths)
-        if self.per_request_sampling:
-            temps, topks, topps, seeds = map(self._to_device, (
-                self.row_temp, self.row_topk, self.row_topp, self.row_seed))
-        out = torch.empty((tokens.shape[0], k), dtype=torch.int32,
-                          device=self.device)
+    def _decode_body(self, k: int) -> None:
+        """k decode forwards over the static buffers, each sampling the next
+        token on the device into column i of ``_out[k]``.  The same body runs
+        eagerly and as a captured graph."""
+        dev = self._dev
+        cache = self._cache(dev["tables"], dev["lengths"])  # advanced in place
+        tokens, out = dev["tokens"], self._out[k]
         for i in range(k):
             logits, cache, _ = self.model(tokens[:, None], paged_cache=cache)
-            self.forwards["decode"] += 1
             if self.per_request_sampling:
                 # cache.lengths (advanced) is the position the sampled token
                 # will occupy: the key of the row's draw
                 tokens = sample_logits_per_row(
-                    None, logits[:, 0], temperature=temps, top_k=topks,
-                    top_p=topps, row_seeds=seeds, positions=cache.lengths,
-                    kmax=self.sampling_kmax,
+                    None, logits[:, 0], temperature=dev["temp"], top_k=dev["topk"],
+                    top_p=dev["topp"], row_seeds=dev["seed"],
+                    positions=cache.lengths, kmax=self.sampling_kmax,
                 )
             else:
                 tokens = self._sample(logits[:, 0])
             out[:, i] = tokens
-        return out
+
+    def _decode_block(self, k: int) -> torch.Tensor:
+        """Run one k-step block on what the static buffers hold; returns its
+        [B, k] tokens (the static output, not yet on the host)."""
+        if k not in self._out:
+            self._out[k] = torch.zeros((self.max_batch, k), dtype=torch.int32,
+                                       device=self.device)
+        if not self._use_graphs:
+            self._decode_body(k)
+        else:
+            graph = self.graphs.get(k)
+            if graph is None:
+                if self._graph_pool is None:
+                    self._graph_stream = torch.cuda.Stream(self.device)
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                # the graph reaches the engine through a weak proxy: the
+                # engine owns its graphs, and dropping the engine frees them
+                # and its pool at once, not at the next cycle collection
+                engine = weakref.proxy(self)
+                graph = self.graphs[k] = StepGraph(
+                    lambda: engine._decode_body(k), self.device,
+                    generator=None if self.per_request_sampling else self._generator,
+                    stream=self._graph_stream, pool=self._graph_pool,
+                )
+            graph.run()
+        self.forwards["decode"] += k
+        return self._out[k]
 
     def _dispatch_block(self, chained=None):
         """Queue one k-step decode block; returns it unfetched.
@@ -720,12 +781,26 @@ class ServingEngine:
                 return None  # drain first; the sequential fallback handles it
             k = 1
         self._ensure_pages(lookahead=k, lengths=lengths)
-        tokens = self._to_device(self.last_tokens)
+        # Every copy below and the block itself run in the order of one
+        # stream.  The block in flight (``chained``) was queued before them
+        # with the copy of its output to the host right behind it: that
+        # copy, and the read of its last column here, both come before this
+        # block overwrites the output (a block of the same length replays
+        # into the same static buffer), and the copies into the inputs come
+        # after the block in flight has read them.
+        dev = self._dev
+        self._to_device(self.tables, dev["tables"])
+        self._to_device(lengths, dev["lengths"])
+        self._to_device(self.last_tokens, dev["tokens"])
         if chained is not None:
-            tokens = torch.where(self._to_device(chain_mask),
-                                 chained["out"][:, -1], tokens)
-        out = self._decode_block(k, self._to_device(self.tables),
-                                 self._to_device(lengths), tokens)
+            self._to_device(chain_mask, dev["chain"])
+            dev["tokens"].copy_(torch.where(dev["chain"], chained["out"][:, -1],
+                                            dev["tokens"]))
+        if self.per_request_sampling:
+            for name, arr in (("temp", self.row_temp), ("topk", self.row_topk),
+                              ("topp", self.row_topp), ("seed", self.row_seed)):
+                self._to_device(arr, dev[name])
+        out = self._decode_block(k)
         return {
             "out": out,
             "host": self._fetch(out),

@@ -119,7 +119,9 @@ class KVCache:
         return slot + torch.div(total - 1 - slot, s, rounding_mode="floor") * s
 
     def advance(self, num_tokens: int) -> "KVCache":
-        self.length = self.length + num_tokens
+        """Advance ``length`` in place: it keeps its storage, so a captured
+        decode step reads and writes the same tensor at every replay."""
+        self.length.add_(num_tokens)
         return self
 
     def layer_t(self, layer_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -215,7 +215,10 @@ class MoELayer(nn.Module):
         token_ids = torch.arange(n, device=dev).repeat(k)
         sort_idx = torch.argsort(expert_ids, stable=True)
         sorted_experts = expert_ids[sort_idx]
-        counts = torch.bincount(expert_ids, minlength=e)
+        # per-expert counts without a host sync (bincount reads the largest id
+        # back to size its output), so a captured decode step may sort
+        counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+            0, expert_ids, torch.ones_like(expert_ids))
         starts = torch.cumsum(counts, 0) - counts
         pos = torch.arange(nk, device=dev) - starts[sorted_experts]
         keep = pos < capacity

@@ -65,7 +65,7 @@ def append_token_inplace(
         kernels.ptr(length), layer_idx, b, g, d, s, kernels.stream_ptr(k),
     )
     kernels.check(lib, rc, "cache_append")
-    append_token_inplace.launches += 1
+    kernels.count_launch(append_token_inplace)
 
 
 append_token_inplace.launches = 0

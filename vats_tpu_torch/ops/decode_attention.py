@@ -168,15 +168,30 @@ class PagedKVCache:
         A position past the page table (a serving tail prefill padded to its
         bucket) has no page: the JAX scatter drops it; here it lands on the
         row's last slot, which no live token occupies (prompts end below the
-        context cap) and which decode overwrites before it is attended."""
+        context cap) and which decode overwrites before it is attended.
+
+        Writes may collide: on that last slot, and on the scratch page 0,
+        where padding and scratch rows write through unmapped table entries
+        (a scratch row of a serving prefill then attends that page's slot
+        0).  Every writer of a slot writes the value of the last of them in
+        (row, position) order, so the result is a sequential loop's on any
+        device: a CUDA scatter with differing values at one address keeps
+        whichever write lands last."""
         kv, sc = self._stack_kv(k_new, v_new, dim=2)  # [B, T, 2, G, hd_pad]
         ps = self.page_size
-        t = k_new.shape[1]
-        pos = self.lengths.long()[:, None] + torch.arange(t, device=kv.device)
+        b, t = k_new.shape[:2]
+        dev = kv.device
+        pos = self.lengths.long()[:, None] + torch.arange(t, device=dev)
         pos = torch.clamp(pos, max=self.pages_per_seq * ps - 1)
         phys = torch.gather(self.page_table.long(), 1, pos // ps)
+        dest = (phys * ps + pos % ps).reshape(-1)
+        order = torch.arange(b * t, device=dev)
+        last = torch.full((self.kv_pages.shape[1] * ps,), -1, dtype=torch.long, device=dev)
+        winner = last.scatter_reduce_(0, dest, order, reduce="amax")[dest]
+        kv = kv.reshape(b * t, *kv.shape[2:])[winner].reshape(kv.shape)
         self.kv_pages[layer_idx][phys, :, :, pos % ps] = kv
         if sc is not None:
+            sc = sc.reshape(b * t, *sc.shape[2:])[winner].reshape(sc.shape)
             self.kv_scales[layer_idx][phys, :, :, pos % ps] = sc
         self.fresh = False
         return self
@@ -221,12 +236,16 @@ class PagedKVCache:
         return kv[0], kv[1]
 
     def advance(self, n: int = 1) -> "PagedKVCache":
-        self.lengths = self.lengths + n
+        """Advance every sequence by ``n``, in place: ``lengths`` keeps its
+        storage, so a captured decode step reads and writes the same tensor
+        at every replay."""
+        self.lengths.add_(n)
         return self
 
     def advance_by(self, counts: torch.Tensor) -> "PagedKVCache":
-        """Per-sequence advance (ragged prefill: each row's true length)."""
-        self.lengths = self.lengths + counts.to(torch.int32)
+        """Per-sequence advance (ragged prefill: each row's true length), in
+        place."""
+        self.lengths.add_(counts.to(self.lengths.dtype))
         return self
 
 
@@ -333,7 +352,7 @@ def paged_decode_attention(
         )
     out = _launch(q, kv_pages, None, layer_idx, page_table, lengths, scale, k_cur,
                   v_cur, commit=False)
-    paged_decode_attention.launches += 1
+    kernels.count_launch(paged_decode_attention)
     return out
 
 
@@ -372,7 +391,7 @@ def paged_decode_attention_commit(
         return out
     out = _launch(q, kv_pages, None, layer_idx, page_table, lengths, scale, k_cur,
                   v_cur, commit=True)
-    paged_decode_attention_commit.launches += 1
+    kernels.count_launch(paged_decode_attention_commit)
     return out
 
 
@@ -397,7 +416,7 @@ def paged_decode_attention_int8(
         )
     out = _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale,
                   k_cur, v_cur, commit=False)
-    paged_decode_attention_int8.launches += 1
+    kernels.count_launch(paged_decode_attention_int8)
     return out
 
 
@@ -427,7 +446,7 @@ def paged_decode_attention_commit_int8(
         return out
     out = _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale,
                   k_cur, v_cur, commit=True)
-    paged_decode_attention_commit_int8.launches += 1
+    kernels.count_launch(paged_decode_attention_commit_int8)
     return out
 
 
@@ -447,7 +466,10 @@ _ENTRY = {
 #: per (device, stream): one int32 counter per (row, KV group), zero between
 #: calls (the kernel's last CTA of a row resets its own); grown, zeroed, when
 #: a call needs more.  Calls on one stream run in its order, so they never
-#: share a counter at once; calls on two streams use two buffers.
+#: share a counter at once; calls on two streams use two buffers.  A CUDA
+#: graph captures the buffer of its capture stream, which must exist before
+#: the capture (a warm-up call on that stream makes it), and takes it over
+#: when the capture ends (:func:`take_counters`).
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -455,9 +477,23 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a buffer made here would be a memset replayed from the graph's
+            # pool; the warm-up on the capture stream must have made it
+            raise RuntimeError(
+                "paged decode: no counters of this size for the capturing stream; "
+                "run the step once on that stream before capturing it")
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[key] = c
     return c
+
+
+def take_counters(stream: torch.cuda.Stream) -> Optional[torch.Tensor]:
+    """Hand the counters of ``stream`` to a graph just captured on it: the
+    graph keeps them alive and alone uses them, at every replay; an eager
+    call on that stream later gets a buffer of its own, so it never shares a
+    counter with a replay, whatever stream the replay runs on."""
+    return _COUNTERS.pop((stream.device, stream.cuda_stream), None)
 
 
 def _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale, k_cur,

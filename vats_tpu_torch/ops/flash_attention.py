@@ -241,7 +241,7 @@ def flash_attention_lse(
     if not q.is_cuda:
         return flash_attention_lse_ref(q, k, v, **kw)
     out, lse = _launch_fwd(q, k, v, kw, want_lse=True)
-    flash_attention_lse.launches += 1
+    kernels.count_launch(flash_attention_lse)
     return out, lse
 
 
@@ -298,7 +298,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, **kw):
     """K5a on CUDA tensors already at a kernel head dim: (dk, dv) fp32.
     Keywords as :func:`flash_attention_lse`."""
     dk, dv = _launch_bwd("dkv", q, k, v, do, lse, di, _bwd_kw(**kw))
-    flash_bwd_dkv.launches += 1
+    kernels.count_launch(flash_bwd_dkv)
     return dk, dv
 
 
@@ -306,7 +306,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, **kw):
     """K5b on CUDA tensors already at a kernel head dim: dq fp32.
     Keywords as :func:`flash_attention_lse`."""
     (dq,) = _launch_bwd("dq", q, k, v, do, lse, di, _bwd_kw(**kw))
-    flash_bwd_dq.launches += 1
+    kernels.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -428,7 +428,7 @@ def flash_attention(
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, **kw)
     out, _ = _launch_fwd(q, k, v, kw, want_lse=False)
-    flash_attention.launches += 1
+    kernels.count_launch(flash_attention)
     return out
 
 

@@ -8,12 +8,19 @@ sources in the checkout, into ``vats_tpu_torch/_build/`` (listed in
 an edited source rebuilds.  :func:`build_all` starts one ``nvcc`` per source
 at once and waits for all of them.
 
+Each wrapper counts its launches in ``<wrapper>.launches`` through
+:func:`count_launch`.  A launch made while the current stream captures a
+CUDA graph is recorded, not run: it goes to the capture's tally
+(:func:`launch_tally`), and each replay of the graph adds the tally
+(``inference/graphs.py``).
+
 Nothing here runs at import: the CPU tests import every module, and
 ``import vats_tpu_torch`` has to work where there is no CUDA toolkit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import torch
 
@@ -38,6 +45,8 @@ NVCC_FLAGS = [
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: the tallies of the captures under way, innermost last: {counted: launches}
+_TALLIES: List[Dict[object, int]] = []
 
 
 def nvcc_path() -> str:
@@ -160,3 +169,32 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype=None, shape=None,
         require(t.stride(-1) == 1, f"{name} must have a unit last stride")
     else:
         require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def count_launch(counted) -> None:
+    """One launch of ``counted``'s kernel (``counted`` is the wrapper, or any
+    object with a ``launches`` count).  Outside a capture ``counted.launches``
+    grows by one; while the current stream captures a CUDA graph the launch is
+    only recorded, and the innermost :func:`launch_tally` counts it instead.
+    A capture with no tally open raises: its replays would go uncounted."""
+    if torch.cuda.is_current_stream_capturing():
+        if not _TALLIES:
+            raise RuntimeError(
+                "a kernel was captured into a CUDA graph outside launch_tally(): "
+                "its replays would not be counted")
+        tally = _TALLIES[-1]
+        tally[counted] = tally.get(counted, 0) + 1
+    else:
+        counted.launches += 1
+
+
+@contextlib.contextmanager
+def launch_tally() -> Iterator[Dict[object, int]]:
+    """Collect the launches recorded by a capture: yields {counted: launches
+    recorded}, which a replay adds to each ``counted.launches``."""
+    tally: Dict[object, int] = {}
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
