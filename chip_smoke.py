@@ -19,16 +19,23 @@ Phases:
            at the serving shape (B=32, lengths <= 576) and at nlp_medium's
            max_seq_len (B=8, lengths <= 4096), the kernel alone beside the
            call, and K1 with every row at one length (where its time goes).
+           K3: its append-only mode bit-equal to ``append_token_ref``; its
+           fused decode prologue (dense, ring and paged modes at B 1, 16, 32,
+           bf16 and fp32) within PROLOGUE_ULPS of the unfused chain, pad
+           lanes and the rest of the cache exact, timed against the chain.
            Each check draws its inputs from its own seed.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
            the dense ``TokenGenerator``, every decode step after the first
            replayed from a CUDA graph.  Launch counters are zeroed just
-           before and read just after; each must equal 20 layers x calls.
-           Then the graph and the eager decode loop in turns (graph, eager,
-           eager, graph; equal tokens), each profiled; K3's device time in a
-           replayed dense graph beside an empty kernel of K3's grid.
+           before and read just after; each must equal 20 layers x calls
+           (K3's fused prologue once a layer a decode forward, its
+           append-only mode never).  Then the graph and the eager decode
+           loop in turns (graph, eager, eager, graph; equal tokens), each
+           profiled; kernels per decode forward by name (``decode_census``);
+           K3's dense prologue in replayed dense graphs at B 1, 16, 32 beside
+           an empty kernel of its grid and the chain it replaced.
   parity   full width, 2 layers: ``generate_paged`` and ``generate`` on the
            card (kernels, decode replayed from graphs) against the CPU (plain
            versions), same weights; at most one (row, step) whose MoE router
@@ -43,8 +50,9 @@ Phases:
            from CUDA graphs and eagerly, in turns (equal tokens), each
            drive profiled once more: throughput, request latency, capture
            seconds, peak memory, device-busy time and idle share; pages,
-           preemptions, prefix hits; launch counts of K1 and K4 against the
-           decode forwards a hook counts.
+           preemptions, prefix hits; launch counts of K1, K4 and K3's paged
+           prologue against the decode forwards a hook counts; kernels per
+           decode forward of each configuration.
   serve_parity  2 layers at full width: one int8-KV stream of 8 requests
            (prefix sharing, a preemption) on the card (K4, replayed graphs;
            logits from an eager drive with equal tokens) and on the CPU
@@ -57,6 +65,10 @@ Phases:
   train_parity  2 layers at full width, B=2, T=512, dropout 0: three train
            steps on the card (flash kernels) and on the CPU from the same
            weights and batch; loss, grad norm and params after each step.
+
+``run_census`` (kernels per decode forward and the chain K3's prologue
+replaced) needs only what every slice has, so it also measures a checkout
+of an earlier commit (its docstring says how).
 
 The last two lines of standard output are one JSON object listing every
 kernel, then ``{"ok": true, "device": {...}}``.  Any failed phase raises and
@@ -81,6 +93,7 @@ PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train"
           "train_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 
 
 def log(*a):
@@ -173,9 +186,9 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -642,6 +655,161 @@ def check_k3(gen):
         f"{call_ms:.4f} plain {plain_call_ms:.4f} library {library_call_ms:.4f}")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=library_ms)
+
+
+# K3's fused decode prologue at nlp_medium's heads (Hq 24, G 8, hd 60 stored
+# as 64).  Kernel and plain version (the unfused chain) run the same fp32 ops
+# in the same order but for the QK-norm's sum of squares.  bf16 rounds n
+# before the rotation, so a difference shows only where it flips that
+# rounding: one bf16 ulp at the rotated pair's magnitude sqrt(r1^2 + r2^2)
+# (the rotation spreads it over the pair).  fp32 keeps it: the norm moves by
+# an ulp, n1 and n2 by up to two each, the rotation sums both: 4 fp32 ulps
+# at the pair's magnitude.  Without the norm: one ulp.  v, the pad lanes and
+# every cache element outside the written column are exact.
+PROLOGUE_HQ, PROLOGUE_G, PROLOGUE_HD, PROLOGUE_HDP = 24, 8, 60, 64
+PROLOGUE_ULPS = {("bfloat16", True): 1, ("bfloat16", False): 1,
+                 ("float32", True): 4, ("float32", False): 1}
+
+
+def rotated_ulps(got, want):
+    """|got - want| in ulps of want's dtype at each element's rotated pair
+    magnitude."""
+    import torch
+
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    got, want = got.float(), want.float()
+    pm = torch.sqrt(want[..., 0::2] ** 2 + want[..., 1::2] ** 2).repeat_interleave(2, -1)
+    ulp = torch.exp2(torch.floor(torch.log2(pm.clamp(min=2.0 ** -126))) - bits)
+    return (got - want).abs() / ulp
+
+
+def _prologue_inputs(gen, b, dtype, fused=True):
+    """q, k, v [b, 1, H, 60] as one fused QKV product's views, or as three
+    tensors."""
+    import torch
+
+    hq, g, hd = PROLOGUE_HQ, PROLOGUE_G, PROLOGUE_HD
+    row = torch.randn((b, 1, (hq + 2 * g) * hd), generator=gen, device="cuda").to(dtype)
+    q, k, v = torch.split(row, [hq * hd, g * hd, g * hd], dim=-1)
+    q, k, v = q.reshape(b, 1, hq, hd), k.reshape(b, 1, g, hd), v.reshape(b, 1, g, hd)
+    return (q, k, v) if fused else (q.contiguous(), k.contiguous(), v.contiguous())
+
+
+def _prologue_cost(b, paged, qk_norm=True):
+    """(bytes, fp32 operations) of one call: the q, k, v rows read once, the
+    RoPE table and positions; q (padded) and the k, v columns (dense), or q
+    and k (paged), written once.  Per q/k element a square, an add and a
+    division (norm); per pair the angle, cos, sin, 4 products and 2 sums."""
+    hq, g, hd, hdp = PROLOGUE_HQ, PROLOGUE_G, PROLOGUE_HD, PROLOGUE_HDP
+    es = 2  # bf16
+    read = b * (hq + 2 * g) * hd * es + hd // 2 * 4 + (4 * b if paged else 4)
+    write = b * (hq + g) * hd * es if paged else b * (hq + 2 * g) * hdp * es
+    n = b * (hq + g) * hd
+    return read + write, n * (3 if qk_norm else 0) + n // 2 * 9
+
+
+def check_k3_prologue(gen):
+    """Dense, ring and paged modes at B = 1, 16, 32, bf16 and fp32, with and
+    without the QK-norm, fused and split projections; then kernel against
+    plain version at the main path's B=16 (dense cache [20,16,8,64,544]),
+    timed.  Returns the rows of the dense and the paged prologue."""
+    import torch
+
+    from vats_tpu_torch.nn.rope import rope_inv_freq
+    from vats_tpu_torch.ops import cache_append as ca
+
+    hq, g, hd, hdp = PROLOGUE_HQ, PROLOGUE_G, PROLOGUE_HD, PROLOGUE_HDP
+    L, S = 20, 544
+    inv = rope_inv_freq(hd, 10000.0, device="cuda")
+    worst = {"dense": [0.0, 0.0], "paged": [0.0, 0.0]}  # max |err|, max ulps
+    equal = total = 0
+    n0 = (ca.dense_decode_prologue.launches, ca.paged_decode_prologue.launches)
+    calls = [0, 0]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 16, 32):
+            cache = torch.randn((2, 3, b, g, hdp, S), generator=gen, device="cuda").to(dtype)
+            cache[..., hd:, :] = 0
+            for mode, qk_norm, fused, pos in (
+                    ("dense", True, True, 0), ("dense", False, False, S + 7),
+                    ("ring", True, False, S + 7), ("ring", False, True, 127),
+                    ("paged", True, True, 0), ("paged", False, False, 300)):
+                q, k, v = _prologue_inputs(gen, b, dtype, fused)
+                kw = dict(theta=10000.0, qk_norm=qk_norm)
+                tol = PROLOGUE_ULPS[(str(dtype).split(".")[1], qk_norm)]
+                if mode == "paged":
+                    lens = torch.randint(0, 4096, (b,), generator=gen, device="cuda")
+                    lens[0] = pos
+                    lens = lens.to(torch.int32)
+                    got = ca.paged_decode_prologue(q, k, v, lens, inv, **kw)
+                    want = ca.paged_decode_prologue_ref(q, k, v, lens, **kw)
+                    calls[1] += 1
+                    pairs = list(zip(got[:2], want[:2]))
+                    require(torch.equal(got[2], want[2]), "K3 paged prologue: v differs")
+                else:
+                    ka, va, kb, vb = (cache[i % 2].clone() for i in range(4))
+                    length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                    got = ca.dense_decode_prologue(q, k, v, ka, va, length, 1, inv,
+                                                   ring=mode == "ring", **kw)
+                    want = ca.dense_decode_prologue_ref(q, k, v, kb, vb, length, 1,
+                                                        ring=mode == "ring", **kw)
+                    calls[0] += 1
+                    col = pos % S if mode == "ring" else min(pos, S - 1)
+                    require(not got[..., hd:].any() and not ka[1, :, :, hd:, col].any(),
+                            f"K3 {mode} prologue: a pad lane is not zero")
+                    rest = torch.ones(S, dtype=torch.bool, device="cuda")
+                    rest[col] = False
+                    require(torch.equal(va, vb) and torch.equal(ka[..., rest], kb[..., rest])
+                            and torch.equal(ka[0], kb[0]) and torch.equal(ka[2], kb[2]),
+                            f"K3 {mode} prologue: the cache differs outside the k column")
+                    pairs = [(got[..., :hd], want[..., :hd]),
+                             (ka[1, ..., :hd, col], kb[1, ..., :hd, col])]
+                torch.cuda.synchronize()
+                key = "paged" if mode == "paged" else "dense"
+                for x, y in pairs:
+                    ulps = float(rotated_ulps(x, y).max())
+                    require(ulps <= tol and bool(torch.isfinite(x.float()).all()),
+                            f"K3 {mode} prologue {dtype} B={b}: {ulps:.2f} ulps beyond {tol}")
+                    worst[key][0] = max(worst[key][0], float((x.float() - y.float()).abs().max()))
+                    worst[key][1] = max(worst[key][1], ulps)
+                    equal += int((x == y).sum())
+                    total += x.numel()
+    require((ca.dense_decode_prologue.launches - n0[0],
+             ca.paged_decode_prologue.launches - n0[1]) == tuple(calls),
+            "K3 prologue: a wrapper did not launch its kernel")
+    log(f"K3 fused decode prologue (Hq 24, G 8, hd 60->64; B 1/16/32; bf16, fp32; dense, "
+        f"ring, paged; QK-norm on and off; fused and split projections): within one ulp "
+        f"of the dtype at the rotated pair's magnitude (fp32 with the norm: "
+        f"{PROLOGUE_ULPS[('float32', True)]}); largest dense "
+        f"{worst['dense'][1]:.2f} ulps ({worst['dense'][0]:.3e}), paged "
+        f"{worst['paged'][1]:.2f} ulps ({worst['paged'][0]:.3e}); {equal / total:.6f} of "
+        f"q and k bit-equal; v, pad lanes and the rest of the cache exact")
+
+    # timed at the main path's B=16, bf16
+    b = 16
+    q, k, v = _prologue_inputs(gen, b, torch.bfloat16)
+    kc = torch.zeros((L, b, g, hdp, S), dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    length = torch.tensor(300, dtype=torch.int32, device="cuda")
+    lens = torch.randint(300, 513, (b,), generator=gen, device="cuda").to(torch.int32)
+    rows = {}
+    for key, kern, plain in (
+            ("dense", lambda: ca.dense_decode_prologue(q, k, v, kc, vc, length, 5, inv,
+                                                       theta=1e4, qk_norm=True, ring=False),
+             lambda: ca.dense_decode_prologue_ref(q, k, v, kc, vc, length, 5, theta=1e4,
+                                                  qk_norm=True, ring=False)),
+            ("paged", lambda: ca.paged_decode_prologue(q, k, v, lens, inv, theta=1e4,
+                                                       qk_norm=True),
+             lambda: ca.paged_decode_prologue_ref(q, k, v, lens, theta=1e4, qk_norm=True))):
+        ms, call_ms = timed(kern)
+        plain_ms, plain_call_ms = timed(plain)
+        nbytes, ops = _prologue_cost(b, key == "paged")
+        b_ms, by = bound(nbytes, ops, PEAK_FP32_FLOPS)
+        log(f"K3 {key} prologue B={b} bf16: kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} "
+            f"(the chain) bound_ms={b_ms:.6f} ({by}: {nbytes} bytes, {ops} fp32 ops); per "
+            f"call with host overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+        rows[key] = dict(max_abs_err=worst[key][0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, library_ms=None)
+    return rows["dense"], rows["paged"]
 
 
 # K2' and K5 at the training shapes: medium_dense attention, B=16, T=512.
@@ -1158,10 +1326,14 @@ def run_main(counters):
     replays.remove()
 
     L = cfg.num_layers
+    # every decode forward: one fused prologue a layer (K3's paged mode before
+    # K1, its dense mode on the dense cache), and no append-only K3
     want = {
         "flash_attention": L * (1 + B // rc),
         "paged_decode_attention_commit": L * steps * 2,
-        "append_token_inplace": L * steps,
+        "paged_decode_prologue": L * steps * 2,
+        "dense_decode_prologue": L * steps,
+        "append_token_inplace": 0,
     }
     for name, n in want.items():
         if counts[name] != n:
@@ -1224,7 +1396,8 @@ def run_main(counters):
                 for r in results), "main: generate_paged tokens differ between graph "
             "and eager")
     for name, (call, _) in calls.items():
-        profile_breakdown(f"generate_paged [{name}]", call, also=("flash_fwd",))
+        profile_breakdown(f"generate_paged [{name}]", call,
+                          also=("flash_fwd", "prologue_kernel"))
 
     # the dense TokenGenerator's call (B=1, a 40-token prompt in a 64 bucket)
     ids1 = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
@@ -1256,17 +1429,20 @@ def run_main(counters):
     require(all(torch.equal(r[0], results[0][0]) for r in results),
             "main: dense tokens differ between graph and eager")
     for name, (call, _) in calls.items():
-        profile_breakdown(f"dense generate B=1 [{name}]", call)
-    k3_in_graph(model, L, gen, steps)
+        profile_breakdown(f"dense generate B=1 [{name}]", call, also=("prologue_kernel",))
+    decode_census(model, "main: dense generate", 1, paged=False)
+    decode_census(model, "main: generate_paged", B, paged=True)
+    prologue_in_graph(model, L, gen, steps)
     del model, tg
     torch.cuda.empty_cache()
     return counts
 
 
-def k3_in_graph(model, L, gen, steps):
-    """K3's device time per launch inside replayed dense ``generate`` graphs
-    (B=1, and B=16 over 512-token prompts: the kernels phase's cache), beside
-    an empty kernel launched with K3's grid, L launches a replay."""
+def prologue_in_graph(model, L, gen, steps):
+    """K3's dense prologue: device time per launch inside replayed dense
+    ``generate`` graphs (B=1 over 64-token prompts, B=16 and 32 over 512),
+    beside an empty kernel launched with its grid and the chain it replaced
+    (:func:`chain_in_graph`), each L launches a replay."""
     import ctypes
 
     import torch
@@ -1275,36 +1451,165 @@ def k3_in_graph(model, L, gen, steps):
     from vats_tpu_torch.ops import kernels
 
     cfg = model.cfg
-    G, D = cfg.query_groups, -(-cfg.head_dim // 8) * 8
+    hq, g = cfg.num_heads, cfg.query_groups
     lib = kernels.load("cache_append")
-    empty = lib.vats_cache_append_empty
-    empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    empty = lib.vats_decode_prologue_empty
+    empty.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     empty.restype = ctypes.c_int
     greedy = dict(temperature=0.0, top_k=None, top_p=None, do_sample=False,
                   repetition_penalty=None, approx_top_k=False)
-    for B, T in ((1, 64), (16, 512)):
+    for B, T in ((1, 64), (16, 512), (32, 512)):
         ids, mask = ragged_prompts(gen, B, T, T // 2, cfg.vocab_size, "cuda")
         per, _ = profiled(lambda: _generate(model, ids, mask, None, greedy, use_graph=True,
                                             max_new_tokens=steps, pad_token_id=0,
                                             eos_token_id=None, total_len=T + steps))
-        k3 = [v for name, v in per.items() if "append_kernel" in name]
+        fused = [v for name, v in per.items() if "prologue_kernel" in name]
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream()
         with torch.cuda.graph(graph, stream=stream):
             for _ in range(L):
-                kernels.check(lib, empty(B, G, D, kernels.stream_ptr(ids)), "empty")
+                kernels.check(lib, empty(1, B, hq, g, kernels.stream_ptr(ids)), "empty")
         graph.replay()
         per_e, _ = profiled(lambda: [graph.replay() for _ in range(steps)])
         em = [v for name, v in per_e.items() if "empty_kernel" in name]
-        if not k3 or not em:
-            log(f"K3 in a replayed graph, B={B}: not measured (the profiler recorded "
-                f"no K3 or empty kernel)")
+        chain = chain_in_graph(B, L, steps)
+        if not fused or not em:
+            log(f"K3 prologue in a replayed graph, B={B}: not measured (the profiler "
+                f"recorded no prologue or empty kernel)")
             continue
-        (k3_us, k3_n), (em_us, em_n) = k3[0], em[0]
-        log(f"K3 in a replayed dense generate graph, B={B} (cache [{L},{B},{G},{D},"
-            f"{T + steps}], {k3_n} launches): {k3_us / k3_n / 1e3:.5f} ms a launch; an "
-            f"empty kernel of K3's grid ({-(-B * G * D // 256)} blocks of 256) in a "
-            f"replayed graph ({em_n} launches): {em_us / em_n / 1e3:.5f} ms")
+        (k_us, k_n), (em_us, em_n) = fused[0], em[0]
+        log(f"K3 dense prologue in a replayed dense generate graph, B={B} (cache [{L},{B},"
+            f"{g},64,{T + steps}], {k_n} launches): {k_us / k_n / 1e3:.5f} ms a launch; an "
+            f"empty kernel of its grid ({-(-(hq + 2 * g) // 4)}x{B} blocks of 128) in a "
+            f"replayed graph ({em_n} launches): {em_us / em_n / 1e3:.5f} ms; {chain}")
+
+
+def chain_in_graph(b, L=20, steps=8):
+    """The chain K3's prologue replaced, per layer, at nlp_medium's heads
+    (bf16), L copies captured in one CUDA graph and replayed: dense (QK-norm
+    and RoPE of q and k, the pads, ``KVCache.update_layer`` at T == 1, whose
+    append is K3's append-only mode) and paged (the positions, QK-norm and
+    RoPE).  Only functions every slice of the port has, so a checkout of an
+    earlier commit measures its own chain (:func:`run_census`).  Returns a
+    line: device ms and kernels a layer, each."""
+    import torch
+    import torch.nn.functional as F
+
+    from vats_tpu_torch.nn.kv_cache import KVCache
+    from vats_tpu_torch.nn.norms import l2_normalize
+    from vats_tpu_torch.nn.rope import apply_rope_1d
+    from vats_tpu_torch.ops import kernels
+
+    hq, g, hd, hdp = PROLOGUE_HQ, PROLOGUE_G, PROLOGUE_HD, PROLOGUE_HDP
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = _prologue_inputs(gen, b, torch.bfloat16)
+    cache = KVCache.create(L, b, 544, g, hd, dtype=torch.bfloat16, device="cuda")
+    cache.length.fill_(300)
+    positions = cache.length + torch.arange(1, device="cuda")  # kept for the mask
+    lengths = torch.randint(300, 513, (b,), generator=gen, device="cuda").to(torch.int32)
+
+    def dense():
+        for layer in range(L):
+            qr = apply_rope_1d(l2_normalize(q), positions, 1e4)
+            kr = apply_rope_1d(l2_normalize(k), positions, 1e4)
+            cache.update_layer(layer, kr, v)
+            F.pad(qr, (0, hdp - hd))
+
+    def paged():
+        for _ in range(L):
+            pos = lengths[:, None] + torch.arange(1, device="cuda")[None, :]
+            apply_rope_1d(l2_normalize(q), pos, 1e4)
+            apply_rope_1d(l2_normalize(k), pos, 1e4)
+
+    out = []
+    for name, body in (("dense", dense), ("paged", paged)):
+        body()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with kernels.launch_tally():
+            with torch.cuda.graph(graph):
+                body()
+        graph.replay()
+        per, _ = profiled(lambda: [graph.replay() for _ in range(steps)])
+        if not per:
+            out.append(f"{name} chain not measured")
+            continue
+        us = sum(u for u, _ in per.values()) / (steps * L)
+        n = sum(c for _, c in per.values()) / (steps * L)
+        out.append(f"the {name} chain it replaced, in a replayed graph: {us / 1e3:.5f} ms "
+                   f"in {n:.1f} kernels a layer")
+    return "; ".join(out)
+
+
+def decode_census(model, label, b, paged, kv_quant=None, n=4, top=12):
+    """Kernels per decode forward, by name: ``n`` eager T == 1 forwards of
+    ``model`` over a fresh dense or paged cache at batch ``b``, under
+    torch.profiler.  Prints the count and device time a forward and the
+    kernels launched most often; returns the count."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import PagedKVCache
+
+    cfg = model.cfg
+    if paged:
+        cache = PagedKVCache.create(cfg.num_layers, b, 256, cfg.query_groups, cfg.head_dim,
+                                    page_size=128, device="cuda",
+                                    dtype=torch.int8 if kv_quant else torch.bfloat16)
+        kw = dict(paged_cache=cache)
+    else:
+        kw = dict(cache=model.init_cache(b, 256))
+    ids = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+
+    def forwards():
+        with torch.no_grad():
+            for _ in range(n):
+                model(ids, **kw)
+
+    forwards()
+    torch.cuda.synchronize()
+    per, _ = profiled(forwards)
+    if not per:
+        log(f"census {label}: not measured (the profiler recorded no device time)")
+        return None
+    count = sum(c for _, c in per.values()) / n
+    busy = sum(us for us, _ in per.values()) / n / 1e3
+    log(f"census {label} B={b}: {count:.1f} kernels per decode forward "
+        f"({count / cfg.num_layers:.2f} a layer), {busy:.3f} device ms a forward; most "
+        f"launched:")
+    for name, (us, c) in sorted(per.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"  {c / n:8.1f}x {us / c:9.2f} us  {name[:100]}")
+    return count
+
+
+def run_census():
+    """Kernels per decode forward on every decode path (dense B=1,
+    ``generate_paged``'s B=16, the engine's B=32 with bf16 KV, int8 KV and
+    int8 weights + int8 KV) and the replaced chain's device time at B=1, 16
+    and 32, at full nlp_medium width.  Needs nothing a slice added after
+    PR 7, so it measures an earlier checkout too:
+
+        cd <checkout>; python3 -c "import importlib.util as u, sys; \
+            sys.path.insert(0, '.'); s = u.spec_from_file_location('smoke', \
+            '<this file>'); m = u.module_from_spec(s); s.loader.exec_module(m); \
+            m.run_census()"
+    """
+    import torch
+
+    from vats_tpu_torch.inference import QuantizedModel
+    from vats_tpu_torch.models import TextLM
+
+    log(card_line())
+    model = TextLM(medium_cfg(), device="cuda", seed=0).eval()
+    decode_census(model, "dense generate", 1, paged=False)
+    decode_census(model, "generate_paged", 16, paged=True)
+    decode_census(model, "serve bf16 KV", SERVE_ROWS, paged=True)
+    decode_census(model, "serve int8 KV", SERVE_ROWS, paged=True, kv_quant="int8")
+    for b in (1, 16, 32):
+        log(f"B={b}: {chain_in_graph(b)}")
+    decode_census(QuantizedModel(model), "serve int8 weights + int8 KV", SERVE_ROWS,
+                  paged=True, kv_quant="int8")
+    del model
+    torch.cuda.empty_cache()
 
 
 def profile_breakdown(label, fn, top=10, also=()):
@@ -1724,6 +2029,7 @@ def run_serve(kernel_fns):
                 log(f"serve [{name}] [{path}]: device_busy_s={busy:.3f} over the mean "
                     f"timed wall_s={np.mean(walls):.3f}: idle_share="
                     f"{1 - busy / np.mean(walls):.3f}")
+        decode_census(model, f"serve [{name}]", SERVE_ROWS, paged=True, kv_quant=kv_quant)
         runs[name], counts[name] = outs, got
     pairs = [(runs["bf16 KV"][r], runs["int8 KV"][r]) for r in runs["bf16 KV"]]
     same = sum(int(x == y) for a, b in pairs for x, y in zip(a, b))
@@ -1738,8 +2044,9 @@ def run_serve(kernel_fns):
 
 def check_serve(name, engine, outs, stream, cfg, got, decode_fw, kv_quant, L, k1, k4):
     """Gates of one drive: every request whole, every page back, ids in the
-    vocabulary, the decode kernel of this pool launched once per layer per
-    decode forward counted by the hook, which the engine's own count equals."""
+    vocabulary, the decode kernel of this pool and K3's paged prologue each
+    launched once per layer per decode forward counted by the hook, which
+    the engine's own count equals."""
     require(len(outs) == len(stream), f"serve {name}: {len(outs)} of 64 finished")
     for rid, (prompt, n) in enumerate(stream):
         require(len(outs[rid]) == n, f"serve {name}: request {rid} has "
@@ -1756,6 +2063,10 @@ def check_serve(name, engine, outs, stream, cfg, got, decode_fw, kv_quant, L, k1
     require(got[k1.__name__] == want_k1 and got[k4.__name__] == want_k4,
             f"serve {name}: K1 {got[k1.__name__]} (want {want_k1}), K4 "
             f"{got[k4.__name__]} (want {want_k4}) launches")
+    fused = (got["paged_decode_prologue"], got["dense_decode_prologue"],
+             got["append_token_inplace"])
+    require(fused == (L * decode_fw, 0, 0), f"serve {name}: K3's paged, dense and "
+            f"append-only modes launched {fused} times, want {(L * decode_fw, 0, 0)}")
     require(engine.preemptions >= 1, f"serve {name}: no preemption")
 
 
@@ -1847,7 +2158,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from vats_tpu_torch.ops import kernels
     from vats_tpu_torch.ops import flash_attention as fa
-    from vats_tpu_torch.ops.cache_append import append_token_inplace
+    from vats_tpu_torch.ops.cache_append import (
+        append_token_inplace,
+        dense_decode_prologue,
+        paged_decode_prologue,
+    )
     from vats_tpu_torch.ops.decode_attention import (
         paged_decode_attention_commit,
         paged_decode_attention_commit_int8,
@@ -1892,9 +2207,19 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/flash_attention.cu",
              replaces="vats_tpu/ops/flash_attention.py:67", fn=fa.flash_attention,
              path="main"),
+        # K3's append-only mode: off the main path since K3 became the fused
+        # prologue (the main phase gates it at 0 launches)
         dict(name="dense_cache_append", route="cuda",
              source="vats_tpu_torch/csrc/cache_append.cu",
              replaces="vats_tpu/ops/cache_append.py:47", fn=append_token_inplace,
+             path="main"),
+        dict(name="dense_decode_prologue", route="cuda",
+             source="vats_tpu_torch/csrc/cache_append.cu",
+             replaces="vats_tpu/ops/cache_append.py:47", fn=dense_decode_prologue,
+             path="main"),
+        dict(name="paged_decode_prologue", route="cuda",
+             source="vats_tpu_torch/csrc/cache_append.cu",
+             replaces="vats_tpu/ops/cache_append.py:47", fn=paged_decode_prologue,
              path="main"),
         dict(name="flash_attention_forward_lse", route="cuda",
              source="vats_tpu_torch/csrc/flash_attention.cu",
@@ -1918,6 +2243,8 @@ def main(argv=None) -> int:
         results["paged_decode_attention_commit_int8"] = check_k4(gen(1))
         results["flash_attention_forward"] = check_k2(gen(2))
         results["dense_cache_append"] = check_k3(gen(3))
+        (results["dense_decode_prologue"],
+         results["paged_decode_prologue"]) = check_k3_prologue(gen(6))
         results["flash_attention_forward_lse"] = check_k2_lse(gen(4))
         (results["flash_attention_backward_dkv"],
          results["flash_attention_backward_dq"]) = check_k5(gen(5))

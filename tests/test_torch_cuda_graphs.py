@@ -71,7 +71,8 @@ def graph_and_eager(fn, model, ids, mask, sample, seed, counted, **kw):
 
 @pytest.mark.parametrize("sample", [GREEDY, SAMPLED], ids=["greedy", "sampled"])
 def test_generate_dense_graph_equals_eager(gen, sample):
-    """Dense cache (K3); the ring cache of a windowed model as well."""
+    """Dense cache (K3's fused dense prologue, one launch per layer per
+    step); the ring cache of a windowed model as well."""
     from vats_tpu_torch.inference.generate import _generate
 
     for lw in (-1, 100):
@@ -79,20 +80,21 @@ def test_generate_dense_graph_equals_eager(gen, sample):
         ids, mask = ragged(gen, 3, 140, 256)
         steps = 19
         (tg, lg, graph, n_g), (te, le, none, n_e) = graph_and_eager(
-            _generate, model, ids, mask, sample, 11, ca.append_token_inplace,
+            _generate, model, ids, mask, sample, 11, ca.dense_decode_prologue,
             max_new_tokens=steps, pad_token_id=0, eos_token_id=None, total_len=None)
         assert graph is not None and none is None
         assert torch.equal(tg, te) and torch.equal(lg, le)
         L = model.cfg.num_layers
-        assert graph.replays == steps - 1 and graph.tally == {ca.append_token_inplace: L}
+        assert graph.replays == steps - 1 and graph.tally == {ca.dense_decode_prologue: L}
         assert n_g == n_e == L * steps
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
 @pytest.mark.parametrize("sample", [GREEDY, SAMPLED], ids=["greedy", "sampled"])
 def test_generate_paged_graph_equals_eager(gen, kv_quant, sample):
-    """bf16 pages (K1) and int8 pages (K4); an EOS (a check every few
-    replays) and a row that runs out of buffer."""
+    """bf16 pages (K1) and int8 pages (K4), each after K3's fused paged
+    prologue; an EOS (a check every few replays) and a row that runs out of
+    buffer."""
     from vats_tpu_torch.inference.generate import _generate_paged
 
     model = tiny_model()
@@ -106,7 +108,8 @@ def test_generate_paged_graph_equals_eager(gen, kv_quant, sample):
         _generate_paged, model, ids, mask, sample, 5, counted, eos_token_id=None,
         total_len=None, **kw)
     assert torch.equal(tg, te) and torch.equal(lg, le)
-    assert graph.replays == steps - 1 and graph.tally == {counted: L}
+    assert graph.replays == steps - 1
+    assert graph.tally == {counted: L, ca.paged_decode_prologue: L}
     assert n_g == n_e == L * steps
     # an EOS drawn from the run above; total_len cuts the longest rows short
     eos = int(tg[0, int(mask[0].sum()) + 4])
@@ -144,8 +147,8 @@ def engine_stream():
 def test_engine_graph_equals_eager(gen, mode, overlap):
     """The engine's 4-step blocks (and the 1-step fallback near the context
     cap) replayed against eager blocks: prefix caching, a preemption,
-    greedy rows and keyed sampled rows; K1 or K4 launched once per layer per
-    decode forward."""
+    greedy rows and keyed sampled rows; K1 or K4, and K3's paged prologue,
+    launched once per layer per decode forward."""
     from vats_tpu_torch.inference import QuantizedModel, SamplingParams, ServingEngine
 
     model = tiny_model()
@@ -160,7 +163,7 @@ def test_engine_graph_equals_eager(gen, mode, overlap):
                             total_pages=1 + 4, kv_quant=kv_quant, decode_block_steps=4,
                             per_request_sampling=True, overlap_scheduling=overlap)
         eng._use_graphs = use_graphs
-        n0 = counted.launches
+        n0, p0 = counted.launches, ca.paged_decode_prologue.launches
         rids = [eng.submit(p, max_new_tokens=n, sampling=SamplingParams(
             temperature=0.7, top_k=10, seed=i) if i % 2 else None)
             for i, (p, n) in enumerate(engine_stream())]
@@ -168,6 +171,8 @@ def test_engine_graph_equals_eager(gen, mode, overlap):
         torch.cuda.synchronize()
         assert eng.preemptions >= 1 and eng.prefix_cache.hit_tokens > 0
         assert counted.launches - n0 == model.cfg.num_layers * eng.forwards["decode"]
+        assert (ca.paged_decode_prologue.launches - p0
+                == model.cfg.num_layers * eng.forwards["decode"])
         outs.append([out[r] for r in rids])
         if use_graphs:
             assert sorted(eng.graphs) == [1, 4]

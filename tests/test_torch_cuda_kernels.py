@@ -520,6 +520,109 @@ def test_cache_append_matches_plain(gen, dtype, pos):
     assert torch.equal(ka, kb) and torch.equal(va, vb)
 
 
+def rotated_ulps(got, want, mantissa_bits):
+    """|got - want| in ulps of the model dtype at each element's rotated pair
+    magnitude sqrt(r1^2 + r2^2): a rounding difference in the normalised
+    pair (n1, n2) reaches both rotated elements, however small one is."""
+    got, want = got.float(), want.float()
+    pm = torch.sqrt(want[..., 0::2] ** 2 + want[..., 1::2] ** 2).repeat_interleave(2, -1)
+    ulp = torch.exp2(torch.floor(torch.log2(pm.clamp(min=2.0 ** -126))) - mantissa_bits)
+    return (got - want).abs() / ulp
+
+
+# The prologue against its plain version (the unfused chain) on the card:
+# the same fp32 ops in the same order, but for the sum of squares of the
+# QK-norm, whose order differs.  bf16 rounds n before the rotation, so a
+# difference shows only where it flips that rounding: one bf16 ulp at the
+# pair's magnitude.  fp32 keeps it: the norm moves by an ulp, each of n1, n2
+# by up to two, and the rotation sums both (4 fp32 ulps at the pair's
+# magnitude).  Without the norm the ops are the same: one ulp.
+PROLOGUE_ULPS = {(torch.bfloat16, True): 1, (torch.bfloat16, False): 1,
+                 (torch.float32, True): 4, (torch.float32, False): 1}
+
+
+@pytest.mark.parametrize("b", [1, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["dense", "ring", "paged"])
+def test_decode_prologue_matches_plain(gen, mode, dtype, b):
+    """K3's fused prologue at nlp_medium's heads (24 / 8 of 60, stored as
+    64): q and k within PROLOGUE_ULPS of the plain chain, v and every pad
+    lane exact, every cache element outside the written column unchanged;
+    fused and split projections, with and without the QK-norm."""
+    from vats_tpu_torch.nn.rope import rope_inv_freq
+
+    hq, g, hd, hdp, L, S = 24, 8, 60, 64, 3, 544
+    inv_freq = rope_inv_freq(hd, 10000.0, device="cuda")
+    cache = rand(gen, 2, L, b, g, hdp, S, dtype=dtype)
+    equal = total = 0
+    for qk_norm, fused, pos in ((True, True, 0), (True, False, 127), (False, True, S - 1),
+                                (True, True, S + 7), (False, False, 300)):
+        row = rand(gen, b, 1, (hq + 2 * g) * hd, dtype=dtype)
+        q, k, v = torch.split(row, [hq * hd, g * hd, g * hd], dim=-1)
+        q, k, v = q.reshape(b, 1, hq, hd), k.reshape(b, 1, g, hd), v.reshape(b, 1, g, hd)
+        if not fused:  # three tensors, as three projections give them
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kw = dict(theta=10000.0, qk_norm=qk_norm)
+        tol = PROLOGUE_ULPS[(dtype, qk_norm)]
+        if mode == "paged":
+            lengths = torch.randint(0, 4096, (b,), generator=gen, device="cuda")
+            lengths[0] = pos
+            lengths = lengths.to(torch.int32)
+            n0 = ca.paged_decode_prologue.launches
+            got = ca.paged_decode_prologue(q, k, v, lengths, inv_freq, **kw)
+            want = ca.paged_decode_prologue_ref(q, k, v, lengths, **kw)
+            torch.cuda.synchronize()
+            assert ca.paged_decode_prologue.launches == n0 + 1
+            for x, y in zip(got[:2], want[:2]):
+                assert float(rotated_ulps(x, y, 7 if dtype == torch.bfloat16 else 23).max()) <= tol
+                equal += int((x == y).sum())
+                total += x.numel()
+            assert torch.equal(got[2], want[2])
+            continue
+        length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        ka, va = cache[0].clone(), cache[1].clone()
+        kb, vb = cache[0].clone(), cache[1].clone()
+        n0 = ca.dense_decode_prologue.launches
+        got = ca.dense_decode_prologue(q, k, v, ka, va, length, 1, inv_freq, ring=mode == "ring",
+                                       **kw)
+        want = ca.dense_decode_prologue_ref(q, k, v, kb, vb, length, 1, ring=mode == "ring",
+                                            **kw)
+        torch.cuda.synchronize()
+        assert ca.dense_decode_prologue.launches == n0 + 1
+        col = pos % S if mode == "ring" else min(pos, S - 1)
+        bits = 7 if dtype == torch.bfloat16 else 23
+        assert float(rotated_ulps(got[..., :hd], want[..., :hd], bits).max()) <= tol
+        assert float(rotated_ulps(ka[1, ..., :hd, col], kb[1, ..., :hd, col], bits).max()) <= tol
+        assert not got[..., hd:].any() and not ka[1, :, :, hd:, col].any()
+        assert torch.equal(va, vb)
+        outside = torch.ones(S, dtype=torch.bool, device="cuda")
+        outside[col] = False
+        assert torch.equal(ka[..., outside], cache[0][..., outside])
+        assert torch.equal(ka[0], cache[0][0]) and torch.equal(ka[2], cache[0][2])
+        equal += int((got == want).sum()) + int((ka[1, ..., col] == kb[1, ..., col]).sum())
+        total += got.numel() + ka[1, ..., col].numel()
+    print(f"decode prologue {mode} {dtype} B={b}: {equal / total:.6f} of q and k bit-equal")
+
+
+def test_prologue_rejects_bad_inputs(gen):
+    """No fallback on the card: an input that requires grad, a q of two
+    tokens, or an int64 length raises."""
+    from vats_tpu_torch.nn.rope import rope_inv_freq
+
+    inv = rope_inv_freq(12, 10000.0, device="cuda")
+    q, k = rand(gen, 2, 1, 4, 12), rand(gen, 2, 1, 2, 12)
+    lengths = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="requires grad"):
+        ca.paged_decode_prologue(q.requires_grad_(), k, k, lengths, inv, theta=1e4,
+                                 qk_norm=True)
+    with pytest.raises(ValueError, match="one token"):
+        ca.paged_decode_prologue(rand(gen, 2, 2, 4, 12), k, k, lengths, inv, theta=1e4,
+                                 qk_norm=True)
+    with pytest.raises(ValueError, match="int32"):
+        ca.paged_decode_prologue(rand(gen, 2, 1, 4, 12), k, k, lengths.long(), inv,
+                                 theta=1e4, qk_norm=True)
+
+
 def test_wrappers_reject_bad_inputs(gen):
     k = rand(gen, 1, 2, 2, 8, 16)
     kn = rand(gen, 2, 2, 8)
@@ -535,8 +638,9 @@ def test_wrappers_reject_bad_inputs(gen):
 @pytest.mark.parametrize("left_window", [-1, 100])  # 100: dense ring cache
 def test_tiny_model_on_the_card_matches_the_cpu(gen, left_window):
     """fp32 end to end: paged prefill (through K2 via attention_impl='flash')
-    and decode (K1), dense decode (K3; a ring cache when windowed), on the
-    card against the plain versions on the CPU."""
+    and decode (K3's paged prologue, K1), dense decode (K3's dense prologue;
+    a ring cache when windowed), on the card against the plain versions on
+    the CPU."""
     from vats_tpu_torch.configs import ModelArgs
     from vats_tpu_torch.inference import generate, generate_paged
     from vats_tpu_torch.models import TextLM
@@ -554,7 +658,7 @@ def test_tiny_model_on_the_card_matches_the_cpu(gen, left_window):
     ids = torch.where(mask, ids, 0)
     kw = dict(max_new_tokens=6, do_sample=False, temperature=0.0, pad_token_id=0)
     counts = (fa.flash_attention.launches, da.paged_decode_attention_commit.launches,
-              ca.append_token_inplace.launches)
+              ca.dense_decode_prologue.launches, ca.paged_decode_prologue.launches)
     for fn in (generate_paged, generate):
         tc, lc = fn(cpu, ids, mask, None, **kw)
         tg, lg = fn(gpu, ids.cuda(), mask.cuda(), None, **kw)
@@ -564,7 +668,8 @@ def test_tiny_model_on_the_card_matches_the_cpu(gen, left_window):
     prefills = 2 if left_window > 0 else 1
     assert fa.flash_attention.launches == counts[0] + prefills * cfg.num_layers
     assert da.paged_decode_attention_commit.launches == counts[1] + 6 * cfg.num_layers
-    assert ca.append_token_inplace.launches == counts[2] + 6 * cfg.num_layers
+    assert ca.dense_decode_prologue.launches == counts[2] + 6 * cfg.num_layers
+    assert ca.paged_decode_prologue.launches == counts[3] + 6 * cfg.num_layers
 
 
 def test_fused_ce_bf16_on_the_card_matches_the_cpu(gen):

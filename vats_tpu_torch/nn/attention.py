@@ -12,10 +12,13 @@ Attention runs by one of these paths:
     chosen by :func:`select_attention_impl`; key padding and segment ids
     reach it as in the JAX module;
   * dense cache (``nn/kv_cache.KVCache``): the plain cached attention over
-    the buffer, or over the ring (``_ring_cached_attention``);
-  * paged cache (``ops/decode_attention.PagedKVCache``): T == 1 through K1
-    (K4 for an int8 pool, with its scales), which attends and commits the
-    token in one launch; a fresh-cache prefill through K2 or the plain
+    the buffer, or over the ring (``_ring_cached_attention``); at T == 1
+    the QK-norm, RoPE, pad and commit of the token are one launch of K3's
+    dense prologue (``KVCache.decode_token``);
+  * paged cache (``ops/decode_attention.PagedKVCache``): T == 1 through K3's
+    paged prologue (QK-norm and RoPE in one launch), then K1 (K4 for an
+    int8 pool, with its scales), which attends and commits the token in one
+    launch; a fresh-cache prefill through K2 or the plain
     attention, then a whole-page append (quantized for an int8 pool); a
     prefill into a non-fresh cache through ``append_tokens`` +
     ``gather_dense_t`` (int8 pages dequantized into bf16) +
@@ -38,7 +41,8 @@ from vats_tpu_torch.nn.dropout import SITE_ATTN, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
-from vats_tpu_torch.nn.rope import apply_rope_1d
+from vats_tpu_torch.nn.rope import apply_rope_1d, rope_inv_freq
+from vats_tpu_torch.ops import cache_append
 from vats_tpu_torch.ops.attention_ref import (
     cached_decode_attention,
     dot_product_attention,
@@ -135,6 +139,22 @@ class Attention(nn.Module):
             self.w_k = lin(d_model, g * hd)
             self.w_v = lin(d_model, g * hd)
         self.w_o = lin(h * hd, d_model)
+        # the decode prologue's fp32 RoPE table per device, made at first use
+        # on that device by rope_inv_freq (as apply_rope_1d makes it); not a
+        # buffer: a model built on the meta device could not move it
+        self._rope_tables = {}
+
+    def _rope_table(self, device: torch.device) -> torch.Tensor:
+        table = self._rope_tables.get(device)
+        if table is None:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                # made here, the table would be filled only by replays
+                raise RuntimeError(
+                    "decode prologue: no RoPE table for this device yet; run the "
+                    "step once before capturing it")
+            table = rope_inv_freq(self.head_dim, self.rope_theta, device=device)
+            self._rope_tables[device] = table
+        return table
 
     @property
     def head_dim(self) -> int:
@@ -185,7 +205,9 @@ class Attention(nn.Module):
         mask over the whole buffer kept by the generation loop."""
         b, t, _ = x.shape
         q, k, v = self.project_qkv(x)
-        if self.use_qk_norm:
+        # a decode token's QK-norm and RoPE run inside K3's prologue
+        decode = t == 1 and (cache is not None or paged_cache is not None)
+        if self.use_qk_norm and not decode:
             q = l2_normalize(q)
             k = l2_normalize(k)
         scale = (
@@ -215,9 +237,16 @@ class Attention(nn.Module):
         else:
             start = cache.length
             positions = start + torch.arange(t, device=x.device)
-            q = apply_rope_1d(q, positions, self.rope_theta)
-            k = apply_rope_1d(k, positions, self.rope_theta)
-            new_cache = cache.update_layer(layer_idx, k, v)
+            if decode:
+                q = cache.decode_token(
+                    layer_idx, q, k, v, self._rope_table(x.device),
+                    theta=self.rope_theta, qk_norm=self.use_qk_norm,
+                )
+                new_cache = cache
+            else:
+                q = apply_rope_1d(q, positions, self.rope_theta)
+                k = apply_rope_1d(k, positions, self.rope_theta)
+                new_cache = cache.update_layer(layer_idx, k, v)
             if cache.ring:
                 out = self._ring_cached_attention(
                     q, k, v, new_cache, positions, padding_mask, scale,
@@ -245,14 +274,13 @@ class Attention(nn.Module):
         out = out.reshape(b, t, self.num_heads * self.head_dim)
         return dense(self.w_o, out, self.dtype), new_cache
 
-    @staticmethod
-    def _attend_buffer(q, k_buf, v_buf, **kw):
+    def _attend_buffer(self, q, k_buf, v_buf, **kw):
         """cached_decode_attention with q zero-padded to the stored head dim
-        (the pad rows of the buffer are zero) and the output sliced back."""
-        hd = q.shape[-1]
-        if k_buf.shape[2] != hd:
-            q = F.pad(q, (0, k_buf.shape[2] - hd))
-        return cached_decode_attention(q, k_buf, v_buf, **kw)[..., :hd]
+        (the pad rows of the buffer are zero; a decode prologue's q comes
+        padded) and the output sliced back."""
+        if q.shape[-1] != k_buf.shape[2]:
+            q = F.pad(q, (0, k_buf.shape[2] - q.shape[-1]))
+        return cached_decode_attention(q, k_buf, v_buf, **kw)[..., :self.head_dim]
 
     def _ring_cached_attention(
         self, q, k, v, cache, positions, padding_mask, scale,
@@ -293,18 +321,22 @@ class Attention(nn.Module):
         positions start at its own ``lengths[b]``."""
         b, t = q.shape[0], q.shape[1]
         lengths = paged_cache.lengths
-        positions = lengths[:, None] + torch.arange(t, device=q.device)[None, :]
-        q = apply_rope_1d(q, positions, self.rope_theta)
-        k = apply_rope_1d(k, positions, self.rope_theta)
-
         if t == 1:
+            q1, k1, v1 = cache_append.paged_decode_prologue(
+                q, k, v, lengths, self._rope_table(q.device),
+                theta=self.rope_theta, qk_norm=self.use_qk_norm,
+            )
             out = paged_decode_attention_commit(
-                q[:, 0], paged_cache.kv_pages, layer_idx, paged_cache.page_table,
-                lengths, scale=scale, k_cur=k[:, 0], v_cur=v[:, 0],
+                q1, paged_cache.kv_pages, layer_idx, paged_cache.page_table,
+                lengths, scale=scale, k_cur=k1, v_cur=v1,
                 kv_scales=paged_cache.kv_scales,
             )
             paged_cache.fresh = False
             return out[:, None], paged_cache
+
+        positions = lengths[:, None] + torch.arange(t, device=q.device)[None, :]
+        q = apply_rope_1d(q, positions, self.rope_theta)
+        k = apply_rope_1d(k, positions, self.rope_theta)
 
         if paged_cache.fresh:
             # fresh-cache prefill: every row starts at 0, so attention is

@@ -8,10 +8,12 @@ mode where slot = absolute position % S.  Writes happen in place (the JAX
 cache is a functional pytree that XLA updates in place under donation);
 methods return ``self`` for call-site parity.
 
-A decode step (T == 1) writes through K3 (``ops/cache_append.py``) on CUDA
-for every S; the JAX package takes its kernel only when S is a multiple of
-128, a TPU tiling rule.  The clamp ``min(length, S-1)`` is semantics and
-stays.
+The attention's decode step (T == 1) goes through :meth:`decode_token`:
+K3's dense prologue (``ops/cache_append.py``), which norms and rotates the
+token's q and k and commits k and v in one launch on CUDA, for every S (the
+JAX package takes its append kernel only when S is a multiple of 128, a TPU
+tiling rule).  :meth:`update_layer` at T == 1 takes K3's append-only mode.
+The clamp ``min(length, S-1)`` is semantics and stays.
 """
 
 from __future__ import annotations
@@ -109,6 +111,27 @@ class KVCache:
         self.k[layer_idx].index_copy_(-1, slots, src_k.permute(0, 2, 3, 1))
         self.v[layer_idx].index_copy_(-1, slots, src_v.permute(0, 2, 3, 1))
         return self
+
+    def decode_token(
+        self,
+        layer_idx: int,
+        q: torch.Tensor,
+        k: torch.Tensor,
+        v: torch.Tensor,
+        inv_freq: torch.Tensor,
+        *,
+        theta: float,
+        qk_norm: bool,
+    ) -> torch.Tensor:
+        """One decode token ([B, 1, H, hd] q, k, v from the projection):
+        q and k L2-normalised (``qk_norm``) and rotated at position
+        ``length``, k and v written at offset ``length`` for one layer (as
+        :meth:`update_layer`), in one launch on the card.  Returns q
+        zero-padded to the stored head dim.  Does not advance ``length``."""
+        return cache_append.dense_decode_prologue(
+            q, k, v, self.k, self.v, self.length, layer_idx, inv_freq,
+            theta=theta, qk_norm=qk_norm, ring=self.ring,
+        )
 
     def slot_positions(self, extra: int = 0) -> torch.Tensor:
         """[S] int32: absolute position held by each ring slot, counting
