@@ -65,6 +65,22 @@ Phases:
   train_parity  2 layers at full width, B=2, T=512, dropout 0: three train
            steps on the card (flash kernels) and on the CPU from the same
            weights and batch; loss, grad norm and params after each step.
+  scripts  the LM's own entry points in-process through their ``main(argv)``,
+           in a temporary directory under ``checkpoints/`` that it deletes
+           (it first checks for twice a checkpoint's bytes free): the train
+           script at full nlp_medium width and depth (B=8, T=512, one round
+           of 8 micro-steps, one evaluation, a best and a regular
+           checkpoint; exact K2', K5a, K5b and K2 launch counts); the
+           regular checkpoint loaded into a fresh state bit-equal to the
+           saved one; ``--resume`` for one more round (tokens_seen goes on);
+           the serve script on the trained ``best_model`` with bf16 and int8
+           KV (K1 or K4 and K3's paged prologue once a layer a decode
+           forward); the interactive script on ``best_model`` at temperature
+           0, dense and ``--paged`` (K3's dense prologue, or K1 and the
+           paged prologue, once a layer a decode forward); a TokenShard
+           packed into 8 rows of 512 with segment ids, one medium_dense
+           forward and backward, again with each row's first segment
+           re-drawn: the later segments' logits stay.
 
 ``run_census`` (kernels per decode forward and the chain K3's prologue
 replaced) needs only what every slice has, so it also measures a checkout
@@ -79,6 +95,7 @@ device, or outside a checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import re
@@ -90,7 +107,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
-          "train_parity")
+          "train_parity", "scripts")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -2133,6 +2150,362 @@ def run_serve_parity():
     torch.cuda.empty_cache()
 
 
+# --- phase: scripts ---------------------------------------------------------
+
+# The train script at full nlp_medium width and depth (d1440, 20 layers, one
+# expert, left_window 384, dropout 0.2, remat 'full', grad_accum_steps 4):
+# B=8 rows of T=512, an eval every 8 micro-steps (2 optimizer updates).
+SCRIPT_B, SCRIPT_T, SCRIPT_EVERY = 8, 512, 8
+# The loop reads tokens_seen every max(1, 8 // 4) = 2 micro-steps and stops at
+# max_train_tokens.  A micro-step counts its labelled tokens: len - 1 a row,
+# and synthetic rows have len in [int(0.9 T), T] = [460, 512], so a step
+# counts 8 * [459, 511] = [3672, 4088].  With M = 28672 the read after 6
+# steps (<= 24528) continues and the round ends at its 8th step (>= 29376):
+# exactly one round, one evaluation, two saves.
+SCRIPT_TOKENS = 7 * SCRIPT_B * SCRIPT_T
+VAL_BATCHES = 20  # validate(max_batches=20) in the script
+
+
+def _zero(fns):
+    for fn in fns:
+        fn.launches = 0
+
+
+def _counts(fns):
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def _gate(label, got, want):
+    bad = {k: (got.get(k), n) for k, n in want.items() if got.get(k) != n}
+    require(not bad, f"scripts: {label} launches (got, want) {bad}")
+
+
+def _state_bit_equal(a, b, where="state"):
+    """Paths where two saved-form trees differ (tensors bit for bit)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return [] if (a.dtype == b.dtype and torch.equal(a, b.to(a.device))) else [where]
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [where]
+        return [p for k in a for p in _state_bit_equal(a[k], b[k], f"{where}.{k}")]
+    return [] if a == b else [where]
+
+
+def run_scripts(kernel_fns):
+    """The LM's own entry points at full nlp_medium width, in-process through
+    their ``main(argv)``: train and checkpoint, load bit-equal, resume, serve
+    the trained checkpoint (bf16 and int8 KV), generate from it through the
+    interactive script (dense and paged), and a packed-shard training
+    forward and backward whose later segments ignore the first one."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vats_tpu_torch.checkpoint import load_checkpoint
+    from vats_tpu_torch.checkpoint.manager import state_tree
+    from vats_tpu_torch.configs import ModelArgs, TrainingArgs, nlp_medium
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.scripts.nlp import interactive_generation as interactive_script
+    from vats_tpu_torch.scripts.nlp import serve as serve_script
+    from vats_tpu_torch.scripts.nlp import train as train_script
+    from vats_tpu_torch.train import create_optimizer, create_train_state
+
+    fns = list(kernel_fns.values())
+    L = nlp_medium().num_layers
+    root = os.path.join(HERE, "checkpoints")
+    made_root = not os.path.exists(root)
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scripts_", dir=root)
+    try:
+        # what a checkpoint holds: fp32 params, fp32 mu and nu, the fp32
+        # accumulator (grad_accum_steps 4), a few counters
+        n_params = sum(p.numel() for p in TextLM(nlp_medium(), device="meta").parameters())
+        ckpt_bytes = 4 * 4 * n_params
+        free = shutil.disk_usage(tmp).free
+
+        def room(what):
+            free_now = shutil.disk_usage(tmp).free
+            require(free_now >= 2 * ckpt_bytes,
+                    f"scripts: {free_now / 1e9:.1f} GB free in {tmp} before {what}; "
+                    f"need twice a checkpoint, {2 * ckpt_bytes / 1e9:.1f} GB")
+
+        log(f"scripts: nlp_medium {n_params / 1e9:.3f}B params, a checkpoint of about "
+            f"{ckpt_bytes / 1e9:.2f} GB; {free / 1e9:.1f} GB free in {tmp}")
+        args = ["--size", "medium", "--batch-size", str(SCRIPT_B), "--seq-len",
+                str(SCRIPT_T), "--eval-every-steps", str(SCRIPT_EVERY), "--fused-ce-chunk",
+                "128", "--ckpt-dir", tmp, "--device", "cuda"]
+        train_want = {"flash_attention_lse": 2 * L * SCRIPT_EVERY,  # forward + remat
+                      "flash_bwd_dkv": L * SCRIPT_EVERY, "flash_bwd_dq": L * SCRIPT_EVERY,
+                      "flash_attention": L * VAL_BATCHES,  # validate: uncached, T=512
+                      "paged_decode_attention_commit": 0,
+                      "paged_decode_attention_commit_int8": 0,
+                      "paged_decode_prologue": 0, "dense_decode_prologue": 0,
+                      "append_token_inplace": 0}
+
+        def train_run(label, extra, tokens_before=0):
+            room(label)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero(fns)
+            t0 = time.perf_counter()
+            out = train_script.main(args + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _counts(fns)
+            rounds = out["rounds"]
+            require(len(rounds) == 1 and rounds[0]["steps"] == SCRIPT_EVERY,
+                    f"scripts: {label} ran {[r['steps'] for r in rounds]} micro-steps a "
+                    f"round, want one round of {SCRIPT_EVERY}")
+            _gate(label, got, train_want)
+            r = rounds[0]
+            losses = out["history"]["train_loss"] + out["history"]["val_loss"]
+            require(all(np.isfinite(losses)), f"scripts: {label} losses {losses}")
+            st = out["state"]
+            require(int(st.opt_state.gradient_step) == int(st.step) // 4
+                    and int(st.skipped_steps) == 0,
+                    f"scripts: {label}: {int(st.opt_state.gradient_step)} updates in "
+                    f"{int(st.step)} micro-steps")
+            new_tokens = r["tokens_seen"] - tokens_before
+            best, regular = r["saved"]["best"], r["saved"]["regular"]
+            # a round that saves both writes one file and links the other name
+            require(best is None or os.path.samefile(best, regular),
+                    f"scripts: {label}: best and regular are two files, not one")
+            log(f"scripts: {label}: {wall:.2f}s in main; {SCRIPT_EVERY} micro-steps "
+                f"{r['train_s']:.2f}s, tokens_seen {r['tokens_seen']}, tokens_per_s "
+                f"{new_tokens / r['train_s']:.1f}; validate {VAL_BATCHES} batches "
+                f"{r['validate_s']:.2f}s; save {r['save_s']:.2f}s: "
+                f"{os.path.basename(regular)} {os.path.getsize(regular) / 1e9:.3f} GB"
+                + (", best_model a link to it" if best else "")
+                + f"; peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.2f}; train "
+                f"loss {out['history']['train_loss'][0]:.4f} val loss "
+                f"{out['history']['val_loss'][0]:.4f}; launches {json.dumps(got)}")
+            return out, r
+
+        # 1. train: one round, a best and a regular checkpoint
+        out, r = train_run("train", ["--max-train-tokens", str(SCRIPT_TOKENS)])
+        n_seen = r["tokens_seen"]
+        regular = os.path.join(tmp, f"checkpoint_tokens_seen_{n_seen}")
+        require(r["saved"]["regular"] == regular and r["saved"]["best"]
+                == os.path.join(tmp, "best_model"), f"scripts: saved {r['saved']}")
+        require(os.path.getsize(regular) >= ckpt_bytes, "scripts: checkpoint too small")
+        # where a save's time goes: the copy off the card, then the file write
+        room("the save split")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = state_tree(out["state"], lambda t: t.to("cpu"))
+        copy_s = time.perf_counter() - t0
+        probe = os.path.join(tmp, "save_split_probe")
+        t0 = time.perf_counter()
+        torch.save(host, probe)
+        write_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(probe)
+        os.remove(probe)
+        del host
+        log(f"scripts: a save of the same state in two parts: copy off the card "
+            f"{copy_s:.2f}s ({n_bytes / copy_s / 1e9:.2f} GB/s), torch.save of the host "
+            f"copy {write_s:.2f}s ({n_bytes / write_s / 1e9:.2f} GB/s), {n_bytes / 1e9:.3f} "
+            f"GB; the script's save {r['save_s']:.2f}s")
+
+        # 2. resume: the regular checkpoint into a fresh state, bit for bit
+        saved = state_tree(out["state"])
+        with open(regular + ".meta.json") as f:
+            meta = json.load(f)
+        targs = TrainingArgs(grad_accum_steps=meta["training_args"]["grad_accum_steps"],
+                             adam_mu_dtype=meta["training_args"]["adam_mu_dtype"])
+        model = TextLM(ModelArgs.from_dict(meta["model_args"]), device="cuda", seed=99)
+        fresh = create_train_state(model, create_optimizer(targs, 1))
+        del out
+        t0 = time.perf_counter()
+        fresh, _ = load_checkpoint(regular, target=fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        diff = _state_bit_equal(saved, state_tree(fresh))
+        require(not diff, f"scripts: the loaded state differs from the saved one at "
+                f"{diff[:6]}")
+        n_tensors = sum(1 for _ in _tensors(saved))
+        log(f"scripts: load of {os.path.basename(regular)} into a fresh state on the "
+            f"card {load_s:.2f}s: {n_tensors} tensors (params, mu, nu, acc_grads, "
+            f"counters) bit-equal to the saved state; mini_step "
+            f"{fresh.opt_state.mini_step}, gradient_step "
+            f"{int(fresh.opt_state.gradient_step)}")
+        del saved, fresh, model
+        torch.cuda.empty_cache()
+        res, r2 = train_run("resume", ["--max-train-tokens", str(n_seen + SCRIPT_TOKENS),
+                                       "--resume", regular], tokens_before=n_seen)
+        require(n_seen < r2["tokens_seen"] and int(res["state"].step) == 2 * SCRIPT_EVERY,
+                f"scripts: resumed tokens_seen {r2['tokens_seen']} after {n_seen}, step "
+                f"{int(res['state'].step)}")
+        log(f"scripts: resume continued tokens_seen {n_seen} -> {r2['tokens_seen']}, "
+            f"step {SCRIPT_EVERY} -> {int(res['state'].step)}")
+        del res
+        torch.cuda.empty_cache()
+
+        # 3. serve the trained checkpoint: bf16 KV (K1), int8 KV (K4)
+        k1 = kernel_fns["paged_decode_attention_commit"]
+        k4 = kernel_fns["paged_decode_attention_commit_int8"]
+        for name, extra in (("bf16 KV", []), ("int8 KV", ["--kv-quant", "int8"])):
+            argv = ["--ckpt", os.path.join(tmp, "best_model"), "--requests", "8",
+                    "--max-batch", "4", "--max-context", "512", "--decode-block-steps",
+                    "4"] + extra
+            _zero(fns)
+            got = serve_script.main(argv)
+            counts = _counts(fns)
+            fw = got["forwards"]["decode"]
+            n_new = serve_script.parse_args(argv).max_new_tokens
+            require(got["requests"] == 8 and all(len(v) == n_new
+                                                  for v in got["outputs"].values()),
+                    f"scripts: serve [{name}] returned "
+                    f"{[len(v) for v in got['outputs'].values()]} tokens")
+            want = {k1.__name__: L * fw if not extra else 0,
+                    k4.__name__: L * fw if extra else 0,
+                    "paged_decode_prologue": L * fw, "dense_decode_prologue": 0,
+                    "append_token_inplace": 0, "flash_attention_lse": 0,
+                    "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+            require(fw > 0, f"scripts: serve [{name}] ran no decode forward")
+            _gate(f"serve [{name}]", counts, want)
+            log(f"scripts: serve [{name}] best_model, 8 requests x {n_new} tokens: "
+                f"tokens_per_s {got['tokens_per_s']:.1f} wall_s {got['wall_s']:.3f} "
+                f"latency p50 {got['latency_p50_s']:.3f}s p99 {got['latency_p99_s']:.3f}s; "
+                f"forwards {json.dumps(got['forwards'])}; launches {json.dumps(counts)}")
+
+        # 4. the interactive script on the trained checkpoint at temperature 0:
+        # one decode forward a new token (as the main phase's TokenGenerator
+        # gate), each a fused prologue a layer, dense or paged before K1
+        prompts = ["Once upon a time,", "hello world"]
+        n_new = 32
+        fw = n_new * len(prompts)
+        texts = {}
+        for name, extra in (("dense", []), ("paged", ["--paged"])):
+            argv = ["--ckpt", os.path.join(tmp, "best_model"), "--device", "cuda",
+                    "--temperature", "0", "--max-new-tokens", str(n_new)] + extra
+            _zero(fns)
+            t0 = time.perf_counter()
+            outs = interactive_script.main(argv, tokenizer=StubTokenizer(),
+                                           stdin=io.StringIO("\n".join(prompts) + "\nquit\n"))
+            torch.cuda.synchronize()
+            print()  # ends the script's last '> ' prompt line
+            wall = time.perf_counter() - t0
+            counts = _counts(fns)
+            paged = bool(extra)
+            want = {"dense_decode_prologue": 0 if paged else L * fw,
+                    "paged_decode_prologue": L * fw if paged else 0,
+                    k1.__name__: L * fw if paged else 0, k4.__name__: 0,
+                    "append_token_inplace": 0, "flash_attention": 0,
+                    "flash_attention_lse": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+            require(len(outs) == len(prompts)
+                    and all(len(o.split()) == n_new for o in outs),
+                    f"scripts: interactive [{name}] returned {outs}")
+            _gate(f"interactive [{name}]", counts, want)
+            texts[name] = outs
+            log(f"scripts: interactive [{name}] best_model, {len(prompts)} prompts x "
+                f"{n_new} tokens at temperature 0: {wall:.2f}s in main (checkpoint load "
+                f"and the generator's build included); launches {json.dumps(counts)}")
+        log(f"scripts: interactive dense and paged texts equal: "
+            f"{texts['dense'] == texts['paged']}")
+
+        # 5. packed shards at full width
+        packed_segments(fns, L)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if made_root:
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+
+
+def _relabel(ids, segs):
+    """Labels of packed rows: the next token of the same segment, else -100."""
+    import torch
+
+    nxt = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1)
+    same = torch.cat([(segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] > 0),
+                      torch.zeros_like(segs[:, :1], dtype=torch.bool)], 1)
+    return torch.where(same, nxt, -100).to(torch.int32)
+
+
+def packed_segments(fns, L):
+    """A TokenShard of seeded documents (32-600 tokens) packed into 8 rows of
+    512 with segment ids; one training forward and backward of medium_dense
+    (dropout 0) on it, then again with each row's first segment re-drawn:
+    the logits of every later segment must not move.  The later segments
+    come after the first, so causal attention alone would let them see it;
+    only the segment mask in K2' keeps them from it (positions, norms and
+    the MLP are per token).  Tolerance: one bf16 ulp of the logit
+    (BF16_ATOL + BF16_RTOL |logit|, the bound the kernels phase holds K2'
+    to before its flip allowance); masked scores add exact zeros and the
+    two runs are the same kernels on the same shapes, so bit-equal is
+    expected and the count is printed."""
+    import torch
+
+    from vats_tpu_torch.data import device_batches
+    from vats_tpu_torch.data.shard_dataset import ShardDataset, TokenShard
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train.metrics import compute_loss
+
+    cfg = train_cfg("medium_dense", dropout=0.0)
+    rs = np.random.RandomState(9)
+    # lengths log-uniform in [32, 600] (short documents are the common ones),
+    # so most rows pack several
+    lens = np.exp(rs.uniform(np.log(32), np.log(601), 64)).astype(int)
+    docs = [rs.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+    ds = ShardDataset(TokenShard.from_documents(docs), seq_len=TRAIN_T)
+    np_batch, consumed = ds.pack_sequences(0, SCRIPT_B)
+    batch = next(device_batches(iter([np_batch]), "cuda"))
+    segs = batch["segment_ids"]
+    first, later = segs == 1, segs > 1
+    rows = int(later.any(1).sum())
+    require(rows >= SCRIPT_B // 2, f"scripts: only {rows} packed rows hold two segments")
+    model = TextLM(cfg, device="cuda", seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def fwd_bwd(ids):
+        for p in model.parameters():
+            p.grad = None
+        logits, _, aux = model(ids, padding_mask=batch["padding_mask"],
+                               segment_ids=segs, deterministic=False, dropout_seed=0)
+        loss = compute_loss(logits, _relabel(ids, segs), aux)[0]
+        loss.backward()
+        return logits.detach().float(), float(loss.detach())
+
+    _zero(fns)
+    t0 = time.perf_counter()
+    out1, loss1 = fwd_bwd(batch["input_ids"])
+    redraw = torch.randint(1, cfg.vocab_size, segs.shape, generator=gen, device="cuda",
+                           dtype=torch.int32)
+    ids2 = torch.where(first, redraw, batch["input_ids"])
+    out2, loss2 = fwd_bwd(ids2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _gate("packed shards", _counts(fns), {"flash_attention_lse": 2 * 2 * L,
+                                          "flash_bwd_dkv": 2 * L, "flash_bwd_dq": 2 * L,
+                                          "flash_attention": 0})
+    require(bool((ids2 != batch["input_ids"]).any()), "scripts: nothing was re-drawn")
+    a, b = out1[later], out2[later]
+    err = expect_close("packed shards: later segments' logits", b, a, BF16_ATOL,
+                       BF16_RTOL)
+    changed = float((out1[first] - out2[first]).abs().max())
+    require(changed > 0, "scripts: the re-drawn segments' logits did not change")
+    log(f"scripts: packed shards: {consumed} documents (32-600 tokens) in {SCRIPT_B} rows "
+        f"of {TRAIN_T}, {rows} rows with 2+ segments, {int(later.sum())} later-segment "
+        f"positions; medium_dense d{cfg.d_model}/{cfg.num_layers}L forward + backward "
+        f"twice {wall:.2f}s (losses {loss1:.4f}, {loss2:.4f}); later segments' logits "
+        f"max |diff| {err:.3e}, bit-equal {int((a == b).sum())}/{a.numel()}; first "
+        f"segments' logits moved by up to {changed:.3f}")
+    del model
+
+
 # --- entry point ------------------------------------------------------------
 
 
@@ -2257,6 +2630,7 @@ def main(argv=None) -> int:
         "serve_parity": run_serve_parity,
         "train": lambda: run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention]),
         "train_parity": run_train_parity,
+        "scripts": lambda: run_scripts({r["name"]: r["fn"] for r in kernel_rows}),
     }
     for phase, run in runners.items():
         if phase in phases:

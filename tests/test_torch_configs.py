@@ -65,10 +65,11 @@ def _port_sources():
 
 def test_port_never_imports_jax_flax_or_the_jax_package():
     assert len(_port_sources()) > 10
-    banned = re.compile(r"^(jax|flax|jaxlib|vats_tpu)(\.|$)")
+    banned = re.compile(r"^(jax|flax|jaxlib|optax|orbax|vats_tpu)(\.|$)")
     for path in _port_sources():
         src = path.read_text()
-        assert not re.search(r"^\s*(import|from)\s+(jax|flax)\b", src, re.M), path
+        assert not re.search(r"^\s*(import|from)\s+(jax|flax|jaxlib|optax|orbax)\b", src,
+                             re.M), path
         for node in ast.walk(ast.parse(src)):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
@@ -93,3 +94,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         TextLM(cfg)
     gen = TokenGenerator(cfg, device="cpu")
     assert gen.model.device.type == "cpu"
+
+
+def test_port_never_names_the_jax_packages_native_loader():
+    """The port builds its own shard loader from its own C source; no port
+    file reads or loads the JAX package's (neither its source nor its
+    library)."""
+    pkg = REPO / "vats_tpu_torch"
+    files = [p for p in pkg.rglob("*") if p.is_file() and "_build" not in p.parts
+             and "__pycache__" not in p.parts] + [REPO / "chip_smoke.py"]
+    assert any(p.suffix == ".c" for p in files)
+    for path in files:
+        src = path.read_text()
+        for name in ("vats_tpu/data/native", "libvats_shard"):
+            assert name not in src, f"{path} names {name}"

@@ -694,3 +694,100 @@ def test_fused_ce_bf16_on_the_card_matches_the_cpu(gen):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
     for a, b_ in zip(gg, gc):
         torch.testing.assert_close(a.cpu(), b_, rtol=0, atol=1e-2 * float(b_.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_packed_segments_isolate_documents_in_training(gen, dtype):
+    """Segment isolation on the card, through the training path: a
+    TokenShard packed with segment ids (the port's C packer), moved with
+    ``device_batches``; one forward and backward (K2' with segment ids,
+    K5a, K5b) and again with each row's first segment re-drawn.  The later
+    segments come after the first, so causal attention alone would let
+    them see it: only the segment mask keeps their logits from moving.
+    Masked scores add exact zeros and the two runs are the same kernels on
+    the same shapes, so they are bit-equal (held to one bf16 ulp, atol
+    2e-3 rtol 1e-2, for bf16; 2e-5 for fp32)."""
+    import numpy as np
+
+    from vats_tpu_torch.configs import ModelArgs
+    from vats_tpu_torch.data import device_batches
+    from vats_tpu_torch.data.shard_dataset import ShardDataset, TokenShard
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train.metrics import compute_loss
+
+    cfg = ModelArgs(d_model=128, num_heads=2, query_groups=1, d_ffn=256, num_layers=2,
+                    dropout=0.0, vocab_size=97, max_seq_len=256, left_window=-1,
+                    dtype=dtype, attention_impl="flash", gradient_checkpointing=True,
+                    remat_policy="dots")
+    rs = np.random.RandomState(2)
+    lens = np.exp(rs.uniform(np.log(8), np.log(200), 40)).astype(int)
+    docs = [rs.randint(1, 97, n).tolist() for n in lens]
+    np_batch, _ = ShardDataset(TokenShard.from_documents(docs), 256).pack_sequences(0, 4)
+    batch = next(device_batches(iter([np_batch]), "cuda"))
+    segs = batch["segment_ids"]
+    first, later = segs == 1, segs > 1
+    assert int(later.any(1).sum()) >= 2
+    model = TextLM(cfg, device="cuda", seed=1)
+
+    def run(ids):
+        logits, _, aux = model(ids, padding_mask=batch["padding_mask"], segment_ids=segs,
+                               deterministic=False, dropout_seed=0)
+        compute_loss(logits, batch["labels"], aux)[0].backward()
+        return logits.detach().float()
+
+    n0 = (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches)
+    out1 = run(batch["input_ids"])
+    redraw = torch.randint(1, 97, segs.shape, generator=gen, device="cuda",
+                           dtype=torch.int32)
+    out2 = run(torch.where(first, redraw, batch["input_ids"]))
+    assert (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches) == (
+        n0[0] + 2 * 2 * cfg.num_layers, n0[1] + 2 * cfg.num_layers)
+    tol = TOL[torch.bfloat16 if dtype == "bfloat16" else torch.float32]
+    torch.testing.assert_close(out2[later], out1[later], **tol)
+    assert not torch.equal(out1[first], out2[first])
+
+
+def test_async_checkpoint_of_a_card_state(gen, tmp_path):
+    """``CheckpointManager(async_save=True)`` on the card: the state is
+    copied to pinned host memory in stream order at the call, so a train
+    step queued right after it (updating params and moments in place) does
+    not reach the file; the restored state is bit-equal to the state at the
+    call."""
+    from vats_tpu_torch.checkpoint import CheckpointManager, load_checkpoint
+    from vats_tpu_torch.checkpoint.manager import state_tree
+    from vats_tpu_torch.configs import ModelArgs, TrainingArgs
+    from vats_tpu_torch.data import synthetic_lm_batches
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    cfg = ModelArgs(d_model=64, num_heads=4, query_groups=2, d_ffn=128, num_layers=2,
+                    dropout=0.0, vocab_size=97, max_seq_len=64, dtype="bfloat16")
+    targs = TrainingArgs(grad_accum_steps=2)
+
+    def setup(seed):
+        model = TextLM(cfg, device="cuda", seed=seed)
+        return model, create_train_state(model, create_optimizer(targs, 10))
+
+    model, state = setup(0)
+    step = make_train_step(model, targs)
+    batches = list(synthetic_lm_batches(gen, vocab_size=97, batch_size=2, seq_len=32,
+                                        num_batches=2))
+    state, _ = step(state, batches[0], 0)  # a mini-step: the accumulator is set
+    want = state_tree(state, lambda t: t.clone())
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    saved = mgr.maybe_save(state, val_loss=1.0, force_regular=True)
+    # the boundary step, in place, queued behind the copies: params move and
+    # the accumulator is zeroed
+    state, _ = step(state, batches[1], 1)
+    mgr.close()
+    assert not torch.equal(want["params"]["token_embed.weight"],
+                           state.params["token_embed.weight"])
+    for path in (saved["best"], saved["regular"]):
+        _, fresh = setup(1)
+        restored, _ = load_checkpoint(path, target=fresh)
+        got = state_tree(restored)
+        for name, t in want["params"].items():
+            assert torch.equal(got["params"][name], t), name
+        for name, t in want["opt_state"]["acc_grads"].items():
+            assert torch.equal(got["opt_state"]["acc_grads"][name], t), name
+        assert int(got["step"]) == 1 and got["opt_state"]["mini_step"] == 1

@@ -13,18 +13,27 @@ partitioning boxes already unwrapped) and returns a ``state_dict`` for
     does.
 
 A gradient tree has the params' structure, so the same function carries JAX
-gradients across for a leaf-by-leaf comparison with the port's ``.grad``.
+gradients across for a leaf-by-leaf comparison with the port's ``.grad``,
+and optax's moments and accumulated gradients into the port's optimizer
+state (:func:`train_state_from_jax`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from vats_tpu_torch.configs.nlp import ModelArgs
+from vats_tpu_torch.configs.nlp import ModelArgs, TrainingArgs
 from vats_tpu_torch.device import resolve_dtype
+from vats_tpu_torch.train.optimizer import (
+    AdamWState,
+    ClipSkipState,
+    MultiSteps,
+    MultiStepsState,
+)
+from vats_tpu_torch.train.state import TrainState, create_train_state
 
 
 def unstack_scan_params(params: Mapping, num_layers: int) -> dict:
@@ -42,12 +51,14 @@ def unstack_scan_params(params: Mapping, num_layers: int) -> dict:
     return p
 
 
-def params_from_jax(params_np: Mapping, cfg: ModelArgs) -> Dict[str, torch.Tensor]:
-    """JAX TextLM params (numpy) -> port TextLM state_dict (cfg.param_dtype)."""
+def params_from_jax(params_np: Mapping, cfg: ModelArgs,
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """JAX TextLM params (numpy) -> port TextLM state_dict, in ``dtype``
+    (by default cfg.param_dtype)."""
     p = params_np.get("params", params_np)
     if "layers" in p:
         p = unstack_scan_params(p, cfg.num_layers)
-    dtype = resolve_dtype(cfg.param_dtype)
+    dtype = dtype or resolve_dtype(cfg.param_dtype)
     sd: Dict[str, torch.Tensor] = {}
 
     def put(name, arr, transpose=False):
@@ -87,3 +98,85 @@ def params_from_jax(params_np: Mapping, cfg: ModelArgs) -> Dict[str, torch.Tenso
     if not cfg.tie_weights:
         put("lm_head.weight", p["lm_head"]["kernel"], transpose=True)
     return sd
+
+
+def _unbox(tree):
+    """Nested dicts with flax's partitioning boxes taken off (duck-typed:
+    a box has ``unbox()``), leaves as they are."""
+    if callable(getattr(tree, "unbox", None)):
+        return _unbox(tree.unbox())
+    if isinstance(tree, Mapping):
+        return {k: _unbox(v) for k, v in tree.items()}
+    return tree
+
+
+def _copy_tree(dst: Dict[str, torch.Tensor], tree_np, cfg: ModelArgs, what: str) -> None:
+    """A JAX tree of the params' structure, converted as the params are,
+    copied into ``dst`` (a name -> tensor dict, dtype and device kept)."""
+    leaves = _unbox(tree_np)
+    dtype = next(iter(dst.values())).dtype
+    for leaf in _leaves(leaves):
+        if (str(np.asarray(leaf).dtype) == "bfloat16") != (dtype == torch.bfloat16):
+            raise ValueError(f"{what}: the JAX state holds {np.asarray(leaf).dtype}, the "
+                             f"port's optimizer {dtype} (another adam_mu_dtype)")
+    for name, t in params_from_jax(leaves, cfg, dtype=dtype).items():
+        dst[name].copy_(t)
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _adamw_from_jax(dst: AdamWState, chain, cfg: ModelArgs) -> None:
+    """optax.adamw's state (ScaleByAdamState, EmptyState,
+    ScaleByScheduleState) into the port's AdamWState."""
+    adam, sched = chain[0], chain[2]
+    if int(adam.count) != int(sched.count):
+        raise ValueError(f"adam count {int(adam.count)} != schedule count "
+                         f"{int(sched.count)}: the port keeps one count")
+    dst.count.fill_(int(adam.count))
+    _copy_tree(dst.mu, adam.mu, cfg, "mu")
+    _copy_tree(dst.nu, adam.nu, cfg, "nu")
+
+
+def train_state_from_jax(state_np, model, training_args: TrainingArgs, tx) -> TrainState:
+    """A ``vats_tpu`` TrainState with numpy leaves (for instance
+    ``load_checkpoint(path, target=jax.device_get(state))``) as the port's
+    TrainState over ``model`` (a port TextLM of the same config, on the
+    device the state should live on; its parameters are overwritten).
+
+    ``tx`` is the port's optimizer for ``training_args``.  Both layouts of
+    ``vats_tpu/train/optimizer.py`` are carried: bare ``optax.adamw``
+    (``grad_accum_steps <= 1``) into :class:`AdamWState`, and
+    ``MultiSteps(clip_and_skip_nonfinite(adamw))`` into
+    :class:`MultiStepsState` / :class:`ClipSkipState`.  Moments and
+    accumulated gradients have the params' structure and go through the
+    params' mapping (kernels transposed), in the port's moment dtypes."""
+    cfg = model.cfg
+    model.load_state_dict(params_from_jax(_unbox(state_np.params), cfg))
+    accum = training_args.grad_accum_steps > 1
+    jopt = state_np.opt_state
+    if accum != isinstance(tx, MultiSteps) or accum != hasattr(jopt, "mini_step"):
+        raise ValueError("the JAX optimizer state, the port's tx and grad_accum_steps="
+                         f"{training_args.grad_accum_steps} disagree on the layout")
+    state = create_train_state(model, tx)
+    with torch.no_grad():
+        if accum:
+            ms: MultiStepsState = state.opt_state
+            ms.mini_step = int(jopt.mini_step)
+            ms.gradient_step.fill_(int(jopt.gradient_step))
+            _copy_tree(ms.acc_grads, jopt.acc_grads, cfg, "acc_grads")
+            cs: ClipSkipState = ms.inner_opt_state
+            jcs = jopt.inner_opt_state
+            cs.notfinite_count.fill_(int(jcs.notfinite_count))
+            cs.last_grad_norm.fill_(float(np.asarray(jcs.last_grad_norm)))
+            _adamw_from_jax(cs.inner_state, jcs.inner_state, cfg)
+        else:
+            _adamw_from_jax(state.opt_state, jopt, cfg)
+        for name in ("step", "tokens_seen", "skipped_steps"):
+            getattr(state, name).fill_(int(getattr(state_np, name)))
+    return state
