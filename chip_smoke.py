@@ -23,7 +23,12 @@ Phases:
            fused decode prologue (dense, ring and paged modes at B 1, 16, 32,
            bf16 and fp32) within PROLOGUE_ULPS of the unfused chain, pad
            lanes and the rest of the cache exact, timed against the chain.
-           Each check draws its inputs from its own seed.
+           Each check draws its inputs from its own seed.  K2, K2' and the
+           whole backward also at ViT-2D medium's shape (B=16, T=S=576, 16/8
+           heads, head dim 72 padded to 128 in the wrappers, non-causal): held
+           against the plain versions, timed in turns with SDPA at head dim 72,
+           with the bound on the logical work and the share of the call
+           outside the kernel (the pads).
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -81,6 +86,22 @@ Phases:
            packed into 8 rows of 512 with segment ids, one medium_dense
            forward and backward, again with each row's first segment
            re-drawn: the later segments' logits stay.
+  vision   the vision encoders at full depth: ViT-2D medium forward (384 px /
+           p16, d1152, 16 layers, bf16 params, B=16) on 384x384 and on 448x531
+           (resize and crop on the card), K2 exactly 16 launches a forward;
+           images/s, device-busy time, idle share, peak memory.  ViT-2D
+           medium training through ``make_vision_train_step`` (1000 classes,
+           dropout 0.2, remat, 4 micro-steps of B=32 with mixup / cutmix and
+           the pixel battery on raw images on the card): K2' 32, K5a 16 and
+           K5b 16 a micro-step, K2 16 in the eval step, exactly; images/s, ms
+           a micro-step, peak memory, idle share, an eval loss that the
+           update moves.  ViT-3D xsmall (B=4, 32 frames at 128^2) and large
+           (B=4, 8 frames at 224^2) forwards with no flash launch (the JAX
+           model attends with XLA there): frames/s, busy, idle, memory.
+  vision_parity  ViT-2D at medium width, 2 layers, B=2: features, logits,
+           and one train step (loss, grad norm, params) on the card against
+           the CPU; ViT-3D xsmall at its full config, B=1, the last 6 frames
+           padded: features card against CPU.
 
 ``run_census`` (kernels per decode forward and the chain K3's prologue
 replaced) needs only what every slice has, so it also measures a checkout
@@ -107,7 +128,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
-          "train_parity", "scripts")
+          "train_parity", "scripts", "vision", "vision_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -334,8 +355,8 @@ def kernel_alone_ms(fn, key, iters=20):
     return got / iters / 1e3 if got else None
 
 
-def _fmt(ms):
-    return "not measured" if ms is None else f"{ms:.4f}"
+def _fmt(ms, digits=4):
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 # K1/K4 shapes: nlp_medium's decode attention (Hq 24, G 8, hd 60 -> 64) at
@@ -582,7 +603,7 @@ def check_k2(gen):
     plain_ms, plain_call_ms = timed(lambda: flash_attention_ref(q, k, v, **kw))
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
     b_ms, by = bound(nbytes, flash_flops(B, T, Hq, hd))
-    ms, library_ms = flash_vs_sdpa(f"K2 B={B} T={T}", lambda: flash_attention(q, k, v, **kw),
+    ms, library_ms, _ = flash_vs_sdpa(f"K2 B={B} T={T}", lambda: flash_attention(q, k, v, **kw),
                                    q, k, v, scale, b_ms, flash_flops(B, T, Hq, hd))
     b_l, by_l = bound(nbytes, flash_flops(BL, TL, Hq, hd))  # same element count
     flash_vs_sdpa(f"K2 B={BL} T=S={TL} (bound {b_l:.5f} ms, {by_l})",
@@ -605,14 +626,15 @@ def flash_flops(b, t, hq, hd):
     return 4 * hq * hd * b * t * (t + 1) // 2
 
 
-def flash_vs_sdpa(label, kern, q, k, v, scale, b_ms, flops):
+def flash_vs_sdpa(label, kern, q, k, v, scale, b_ms, flops, causal=True):
     """Device ms of ``kern`` and of SDPA on the same inputs, timed in turns
     (kernel, SDPA, SDPA, kernel; each the whole call, the wrapper's head-dim
     pad included), with the ratio, achieved TFLOP/s and share of the bound
     printed, and the forward kernel's own time beside.  Returns the two
-    means."""
+    means and the forward kernel's own ms (None where the profiler
+    recorded nothing)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = lambda: _sdpa(qt, kt, vt, scale)  # noqa: E731
+    lib = lambda: _sdpa(qt, kt, vt, scale, causal)  # noqa: E731
     k1, l1, l2, k2 = device_ms(kern), device_ms(lib), device_ms(lib), device_ms(kern)
     ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
     per, _ = profiled(kern, iters=20)
@@ -622,7 +644,7 @@ def flash_vs_sdpa(label, kern, q, k, v, scale, b_ms, flops):
     log(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms in turns: "
         f"{ms / lib_ms:.2f}x SDPA; {flops / ms / 1e9:.1f} TFLOP/s (SDPA "
         f"{flops / lib_ms / 1e9:.1f}), {b_ms / ms:.3f} of the bound; {own}")
-    return ms, lib_ms
+    return ms, lib_ms, (alone or None)
 
 
 def check_k3(gen):
@@ -848,18 +870,18 @@ def _train_attention_inputs(gen, b, t, hq, g, hd):
     return mk(b, t, hq, hd), mk(b, t, g, hd), mk(b, t, g, hd), mk(b, t, hq, hd)
 
 
-def _sdpa(q, k, v, scale):
-    """scaled_dot_product_attention on [B, H, T, D] views, causal, GQA."""
+def _sdpa(q, k, v, scale, causal=True):
+    """scaled_dot_product_attention on [B, H, T, D] views, GQA."""
     import torch.nn.functional as F
 
     try:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale,
                                               enable_gqa=True)
     except TypeError:  # a PyTorch without enable_gqa: repeat K/V
         r = q.shape[1] // k.shape[1]
         return F.scaled_dot_product_attention(
             q, k.repeat_interleave(r, dim=1), v.repeat_interleave(r, dim=1),
-            is_causal=True, scale=scale)
+            is_causal=causal, scale=scale)
 
 
 def check_k2_lse(gen):
@@ -901,7 +923,7 @@ def check_k2_lse(gen):
     plain_ms, _ = timed(lambda: flash_attention_lse_ref(q, k, v, **kw))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * T * 4
     b_ms, by = bound(nbytes, flash_flops(B, T, Hq, hd))
-    ms, library_ms = flash_vs_sdpa(f"K2' B={B} T={T}",
+    ms, library_ms, _ = flash_vs_sdpa(f"K2' B={B} T={T}",
                                    lambda: flash_attention_lse(q, k, v, **kw), q, k, v,
                                    scale, b_ms, flash_flops(B, T, Hq, hd))
     log(f"K2' flash forward + lse B={B} T={T} Hq={Hq} G={G} hd={hd} causal: "
@@ -979,7 +1001,7 @@ def check_k5(gen):
     in_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + stats
     b_kv, by_kv = bound(in_bytes + 2 * k.numel() * 4, 8 * Hq * hd * pairs)
     b_q, by_q = bound(in_bytes + q.numel() * 4, 6 * Hq * hd * pairs)
-    library_ms, parts = backward_vs_sdpa(f"backward B={B} T={T}", q, k, v, o, do, lse, kw)
+    library_ms, parts, _ = backward_vs_sdpa(f"backward B={B} T={T}", q, k, v, o, do, lse, kw)
     own = []
     for key, fl, b_own in (("flash_bwd_dkv", 8, b_kv), ("flash_bwd_dq", 6, b_q)):
         ms_own = sum(ms for name, ms in parts.items() if key in name)
@@ -1005,35 +1027,44 @@ def check_k5(gen):
                  bound_by=by_q, library_ms=library_ms))
 
 
-def backward_vs_sdpa(label, q, k, v, o, do, lse, kw):
+def backward_vs_sdpa(label, q, k, v, o, do, lse, kw, pad_do=False):
     """Device ms of the whole flash backward (``FlashAttentionFn.backward``
     on the saved tensors, the head dim padded as the autograd Function holds
-    them: di, K5a, K5b, the casts) and of SDPA's backward on the same inputs,
-    timed in turns (flash, SDPA, SDPA, flash), with the ratio, TFLOP/s (the
-    backward's five products, 10 x Hq x hd per attended pair) and share of
-    the bound printed, and each kernel's device time in one call.  Returns
-    (SDPA's mean, {kernel name: device ms per call} of the flash backward;
-    {} where the profiler recorded nothing)."""
+    them: di, K5a, K5b, the casts; with ``pad_do`` the pad of the incoming
+    gradient too, as a model's backward runs it) and of SDPA's backward on
+    the same inputs, timed in turns (flash, SDPA, SDPA, flash), with the
+    ratio, TFLOP/s (the backward's five products, 10 x Hq x hd per attended
+    pair) and share of the bound printed, and each kernel's device time in
+    one call.  Returns (SDPA's mean, {kernel name: device ms per call} of the
+    flash backward; {} where the profiler recorded nothing, the flash
+    backward's mean)."""
     from types import SimpleNamespace
 
     import torch
 
-    from vats_tpu_torch.ops.flash_attention import FlashAttentionFn
+    from vats_tpu_torch.ops.flash_attention import FlashAttentionFn, _kernel_head_dim
 
     b, t, hq, hd = q.shape
-    pad = lambda x: torch.nn.functional.pad(x, (0, 64 - hd)).contiguous()  # noqa: E731
+    causal = kw.get("causal", False)
+    dpad = _kernel_head_dim(hd)
+    pad = lambda x: torch.nn.functional.pad(x, (0, dpad - hd)).contiguous()  # noqa: E731
     qp, kp, vp, op, dop = map(pad, (q, k, v, o, do))
     ctx = SimpleNamespace(saved_tensors=(qp, kp, vp, op, lse, None, None, None), kw=kw)
-    flash = lambda: FlashAttentionFn.backward(ctx, dop)  # noqa: E731
+    if pad_do:
+        flash = lambda: FlashAttentionFn.backward(ctx, pad(do))  # noqa: E731
+    else:
+        flash = lambda: FlashAttentionFn.backward(ctx, dop)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out = _sdpa(qt, kt, vt, kw["scale"])
+    out = _sdpa(qt, kt, vt, kw["scale"], causal)
     dot = do.transpose(1, 2)
     lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
     k1, l1, l2, k2 = device_ms(flash), device_ms(lib), device_ms(lib), device_ms(flash)
     ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
-    flops = 10 * hq * hd * b * t * (t + 1) // 2
-    # q, o, do in and dq out; k, v in and dk, dv out (bf16, padded); lse in
-    nbytes = 4 * (qp.numel() + kp.numel()) * 2 + lse.numel() * 4
+    pairs = b * t * (t + 1) // 2 if causal else b * t * k.shape[1]
+    flops = 10 * hq * hd * pairs
+    # q, o, do in and dq out; k, v in and dk, dv out (bf16, logical head
+    # dim); lse in
+    nbytes = 4 * (q.numel() + k.numel()) * 2 + lse.numel() * 4
     b_ms, by = bound(nbytes, flops)
     log(f"  {label}: flash {k1:.4f} / {k2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms in turns: "
         f"{ms / lib_ms:.2f}x SDPA; {flops / ms / 1e9:.1f} TFLOP/s (SDPA "
@@ -1042,7 +1073,104 @@ def backward_vs_sdpa(label, q, k, v, o, do, lse, kw):
     parts = {name: us / 20 / 1e3 for name, (us, _) in per.items()}
     log("    per call: " + ", ".join(f"{ms_:.4f} ms {name[:60]}" for name, ms_ in
                                      sorted(parts.items(), key=lambda kv: -kv[1])))
-    return lib_ms, parts
+    return lib_ms, parts, ms
+
+
+# ViT-2D medium's attention (vit2d_medium: d1152 / 16 heads = head dim 72, 8
+# KV groups, 384 px / p16 = 576 patches: T = S = 576, a ragged last 128-row
+# tile; non-causal, no window, no mask) at the vision phase's forward batch.
+VIT_B, VIT_T, VIT_HQ, VIT_G, VIT_HD = 16, 576, 16, 8, 72
+
+
+def check_vit_flash(gen):
+    """K2, K2' and the whole backward (di, K5a, K5b, casts) at ViT-2D
+    medium's shape against the plain versions.  The wrappers pad head dim 72
+    to 128 (exact); each is timed in turns with SDPA at the unpadded head dim
+    72, with its bound reckoned on the logical work at 72, so the pad shows
+    as lost time, and the share of the call outside the kernel (the pads;
+    for the backward also di and the casts) printed.  The numbers go to the
+    log only; the ``kernels`` line keeps the LM's shapes."""
+    import torch
+
+    from vats_tpu_torch.ops.flash_attention import (
+        _kernel_head_dim,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_lse,
+        flash_attention_lse_ref,
+        flash_attention_ref,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    B, T, Hq, G, hd = VIT_B, VIT_T, VIT_HQ, VIT_G, VIT_HD
+    dp = _kernel_head_dim(hd)
+    scale = 1.0 / hd**0.5
+    q, k, v, do = _train_attention_inputs(gen, B, T, Hq, G, hd)
+    kw = dict(scale=scale, causal=False)
+    fns = (flash_attention, flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
+    n0 = [fn.launches for fn in fns]
+    out_k = flash_attention(q, k, v, **kw)
+    o_l, lse_k = flash_attention_lse(q, k, v, **kw)
+    o_p, lse_p = flash_attention_lse_ref(q, k, v, **kw)
+    di = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    got = flash_attention_bwd(q, k, v, do, lse_p, di, **kw)
+    want = flash_attention_bwd_ref(q, k, v, do, lse_p, di, **kw)
+    torch.cuda.synchronize()
+    require([fn.launches - n for fn, n in zip(fns, n0)] == [1, 1, 1, 1],
+            "ViT flash check: K2, K2', K5a and K5b must launch once each")
+    allow = p_flip_allowance(q, k, v, **kw)
+    err_k2 = expect_close("ViT K2 out", out_k, o_p, BF16_ATOL, BF16_RTOL, allow)
+    err_k2l = max(expect_close("ViT K2' out", o_l, o_p, BF16_ATOL, BF16_RTOL, allow),
+                  expect_close("ViT K2' lse", lse_k, lse_p, 1e-4, 1e-5))
+    require(torch.equal(out_k, o_l), "ViT flash check: K2 and K2' outputs differ")
+    errs = [expect_close(f"ViT K5 {n}", a, b_, BWD_ATOL, BWD_RTOL)
+            for n, a, b_ in zip(("dq", "dk", "dv"), got, want)]
+    del allow
+
+    pairs = B * T * T
+    flops = 4 * Hq * hd * pairs  # logical: q.k and p.v at head dim 72
+    in_bytes = (q.numel() + k.numel() + v.numel()) * 2
+    rows = {}
+    for name, fn, plain, extra in (
+            ("K2", flash_attention, flash_attention_ref, 0),
+            ("K2'", flash_attention_lse, flash_attention_lse_ref, B * Hq * T * 4)):
+        b_ms, by = bound(in_bytes + q.numel() * 2 + extra, flops)
+        plain_ms, _ = timed(lambda: plain(q, k, v, **kw))
+        ms, lib_ms, alone = flash_vs_sdpa(
+            f"ViT {name} B={B} T=S={T} hd={hd}->{dp} non-causal",
+            lambda: fn(q, k, v, **kw), q, k, v, scale, b_ms, flops, causal=False)
+        pad = None if alone is None else 1 - alone / ms
+        rows[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+                          plain_ms=plain_ms, kernel_alone_ms=alone, outside_share=pad)
+    pad = lambda x: torch.nn.functional.pad(x, (0, dp - hd)).contiguous()  # noqa: E731
+    qp, kp, vp, dop = map(pad, (q, k, v, do))
+    stats = 2 * B * Hq * T * 4  # lse and di
+    kv_bytes = in_bytes + q.numel() * 2 + stats
+    for name, fn, out_bytes, fl in (
+            ("K5a", lambda: flash_bwd_dkv(qp, kp, vp, dop, lse_p, di, **kw), 2 * k.numel() * 4, 8),
+            ("K5b", lambda: flash_bwd_dq(qp, kp, vp, dop, lse_p, di, **kw), q.numel() * 4, 6)):
+        b_ms, by = bound(kv_bytes + out_bytes, fl * Hq * hd * pairs)
+        ms = device_ms(fn)
+        rows[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
+        log(f"  ViT {name} alone at the kernel's head dim {dp}: {ms:.4f} ms "
+            f"({fl * Hq * hd * pairs / ms / 1e9:.1f} logical TFLOP/s), bound {b_ms:.5f} ms "
+            f"({by}) on the logical work, {b_ms / ms:.3f} of it")
+    plain_bwd, _ = timed(lambda: flash_attention_bwd_ref(q, k, v, do, lse_p, di, **kw))
+    lib_bwd, parts, whole = backward_vs_sdpa(
+        f"ViT backward B={B} T=S={T} hd={hd}->{dp} non-causal (the do pad included)",
+        q, k, v, o_p, do, lse_p, kw, pad_do=True)
+    kern = sum(ms_ for name, ms_ in parts.items() if "flash_bwd" in name)
+    for name in ("K5a", "K5b"):
+        rows[name].update(library_ms=lib_bwd, plain_ms=plain_bwd, whole_ms=whole,
+                          outside_share=(1 - kern / whole) if kern else None)
+    log(f"ViT flash at B={B} T=S={T} Hq={Hq} G={G} hd={hd} (padded to {dp}) non-causal: "
+        f"max_abs_err K2 {err_k2:.3e} K2' {err_k2l:.3e} (out within {BF16_ATOL} + "
+        f"{BF16_RTOL}*|ref| + the p flip allowance, lse 1e-4) K5 dq {errs[0]:.3e} dk "
+        f"{errs[1]:.3e} dv {errs[2]:.3e} (within {BWD_ATOL} + {BWD_RTOL}*|ref|); "
+        + "; ".join(f"{n} " + " ".join(f"{k_}={v_ if k_ == 'bound_by' else _fmt(v_, 5)}"
+                                        for k_, v_ in r.items()) for n, r in rows.items()))
 
 
 # --- phase: train -----------------------------------------------------------
@@ -1172,8 +1300,48 @@ def run_train(counters):
 # gradient: 5% relative.  Adam normalises each step to at most ~lr per
 # element whatever the gradient's size, so two runs whose small gradients
 # differ in sign can part by at most 2 lr per applied step: params are held
-# to 2 x (sum of the lr applied so far) + 1e-6.
+# to 2 x (sum of the lr applied so far) + 1e-6.  That bound holds for any
+# two updates of one sign pattern or another, so it cannot see a wrong
+# gradient; the test is per leaf, before the update: each parameter's
+# gradient card against CPU, ||g_card - g_cpu|| / ||g_cpu||, and each
+# parameter's change since the start, ||d_card - d_cpu|| / ||d_cpu||.
+# The change is ~lr x sign(g) per element after Adam's first step, so it
+# moves by 2 lr on each element whose small gradient flips sign; a wrong
+# gradient gives ~1.4 (unrelated) to 2 (negated).  Read on an H100 (worst
+# leaf): gradients 9.8e-3 (steps 0-1) and 1.6e-2 (step 2, params already
+# apart) here, 6.5e-3 in vision_parity; the change 7.2e-2 here, 6.0e-2
+# there.  The limits are ~2.5x the worst of them.
 PARITY_LOSS_ATOL, PARITY_NORM_RTOL = 0.02, 0.05
+PARITY_LEAF_GRAD_RTOL, PARITY_LEAF_CHANGE_RTOL = 0.04, 0.2
+
+
+def leaf_grad(name, p):
+    return p.grad if p.grad is not None else p.new_zeros(p.shape)
+
+
+def leaf_errors(card, cpu, of):
+    """{name: ||of(name, a) - of(name, b)|| / ||of(name, b)||} over the two
+    models' matching parameters (``of`` picks the gradient or the change),
+    in fp32 on the CPU; 0 where both are zero, inf where only the card's is
+    not."""
+    out = {}
+    for (name, a), (_, b) in zip(card.named_parameters(), cpu.named_parameters()):
+        a, b = of(name, a).detach().cpu().float(), of(name, b).detach().float()
+        d, n = float((a - b).norm()), float(b.norm())
+        out[name] = d / n if n > 0 else (0.0 if d == 0 else float("inf"))
+    return out
+
+
+def leaf_report(label, errs, limit):
+    """The worst leaf and the median of ``errs``; raises where any leaf is
+    beyond ``limit`` (or not a number)."""
+    name, worst = max(errs.items(), key=lambda kv: kv[1])
+    median = sorted(errs.values())[len(errs) // 2]
+    bad = sorted(n for n, e in errs.items() if not e <= limit)
+    msg = (f"{label}: worst leaf {name} {worst:.3e}, median {median:.3e} over "
+           f"{len(errs)} (limit {limit})")
+    require(not bad, f"{msg}; beyond it: {bad}")
+    return msg
 
 
 def run_train_parity():
@@ -1202,6 +1370,8 @@ def run_train_parity():
     labels = torch.cat([ids[:, 1:], torch.full((B, 1), -100, dtype=torch.int32)], 1)
     labels = torch.where(torch.arange(T)[None, :] < (lens - 1)[:, None], labels, -100)
     batch = {"input_ids": ids, "labels": labels, "padding_mask": mask}
+    start = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    change = lambda n, p: p.detach().cpu() - start[n]  # noqa: E731
     lr_sum = 0.0
     report = []
     for i in range(3):
@@ -1223,6 +1393,12 @@ def run_train_parity():
         if not (abs(lg - lc) <= PARITY_LOSS_ATOL and abs(ng - nc) <= PARITY_NORM_RTOL * nc
                 and dp <= tol_p):
             raise AssertionError("train_parity: " + report[-1])
+        report[-1] += "; " + leaf_report(
+            f"train_parity step {i} gradients", leaf_errors(gpu, cpu, leaf_grad),
+            PARITY_LEAF_GRAD_RTOL)
+        report[-1] += "; " + leaf_report(
+            f"train_parity step {i} change since the start", leaf_errors(gpu, cpu, change),
+            PARITY_LEAF_CHANGE_RTOL)
     log("train_parity (2 layers, full width, B=2, T=512, card vs CPU): "
         + "; ".join(report))
     del gpu, cpu, runs
@@ -2175,9 +2351,9 @@ def _counts(fns):
     return {fn.__name__: fn.launches for fn in fns}
 
 
-def _gate(label, got, want):
+def _gate(label, got, want, phase="scripts"):
     bad = {k: (got.get(k), n) for k, n in want.items() if got.get(k) != n}
-    require(not bad, f"scripts: {label} launches (got, want) {bad}")
+    require(not bad, f"{phase}: {label} launches (got, want) {bad}")
 
 
 def _state_bit_equal(a, b, where="state"):
@@ -2509,6 +2685,300 @@ def packed_segments(fns, L):
 # --- entry point ------------------------------------------------------------
 
 
+# --- phases: vision, vision_parity ------------------------------------------
+
+VIT2D_FWD_B, VIT2D_TRAIN_B, VIT2D_ACCUM, VIT3D_B = 16, 32, 4, 4
+
+
+def _vision_gate(label, fns, want):
+    got = _counts(fns)
+    _gate(label, got, want, phase="vision")
+    return got
+
+
+def vision_forward(label, model, x, fns, want, per_call, unit, iters):
+    """One forward with the flash counters zeroed just before and read just
+    after (held to ``want``), then ``iters`` timed forwards after a warm-up
+    (CUDA events), the peak memory of the timed calls and one profiled
+    forward (device-busy time, idle share).  Returns (output, numbers)."""
+    import torch
+
+    with torch.no_grad():
+        _zero(fns)
+        out = model(x)
+        torch.cuda.synchronize()
+        got = _vision_gate(label, fns, want)
+        require(bool(torch.isfinite(out.float()).all()), f"vision: {label} not finite")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model(x), iters=iters, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy = profile_breakdown(f"{label} forward", lambda: model(x), top=8,
+                                 also=("flash",))
+    rate = per_call / (ms / 1e3)
+    log(f"vision: {label}: launches {json.dumps(got)}; ms_per_forward={ms:.3f} "
+        f"{unit}={rate:.1f} peak_mem_gb={peak:.2f} device_busy_s="
+        f"{_fmt(busy, 5)} (one profiled forward)")
+    return out, dict(ms=ms, rate=rate, peak_gb=peak, busy_s=busy)
+
+
+def run_vision(fns):
+    """ViT-2D medium forward (K2 only, 16 launches a forward) at B=16 on
+    384x384 and on a non-square size (resize and crop on the card), ViT-2D
+    medium training through ``make_vision_train_step`` (one round of 4
+    micro-steps of B=32 with mixup / cutmix and the pixel battery on the
+    card; K2', K5a and K5b per micro-step as derived below) and its eval
+    step, then ViT-3D xsmall and large forwards (no flash kernel: the JAX
+    model attends with XLA there).  Depth uncut everywhere."""
+    import math
+
+    import torch
+
+    from vats_tpu_torch.configs import vit2d_medium, vit3d_large, vit3d_xsmall
+    from vats_tpu_torch.models import ImageEncoder, VideoTransformer
+    from vats_tpu_torch.train import (
+        VisionTrainingArgs,
+        create_train_state,
+        create_vision_optimizer,
+        make_vision_eval_step,
+        make_vision_train_step,
+    )
+
+    k2, k2l, k5a, k5b = (fn.__name__ for fn in fns)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    # ViT-2D medium forward, as bench.py's vit2d stage: dropout 0, no remat,
+    # params in bf16, B=16
+    cfg = vit2d_medium(dropout=0.0, use_checkpointing=False)
+    L = cfg.num_layers
+    model = ImageEncoder(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"vision: vit2d_medium {cfg.target_size}px/p{cfg.patch_size} d{cfg.d_model}/"
+        f"{L}L {cfg.num_heads}H/{cfg.query_groups}G hd {cfg.head_dim}, "
+        f"{cfg.num_patches} patches, {n_params / 1e6:.1f}M params (bf16), "
+        f"B={VIT2D_FWD_B}")
+    want = {k2: L, k2l: 0, k5a: 0, k5b: 0}
+    x = torch.randn((VIT2D_FWD_B, 3, 384, 384), generator=gen, device="cuda").to(torch.bfloat16)
+    feats, fwd = vision_forward("vit2d_medium 384x384", model, x, fns, want, VIT2D_FWD_B,
+                                "images_per_s", iters=10)
+    require(tuple(feats.shape) == (VIT2D_FWD_B, cfg.num_patches, cfg.d_model),
+            f"vision: vit2d features {tuple(feats.shape)}")
+    xr = torch.randn((VIT2D_FWD_B, 3, 448, 531), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        _zero(fns)
+        out = model(xr)
+        torch.cuda.synchronize()
+        _vision_gate("vit2d_medium 448x531", fns, want)
+    require(tuple(out.shape) == tuple(feats.shape) and bool(torch.isfinite(out.float()).all()),
+            "vision: vit2d forward at 448x531 (resize 384x455, crop)")
+    log(f"vision: vit2d_medium 448x531 (resized to 384x455 and cropped on the card): "
+        f"{L} K2 launches, features {tuple(out.shape)} finite")
+    del model, feats, out, x, xr
+    torch.cuda.empty_cache()
+
+    # ViT-2D medium training: num_classes 1000, dropout 0.2, remat on,
+    # grad_accum 4, micro-batch 32, mixup / cutmix and the on-card battery on
+    # raw [0, 1] images.  A micro-step runs each block's forward twice (the
+    # forward, then its recompute in the backward: K2' 2L) and its backward
+    # once (K5a L, K5b L); the eval step K2 L.
+    cfg = vit2d_medium(num_classes=1000, dropout=0.2, use_checkpointing=True)
+    model = ImageEncoder(cfg, device="cuda", seed=1)
+    args = VisionTrainingArgs(grad_accum_steps=VIT2D_ACCUM, pixel_augs_on_device=True,
+                              warmup_epochs=1, epochs=10)
+    state = create_train_state(model, create_vision_optimizer(args, steps_per_epoch=100))
+    step = make_vision_train_step(model, args, 1000)
+    eval_step = make_vision_eval_step(model, 1000)
+    B = VIT2D_TRAIN_B
+
+    def micro_batch():
+        return {"images": torch.rand((B, 3, 384, 384), generator=gen, device="cuda"),
+                "labels": torch.randint(0, 1000, (B,), generator=gen, device="cuda")}
+
+    batches = [micro_batch() for _ in range(2 * VIT2D_ACCUM)]
+    ev_batch = {"images": torch.randn((B, 3, 384, 384), generator=gen, device="cuda"),
+                "labels": batches[0]["labels"]}
+    t0 = time.perf_counter()
+    for i in range(VIT2D_ACCUM):  # warm-up round: one update
+        state, m = step(state, batches[i], i)
+    torch.cuda.synchronize()
+    log(f"vision: vit2d_medium training, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        f"params (fp32, bf16 compute), dropout {cfg.dropout}, remat, accum {VIT2D_ACCUM} x "
+        f"B={B}; warm-up round {time.perf_counter() - t0:.2f}s")
+    ev0 = float(eval_step(state.params, ev_batch)["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fns)
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(VIT2D_ACCUM):
+        state, m = step(state, batches[VIT2D_ACCUM + i], 100 + i)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = _vision_gate("vit2d training round", fns,
+                       {k2l: 2 * L * VIT2D_ACCUM, k5a: L * VIT2D_ACCUM,
+                        k5b: L * VIT2D_ACCUM, k2: 0})
+    _zero(fns)
+    ev1 = eval_step(state.params, ev_batch)
+    ev1_loss = float(ev1["loss"])
+    _vision_gate("vit2d eval step", fns, {k2: L, k2l: 0, k5a: 0, k5b: 0})
+    losses = [float(m["loss"]) for m in metrics]
+    lams = [round(float(m["lam"]), 4) for m in metrics]
+    norm = float(metrics[-1]["grad_norm"])
+    require(all(math.isfinite(v) for v in losses + [norm, ev0, ev1_loss]),
+            f"vision: non-finite training numbers {losses} {norm} {ev0} {ev1_loss}")
+    require(ev1_loss != ev0, "vision: the update left the eval loss unchanged")
+    require(int(state.step) == 2 * VIT2D_ACCUM
+            and int(state.opt_state.gradient_step) == 2, "vision: step counters wrong")
+    log(f"vision: vit2d training round launches {json.dumps(got)} = per micro-step K2' "
+        f"{got[k2l] // VIT2D_ACCUM} ({L} forward + {L} recomputed), K5a "
+        f"{got[k5a] // VIT2D_ACCUM}, K5b {got[k5b] // VIT2D_ACCUM}; eval step K2 {L}")
+    log(f"vision: vit2d training: ms_per_micro_step={wall / VIT2D_ACCUM * 1e3:.1f} "
+        f"images_per_s={VIT2D_ACCUM * B / wall:.1f} peak_mem_gb={peak:.2f}; losses "
+        f"{[round(v, 4) for v in losses]} lam {lams} grad norm (boundary) {norm:.4f}; eval "
+        f"loss before the round's update {ev0:.5f} after {ev1_loss:.5f} acc "
+        f"{float(ev1['acc']):.4f}")
+    profile_breakdown("vit2d training micro-step", lambda: step(state, batches[0], 200),
+                      top=10, also=("flash",))
+    del model, state, step, eval_step, batches, ev_batch, metrics
+    torch.cuda.empty_cache()
+
+    # ViT-3D xsmall (bench.py's vit3d stage: B=4, 32 frames at 128^2) and
+    # large (tools/bench_vit3d.py: 8 frames at 224^2, B=4), dropout 0, no
+    # remat, params in bf16
+    zero_flash = {k2: 0, k2l: 0, k5a: 0, k5b: 0}
+    for name, cfg in (("vit3d_xsmall", vit3d_xsmall(dropout=0.0, use_checkpointing=False)),
+                      ("vit3d_large", vit3d_large(dropout=0.0, use_checkpointing=False))):
+        model = VideoTransformer(cfg, device="cuda", seed=0).to(torch.bfloat16)
+        th, tw = cfg.target_size
+        gt, gh, gw = cfg.grid_size
+        log(f"vision: {name} p{cfg.patch_size} {cfg.max_frames} frames at {th}x{tw}, "
+            f"d{cfg.d_model}/{cfg.num_layers}L {cfg.num_heads}H/{cfg.query_groups}G, grid "
+            f"{gt}x{gh}x{gw}, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+            f"params (bf16), B={VIT3D_B}")
+        x = torch.randn((VIT3D_B, 3, cfg.max_frames, th, tw), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out, _ = vision_forward(name, model, x, fns, zero_flash, VIT3D_B * cfg.max_frames,
+                                "frames_per_s", iters=5)
+        require(tuple(out.shape) == (VIT3D_B, gt * gh * gw, cfg.d_model),
+                f"vision: {name} features {tuple(out.shape)}")
+        del model, out, x
+        torch.cuda.empty_cache()
+
+
+# Card (kernels, bf16 compute) against the CPU (plain versions), same
+# weights.  The two round bf16 at other places (each product's sum, the
+# resize), a few bf16 ulps (2^-8 relative) of activations up to ~5 after
+# two (ViT-2D) or four (ViT-3D) layers: features atol 0.1 + rtol 0.02;
+# logits (a mean over 576 patches through a 1/sqrt(d) head) atol 0.05 +
+# rtol 0.02.  Loss and grad norm as the LM's train_parity (0.02 on a loss
+# of ~ln(1000) = 6.9; 5% of the norm); each parameter's gradient and its
+# change in the step per leaf, as there (PARITY_LEAF_*).
+VISION_FEAT_TOL = dict(atol=0.1, rtol=0.02)
+VISION_LOGIT_TOL = dict(atol=0.05, rtol=0.02)
+
+
+def run_vision_parity():
+    """ViT-2D at medium width (2 layers, B=2, 1000 classes, remat on): the
+    eval forward (features, logits) and one train step at dropout 0 without
+    augmentation on the card (K2; K2', K5a, K5b) against the CPU; ViT-3D
+    xsmall at its full config, B=1, the last 6 of 32 frames padded: features
+    card against CPU."""
+    import torch
+
+    from vats_tpu_torch.configs import vit2d_medium, vit3d_xsmall
+    from vats_tpu_torch.models import ImageEncoder, VideoTransformer
+    from vats_tpu_torch.train import (
+        VisionTrainingArgs,
+        create_train_state,
+        create_vision_optimizer,
+        make_vision_train_step,
+    )
+
+    def pair(cls, cfg, seed):
+        gpu = cls(cfg, device="cuda", seed=seed)
+        cpu = cls(cfg, device="meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+        return gpu, cpu
+
+    def with_features(model, *args, **kw):
+        got = {}
+        h = model.norm.register_forward_hook(lambda m, i, o: got.setdefault("f", o))
+        try:
+            with torch.no_grad():
+                out = model(*args, **kw)
+        finally:
+            h.remove()
+        return got["f"].float().cpu(), out.float().cpu()
+
+    cfg = vit2d_medium(num_layers=2, dropout=0.0, num_classes=1000, use_checkpointing=True)
+    gpu, cpu = pair(ImageEncoder, cfg, 7)
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn((2, 3, 384, 384), generator=g)
+    labels = torch.tensor([3, 997])
+    from vats_tpu_torch.ops import flash_attention as fa
+
+    n0 = fa.flash_attention.launches
+    fg, lg = with_features(gpu, x.cuda())
+    require(fa.flash_attention.launches == n0 + cfg.num_layers, "vision_parity: K2 launches")
+    fc, lc = with_features(cpu, x)
+    err_f = expect_close("vision_parity vit2d features", fg, fc, **VISION_FEAT_TOL)
+    err_l = expect_close("vision_parity vit2d logits", lg, lc, **VISION_LOGIT_TOL)
+
+    args = VisionTrainingArgs(grad_accum_steps=1, use_augmentation=False, warmup_epochs=1,
+                              epochs=10)
+    start = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    out = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        state = create_train_state(model, create_vision_optimizer(args, 1))
+        n1 = (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_bwd_dq.launches)
+        dev = model.device
+        _, m = make_vision_train_step(model, args, 1000)(
+            state, {"images": x.to(dev), "labels": labels.to(dev)}, 0)
+        out[name] = (float(m["loss"]), float(m["grad_norm"]))
+        if name == "cuda":
+            L = cfg.num_layers
+            require((fa.flash_attention_lse.launches - n1[0], fa.flash_bwd_dkv.launches - n1[1],
+                     fa.flash_bwd_dq.launches - n1[2]) == (2 * L, L, L),
+                    "vision_parity: K2'/K5a/K5b launches of the train step")
+    (lgpu, ngpu), (lcpu, ncpu) = out["cuda"], out["cpu"]
+    report = (f"loss card {lgpu:.5f} cpu {lcpu:.5f}; grad norm card {ngpu:.5f} cpu "
+              f"{ncpu:.5f}")
+    require(abs(lgpu - lcpu) <= PARITY_LOSS_ATOL and abs(ngpu - ncpu) <= PARITY_NORM_RTOL * ncpu,
+            "vision_parity vit2d train step: " + report)
+    report += "; " + leaf_report("gradients", leaf_errors(gpu, cpu, leaf_grad),
+                                 PARITY_LEAF_GRAD_RTOL)
+    report += "; " + leaf_report(
+        "change in the step", leaf_errors(gpu, cpu, lambda n, p: p.detach().cpu() - start[n]),
+        PARITY_LEAF_CHANGE_RTOL)
+    log(f"vision_parity vit2d (medium width, 2 layers, B=2, card vs CPU): features max |err| "
+        f"{err_f:.3e} (atol {VISION_FEAT_TOL['atol']} + rtol {VISION_FEAT_TOL['rtol']}), "
+        f"logits {err_l:.3e} (atol {VISION_LOGIT_TOL['atol']} + rtol "
+        f"{VISION_LOGIT_TOL['rtol']}); one train step: {report}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    cfg = vit3d_xsmall(dropout=0.0)
+    gpu, cpu = pair(VideoTransformer, cfg, 9)
+    th, tw = cfg.target_size
+    x = torch.randn((1, 3, cfg.max_frames, th, tw), generator=g)
+    fm = torch.ones((1, cfg.max_frames), dtype=torch.bool)
+    fm[:, -6:] = False
+    n0 = [fn.launches for fn in (fa.flash_attention, fa.flash_attention_lse)]
+    with torch.no_grad():
+        fgpu = gpu(x.cuda(), frame_mask=fm.cuda()).float().cpu()
+        fcpu = cpu(x, frame_mask=fm).float()
+    require([fa.flash_attention.launches, fa.flash_attention_lse.launches] == n0,
+            "vision_parity: a flash kernel ran in the ViT-3D forward")
+    err3 = expect_close("vision_parity vit3d features", fgpu, fcpu, **VISION_FEAT_TOL)
+    log(f"vision_parity vit3d_xsmall (full config, B=1, frames 26-31 padded, card vs CPU): "
+        f"features max |err| {err3:.3e} (atol {VISION_FEAT_TOL['atol']} + rtol "
+        f"{VISION_FEAT_TOL['rtol']}); mean |err| {float((fgpu - fcpu).abs().mean()):.3e}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2621,6 +3091,7 @@ def main(argv=None) -> int:
         results["flash_attention_forward_lse"] = check_k2_lse(gen(4))
         (results["flash_attention_backward_dkv"],
          results["flash_attention_backward_dq"]) = check_k5(gen(5))
+        check_vit_flash(gen(7))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}}
     runners = {
@@ -2631,6 +3102,9 @@ def main(argv=None) -> int:
         "train": lambda: run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention]),
         "train_parity": run_train_parity,
         "scripts": lambda: run_scripts({r["name"]: r["fn"] for r in kernel_rows}),
+        "vision": lambda: run_vision([fa.flash_attention, fa.flash_attention_lse,
+                                      fa.flash_bwd_dkv, fa.flash_bwd_dq]),
+        "vision_parity": run_vision_parity,
     }
     for phase, run in runners.items():
         if phase in phases:

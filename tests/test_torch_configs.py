@@ -108,3 +108,49 @@ def test_port_never_names_the_jax_packages_native_loader():
         src = path.read_text()
         for name in ("vats_tpu/data/native", "libvats_shard"):
             assert name not in src, f"{path} names {name}"
+
+
+VISION_TIERS = [("vit2d", "vit2d_xsmall"), ("vit2d", "vit2d_small"), ("vit2d", "vit2d_medium"),
+                ("vit3d", "vit3d_xsmall"), ("vit3d", "vit3d_large"),
+                ("vit3d", "vit3d_tiny_test")]
+
+
+@pytest.mark.parametrize("module,tier", VISION_TIERS)
+def test_vision_configs_match(module, tier):
+    import importlib
+
+    jmod = importlib.import_module(f"vats_tpu.configs.{module}")
+    tmod = importlib.import_module(f"vats_tpu_torch.configs.{module}")
+    cls = "ViT2DArgs" if module == "vit2d" else "ViT3DArgs"
+    assert _fields(getattr(tmod, cls)) == _fields(getattr(jmod, cls))
+    j, t = getattr(jmod, tier)(), getattr(tmod, tier)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.head_dim, t.grid_size) == (j.head_dim, j.grid_size)
+    for bad in (dict(num_heads=7), dict(query_groups=5)):
+        with pytest.raises(ValueError) as ej:
+            getattr(jmod, tier)(**bad)
+        with pytest.raises(ValueError) as et:
+            getattr(tmod, tier)(**bad)
+        assert str(et.value) == str(ej.value)
+
+
+def test_vision_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    from vats_tpu_torch.configs import vit2d_xsmall, vit3d_tiny_test
+    from vats_tpu_torch.models import ImageEncoder, VideoTransformer
+
+    for model, cfg in ((ImageEncoder, vit2d_xsmall()), (VideoTransformer, vit3d_tiny_test())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model(cfg)
+        assert model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_vision_modules_are_ported():
+    """The vision slice's modules exist in the port (each is held to the
+    import rule above with the rest of the package)."""
+    for rel in ("configs/vit2d.py", "configs/vit3d.py", "nn/activations.py", "nn/rope.py",
+                "nn/attention.py", "models/vit2d.py", "models/vit3d.py", "utils/convert.py",
+                "data/augmentations.py", "data/pixel_augs.py", "data/vision_data.py",
+                "data/video_decode.py", "train/vision.py"):
+        assert (REPO / "vats_tpu_torch" / rel) in _port_sources(), rel

@@ -791,3 +791,75 @@ def test_async_checkpoint_of_a_card_state(gen, tmp_path):
         for name, t in want["opt_state"]["acc_grads"].items():
             assert torch.equal(got["opt_state"]["acc_grads"][name], t), name
         assert int(got["step"]) == 1 and got["opt_state"]["mini_step"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_at_vit2d_shape_matches_plain(gen, dtype):
+    """K2, K2', K5a and K5b at ViT-2D medium's attention: head dim 72 (the
+    wrappers pad it to 128), T = S = 576 (a ragged last 128-row tile),
+    16 heads over 8 groups, non-causal, no mask; against the plain versions
+    (bf16 as BWD_BF16_TOL and TOL; fp32 sums in another order, 1e-4)."""
+    b, t, hq, g, hd = 2, 576, 16, 8, 72
+    q = rand(gen, b, t, hq, hd, dtype=dtype)
+    k, v = rand(gen, b, t, g, hd, dtype=dtype), rand(gen, b, t, g, hd, dtype=dtype)
+    do = rand(gen, b, t, hq, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, causal=False)
+    n0 = [fn.launches for fn in (fa.flash_attention, fa.flash_attention_lse,
+                                 fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+    out = fa.flash_attention(q, k, v, **kw)
+    out_l, lse = fa.flash_attention_lse(q, k, v, **kw)
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    di = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse_ref, di, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse_ref, di, **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(
+        (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq),
+        n0)] == [1, 1, 1, 1]
+    assert out.shape == (b, t, hq, hd) and torch.equal(out, out_l)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+    for a, b_ in zip(got, want):
+        assert a.shape[-1] == hd
+        torch.testing.assert_close(a, b_, **tol)
+
+
+def test_vit2d_two_layers_on_the_card_match_the_cpu(gen):
+    """ViT-2D at medium width, 2 layers, fp32, remat on, B=2: the eval
+    forward (K2 per layer) and the loss gradients (K2' twice per layer
+    under remat, K5a and K5b once) on the card against the CPU's plain
+    versions from the same weights: logits atol 1e-4, gradients atol 1e-4
+    and rtol 1e-3 (fp32 sums in another order over 576 patches)."""
+    from vats_tpu_torch.configs import vit2d_medium
+    from vats_tpu_torch.models import ImageEncoder
+    from vats_tpu_torch.train.vision import smoothed_ce
+
+    cfg = vit2d_medium(num_layers=2, dropout=0.0, num_classes=10, dtype="float32",
+                       use_checkpointing=True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gpu = ImageEncoder(cfg, device="cuda", seed=4)
+        cpu = ImageEncoder(cfg, device="meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+        x = torch.randn((2, 3, 400, 384), generator=torch.Generator().manual_seed(2))
+        labels = torch.tensor([1, 7])
+        n0 = fa.flash_attention.launches
+        with torch.no_grad():
+            lg = gpu(x.cuda())
+        assert fa.flash_attention.launches == n0 + 2
+        with torch.no_grad():
+            torch.testing.assert_close(lg.cpu(), cpu(x), atol=1e-4, rtol=1e-4)
+        n1 = (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_bwd_dq.launches)
+        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            loss = smoothed_ce(model(x.to(dev), deterministic=False, dropout_seed=0),
+                               labels.to(dev), 0.1, 10)
+            loss.backward()
+        assert (fa.flash_attention_lse.launches - n1[0], fa.flash_bwd_dkv.launches - n1[1],
+                fa.flash_bwd_dq.launches - n1[2]) == (4, 2, 2)
+        for (name, a), b_ in zip(gpu.named_parameters(), cpu.parameters()):
+            torch.testing.assert_close(a.grad.cpu(), b_.grad, atol=1e-4, rtol=1e-3, msg=name)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

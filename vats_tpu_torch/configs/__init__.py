@@ -10,16 +10,36 @@ from vats_tpu_torch.configs.nlp import (
     nlp_xsmall,
     validate_model_args,
 )
+from vats_tpu_torch.configs.vit2d import (
+    ViT2DArgs,
+    vit2d_medium,
+    vit2d_small,
+    vit2d_xsmall,
+)
+from vats_tpu_torch.configs.vit3d import (
+    ViT3DArgs,
+    vit3d_large,
+    vit3d_tiny_test,
+    vit3d_xsmall,
+)
 
 __all__ = [
     "NLP_TIERS",
     "GenerationArgs",
     "ModelArgs",
     "TrainingArgs",
+    "ViT2DArgs",
+    "ViT3DArgs",
     "nlp_large",
     "nlp_medium",
     "nlp_small",
     "nlp_xlarge",
     "nlp_xsmall",
     "validate_model_args",
+    "vit2d_medium",
+    "vit2d_small",
+    "vit2d_xsmall",
+    "vit3d_large",
+    "vit3d_tiny_test",
+    "vit3d_xsmall",
 ]

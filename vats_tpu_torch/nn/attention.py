@@ -24,9 +24,11 @@ Attention runs by one of these paths:
     ``gather_dense_t`` (int8 pages dequantized into bf16) +
     ``cached_decode_attention``.
 
-Only 1-D RoPE and ``context_parallel='none'`` are ported; the other modes
-raise.  The JAX module's logical-sharding constraints have no counterpart in
-one-chip serving.
+RoPE: '1d' on every path; '2d_axial' (ViT-2D, over ``grid_shape``) and
+'none' on the uncached path only (the cache paths raise for them, as JAX's
+raise for '2d_axial').  The NTK and 3-D modes and ``context_parallel !=
+'none'`` are not ported yet and raise.  The JAX module's logical-sharding
+constraints have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from vats_tpu_torch.nn.dropout import SITE_ATTN, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
-from vats_tpu_torch.nn.rope import apply_rope_1d, rope_inv_freq
+from vats_tpu_torch.nn.rope import apply_rope_1d, apply_rope_2d_axial, rope_inv_freq
 from vats_tpu_torch.ops import cache_append
 from vats_tpu_torch.ops.attention_ref import (
     cached_decode_attention,
@@ -53,6 +55,8 @@ from vats_tpu_torch.ops.flash_attention import flash_attention
 #: below this sequence length 'auto' takes the plain attention, as in the
 #: JAX package (the flash kernel has no blocks to skip at short lengths)
 FLASH_MIN_SEQ_LEN = 256
+#: RoPE modes the port runs (the uncached path; the cache paths take '1d')
+ROPE_TYPES = ("1d", "2d_axial", "none")
 
 
 def select_attention_impl(
@@ -110,9 +114,9 @@ class Attention(nn.Module):
                 f"num_heads ({num_heads}) must be divisible by query_groups "
                 f"({query_groups})"
             )
-        if rope_type != "1d":
+        if rope_type not in ROPE_TYPES:
             raise NotImplementedError(
-                f"rope_type={rope_type!r} is not ported yet (only '1d')"
+                f"rope_type={rope_type!r} is not ported yet (only {ROPE_TYPES})"
             )
         if context_parallel != "none":
             raise NotImplementedError(
@@ -127,6 +131,7 @@ class Attention(nn.Module):
         self.use_qk_norm = use_qk_norm
         self.num_layers = num_layers
         self.impl = impl
+        self.rope_type = rope_type
         self.dtype = dtype
         hd, h, g = self.head_dim, num_heads, query_groups
         lin = lambda i, o: nn.Linear(  # noqa: E731
@@ -159,6 +164,16 @@ class Attention(nn.Module):
     @property
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
+
+    def _apply_rope(self, x, positions, grid_shape):
+        """RoPE of an uncached forward at ``positions`` (1-D) or over
+        ``grid_shape`` ((gh, gw) for '2d_axial')."""
+        if self.rope_type == "none":
+            return x
+        if self.rope_type == "2d_axial":
+            gh, gw = grid_shape
+            return apply_rope_2d_axial(x, gh, gw, self.rope_theta)
+        return apply_rope_1d(x, positions, self.rope_theta)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         ins = [self.w_qkv] if self.use_qkv_proj else [self.w_q, self.w_k, self.w_v]
@@ -197,13 +212,18 @@ class Attention(nn.Module):
         paged_cache=None,
         layer_idx: int = 0,
         segment_ids: Optional[torch.Tensor] = None,
+        grid_shape: Optional[Tuple[int, ...]] = None,
     ):
         """x: [B, T, d_model] -> ([B, T, d_model], updated cache or None).
 
         padding_mask: bool, True = valid token; [B, T] for uncached forwards.
         With a dense ``cache`` it may instead be [B, max_seq_len], a validity
-        mask over the whole buffer kept by the generation loop."""
+        mask over the whole buffer kept by the generation loop.
+        grid_shape: the patch grid of a '2d_axial' forward (T == gh * gw)."""
         b, t, _ = x.shape
+        if (cache is not None or paged_cache is not None) and self.rope_type != "1d":
+            raise NotImplementedError(
+                f"KV-cached attention not supported for rope_type={self.rope_type}")
         q, k, v = self.project_qkv(x)
         # a decode token's QK-norm and RoPE run inside K3's prologue
         decode = t == 1 and (cache is not None or paged_cache is not None)
@@ -224,8 +244,8 @@ class Attention(nn.Module):
             )
         elif cache is None:
             positions = torch.arange(t, device=x.device)
-            q = apply_rope_1d(q, positions, self.rope_theta)
-            k = apply_rope_1d(k, positions, self.rope_theta)
+            q = self._apply_rope(q, positions, grid_shape)
+            k = self._apply_rope(k, positions, grid_shape)
             impl = select_attention_impl(self.impl, seq_len=t, device=q.device)
             attend = flash_attention if impl == "flash" else dot_product_attention
             out = attend(
@@ -414,8 +434,8 @@ class AttentionBlock(nn.Module):
             softmax_scale=softmax_scale, use_proj_bias=use_proj_bias,
             use_qkv_proj=use_qkv_proj, use_qk_norm=use_qk_norm,
             num_layers=num_layers, impl=impl, rope_type=rope_type,
-            context_parallel=context_parallel, dtype=dtype,
-            param_dtype=param_dtype, device=device,
+            context_parallel=context_parallel, dtype=dtype, param_dtype=param_dtype,
+            device=device,
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

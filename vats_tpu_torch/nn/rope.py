@@ -6,13 +6,15 @@ Counterpart of the 1-D part of ``vats_tpu/nn/rope.py``::
     out[..., 0::2] = x1*cos - x2*sin
     out[..., 1::2] = x1*sin + x2*cos
 
-Positions are absolute (decode passes each row's own positions).  The 2-D
-and 3-D variants come with the vision and generation workloads.
+Positions are absolute (decode passes each row's own positions).  The
+axial 2-D (ViT-2D) and 3-D (ViT-3D) rotations are here too; the NTK-scaled
+raster-order variants of the generation stacks are not ported yet.  Angles
+are fp32 and each result is cast back to x's dtype, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,3 +58,100 @@ def apply_rope_1d(
     """1D RoPE on [B, T, H, hd] given absolute positions [T] or [B, T]."""
     cos, sin = rope_cos_sin(positions, x.shape[-1], theta)
     return apply_rope_interleaved(x, cos, sin)
+
+
+# --- axial 2-D RoPE (ViT-2D) -------------------------------------------------
+
+
+def grid_positions_2d(grid_h: int, grid_w: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row / column ids of a row-major flattened [grid_h * grid_w] grid."""
+    rows = torch.arange(grid_h, device=device).repeat_interleave(grid_w)
+    cols = torch.arange(grid_w, device=device).repeat(grid_h)
+    return rows, cols
+
+
+def apply_rope_2d_axial(
+    x: torch.Tensor,
+    grid_h: int,
+    grid_w: int,
+    theta: float,
+    ntk_scale_factor: Optional[float] = None,
+) -> torch.Tensor:
+    """Axial 2-D RoPE on [B, N, H, hd] with N == grid_h * grid_w.
+
+    hd splits into four contiguous quarters (x1, x2, y1, y2): (x1, x2)
+    rotate by row angles, (y1, y2) by column angles, with
+    inv_freq = theta^-(i / (hd/4)).  ``ntk_scale_factor`` multiplies the
+    positions."""
+    head_dim = x.shape[-1]
+    if head_dim % 4 != 0:
+        raise ValueError(f"head_dim ({head_dim}) must be divisible by 4 for 2D RoPE")
+    f = head_dim // 4
+    rows, cols = grid_positions_2d(grid_h, grid_w, device=x.device)
+    rows, cols = rows.float(), cols.float()
+    if ntk_scale_factor is not None:
+        rows = rows * ntk_scale_factor
+        cols = cols * ntk_scale_factor
+    inv_freq = 1.0 / (theta ** (torch.arange(f, dtype=torch.float32, device=x.device) / f))
+    ang_r = (rows[:, None] * inv_freq)[None, :, None, :]  # [1, N, 1, f]
+    ang_c = (cols[:, None] * inv_freq)[None, :, None, :]
+    cos_r, sin_r, cos_c, sin_c = ang_r.cos(), ang_r.sin(), ang_c.cos(), ang_c.sin()
+    x1, x2, y1, y2 = x.float().split(f, dim=-1)
+    out = torch.cat([x1 * cos_r - x2 * sin_r, x1 * sin_r + x2 * cos_r,
+                     y1 * cos_c - y2 * sin_c, y1 * sin_c + y2 * cos_c], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- axial 3-D RoPE (ViT-3D) -------------------------------------------------
+
+
+def apply_rope_3d_axial(
+    x: torch.Tensor,
+    grid_t: int,
+    grid_h: int,
+    grid_w: int,
+    theta: float,
+    mode: str = "all",
+    ntk_scale_factor: Optional[float] = None,
+    t_positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Axial 3-D RoPE; hd splits into t, h and w thirds, each rotated as
+    interleaved pairs by its own coordinate.
+
+    mode='all':      x [B, T*H*W, heads, hd]; rotate all three thirds.
+    mode='spatial':  x [B*T, H*W, heads, hd]; rotate h and w, pass t.
+    mode='temporal': x [B*H*W, T, heads, hd]; rotate t (at ``t_positions``
+                     when given, else 0..T-1), pass h and w."""
+    head_dim = x.shape[-1]
+    if head_dim % 6 != 0:
+        raise ValueError(f"head_dim ({head_dim}) must be divisible by 6 for 3D RoPE")
+    third = head_dim // 3
+    dev = x.device
+
+    def cos_sin(p):
+        if ntk_scale_factor is not None:
+            p = p.float() * ntk_scale_factor
+        return rope_cos_sin(p, third, theta)
+
+    t_part, h_part, w_part = x[..., :third], x[..., third:2 * third], x[..., 2 * third:]
+    if mode == "spatial":
+        if x.shape[1] != grid_h * grid_w:
+            raise ValueError(f"spatial mode expects N == grid_h*grid_w, got {x.shape[1]}")
+        rows, cols = grid_positions_2d(grid_h, grid_w, device=dev)
+        h_part = apply_rope_interleaved(h_part, *cos_sin(rows))
+        w_part = apply_rope_interleaved(w_part, *cos_sin(cols))
+    elif mode == "temporal":
+        pos_t = t_positions if t_positions is not None else torch.arange(x.shape[1], device=dev)
+        t_part = apply_rope_interleaved(t_part, *cos_sin(pos_t))
+    elif mode == "all":
+        if x.shape[1] != grid_t * grid_h * grid_w:
+            raise ValueError("mode='all' expects N == grid_t*grid_h*grid_w")
+        hw = grid_h * grid_w
+        ts = torch.arange(grid_t, device=dev).repeat_interleave(hw)
+        rows, cols = grid_positions_2d(grid_h, grid_w, device=dev)
+        t_part = apply_rope_interleaved(t_part, *cos_sin(ts))
+        h_part = apply_rope_interleaved(h_part, *cos_sin(rows.repeat(grid_t)))
+        w_part = apply_rope_interleaved(w_part, *cos_sin(cols.repeat(grid_t)))
+    else:
+        raise ValueError(f"unknown 3D RoPE mode: {mode}")
+    return torch.cat([t_part, h_part, w_part], dim=-1)

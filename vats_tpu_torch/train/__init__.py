@@ -12,18 +12,36 @@ from vats_tpu_torch.train.loop import (
     train,
     validate,
 )
+from vats_tpu_torch.train.vision import (
+    VisionTrainingArgs,
+    create_vision_optimizer,
+    make_vision_eval_step,
+    make_vision_train_step,
+    smoothed_ce,
+    train_epoch,
+    validate_epoch,
+    warmup_cosine_epoch_schedule,
+)
 
 __all__ = [
     "TrainState",
+    "VisionTrainingArgs",
     "compute_loss",
     "compute_perplexity",
     "cosine_with_warmup_schedule",
     "create_optimizer",
     "create_train_state",
+    "create_vision_optimizer",
     "eval_step",
     "make_eval_step",
     "make_train_step",
     "make_train_step_fn",
+    "make_vision_eval_step",
+    "make_vision_train_step",
+    "smoothed_ce",
     "train",
+    "train_epoch",
     "validate",
+    "validate_epoch",
+    "warmup_cosine_epoch_schedule",
 ]

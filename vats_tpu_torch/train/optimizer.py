@@ -1,4 +1,5 @@
-"""AdamW, the learning-rate schedule, clip-and-skip and gradient accumulation.
+"""AdamW, the learning-rate schedule, clip-and-skip, the plain clip and
+gradient accumulation.
 
 Counterpart of ``vats_tpu/train/optimizer.py``, with optax's transformations
 written out, because ``torch.optim.AdamW`` does not reproduce them: optax
@@ -173,6 +174,34 @@ class ClipAndSkipNonFinite:
 
 
 @dataclass
+class ClipState:
+    inner_state: Any
+    last_grad_norm: torch.Tensor  # pre-clip global norm (fp32)
+
+
+class ClipByGlobalNorm:
+    """optax.chain(clip_by_global_norm(max_norm), inner): gradients scaled
+    by max_norm / norm where the norm reaches max_norm, with no skip on a
+    non-finite norm (a NaN gradient reaches the inner AdamW, as in optax;
+    the LM's :class:`ClipAndSkipNonFinite` skips such a step)."""
+
+    def __init__(self, max_norm: float, inner: AdamW):
+        self.max_norm = max_norm
+        self.inner = inner
+
+    def init(self, params: Params) -> ClipState:
+        inner = self.inner.init(params)
+        return ClipState(inner, torch.zeros((), dtype=torch.float32,
+                                            device=inner.count.device))
+
+    def update_(self, params: Params, grads: Params, state: ClipState) -> ClipState:
+        gnorm = global_norm(grads)
+        scale = torch.where(gnorm < self.max_norm, 1.0, self.max_norm / gnorm)
+        inner = self.inner.update_(params, grads, state.inner_state, scale=scale)
+        return ClipState(inner, gnorm)
+
+
+@dataclass
 class MultiStepsState:
     mini_step: int  # position in the accumulation window (host: no skips here)
     gradient_step: torch.Tensor  # boundary updates applied (int32)
@@ -212,9 +241,9 @@ class MultiSteps:
 
 def find_grad_norm(opt_state) -> Optional[torch.Tensor]:
     """The last pre-clip global norm inside a (possibly wrapped) optimizer
-    state; None without a ClipSkipState."""
+    state; None without a ClipSkipState or ClipState."""
     while opt_state is not None:
-        if isinstance(opt_state, ClipSkipState):
+        if isinstance(opt_state, (ClipSkipState, ClipState)):
             return opt_state.last_grad_norm
         opt_state = getattr(opt_state, "inner_opt_state", None)
     return None

@@ -1,0 +1,246 @@
+"""Vision training: the epoch-level warmup-cosine schedule and the
+mixed-label cross-entropy steps.
+
+Counterpart of ``vats_tpu/train/vision.py``.  One train step does the
+augmentation where the images are (mixup / cutmix, and with
+``pixel_augs_on_device`` the rotation, AutoAugment, normalization and
+erasing battery on raw [0, 1] images), the forward with dropout, the
+mixed-label smoothed cross-entropy, the backward and the (accumulated)
+optimizer update, eagerly.  The step's ``rng`` is an int seed: the
+augmentation, the pixel battery and the dropout masks each draw from a
+generator seeded from it (not JAX's bits; the packages agree given the
+same draws, and with dropout 0).
+
+The optimizer is optax's chain, written out: ``clip_by_global_norm`` (the
+plain clip: no skip on a non-finite norm) -> ``adamw`` on the epoch
+schedule -> ``MultiSteps`` when ``grad_accum_steps > 1``.  The schedule is
+read at the count of AdamW's applied updates, as optax counts it, so
+``steps_per_epoch`` is in applied updates.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from vats_tpu_torch.data.augmentations import random_augmentation
+from vats_tpu_torch.data.vision_data import IMAGENET_MEAN, IMAGENET_STD
+from vats_tpu_torch.nn.dropout import mask_seed
+from vats_tpu_torch.train.optimizer import (
+    AdamW,
+    ClipByGlobalNorm,
+    MultiSteps,
+    find_grad_norm,
+    global_norm,
+)
+from vats_tpu_torch.train.state import TrainState
+
+Batch = Dict[str, torch.Tensor]
+#: generator streams a step seeds from its rng (the dropout masks use the
+#: rng itself, through nn/dropout.py)
+_STREAM_MIX, _STREAM_PIXELS = 1, 2
+
+
+@dataclass
+class VisionTrainingArgs:
+    """The original repository's ViT-2D training arguments, with the JAX
+    package's battery knobs (``pixel_augs_on_device`` needs raw [0, 1]
+    batches; ``color_jitter`` is host-only)."""
+
+    learning_rate: float = 2e-4
+    epochs: int = 300
+    batch_size: int = 256
+    epsilon: float = 1e-6
+    max_norm: float = 1.0
+    weight_decay: float = 5e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    warmup_epochs: int = 50
+    eta_min: float = 6e-7
+    save_checkpoint_freq: int = 1
+    mixup_alpha: float = 0.8
+    cutmix_alpha: float = 0.8
+    label_smoothing: float = 0.1
+    grad_accum_steps: int = 4
+    use_augmentation: bool = True
+    auto_augment: bool = True
+    random_rotation_degrees: float = 15.0
+    random_erasing_prob: float = 0.4
+    color_jitter: float = 0.4
+    pixel_augs_on_device: bool = False
+    seed: int = 42
+
+
+def warmup_cosine_epoch_schedule(
+    base_lr: float,
+    warmup_epochs: int,
+    total_epochs: int,
+    eta_min: float,
+    steps_per_epoch: int,
+) -> Callable:
+    """The original WarmupCosineScheduler's lr_lambda, stepped per epoch:
+    (epoch + 1) / warmup during warmup, then eta_min + (1 - eta_min) times
+    the cosine decay; ``step`` may be an int or a device tensor."""
+
+    def schedule(step) -> torch.Tensor:
+        epoch = torch.floor(torch.as_tensor(step).to(torch.float32) / max(1, steps_per_epoch))
+        warm = (epoch + 1.0) / max(1, warmup_epochs)
+        progress = (epoch - warmup_epochs) / max(1, total_epochs - warmup_epochs)
+        decay = eta_min + (1 - eta_min) * 0.5 * (
+            1 + torch.cos(math.pi * torch.clamp(progress, 0.0, 1.0)))
+        return base_lr * torch.where(epoch < warmup_epochs, warm, decay)
+
+    return schedule
+
+
+def create_vision_optimizer(args: VisionTrainingArgs, steps_per_epoch: int):
+    schedule = warmup_cosine_epoch_schedule(
+        args.learning_rate, args.warmup_epochs, args.epochs, args.eta_min,
+        steps_per_epoch)
+    tx = ClipByGlobalNorm(args.max_norm, AdamW(
+        schedule, b1=args.betas[0], b2=args.betas[1], eps=args.epsilon,
+        weight_decay=args.weight_decay))
+    if args.grad_accum_steps > 1:
+        tx = MultiSteps(tx, every_k_schedule=args.grad_accum_steps)
+    return tx
+
+
+def smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, label_smoothing: float,
+                num_classes: int) -> torch.Tensor:
+    """Mean cross-entropy against one-hot targets smoothed by
+    ``label_smoothing`` (fp32)."""
+    onehot = F.one_hot(targets.long(), num_classes).float()
+    soft = onehot * (1 - label_smoothing) + label_smoothing / num_classes
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(soft * logp).sum(dim=-1).mean()
+
+
+def _to_device(x, device) -> torch.Tensor:
+    """A batch entry (numpy or tensor) on ``device``."""
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                           device=device)
+
+
+def pixel_battery(gen: torch.Generator, images: torch.Tensor,
+                  args: VisionTrainingArgs) -> torch.Tensor:
+    """Rotation -> AutoAugment -> ImageNet normalization -> erasing on raw
+    [0, 1] images, drawn from ``gen`` (on the images' device)."""
+    from vats_tpu_torch.data.pixel_augs import (
+        autoaugment_imagenet,
+        random_erasing,
+        random_rotation,
+    )
+
+    images = random_rotation(gen, images, args.random_rotation_degrees)
+    if args.auto_augment:
+        images = autoaugment_imagenet(gen, images)
+    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)[None, :, None, None]
+    std = torch.as_tensor(IMAGENET_STD, device=images.device)[None, :, None, None]
+    images = (images - mean) / std
+    return random_erasing(gen, images, p=args.random_erasing_prob)
+
+
+def make_vision_train_step(model, args: VisionTrainingArgs, num_classes: int) -> Callable:
+    """``step(state, batch, rng) -> (state, metrics)``: augmentation, the
+    training forward, mixed-label smoothed CE and the update; ``state`` is
+    updated in place and returned, metrics are device tensors (loss, acc
+    against targets_a, lam, grad_norm)."""
+
+    def step(state: TrainState, batch: Batch, rng: int):
+        dev = model.device
+        images = _to_device(batch["images"], dev)
+        targets = _to_device(batch["labels"], dev)
+        if args.pixel_augs_on_device:
+            pix = torch.Generator(device=dev).manual_seed(mask_seed(rng, -2, _STREAM_PIXELS))
+            images = pixel_battery(pix, images.float(), args)
+        if args.use_augmentation:
+            mix = torch.Generator().manual_seed(mask_seed(rng, -2, _STREAM_MIX))
+            images, t_a, t_b, lam = random_augmentation(
+                mix, images, targets, args.mixup_alpha, cutmix_alpha=args.cutmix_alpha)
+        else:
+            t_a = t_b = targets
+            lam = torch.ones((), dtype=torch.float32, device=dev)
+        for p in state.params.values():
+            p.grad = None
+        logits = model(images, deterministic=False, dropout_seed=rng)
+        loss = (lam * smoothed_ce(logits, t_a, args.label_smoothing, num_classes)
+                + (1 - lam) * smoothed_ce(logits, t_b, args.label_smoothing, num_classes))
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in state.params.items()}
+        state.apply_gradients(grads)
+        with torch.no_grad():
+            gn = find_grad_norm(state.opt_state)
+            acc = (logits.argmax(dim=-1) == t_a).float().mean()
+        return state, {"loss": loss.detach(), "acc": acc, "lam": lam,
+                       "grad_norm": gn if gn is not None else global_norm(grads)}
+
+    return step
+
+
+def make_vision_eval_step(model, num_classes: int) -> Callable:
+    """``step(params, batch) -> {'loss', 'acc'}``: a deterministic forward of
+    ``model`` with ``params`` (a name -> tensor mapping)."""
+
+    def step(params, batch: Batch):
+        dev = model.device
+        labels = _to_device(batch["labels"], dev)
+        with torch.no_grad():
+            logits = functional_call(model, dict(params),
+                                     (_to_device(batch["images"], dev),),
+                                     dict(deterministic=True))
+            loss = smoothed_ce(logits, labels, 0.0, num_classes)
+            acc = (logits.argmax(dim=-1) == labels).float().mean()
+        return {"loss": loss, "acc": acc}
+
+    return step
+
+
+def train_epoch(
+    model,
+    state: TrainState,
+    data_iter: Iterable[Batch],
+    args: VisionTrainingArgs,
+    *,
+    rng: int,
+    num_classes: int,
+    train_step_fn=None,
+) -> Tuple[TrainState, Dict[str, float]]:
+    """One pass over ``data_iter``; each step's seed drawn from ``rng``."""
+    train_step_fn = train_step_fn or make_vision_train_step(model, args, num_classes)
+    seeds = torch.Generator().manual_seed(int(rng))
+    total_loss, total_acc, n = 0.0, 0.0, 0
+    for batch in data_iter:
+        step_rng = int(torch.randint(0, 2**62, (1,), generator=seeds))
+        state, m = train_step_fn(state, batch, step_rng)
+        total_loss += float(m["loss"])
+        total_acc += float(m["acc"])
+        n += 1
+    denom = max(n, 1)
+    return state, {"epoch_loss": total_loss / denom,
+                   "epoch_acc": 100.0 * total_acc / denom, "batches": n}
+
+
+def validate_epoch(
+    model,
+    state: TrainState,
+    data_iter: Iterable[Batch],
+    *,
+    num_classes: int,
+    eval_step_fn=None,
+) -> Dict[str, float]:
+    eval_step_fn = eval_step_fn or make_vision_eval_step(model, num_classes)
+    total_loss, total_acc, n = 0.0, 0.0, 0
+    for batch in data_iter:
+        m = eval_step_fn(state.params, batch)
+        total_loss += float(m["loss"])
+        total_acc += float(m["acc"])
+        n += 1
+    denom = max(n, 1)
+    return {"val_loss": total_loss / denom, "val_acc": 100.0 * total_acc / denom,
+            "batches": n}

@@ -1,4 +1,4 @@
-"""Carry ``vats_tpu`` TextLM weights across into the port.
+"""Carry ``vats_tpu`` TextLM, ViT-2D and ViT-3D weights across into the port.
 
 :func:`params_from_jax` takes the JAX ``TextLM`` parameter tree as nested
 dicts of numpy arrays (``{"params": ...}`` or the inner dict; flax's
@@ -11,6 +11,12 @@ partitioning boxes already unwrapped) and returns a ``state_dict`` for
   * a scan-mode tree (``layers/block`` stacked on axis 0) is first unstacked
     into ``layer_{i}`` subtrees, in numpy, as ``TextLM.unstack_scan_params``
     does.
+
+Given a ``ViT2DArgs`` or ``ViT3DArgs`` config, :func:`params_from_jax`
+does the same for ``ImageEncoder`` or ``VideoTransformer``; a flax ``Conv``
+kernel is HWIO (DHWIO), a torch one OIHW (OIDHW), and flax's auto-names
+(``RMSNorm_0``, ``SwiGLU_0``, ``Attention_0``) map onto the port's
+attributes.  The JAX vision models have no scan mode.
 
 A gradient tree has the params' structure, so the same function carries JAX
 gradients across for a leaf-by-leaf comparison with the port's ``.grad``,
@@ -26,6 +32,8 @@ import numpy as np
 import torch
 
 from vats_tpu_torch.configs.nlp import ModelArgs, TrainingArgs
+from vats_tpu_torch.configs.vit2d import ViT2DArgs
+from vats_tpu_torch.configs.vit3d import ViT3DArgs
 from vats_tpu_torch.device import resolve_dtype
 from vats_tpu_torch.train.optimizer import (
     AdamWState,
@@ -51,53 +59,115 @@ def unstack_scan_params(params: Mapping, num_layers: int) -> dict:
     return p
 
 
-def params_from_jax(params_np: Mapping, cfg: ModelArgs,
+class _StateDict(dict):
+    """A state dict filled from numpy leaves, each copied as fp32 and cast
+    to ``dtype``."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def put(self, name, arr, perm=None):
+        a = np.array(arr, dtype=np.float32)  # an owned, writable copy
+        if perm is not None:
+            a = np.ascontiguousarray(a.transpose(perm))
+        self[name] = torch.from_numpy(a).to(self.dtype)
+
+    def put_dense(self, prefix, tree):
+        """flax Dense / DenseGeneral ``kernel`` [in, out] -> Linear [out, in]."""
+        self.put(f"{prefix}.weight", tree["kernel"], perm=(1, 0))
+        if "bias" in tree:
+            self.put(f"{prefix}.bias", tree["bias"])
+
+    def put_ffn(self, prefix, tree):
+        """FFNBlock: RMSNorm_0 and SwiGLU_0 (w_gate, w_up, w_down as [in, out])."""
+        self.put(f"{prefix}.norm.weight", tree["RMSNorm_0"]["weight"])
+        for name in ("w_gate", "w_up", "w_down"):
+            self.put(f"{prefix}.swiglu.{name}.weight", tree["SwiGLU_0"][name], perm=(1, 0))
+
+
+def _vit2d_params_from_jax(params_np: Mapping, cfg: ViT2DArgs,
+                          dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """JAX ImageEncoder params (numpy) -> port ImageEncoder state_dict."""
+    p = params_np.get("params", params_np)
+    sd = _StateDict(dtype or resolve_dtype(cfg.param_dtype))
+    pe = p["patch_embeddings"]["proj"]
+    sd.put("patch_embeddings.proj.weight", pe["kernel"], perm=(3, 2, 0, 1))  # HWIO -> OIHW
+    sd.put("patch_embeddings.proj.bias", pe["bias"])
+    names = ("w_qkv", "w_o") if cfg.use_fused_proj else ("w_q", "w_k", "w_v", "w_o")
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        ab = lp["attention_block"]
+        pre = f"layers.{i}.attention_block"
+        sd.put(f"{pre}.norm.weight", ab["RMSNorm_0"]["weight"])
+        for name in names:
+            sd.put_dense(f"{pre}.attn.{name}", ab["Attention_0"][name])
+        sd.put_ffn(f"layers.{i}.ffn_block", lp["ffn_block"])
+    sd.put("norm.weight", p["RMSNorm_0"]["weight"])
+    if cfg.num_classes is not None:
+        sd.put_dense("classifier", p["classifier"])
+    return dict(sd)
+
+
+def _vit3d_params_from_jax(params_np: Mapping, cfg: ViT3DArgs,
+                          dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """JAX VideoTransformer params (numpy) -> port VideoTransformer state_dict."""
+    p = params_np.get("params", params_np)
+    sd = _StateDict(dtype or resolve_dtype(cfg.param_dtype))
+    sd.put("patch_embeddings.projection.weight",
+           p["patch_embeddings"]["projection"]["kernel"], perm=(4, 3, 0, 1, 2))  # DHWIO -> OIDHW
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        ab = lp["attention_block"]
+        pre = f"layers.{i}.attention_block"
+        sd.put(f"{pre}.norm.weight", ab["RMSNorm_0"]["weight"])
+        for name in ("w_qkv", "w_o"):
+            sd.put_dense(f"{pre}.attention.{name}", ab["attention"][name])
+        sd.put_ffn(f"layers.{i}.ffn_block", lp["ffn_block"])
+    sd.put("norm.weight", p["RMSNorm_0"]["weight"])
+    if cfg.use_classifier_head:
+        sd.put_dense("classifier", p["classifier"])
+    return dict(sd)
+
+
+def params_from_jax(params_np: Mapping, cfg,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """JAX TextLM params (numpy) -> port TextLM state_dict, in ``dtype``
-    (by default cfg.param_dtype)."""
+    (by default cfg.param_dtype); a ViT2DArgs or ViT3DArgs config carries
+    the vision model of that config instead."""
+    if isinstance(cfg, ViT2DArgs):
+        return _vit2d_params_from_jax(params_np, cfg, dtype)
+    if isinstance(cfg, ViT3DArgs):
+        return _vit3d_params_from_jax(params_np, cfg, dtype)
     p = params_np.get("params", params_np)
     if "layers" in p:
         p = unstack_scan_params(p, cfg.num_layers)
-    dtype = dtype or resolve_dtype(cfg.param_dtype)
-    sd: Dict[str, torch.Tensor] = {}
-
-    def put(name, arr, transpose=False):
-        a = np.array(arr, dtype=np.float32)  # an owned, writable copy
-        if transpose:
-            a = np.ascontiguousarray(a.T)
-        sd[name] = torch.from_numpy(a).to(dtype)
-
-    def put_dense(prefix, tree):
-        put(f"{prefix}.weight", tree["kernel"], transpose=True)
-        if "bias" in tree:
-            put(f"{prefix}.bias", tree["bias"])
-
-    put("token_embed.weight", p["token_embed"]["embedding"])
+    sd = _StateDict(dtype or resolve_dtype(cfg.param_dtype))
+    sd.put("token_embed.weight", p["token_embed"]["embedding"])
+    names = ("w_qkv", "w_o") if cfg.use_qkv_proj else ("w_q", "w_k", "w_v", "w_o")
     for i in range(cfg.num_layers):
         lp = p[f"layer_{i}"]
         ab = lp["attn_block"]
         pre = f"layers.{i}.attn_block"
-        put(f"{pre}.norm.weight", ab["RMSNorm_0"]["weight"])
-        at = ab["Attention_0"]
-        names = ("w_qkv", "w_o") if cfg.use_qkv_proj else ("w_q", "w_k", "w_v", "w_o")
+        sd.put(f"{pre}.norm.weight", ab["RMSNorm_0"]["weight"])
         for name in names:
-            put_dense(f"{pre}.attn.{name}", at[name])
+            sd.put_dense(f"{pre}.attn.{name}", ab["Attention_0"][name])
         mb = lp["moe_block"]
         pre = f"layers.{i}.moe_block"
-        put(f"{pre}.norm.weight", mb["RMSNorm_0"]["weight"])
+        sd.put(f"{pre}.norm.weight", mb["RMSNorm_0"]["weight"])
         ml = mb["MoELayer_0"]
         if cfg.moe_double_norm:
-            put(f"{pre}.moe.norm.weight", ml["RMSNorm_0"]["weight"])
-        put(f"{pre}.moe.router.router.weight", ml["TopKRouter_0"]["router"],
-            transpose=True)
-        put(f"{pre}.moe.router.router.bias", ml["TopKRouter_0"]["router_bias"])
+            sd.put(f"{pre}.moe.norm.weight", ml["RMSNorm_0"]["weight"])
+        sd.put(f"{pre}.moe.router.router.weight", ml["TopKRouter_0"]["router"],
+               perm=(1, 0))
+        sd.put(f"{pre}.moe.router.router.bias", ml["TopKRouter_0"]["router_bias"])
         ex = ml["ExpertSwiGLU_0"]
         for name in ("w_gate", "w_up", "w_down"):
-            put(f"{pre}.moe.experts.{name}", ex[name])
-    put("norm.weight", p["RMSNorm_0"]["weight"])
+            sd.put(f"{pre}.moe.experts.{name}", ex[name])
+    sd.put("norm.weight", p["RMSNorm_0"]["weight"])
     if not cfg.tie_weights:
-        put("lm_head.weight", p["lm_head"]["kernel"], transpose=True)
-    return sd
+        sd.put("lm_head.weight", p["lm_head"]["kernel"], perm=(1, 0))
+    return dict(sd)
 
 
 def _unbox(tree):
