@@ -28,7 +28,12 @@ Phases:
            heads, head dim 72 padded to 128 in the wrappers, non-causal): held
            against the plain versions, timed in turns with SDPA at head dim 72,
            with the bound on the logical work and the share of the call
-           outside the kernel (the pads).
+           outside the kernel (the pads).  The same at the image
+           transformer's shape (B=1, T=S=4096, 32/4 heads, head dim 24
+           padded to 32, causal).  K3's table mode (image generation's
+           '2d_ntk' RoPE from a (cos, sin) table) in the dense, ring and
+           paged modes against its plain version given the table, timed
+           beside the chain; K1 at head dim 24 with 8 heads a group.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -47,7 +52,8 @@ Phases:
            picks other experts on a near tie is excused from the logit
            bound, and reported.
   serve    the continuous-batching ``ServingEngine`` at full width
-           (nlp_medium, 8 experts, top-2, bf16): 64 requests (32 sharing a
+           (nlp_medium, 8 experts, top-2, bf16; depth cut to SERVE_LAYERS =
+           10 of 20 to keep the run under half its limit): 64 requests (32 sharing a
            256-token prefix) through 32 rows, a 129-page pool (requests queue
            and rows are preempted), prefix caching, 4-step decode blocks,
            greedy; three configurations: bf16 KV (K1), int8 KV (K4), int8
@@ -102,6 +108,22 @@ Phases:
            and one train step (loss, grad norm, params) on the card against
            the CPU; ViT-3D xsmall at its full config, B=1, the last 6 frames
            padded: features card against CPU.
+  image_gen  text->image generation at image_gen_xsmall's full width and
+           depth (d768, 12 layers, 32/4 heads of 24): ``generate_image_tokens``
+           and ``generate_image_tokens_paged`` at tools/bench_gen.py's shape
+           (B=4, 16x16, temperature 0.9, top-k 64), graph and eager in turns
+           (equal tokens), each profiled; the ``ImageGenerationPipeline`` on
+           the 64x64 grid (4096 graph steps); ``ImageGenTrainer`` steps at
+           256 px, B=2, and an ``evaluate``; the image-gen script for 3 steps.
+           Exact gates: K3's table mode (and K1 on the paged path) once a
+           layer a decode forward, K2' 24, K5a 12, K5b 12 a train step, K2
+           12 an evaluation; tokens/s, idle share, peak memory.  Graph and
+           eager run in turns (graph, eager, graph).
+  image_gen_parity  2 layers at full width, card against CPU: greedy tokens
+           of both generation paths (a near tie excused, as in ``parity``) and
+           32 teacher-forced cached decode steps' logits; one fp32 trainer
+           step at 64 px: loss, quantizer indices, per-leaf gradients and
+           change, BatchNorm statistics.
 
 ``run_census`` (kernels per decode forward and the chain K3's prologue
 replaced) needs only what every slice has, so it also measures a checkout
@@ -128,7 +150,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
-          "train_parity", "scripts", "vision", "vision_parity")
+          "train_parity", "scripts", "vision", "vision_parity", "image_gen",
+          "image_gen_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -851,6 +874,190 @@ def check_k3_prologue(gen):
     return rows["dense"], rows["paged"]
 
 
+# K3's table mode and K1 at the image transformer's decode: image_gen_xsmall
+# has 32 query heads of 24 over 4 groups; generate_image_tokens runs B=4 on a
+# 16 x 16 grid (dense cache [12, 4, 4, 24, 256]; paged: 257 slots, pages of
+# 128), the pipeline B=1 on 64 x 64 (4096 slots).
+IMG_DEC_B, IMG_DEC_S, IMG_GRID_W = 4, 256, 16
+
+
+def _table_cost(b, hq, g, hd, paged):
+    """(bytes, fp32 operations) of one table-mode call: the q, k, v rows and
+    the (cos, sin) rows (one shared row dense, one a row paged) read once;
+    q and the k, v columns (dense) or q and k (paged) written once.  Per
+    q/k element a square, an add and a division (the norm); per pair 4
+    products and 2 sums."""
+    es = 2  # bf16
+    rows = b if paged else 1
+    read = b * (hq + 2 * g) * hd * es + 2 * rows * hd // 2 * 4 + (4 * b if paged else 4)
+    write = b * (hq + g) * hd * es if paged else b * (hq + 2 * g) * hd * es
+    n = b * (hq + g) * hd
+    return read + write, n * 3 + n // 2 * 6
+
+
+def check_k3_table(gen):
+    """K3's table mode (the '2d_ntk' RoPE of image generation) in the dense,
+    ring and paged modes at the image decode's heads, bf16 and fp32, B 1 and
+    4, with and without the QK-norm, against its plain version given the
+    same (cos, sin) table (``rope_2d_ntk_cos_sin`` on the card): within
+    PROLOGUE_ULPS, v and the rest of the cache exact; then timed at B=4 in
+    bf16 beside the chain (the plain version) and the bound.  Returns the
+    rows of the dense and the paged table mode."""
+    import torch
+
+    from vats_tpu_torch.nn.rope import rope_2d_ntk_cos_sin
+    from vats_tpu_torch.ops import cache_append as ca
+
+    hq, g, hd, L, S = 32, 4, 24, 12, IMG_DEC_S
+    table = lambda pos: rope_2d_ntk_cos_sin(pos, hd, IMG_GRID_W, 10000.0, 0.7)  # noqa: E731
+    worst = {"dense": [0.0, 0.0], "paged": [0.0, 0.0]}
+    equal = total = 0
+    n0 = (ca.dense_decode_prologue.table.launches, ca.paged_decode_prologue.table.launches)
+    calls = [0, 0]
+
+    def inputs(b, dtype):
+        row = torch.randn((b, 1, (hq + 2 * g) * hd), generator=gen, device="cuda").to(dtype)
+        q, k, v = torch.split(row, [hq * hd, g * hd, g * hd], dim=-1)
+        return q.reshape(b, 1, hq, hd), k.reshape(b, 1, g, hd), v.reshape(b, 1, g, hd)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, IMG_DEC_B):
+            cache = torch.randn((2, 3, b, g, hd, S), generator=gen, device="cuda").to(dtype)
+            for mode, qk_norm, pos in (("dense", True, 0), ("dense", False, 200),
+                                       ("dense", True, S + 4), ("ring", True, S + 9),
+                                       ("paged", True, 17), ("paged", False, 4095)):
+                q, k, v = inputs(b, dtype)
+                kw = dict(theta=10000.0, qk_norm=qk_norm)
+                tol = PROLOGUE_ULPS[(str(dtype).split(".")[1], qk_norm)]
+                if mode == "paged":
+                    lens = torch.randint(0, 4096, (b,), generator=gen, device="cuda")
+                    lens[0] = pos
+                    lens = lens.to(torch.int32)
+                    cs = table(lens[:, None])
+                    got = ca.paged_decode_prologue(q, k, v, lens, None, cos_sin=cs, **kw)
+                    want = ca.paged_decode_prologue_ref(q, k, v, lens, cos_sin=cs, **kw)
+                    calls[1] += 1
+                    pairs = list(zip(got[:2], want[:2]))
+                    require(torch.equal(got[2], want[2]), "K3 table paged: v differs")
+                else:
+                    ka, va, kb, vb = (cache[i % 2].clone() for i in range(4))
+                    length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                    cs = table(length + torch.arange(1, device="cuda"))
+                    ring = mode == "ring"
+                    got = ca.dense_decode_prologue(q, k, v, ka, va, length, 1, None,
+                                                   ring=ring, cos_sin=cs, **kw)
+                    want = ca.dense_decode_prologue_ref(q, k, v, kb, vb, length, 1,
+                                                        ring=ring, cos_sin=cs, **kw)
+                    calls[0] += 1
+                    col = pos % S if ring else min(pos, S - 1)
+                    rest = torch.ones(S, dtype=torch.bool, device="cuda")
+                    rest[col] = False
+                    require(torch.equal(va, vb) and torch.equal(ka[..., rest], kb[..., rest])
+                            and torch.equal(ka[0], kb[0]) and torch.equal(ka[2], kb[2]),
+                            f"K3 table {mode}: the cache differs outside the k column")
+                    pairs = [(got, want), (ka[1, ..., col], kb[1, ..., col])]
+                torch.cuda.synchronize()
+                key = "paged" if mode == "paged" else "dense"
+                for x, y in pairs:
+                    ulps = float(rotated_ulps(x, y).max())
+                    require(ulps <= tol and bool(torch.isfinite(x.float()).all()),
+                            f"K3 table {mode} {dtype} B={b}: {ulps:.2f} ulps beyond {tol}")
+                    worst[key][0] = max(worst[key][0], float((x.float() - y.float()).abs().max()))
+                    worst[key][1] = max(worst[key][1], ulps)
+                    equal += int((x == y).sum())
+                    total += x.numel()
+    require((ca.dense_decode_prologue.table.launches - n0[0],
+             ca.paged_decode_prologue.table.launches - n0[1]) == tuple(calls),
+            "K3 table mode: a wrapper did not launch its kernel in table mode")
+    log(f"K3 table mode ('2d_ntk', Hq 32, G 4, hd 24; B 1/{IMG_DEC_B}; bf16, fp32; dense, "
+        f"ring, paged; QK-norm on and off): within PROLOGUE_ULPS of the chain given the "
+        f"table; largest dense {worst['dense'][1]:.2f} ulps ({worst['dense'][0]:.3e}), paged "
+        f"{worst['paged'][1]:.2f} ulps ({worst['paged'][0]:.3e}); {equal / total:.6f} of q "
+        f"and k bit-equal; v and the rest of the cache exact")
+
+    b = IMG_DEC_B
+    q, k, v = inputs(b, torch.bfloat16)
+    kc = torch.zeros((L, b, g, hd, S), dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    length = torch.tensor(100, dtype=torch.int32, device="cuda")
+    lens = torch.randint(0, 257, (b,), generator=gen, device="cuda").to(torch.int32)
+    cs_d, cs_p = table(length + torch.arange(1, device="cuda")), table(lens[:, None])
+    kw = dict(theta=1e4, qk_norm=True)
+    rows = {}
+    for key, kern, plain in (
+            ("dense", lambda: ca.dense_decode_prologue(q, k, v, kc, vc, length, 5, None,
+                                                       ring=False, cos_sin=cs_d, **kw),
+             lambda: ca.dense_decode_prologue_ref(q, k, v, kc, vc, length, 5, ring=False,
+                                                  cos_sin=cs_d, **kw)),
+            ("paged", lambda: ca.paged_decode_prologue(q, k, v, lens, None, cos_sin=cs_p, **kw),
+             lambda: ca.paged_decode_prologue_ref(q, k, v, lens, cos_sin=cs_p, **kw))):
+        ms, call_ms = timed(kern)
+        plain_ms, plain_call_ms = timed(plain)
+        nbytes, ops = _table_cost(b, hq, g, hd, key == "paged")
+        b_ms, by = bound(nbytes, ops, PEAK_FP32_FLOPS)
+        log(f"K3 table {key} B={b} bf16 (cache [{L},{b},{g},{hd},{S}]): kernel_ms={ms:.5f} "
+            f"plain_ms={plain_ms:.4f} (the chain given the table) bound_ms={b_ms:.7f} "
+            f"({by}: {nbytes} bytes, {ops} fp32 ops); per call with host overhead: kernel "
+            f"{call_ms:.4f} plain {plain_call_ms:.4f}")
+        rows[key] = dict(max_abs_err=worst[key][0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, library_ms=None)
+    return rows["dense"], rows["paged"]
+
+
+def check_k1_image_gen(gen):
+    """K1 at the image decode: head dim 24, 8 query heads a group (the
+    generic NH=8 body), 4 groups, bf16 pool of 128-token pages, B=4 with
+    lengths <= 257 (``generate_image_tokens_paged`` on 16 x 16) and B=1 at
+    4096 (the 64 x 64 grid): output within the bf16 tolerance, the
+    committed pool bit-equal; timed beside the plain version and the bound.
+    The numbers go to the log; the ``kernels`` line keeps the LM's row."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import (
+        PagedKVCache,
+        paged_decode_attention_commit,
+        paged_decode_attention_ref,
+    )
+
+    g, n, hd, ps, L = 4, 8, 24, 128, 12
+    scale = hd**-0.5
+    for label, b, fixed, cap in (("B=4 lengths<=257", 4, (0, 1, 128, 256), 384),
+                                 ("B=1 at 4095", 1, (4095,), 4096)):
+        pps = cap // ps
+        pool = torch.randn((L, b * pps, 2, g, ps, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+        table = table.reshape(b, pps)
+        lens = torch.tensor(fixed, dtype=torch.int32, device="cuda")
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+        q, kc, vc = mk(b, g * n, hd), mk(b, g, hd), mk(b, g, hd)
+        kw = dict(scale=scale, k_cur=kc, v_cur=vc)
+        pk, pp = pool.clone(), pool.clone()
+        del pool
+        n0 = paged_decode_attention_commit.launches
+        out = paged_decode_attention_commit(q, pk, 3, table, lens, **kw)
+        ref = paged_decode_attention_ref(q, pp[3], table, lens, **kw)
+        PagedKVCache(pp, table, lens).append_token(3, kc, vc)
+        torch.cuda.synchronize()
+        require(paged_decode_attention_commit.launches == n0 + 1, "K1 (hd 24) did not launch")
+        err = expect_close(f"K1 hd 24 N=8 {label}", out, ref, BF16_ATOL, BF16_RTOL)
+        require(torch.equal(pk, pp), f"K1 hd 24 N=8 {label}: committed pool differs")
+        kern = lambda: paged_decode_attention_commit(q, pk, 3, table, lens, **kw)  # noqa: E731
+        (ms, call_ms) = timed(kern)
+        plain_ms, _ = timed(lambda: paged_decode_attention_ref(q, pp[3], table, lens, **kw))
+        alone = kernel_alone_ms(kern, "paged_decode")
+        tokens = int(lens.sum())
+        nbytes = (2 * b * g * n * hd * 2 + 2 * b * g * hd * 2 + tokens * 2 * g * hd * 2
+                  + b * 2 * g * hd * 2 + b * pps * 4 + b * 4)
+        b_ms, by = bound(nbytes, 4 * g * n * hd * (tokens + b))
+        log(f"K1 paged decode+commit at the image decode {label} (Hq 32, G 4, hd 24, N=8 "
+            f"body): max_abs_err={err:.3e} pool bit-equal; kernel_ms={ms:.4f} (kernel alone "
+            f"{_fmt(alone)}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); per call "
+            f"with host overhead {call_ms:.4f}")
+        del pk, pp
+        torch.cuda.empty_cache()
+
+
 # K2' and K5 at the training shapes: medium_dense attention, B=16, T=512.
 TRAIN_B, TRAIN_T, TRAIN_HQ, TRAIN_G, TRAIN_HD = 16, 512, 24, 8, 60
 # The bf16 backward kernels and their plain version both round p (before dV)
@@ -1083,13 +1290,32 @@ VIT_B, VIT_T, VIT_HQ, VIT_G, VIT_HD = 16, 576, 16, 8, 72
 
 
 def check_vit_flash(gen):
-    """K2, K2' and the whole backward (di, K5a, K5b, casts) at ViT-2D
-    medium's shape against the plain versions.  The wrappers pad head dim 72
-    to 128 (exact); each is timed in turns with SDPA at the unpadded head dim
-    72, with its bound reckoned on the logical work at 72, so the pad shows
-    as lost time, and the share of the call outside the kernel (the pads;
-    for the backward also di and the casts) printed.  The numbers go to the
-    log only; the ``kernels`` line keeps the LM's shapes."""
+    """K2, K2' and the whole backward at ViT-2D medium's shape
+    (``check_flash_at``; head dim 72 padded to 128, non-causal)."""
+    return check_flash_at(gen, "ViT", VIT_B, VIT_T, VIT_HQ, VIT_G, VIT_HD, causal=False)
+
+
+# The image transformer's full forward (image_gen_xsmall: d768 / 32 heads =
+# head dim 24 over 4 KV groups; a 64 x 64 latent grid: T = S = 4096,
+# causal), at B=1 (the trainer's B=2 halves it a row).
+IMG_B, IMG_T, IMG_HQ, IMG_G, IMG_HD = 1, 4096, 32, 4, 24
+
+
+def check_image_gen_flash(gen):
+    """K2, K2' and the whole backward at the image transformer's shape
+    (``check_flash_at``; head dim 24 padded to 32, causal)."""
+    return check_flash_at(gen, "image gen", IMG_B, IMG_T, IMG_HQ, IMG_G, IMG_HD,
+                          causal=True)
+
+
+def check_flash_at(gen, tag, B, T, Hq, G, hd, causal):
+    """K2, K2' and the whole backward (di, K5a, K5b, casts) at one shape
+    against the plain versions.  The wrappers pad the head dim to 32, 64 or
+    128 (exact); each is timed in turns with SDPA at the unpadded head dim,
+    with its bound reckoned on the logical work, so the pad shows as lost
+    time, and the share of the call outside the kernel (the pads; for the
+    backward also di and the casts) printed.  Returns {K2, K2', K5a, K5b:
+    numbers}; the ``kernels`` line keeps the LM's shapes."""
     import torch
 
     from vats_tpu_torch.ops.flash_attention import (
@@ -1104,11 +1330,11 @@ def check_vit_flash(gen):
         flash_bwd_dq,
     )
 
-    B, T, Hq, G, hd = VIT_B, VIT_T, VIT_HQ, VIT_G, VIT_HD
     dp = _kernel_head_dim(hd)
     scale = 1.0 / hd**0.5
     q, k, v, do = _train_attention_inputs(gen, B, T, Hq, G, hd)
-    kw = dict(scale=scale, causal=False)
+    kw = dict(scale=scale, causal=causal)
+    shape = (f"B={B} T=S={T} hd={hd}->{dp} " + ("causal" if causal else "non-causal"))
     fns = (flash_attention, flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
     n0 = [fn.launches for fn in fns]
     out_k = flash_attention(q, k, v, **kw)
@@ -1119,18 +1345,18 @@ def check_vit_flash(gen):
     want = flash_attention_bwd_ref(q, k, v, do, lse_p, di, **kw)
     torch.cuda.synchronize()
     require([fn.launches - n for fn, n in zip(fns, n0)] == [1, 1, 1, 1],
-            "ViT flash check: K2, K2', K5a and K5b must launch once each")
+            f"{tag} flash check: K2, K2', K5a and K5b must launch once each")
     allow = p_flip_allowance(q, k, v, **kw)
-    err_k2 = expect_close("ViT K2 out", out_k, o_p, BF16_ATOL, BF16_RTOL, allow)
-    err_k2l = max(expect_close("ViT K2' out", o_l, o_p, BF16_ATOL, BF16_RTOL, allow),
-                  expect_close("ViT K2' lse", lse_k, lse_p, 1e-4, 1e-5))
-    require(torch.equal(out_k, o_l), "ViT flash check: K2 and K2' outputs differ")
-    errs = [expect_close(f"ViT K5 {n}", a, b_, BWD_ATOL, BWD_RTOL)
+    err_k2 = expect_close(f"{tag} K2 out", out_k, o_p, BF16_ATOL, BF16_RTOL, allow)
+    err_k2l = max(expect_close(f"{tag} K2' out", o_l, o_p, BF16_ATOL, BF16_RTOL, allow),
+                  expect_close(f"{tag} K2' lse", lse_k, lse_p, 1e-4, 1e-5))
+    require(torch.equal(out_k, o_l), f"{tag} flash check: K2 and K2' outputs differ")
+    errs = [expect_close(f"{tag} K5 {n}", a, b_, BWD_ATOL, BWD_RTOL)
             for n, a, b_ in zip(("dq", "dk", "dv"), got, want)]
     del allow
 
-    pairs = B * T * T
-    flops = 4 * Hq * hd * pairs  # logical: q.k and p.v at head dim 72
+    pairs = B * T * (T + 1) // 2 if causal else B * T * T
+    flops = 4 * Hq * hd * pairs  # logical: q.k and p.v at the unpadded head dim
     in_bytes = (q.numel() + k.numel() + v.numel()) * 2
     rows = {}
     for name, fn, plain, extra in (
@@ -1139,8 +1365,8 @@ def check_vit_flash(gen):
         b_ms, by = bound(in_bytes + q.numel() * 2 + extra, flops)
         plain_ms, _ = timed(lambda: plain(q, k, v, **kw))
         ms, lib_ms, alone = flash_vs_sdpa(
-            f"ViT {name} B={B} T=S={T} hd={hd}->{dp} non-causal",
-            lambda: fn(q, k, v, **kw), q, k, v, scale, b_ms, flops, causal=False)
+            f"{tag} {name} {shape}",
+            lambda: fn(q, k, v, **kw), q, k, v, scale, b_ms, flops, causal=causal)
         pad = None if alone is None else 1 - alone / ms
         rows[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
                           plain_ms=plain_ms, kernel_alone_ms=alone, outside_share=pad)
@@ -1154,23 +1380,24 @@ def check_vit_flash(gen):
         b_ms, by = bound(kv_bytes + out_bytes, fl * Hq * hd * pairs)
         ms = device_ms(fn)
         rows[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
-        log(f"  ViT {name} alone at the kernel's head dim {dp}: {ms:.4f} ms "
+        log(f"  {tag} {name} alone at the kernel's head dim {dp}: {ms:.4f} ms "
             f"({fl * Hq * hd * pairs / ms / 1e9:.1f} logical TFLOP/s), bound {b_ms:.5f} ms "
             f"({by}) on the logical work, {b_ms / ms:.3f} of it")
     plain_bwd, _ = timed(lambda: flash_attention_bwd_ref(q, k, v, do, lse_p, di, **kw))
     lib_bwd, parts, whole = backward_vs_sdpa(
-        f"ViT backward B={B} T=S={T} hd={hd}->{dp} non-causal (the do pad included)",
+        f"{tag} backward {shape} (the do pad included)",
         q, k, v, o_p, do, lse_p, kw, pad_do=True)
     kern = sum(ms_ for name, ms_ in parts.items() if "flash_bwd" in name)
     for name in ("K5a", "K5b"):
         rows[name].update(library_ms=lib_bwd, plain_ms=plain_bwd, whole_ms=whole,
                           outside_share=(1 - kern / whole) if kern else None)
-    log(f"ViT flash at B={B} T=S={T} Hq={Hq} G={G} hd={hd} (padded to {dp}) non-causal: "
+    log(f"{tag} flash at {shape} Hq={Hq} G={G}: "
         f"max_abs_err K2 {err_k2:.3e} K2' {err_k2l:.3e} (out within {BF16_ATOL} + "
         f"{BF16_RTOL}*|ref| + the p flip allowance, lse 1e-4) K5 dq {errs[0]:.3e} dk "
         f"{errs[1]:.3e} dv {errs[2]:.3e} (within {BWD_ATOL} + {BWD_RTOL}*|ref|); "
         + "; ".join(f"{n} " + " ".join(f"{k_}={v_ if k_ == 'bound_by' else _fmt(v_, 5)}"
                                         for k_, v_ in r.items()) for n, r in rows.items()))
+    return rows
 
 
 # --- phase: train -----------------------------------------------------------
@@ -2122,13 +2349,19 @@ def drive(engine, stream):
     return outs, done_s, time.perf_counter() - t0
 
 
+# The serve phase's depth: nlp_medium's 20 layers cut to 10
+# so the whole script stays under half its time limit; its eager drives
+# are host-bound, and their time goes with the launches, with the depth.
+SERVE_LAYERS = 10
+
+
 def run_serve(kernel_fns):
     import torch
 
     from vats_tpu_torch.inference import QuantizedModel, ServingEngine, quantized_bytes
     from vats_tpu_torch.models import TextLM
 
-    cfg = medium_cfg()
+    cfg = medium_cfg(num_layers=SERVE_LAYERS)
     L = cfg.num_layers
     t0 = time.perf_counter()
     model = TextLM(cfg, device="cuda", seed=0).eval()
@@ -2979,6 +3212,393 @@ def run_vision_parity():
     torch.cuda.empty_cache()
 
 
+# --- phase: image_gen -------------------------------------------------------
+
+# tools/bench_gen.py's image stage: image_gen_xsmall (d768, 12 layers, 32/4
+# heads of 24), dropout 0, B=4, 16 text tokens, a 16 x 16 grid, sampled at
+# temperature 0.9 and top-k 64.
+IMG_GEN_B, IMG_GEN_GRID, IMG_TEXT_T = 4, 16, 16
+IMG_PIPE_GRID = 64  # the config's own 256 px target: a 64 x 64 latent grid
+IMG_TRAIN_B, IMG_TRAIN_STEPS = 2, 3
+
+
+def _image_gate(label, fns, want):
+    got = _counts(fns)
+    _gate(label, got, want, phase="image_gen")
+    return got
+
+
+def run_image_gen(fns):
+    """Image generation at image_gen_xsmall's full width and depth:
+    ``generate_image_tokens`` (dense cache) and ``generate_image_tokens_paged``
+    at the JAX bench's shape, each with its decode replayed from a CUDA graph
+    and eagerly, in turns (graph, eager, graph; equal tokens), each profiled
+    once; the
+    ``ImageGenerationPipeline`` on the 64 x 64 grid (4096 steps, graphs);
+    ``ImageGenTrainer`` steps at 256 px, B=2 (remat, dropout 0.2) and an
+    ``evaluate``; the image-gen script for a few steps.  Exact launch gates:
+    K3's table mode (dense or paged) and K1 once a layer a decode forward,
+    K2' 2L, K5a L and K5b L a train step (each block's forward and its
+    recompute), K2 L an evaluation, nothing else."""
+    import torch
+
+    from vats_tpu_torch.configs import image_gen_xsmall
+    from vats_tpu_torch.inference import ImageGenerationPipeline, ImageGenerationSampler
+    from vats_tpu_torch.inference.image_generation import _generate_image_tokens
+    from vats_tpu_torch.models import AutoregressiveImageTransformer
+    from vats_tpu_torch.scripts.image_gen import train as image_gen_script
+    from vats_tpu_torch.train import ImageGenTrainer, ImageGenTrainingArgs
+
+    (dense_t, paged_t, k1, k2, k2l, k5a, k5b, dense_p, paged_p, append) = (
+        fn.__name__ for fn in fns)
+    none = {name: 0 for name in _counts(fns)}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cfg = image_gen_xsmall(dropout=0.0, use_checkpointing=False)
+    L = cfg.num_layers
+    model = AutoregressiveImageTransformer(cfg, device="cuda", seed=0).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    b, gh = IMG_GEN_B, IMG_GEN_GRID
+    n = gh * gh
+    text = torch.randn((b, IMG_TEXT_T, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    sampler = ImageGenerationSampler(temperature=0.9, top_k=64)
+    log(f"image_gen: image_gen_xsmall d{cfg.d_model}/{L}L {cfg.num_heads}H/"
+        f"{cfg.query_groups}G hd {cfg.head_dim}, {n_params / 1e6:.1f}M params (fp32, "
+        f"bf16 compute), B={b}, {gh}x{gh} grid, {IMG_TEXT_T} text tokens")
+    result, main_counts = {}, {}
+    for paged in (False, True):
+        tag = "generate_image_tokens_paged" if paged else "generate_image_tokens"
+        want = dict(none)
+        if paged:
+            want.update({paged_t: L * n, paged_p: L * n, k1: L * n})
+        else:
+            want.update({dense_t: L * n, dense_p: L * n})
+
+        def drive(use_graph):
+            _zero(fns)
+            t0 = time.perf_counter()
+            tokens, graph = _generate_image_tokens(
+                model, text, None, torch.Generator(device="cuda").manual_seed(5),
+                grid_h=gh, grid_w=gh, sampler=sampler, start_token_id=0, paged=paged,
+                page_size=128, use_graph=use_graph)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _image_gate(f"{tag} {'graph' if use_graph else 'eager'}", fns, want)
+            nums = dict(wall_s=wall, tokens_per_s=b * n / wall,
+                        capture_s=graph.capture_s if graph else 0.0)
+            return nums, (tokens, got)
+
+        runs = in_turns(f"image_gen: {tag}", [("graph", lambda: drive(True)),
+                                              ("eager", lambda: drive(False))],
+                        order=(0, 1, 0))
+        toks = [res[0] for name in runs for _, res in runs[name]]
+        require(all(torch.equal(t_, toks[0]) for t_ in toks),
+                f"image_gen: {tag}: graph and eager runs drew different tokens")
+        require(tuple(toks[0].shape) == (b, gh, gh) and 0 <= int(toks[0].min())
+                and int(toks[0].max()) < cfg.num_embeddings, f"image_gen: {tag} tokens")
+        busy = {m: profile_breakdown(f"image_gen {tag} ({m})", lambda: drive(m == "graph"),
+                                     top=6, also=("prologue", "paged_decode"))
+                for m in ("graph", "eager")}
+        rates = {m: [nums["tokens_per_s"] for nums, _ in runs[m]] for m in runs}
+        walls = {m: [nums["wall_s"] for nums, _ in runs[m]] for m in runs}
+        peak = max(nums["peak_mem_gb"] for m in runs for nums, _ in runs[m])
+        log(f"image_gen: {tag} B={b} {gh}x{gh}: tokens/s graph {rates['graph']} eager "
+            f"{rates['eager']}; launches {json.dumps(runs['graph'][0][1][1])}; device_busy_s "
+            f"graph {_fmt(busy['graph'], 4)} eager {_fmt(busy['eager'], 4)}; idle share "
+            + " ".join(f"{m} {1 - busy[m] / min(walls[m]):.3f}" if busy[m] else
+                       f"{m} not measured" for m in ("graph", "eager"))
+            + f" (busy over the fastest unprofiled run's wall); peak_mem_gb={peak:.3f}")
+        result[tag] = rates
+        # the kernels line's launches: the first graph run of each path
+        main_counts.update({k_: v for k_, v in runs["graph"][0][1][1].items() if v})
+    del model
+    torch.cuda.empty_cache()
+
+    # the pipeline on the 64 x 64 grid, B=1: text encoder, 4096 decode steps
+    # replayed from a graph, codebook lookup, decoder
+    pipe = ImageGenerationPipeline(cfg, seed=1, device="cuda")
+    ids = torch.randint(1, cfg.vocab_size, (1, IMG_TEXT_T), generator=gen, device="cuda")
+    g64 = IMG_PIPE_GRID
+    want = dict(none)
+    want.update({dense_t: L * g64 * g64, dense_p: L * g64 * g64})
+    _zero(fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images, tokens = pipe.generate_images(ids, torch.Generator(device="cuda").manual_seed(6),
+                                          grid_h=g64, grid_w=g64, sampler=sampler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = _image_gate("pipeline 64x64", fns, want)
+    require(tuple(images.shape) == (1, 3, 4 * g64, 4 * g64) and bool(torch.isfinite(images).all())
+            and 0 <= float(images.min()) and float(images.max()) <= 1,
+            "image_gen: pipeline images")
+    require(tuple(tokens.shape) == (1, g64, g64), "image_gen: pipeline tokens")
+    # the idle share from a profiled run of the same pipeline on 8 rows of
+    # the 64-wide grid (512 steps: a full 4096-step profile is millions of
+    # events)
+    busy8 = profile_breakdown(
+        "image_gen pipeline on an 8x64 grid (graphs)",
+        lambda: pipe.generate_images(ids, torch.Generator(device="cuda").manual_seed(6),
+                                     grid_h=8, grid_w=g64, sampler=sampler), top=6,
+        also=("prologue",))
+    wall8 = cuda_ms(lambda: pipe.generate_images(
+        ids, torch.Generator(device="cuda").manual_seed(6), grid_h=8, grid_w=g64,
+        sampler=sampler), iters=1, warmup=0) / 1e3
+    log(f"image_gen: pipeline 64x64 (B=1, 4096 steps, graphs): wall_s={wall:.3f} "
+        f"tokens_per_s={g64 * g64 / wall:.1f} capture_s={pipe.last_graph.capture_s:.3f} "
+        f"peak_mem_gb={peak:.3f} launches {json.dumps(got)}; images {tuple(images.shape)} in "
+        f"[0, 1]; 8x64 grid: wall_s={wall8:.3f} device_busy_s={_fmt(busy8, 4)} idle share "
+        + (f"{1 - busy8 / wall8:.3f}" if busy8 else "not measured"))
+    result["pipeline_tokens_per_s"] = g64 * g64 / wall
+    del pipe, images
+    torch.cuda.empty_cache()
+
+    # training: image_gen_xsmall as configured (dropout 0.2, remat), 256 px,
+    # B=2, the loss VQ + recon + token CE; an evaluation
+    tcfg = image_gen_xsmall()
+    trainer = ImageGenTrainer(tcfg, ImageGenTrainingArgs(), num_training_steps=100,
+                              device="cuda")
+    px = tcfg.target_size
+
+    def batch():
+        return {"images": torch.rand((IMG_TRAIN_B, 3, px, px), generator=gen, device="cuda"),
+                "text_embeddings": torch.randn((IMG_TRAIN_B, IMG_TEXT_T, tcfg.d_model),
+                                               generator=gen, device="cuda").to(torch.bfloat16)}
+
+    step_want = dict(none)
+    step_want.update({k2l: 2 * L, k5a: L, k5b: L})
+    _zero(fns)
+    first = trainer.train_step(batch())  # warm-up (cuBLAS, allocator)
+    _image_gate("first train step", fns, step_want)
+    batches = [batch() for _ in range(IMG_TRAIN_STEPS)]
+    _zero(fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(bt) for bt in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = _image_gate(f"{IMG_TRAIN_STEPS} train steps", fns,
+                      {k: v * IMG_TRAIN_STEPS for k, v in step_want.items()})
+    require(all(np.isfinite(m["loss"]) for m in metrics), f"image_gen: train loss {metrics}")
+    busy = profile_breakdown("image_gen train step", lambda: trainer.train_step(batches[0]),
+                             top=8, also=("flash",))
+    ev_want = dict(none)
+    ev_want[k2] = L
+    _zero(fns)
+    ev = trainer.evaluate(iter([batches[0]]), max_batches=1)
+    torch.cuda.synchronize()
+    _image_gate("evaluate", fns, ev_want)
+    require(np.isfinite(ev["loss"]), f"image_gen: eval loss {ev}")
+    ms = wall / IMG_TRAIN_STEPS * 1e3
+    log(f"image_gen: trainer image_gen_xsmall 256px B={IMG_TRAIN_B} (remat, dropout 0.2): "
+        f"ms_per_step={ms:.1f} steps_per_s={1e3 / ms:.3f} images_per_s="
+        f"{IMG_TRAIN_B * 1e3 / ms:.2f} peak_mem_gb={peak:.3f} device_busy_s (one profiled "
+        f"step)={_fmt(busy, 4)} idle share "
+        + (f"{1 - busy / (ms / 1e3):.3f}" if busy else "not measured")
+        + f"; launches {json.dumps(got)}; loss first {first['loss']:.4f} then "
+        + ", ".join(f"{m['loss']:.4f}" for m in metrics) + f"; evaluate {json.dumps(ev)}")
+    result["train_ms_per_step"] = ms
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # the script, in-process, for a few steps (the text encoder's 8 tokens
+    # take the plain attention)
+    steps = 3
+    _zero(fns)
+    out = image_gen_script.main(["--size", "xsmall", "--steps", str(steps), "--batch-size",
+                                 str(IMG_TRAIN_B), "--log-every", "1", "--device", "cuda"])
+    got = _image_gate("the image-gen script", fns,
+                      {k: v * steps for k, v in step_want.items()})
+    require(all(np.isfinite(m["loss"]) for m in out["history"]), "image_gen: script loss")
+    log(f"image_gen: script --size xsmall --steps {steps} --batch-size {IMG_TRAIN_B}: step "
+        f"walls " + ", ".join(f"{s:.3f}" for s in out["step_s"]) + f" s; launches "
+        f"{json.dumps(got)}")
+    del out
+    torch.cuda.empty_cache()
+    log("image_gen: " + json.dumps(result))
+    return main_counts
+
+
+# Card against CPU at image_gen_xsmall's width, 2 layers.  bf16 on both
+# sides, as in the LM's parity (LOGIT_ATOL, the near-tie rule of
+# _compare_greedy).  The trainer step runs at 64 px (a 16 x 16 latent grid:
+# T = 256, still the card's flash path) to keep the CPU's side short.
+IMG_PARITY_GRID, IMG_PARITY_FORCED = 16, 32
+IMG_PARITY_BN = dict(atol=1e-4, rtol=0.02)
+IMG_QUANT_TIE = 1e-5  # an argmin flip's distance gap, relative to |z|^2
+# biases of the convolutions in front of a BatchNorm: zero gradient in exact
+# arithmetic (the BatchNorm takes the mean out)
+IMG_NOISE_LEAVES = tuple(f"encoder.convs.{i}.bias" for i in range(3)) + tuple(
+    f"decoder.deconvs.{i}.bias" for i in range(2))
+
+
+def _forced_logits(model, text, tokens, paged, steps):
+    """Logits of ``steps`` cached decode forwards fed the start token, then
+    ``tokens`` (raster order), one a step: [B, steps, V] fp32 on the CPU."""
+    import torch
+
+    b = text.shape[0]
+    n = tokens.shape[1] * tokens.shape[2]
+    cache = (model.init_paged_cache(b, n + 1) if paged else model.init_cache(b, n))
+    kw = {"paged_cache" if paged else "cache": cache}
+    seq = torch.cat([torch.zeros((b, 1), dtype=torch.int32), tokens.reshape(b, -1).cpu()], 1)
+    seq = seq.to(model.device)
+    out = []
+    with torch.no_grad():
+        for i in range(steps):
+            lg, _ = model(seq[:, i:i + 1], text, grid_w=tokens.shape[2], return_logits=True,
+                          **kw)
+            out.append(lg[:, 0].float().cpu())
+    return torch.stack(out, 1)
+
+
+def run_image_gen_parity():
+    """image_gen_xsmall at 2 layers, card against CPU from the same weights:
+    greedy ``generate_image_tokens`` and ``_paged`` tokens (16 x 16, B=2)
+    and the logits of 32 teacher-forced cached decode steps on both paths;
+    one ``ImageGenTrainer`` step at 64 px, B=2, fp32: loss, the quantizer's
+    indices (a flip only at a near tie), per-leaf gradients and change in the
+    step (``leaf_errors``), and the BatchNorm statistics."""
+    import torch
+
+    from vats_tpu_torch.configs import image_gen_xsmall
+    from vats_tpu_torch.inference import generate_image_tokens, generate_image_tokens_paged
+    from vats_tpu_torch.models import AutoregressiveImageTransformer
+    from vats_tpu_torch.ops import cache_append as ca
+    from vats_tpu_torch.train import ImageGenTrainer, ImageGenTrainingArgs
+
+    cfg = image_gen_xsmall(num_layers=2, dropout=0.0)
+    gpu = AutoregressiveImageTransformer(cfg, device="cuda", seed=7).eval()
+    cpu = AutoregressiveImageTransformer(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    g = torch.Generator().manual_seed(41)
+    text = torch.randn((2, IMG_TEXT_T, cfg.d_model), generator=g).to(torch.bfloat16)
+    gh = IMG_PARITY_GRID
+    kw = dict(grid_h=gh, grid_w=gh, temperature=0.0, do_sample=False)
+    report = []
+    for paged, fn in ((False, generate_image_tokens), (True, generate_image_tokens_paged)):
+        tag = "paged" if paged else "dense"
+        counted = ca.paged_decode_prologue.table if paged else ca.dense_decode_prologue.table
+        n0 = counted.launches
+        tok_g = fn(gpu, text.cuda(), None, None, **kw).cpu()
+        require(counted.launches - n0 == cfg.num_layers * gh * gh,
+                f"image_gen_parity: {tag} table-mode launches")
+        tok_c = fn(cpu, text, None, None, **kw)
+        steps = IMG_PARITY_FORCED
+        lg_g = _forced_logits(gpu, text.cuda(), tok_c, paged, steps)
+        lg_c = _forced_logits(cpu, text, tok_c, paged, steps)
+        err = expect_close(f"image_gen_parity {tag} logits", lg_g, lg_c, LOGIT_ATOL, 0.0)
+        # tokens: equal up to the first step where the CPU's top two logits
+        # (teacher-forced over the whole grid) lie within 2 * LOGIT_ATOL
+        with torch.no_grad():
+            seq = torch.cat([torch.zeros((2, 1), dtype=torch.int32),
+                             tok_c.reshape(2, -1)[:, :-1]], 1)
+            full, _ = cpu(seq, text, grid_w=gh, return_logits=True)
+        top2 = full.topk(2, dim=-1).values
+        gaps = top2[..., 0] - top2[..., 1]
+        flat_g, flat_c = tok_g.reshape(2, -1), tok_c.reshape(2, -1)
+        same = (flat_g == flat_c).all(0)
+        first = int((~same).nonzero()[0]) if not bool(same.all()) else None
+        if first is not None:
+            require(bool((gaps[:, first] <= 2 * LOGIT_ATOL).any()),
+                    f"image_gen_parity {tag}: tokens differ at step {first} beyond a near tie")
+        report.append(f"{tag}: logits of {steps} forced steps max |err| {err:.3e} (atol "
+                      f"{LOGIT_ATOL}); greedy tokens equal "
+                      + ("over all 256 steps" if first is None else
+                         f"up to step {first}, a near tie (CPU top-2 gap "
+                         f"{float(gaps[:, first].min()):.3e})"))
+    log("image_gen_parity (image_gen_xsmall width, 2 layers, B=2, 16x16, card vs CPU): "
+        + "; ".join(report))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    # fp32 compute: at initialisation the codebook rows (uniform in +-1/256)
+    # lie within bf16 noise of one another seen from a latent of norm ~25,
+    # so a bf16 step's argmin would flip at hundreds of positions between
+    # two devices and take the gradients with it
+    tcfg = image_gen_xsmall(num_layers=2, dropout=0.0, target_size=64, dtype="float32")
+    targs = ImageGenTrainingArgs(seed=3)
+    tg = ImageGenTrainer(tcfg, targs, num_training_steps=10, device="cuda")
+    tc = ImageGenTrainer(tcfg, targs, num_training_steps=10,
+                         variables={k: v.cpu() for k, v in tg.model.state_dict().items()},
+                         device="cpu")
+    start = {n: p.detach().clone() for n, p in tc.model.named_parameters()}
+    batch = {"images": torch.rand((2, 3, 64, 64), generator=g),
+             "text_embeddings": torch.randn((2, IMG_TEXT_T, tcfg.d_model),
+                                            generator=g).to(torch.bfloat16)}
+    from vats_tpu_torch.ops import flash_attention as fa
+
+    seen = {}  # the quantizer's input and indices on each side
+
+    def keep_quantizer(side):
+        def hook(mod, args, out):
+            seen[side] = (args[0].detach().float().cpu(), out[2].cpu())
+        return hook
+
+    hooks = [tg.model.quantizer.register_forward_hook(keep_quantizer("cuda")),
+             tc.model.quantizer.register_forward_hook(keep_quantizer("cpu"))]
+    n1 = (fa.flash_attention_lse.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    mg = tg.train_step({k: v.cuda() for k, v in batch.items()})
+    L = tcfg.num_layers
+    require((fa.flash_attention_lse.launches - n1[0], fa.flash_bwd_dkv.launches - n1[1],
+             fa.flash_bwd_dq.launches - n1[2]) == (2 * L, L, L),
+            "image_gen_parity: K2'/K5a/K5b launches of the train step")
+    mc = tc.train_step(batch)
+    for h in hooks:
+        h.remove()
+    # argmin flips between the devices: each must be a near tie of the CPU's
+    # distances (within IMG_QUANT_TIE of |z|^2); any flip moves that
+    # position's code and the gradients with it, so the leaf checks below
+    # then stand excused, and the report says so
+    (zg, ig), (zc, ic) = seen["cuda"], seen["cpu"]
+    flips = (ig != ic).reshape(-1).nonzero()[:, 0]
+    cb = tc.model.quantizer.embedding.detach().float()
+    zf = zc.reshape(-1, zc.shape[-1])
+    for pos in flips.tolist():
+        d2 = ((zf[pos][None, :] - cb[[int(ig.reshape(-1)[pos]), int(ic.reshape(-1)[pos])]])
+              ** 2).sum(-1)
+        require(float(d2[0] - d2[1]) <= IMG_QUANT_TIE * float((zf[pos] ** 2).sum()),
+                f"image_gen_parity: quantizer index {pos} flips beyond a near tie")
+    losses = f"loss card {mg['loss']:.5f} cpu {mc['loss']:.5f} (" + ", ".join(
+        f"{k} {mg[k]:.5f}/{mc[k]:.5f}" for k in ("vq_loss", "recon_loss", "token_ce")) + ")"
+    require(abs(mg["loss"] - mc["loss"]) <= PARITY_LOSS_ATOL, "image_gen_parity: " + losses)
+    keep = lambda errs: {n: e for n, e in errs.items() if n not in IMG_NOISE_LEAVES}  # noqa: E731
+    grads = leaf_errors(tg.model, tc.model, leaf_grad)
+    change = leaf_errors(tg.model, tc.model, lambda n, p: p.detach().cpu() - start[n])
+    if len(flips):
+        rep = (f"{len(flips)} quantizer indices flipped at near ties (excused; gradients "
+               f"worst {max(keep(grads).values()):.3e}, change worst "
+               f"{max(keep(change).values()):.3e}, not held)")
+    else:
+        rep = "no quantizer index flipped; " + leaf_report(
+            "gradients", keep(grads), PARITY_LEAF_GRAD_RTOL)
+        rep += "; " + leaf_report("change in the step", keep(change), PARITY_LEAF_CHANGE_RTOL)
+    # the zero-gradient biases: tiny on both sides against their convolution's weights
+    params = dict(tc.model.named_parameters())
+    pg = dict(tg.model.named_parameters())
+    for name in IMG_NOISE_LEAVES:
+        w = name.replace(".bias", ".weight")
+        for side in (params, pg):
+            gb, gw = side[name].grad, side[w].grad
+            require(float(gb.norm()) <= 1e-2 * float(gw.norm()),
+                    f"image_gen_parity: {name}'s gradient is not noise")
+    bn = [n for n in tc.model.state_dict() if "running_" in n]
+    sg, sc = tg.model.state_dict(), tc.model.state_dict()
+    err_bn = max(expect_close(f"image_gen_parity {n}", sg[n].cpu(), sc[n], **IMG_PARITY_BN)
+                 for n in bn)
+    log(f"image_gen_parity trainer (xsmall width, 2 layers, 64 px, B=2, fp32, one step, card "
+        f"vs CPU): {losses}; {rep}; the {len(IMG_NOISE_LEAVES)} conv biases in front of a "
+        f"BatchNorm (zero gradient in exact arithmetic) left out of those and held to 1e-2 of "
+        f"their weights' gradient norm on both sides; {len(bn)} BatchNorm statistics max |err| "
+        f"{err_bn:.3e} (atol {IMG_PARITY_BN['atol']} + rtol {IMG_PARITY_BN['rtol']})")
+    del tg, tc
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3064,6 +3684,16 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/cache_append.cu",
              replaces="vats_tpu/ops/cache_append.py:47", fn=paged_decode_prologue,
              path="main"),
+        # K3's table mode (the '2d_ntk' RoPE of image generation), counted
+        # apart from the 1-D prologue
+        dict(name="dense_decode_prologue_table", route="cuda",
+             source="vats_tpu_torch/csrc/cache_append.cu",
+             replaces="vats_tpu/ops/cache_append.py:47", fn=dense_decode_prologue.table,
+             path="image_gen"),
+        dict(name="paged_decode_prologue_table", route="cuda",
+             source="vats_tpu_torch/csrc/cache_append.cu",
+             replaces="vats_tpu/ops/cache_append.py:47", fn=paged_decode_prologue.table,
+             path="image_gen"),
         dict(name="flash_attention_forward_lse", route="cuda",
              source="vats_tpu_torch/csrc/flash_attention.cu",
              replaces="vats_tpu/ops/flash_attention.py:207", fn=fa.flash_attention_lse,
@@ -3092,8 +3722,12 @@ def main(argv=None) -> int:
         (results["flash_attention_backward_dkv"],
          results["flash_attention_backward_dq"]) = check_k5(gen(5))
         check_vit_flash(gen(7))
+        (results["dense_decode_prologue_table"],
+         results["paged_decode_prologue_table"]) = check_k3_table(gen(8))
+        check_k1_image_gen(gen(9))
+        check_image_gen_flash(gen(10))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
-    counts = {"main": {}, "serve": {}, "train": {}}
+    counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}}
     runners = {
         "main": lambda: run_main([r["fn"] for r in kernel_rows if r["path"] == "main"]),
         "parity": run_parity,
@@ -3105,6 +3739,12 @@ def main(argv=None) -> int:
         "vision": lambda: run_vision([fa.flash_attention, fa.flash_attention_lse,
                                       fa.flash_bwd_dkv, fa.flash_bwd_dq]),
         "vision_parity": run_vision_parity,
+        "image_gen": lambda: run_image_gen([
+            dense_decode_prologue.table, paged_decode_prologue.table,
+            paged_decode_attention_commit, fa.flash_attention, fa.flash_attention_lse,
+            fa.flash_bwd_dkv, fa.flash_bwd_dq, dense_decode_prologue, paged_decode_prologue,
+            append_token_inplace]),
+        "image_gen_parity": run_image_gen_parity,
     }
     for phase, run in runners.items():
         if phase in phases:

@@ -863,3 +863,144 @@ def test_vit2d_two_layers_on_the_card_match_the_cpu(gen):
             torch.testing.assert_close(a.grad.cpu(), b_.grad, atol=1e-4, rtol=1e-3, msg=name)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# --- image generation: K3's table mode, K1 at head dim 24, the flash kernels
+# at T = 4096, head dim 24 ----------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["dense", "ring", "paged"])
+def test_decode_prologue_table_mode_matches_plain(gen, mode, dtype):
+    """K3 in table mode at image_gen_xsmall's heads (32 / 4 of 24) and B=4:
+    the rotation reads the '2d_ntk' (cos, sin) table that
+    ``rope_2d_ntk_cos_sin`` makes on the card; q and k within
+    PROLOGUE_ULPS of the plain chain given the same table (only the
+    QK-norm's sum runs in another order), v, the cache outside the written
+    column exact; counted in ``.table.launches``."""
+    from vats_tpu_torch.nn.rope import rope_2d_ntk_cos_sin
+
+    b, hq, g, hd, L, S, gw = 4, 32, 4, 24, 3, 257, 16
+    cache = rand(gen, 2, L, b, g, hd, S, dtype=dtype)
+    for qk_norm, pos in ((True, 0), (True, 17), (False, 255), (True, S + 3)):
+        row = rand(gen, b, 1, (hq + 2 * g) * hd, dtype=dtype)
+        q, k, v = torch.split(row, [hq * hd, g * hd, g * hd], dim=-1)
+        q, k, v = q.reshape(b, 1, hq, hd), k.reshape(b, 1, g, hd), v.reshape(b, 1, g, hd)
+        kw = dict(theta=10000.0, qk_norm=qk_norm)
+        tol = PROLOGUE_ULPS[(dtype, qk_norm)]
+        bits = 7 if dtype == torch.bfloat16 else 23
+        if mode == "paged":
+            lengths = torch.randint(0, 4096, (b,), generator=gen, device="cuda")
+            lengths[0] = pos
+            lengths = lengths.to(torch.int32)
+            cs = rope_2d_ntk_cos_sin(lengths[:, None], hd, gw, 10000.0, 0.7)
+            n0 = (ca.paged_decode_prologue.launches, ca.paged_decode_prologue.table.launches)
+            got = ca.paged_decode_prologue(q, k, v, lengths, None, cos_sin=cs, **kw)
+            want = ca.paged_decode_prologue_ref(q, k, v, lengths, cos_sin=cs, **kw)
+            torch.cuda.synchronize()
+            assert (ca.paged_decode_prologue.launches,
+                    ca.paged_decode_prologue.table.launches) == (n0[0] + 1, n0[1] + 1)
+            for x, y in zip(got[:2], want[:2]):
+                assert float(rotated_ulps(x, y, bits).max()) <= tol
+            assert torch.equal(got[2], want[2])
+            continue
+        length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        cs = rope_2d_ntk_cos_sin(length + torch.arange(1, device="cuda"), hd, gw, 10000.0, 0.7)
+        ka, va = cache[0].clone(), cache[1].clone()
+        kb, vb = cache[0].clone(), cache[1].clone()
+        n0 = (ca.dense_decode_prologue.launches, ca.dense_decode_prologue.table.launches)
+        got = ca.dense_decode_prologue(q, k, v, ka, va, length, 1, None, ring=mode == "ring",
+                                       cos_sin=cs, **kw)
+        want = ca.dense_decode_prologue_ref(q, k, v, kb, vb, length, 1, ring=mode == "ring",
+                                            cos_sin=cs, **kw)
+        torch.cuda.synchronize()
+        assert (ca.dense_decode_prologue.launches,
+                ca.dense_decode_prologue.table.launches) == (n0[0] + 1, n0[1] + 1)
+        col = pos % S if mode == "ring" else min(pos, S - 1)
+        assert float(rotated_ulps(got, want, bits).max()) <= tol
+        assert float(rotated_ulps(ka[1, ..., col], kb[1, ..., col], bits).max()) <= tol
+        assert torch.equal(va, vb)
+        outside = torch.ones(S, dtype=torch.bool, device="cuda")
+        outside[col] = False
+        assert torch.equal(ka[..., outside], cache[0][..., outside])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_at_image_gen_heads_matches_plain(gen, dtype):
+    """K1 at image_gen_xsmall's decode: head dim 24, 8 query heads a group
+    (the generic NH=8 body), 4 groups; lengths over one page, across pages
+    and at 4096: output within TOL, the committed pool bit-equal."""
+    b, g, n, hd, ps = 6, 4, 8, 24, 128
+    lengths = [0, 1, 127, 256, 257, 4096]
+    pps = -(-max(lengths) // ps) + 1
+    pool = rand(gen, 3, b * pps, 2, g, ps, hd, dtype=dtype)
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+    table = table.reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, g * n, hd, dtype=dtype)
+    kc, vc = rand(gen, b, g, hd, dtype=dtype), rand(gen, b, g, hd, dtype=dtype)
+    pk, pp = pool.clone(), pool.clone()
+    n0 = da.paged_decode_attention_commit.launches
+    out = da.paged_decode_attention_commit(q, pk, 1, table, lens, scale=hd**-0.5,
+                                           k_cur=kc, v_cur=vc)
+    ref = da.paged_decode_attention_ref(q, pp[1], table, lens, scale=hd**-0.5,
+                                        k_cur=kc, v_cur=vc)
+    da.PagedKVCache(pp, table, lens).append_token(1, kc, vc)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_commit.launches == n0 + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_at_image_gen_shape_matches_plain(gen, dtype):
+    """K2, K2', K5a and K5b at the image transformer's full forward: T = S =
+    4096 (a 64 x 64 latent grid), 32 heads over 4 groups, head dim 24 (the
+    wrappers pad it to 32), causal; against the plain versions (TOL,
+    BWD_BF16_TOL; fp32 1e-4)."""
+    b, t, hq, g, hd = 1, 4096, 32, 4, 24
+    q = rand(gen, b, t, hq, hd, dtype=dtype)
+    k, v = rand(gen, b, t, g, hd, dtype=dtype), rand(gen, b, t, g, hd, dtype=dtype)
+    do = rand(gen, b, t, hq, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, causal=True)
+    fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    n0 = [fn.launches for fn in fns]
+    out = fa.flash_attention(q, k, v, **kw)
+    out_l, lse = fa.flash_attention_lse(q, k, v, **kw)
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    di = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse_ref, di, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse_ref, di, **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == [1, 1, 1, 1]
+    assert torch.equal(out, out_l)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **tol)
+
+
+def test_image_gen_tiny_on_the_card_matches_the_cpu(gen):
+    """image_gen_tiny_test (fp32) on the card and on the CPU from the same
+    weights: greedy tokens of ``generate_image_tokens`` and
+    ``generate_image_tokens_paged`` (decode replayed from CUDA graphs, K3
+    in table mode and K1 on the card) equal, one table-mode prologue a
+    layer a decode forward."""
+    from vats_tpu_torch.configs import image_gen_tiny_test
+    from vats_tpu_torch.inference import generate_image_tokens, generate_image_tokens_paged
+    from vats_tpu_torch.models import AutoregressiveImageTransformer
+
+    cfg = image_gen_tiny_test(dtype="float32")
+    gpu = AutoregressiveImageTransformer(cfg, device="cuda", seed=3).eval()
+    cpu = AutoregressiveImageTransformer(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    text = torch.randn((2, 6, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    kw = dict(grid_h=4, grid_w=4, temperature=0.0, do_sample=False)
+    for fn, counted in ((generate_image_tokens, ca.dense_decode_prologue.table),
+                        (generate_image_tokens_paged, ca.paged_decode_prologue.table)):
+        n0 = counted.launches
+        got = fn(gpu, text.cuda(), None, None, **kw)
+        torch.cuda.synchronize()
+        assert counted.launches - n0 == cfg.num_layers * 16  # 16 forwards of one token
+        assert torch.equal(got.cpu(), fn(cpu, text, None, None, **kw))

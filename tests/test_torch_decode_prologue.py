@@ -228,3 +228,117 @@ def test_attention_decode_steps_match_jax(kind, fused):
             for got, want in ((tc.k, jc.k), (tc.v, jc.v)):
                 np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-5)
         jc, _ = jc.advance(t), tc.advance(t)
+
+
+# --- table mode: the image-generation stack's '2d_ntk' RoPE -------------------
+
+GRID_W, NTK = 5, 0.7
+
+
+def jax_ntk_qk(jq, jk, positions, qk_norm):
+    from vats_tpu.nn.rope import apply_rope_2d_ntk_positions as j_ntk
+
+    if qk_norm:
+        jq, jk = j_l2(jq), j_l2(jk)
+    return (j_ntk(jq, positions, GRID_W, THETA, NTK), j_ntk(jk, positions, GRID_W, THETA, NTK))
+
+
+@pytest.mark.parametrize("qk_norm", [True, False], ids=["qk_norm", "no_norm"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kind", ["dense", "ring", "paged"])
+def test_table_mode_equals_2d_ntk_chain(kind, dtype, qk_norm):
+    """Table mode's plain version (the kernel's oracle) given the table of
+    ``rope_2d_ntk_cos_sin`` against the unfused '2d_ntk' chain: the port's
+    own (l2_normalize -> apply_rope_2d_ntk_positions -> pad -> commit) bit
+    for bit, and JAX's (l2_normalize -> apply_rope_2d_ntk_positions) to the
+    rotation tolerance above; the cache elsewhere and v bit-equal."""
+    from vats_tpu_torch.nn.norms import l2_normalize
+    from vats_tpu_torch.nn.rope import apply_rope_2d_ntk_positions, rope_2d_ntk_cos_sin
+
+    tdt, jdt = DTYPES[dtype]
+    rs = np.random.RandomState(31 + qk_norm)
+    if kind == "paged":
+        lengths = np.array([0, 4, 5, 127, 4095], np.int32)
+    else:
+        lengths = np.array(POSITIONS[1 + qk_norm], np.int32)
+    b = lengths.size if kind == "paged" else B
+    (tq, tk, tv), (jq, jk, jv) = projections(rs, True, tdt, jdt, b=b)
+    pos = torch.from_numpy(lengths)
+    positions = pos[:, None] if kind == "paged" else pos.reshape(1)
+    cos_sin = rope_2d_ntk_cos_sin(positions, HD, GRID_W, THETA, NTK)
+    cq, ck = (l2_normalize(x) if qk_norm else x for x in (tq, tk))
+    cq = apply_rope_2d_ntk_positions(cq, positions, GRID_W, THETA, NTK)
+    ck = apply_rope_2d_ntk_positions(ck, positions, GRID_W, THETA, NTK)
+    jpos = jnp.asarray(lengths)[:, None] if kind == "paged" else jnp.asarray(lengths)[None]
+    rq, rk = jax_ntk_qk(jq, jk, jpos, qk_norm)
+    if kind == "paged":
+        q, k, v = ca.paged_decode_prologue(tq, tk, tv, pos, None, theta=THETA,
+                                           qk_norm=qk_norm, cos_sin=cos_sin)
+        assert torch.equal(q, cq[:, 0]) and torch.equal(k, ck[:, 0]) and torch.equal(v, tv[:, 0])
+        assert_rotated_close(q, rq[:, 0], tdt, "q")
+        assert_rotated_close(k, rk[:, 0], tdt, "k")
+        return
+    cache = torch.from_numpy(rs.randn(2, L, B, G, HDP, S).astype(np.float32)).to(tdt)
+    tk_cache, tv_cache = cache[0].clone(), cache[1].clone()
+    q_pad = ca.dense_decode_prologue(tq, tk, tv, tk_cache, tv_cache, pos, 1, None,
+                                     theta=THETA, qk_norm=qk_norm, ring=kind == "ring",
+                                     cos_sin=cos_sin)
+    col = int(lengths) % S if kind == "ring" else min(int(lengths), S - 1)
+    want_k, want_v = cache[0].clone(), cache[1].clone()
+    want_k[1, ..., col] = ca._pad_to(ck, HDP)[:, 0]
+    want_v[1, ..., col] = ca._pad_to(tv, HDP)[:, 0]
+    assert torch.equal(q_pad, ca._pad_to(cq, HDP))
+    assert torch.equal(tk_cache, want_k) and torch.equal(tv_cache, want_v)
+    assert_rotated_close(q_pad[..., :HD], rq, tdt, "q")
+    assert_rotated_close(tk_cache[1, ..., :HD, col], rk[:, 0], tdt, "k")
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_attention_2d_ntk_decode_steps_match_jax(kind):
+    """'2d_ntk' Attention (fp32, QK-norm, NTK scale 0.7) over a raster grid
+    five wide: a prefill of 7 tokens, then decode steps through the table
+    mode, against vats_tpu: outputs to 2e-5, caches as in the 1-D test."""
+    import jax
+    from flax.linen import meta
+
+    from vats_tpu.nn.attention import Attention as JAttention
+    from vats_tpu.nn.kv_cache import KVCache as JKVCache
+    from vats_tpu.ops import decode_attention as jda
+    from vats_tpu_torch.nn.attention import Attention
+    from vats_tpu_torch.nn.kv_cache import KVCache
+    from vats_tpu_torch.ops import decode_attention as tda
+
+    kw = dict(d_model=48, num_heads=HQ - 2, query_groups=G, rope_type="2d_ntk",
+              rope_ntk_scale=NTK)
+    jm = JAttention(**kw)
+    params = jm.init(jax.random.PRNGKey(6), jnp.zeros((2, 5, 48)), grid_shape=(GRID_W,))
+    tree = jax.tree_util.tree_map(np.asarray, meta.unbox(params))["params"]
+    tm = Attention(**kw, device="cpu")
+    tm.load_state_dict({f"{name}.weight": torch.from_numpy(np.ascontiguousarray(p["kernel"].T))
+                        for name, p in tree.items()})
+    rs = np.random.RandomState(8)
+    b, s = 2, 128
+    if kind == "paged":
+        jc = jda.PagedKVCache.create(2, b, s, G, HD, page_size=128, dtype=jnp.float32)
+        tc = tda.PagedKVCache.create(2, b, s, G, HD, page_size=128, dtype=torch.float32,
+                                     device="cpu")
+        tc.page_table.copy_(torch.from_numpy(np.array(jc.page_table)))
+    else:
+        jc = JKVCache.create(2, b, s, G, HD, dtype=jnp.float32)
+        tc = KVCache.create(2, b, s, G, HD, dtype=torch.float32, device="cpu")
+    for t in (7, 1, 1, 1):
+        x = rs.randn(b, t, 48).astype(np.float32)
+        cache_kw = dict(paged_cache=jc) if kind == "paged" else dict(cache=jc)
+        jout, jc = jm.apply(params, jnp.asarray(x), layer_idx=1, grid_shape=(GRID_W,),
+                            **cache_kw)
+        with torch.no_grad():
+            tout, _ = tm(torch.from_numpy(x), layer_idx=1, grid_shape=(GRID_W,),
+                         **{k: tc for k in cache_kw})
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-5, rtol=0)
+        if kind == "paged":
+            np.testing.assert_allclose(tc.kv_pages.numpy(), np.swapaxes(
+                np.asarray(jc.kv_pages), -1, -2), atol=1e-6, rtol=1e-5)
+        else:
+            for got, want in ((tc.k, jc.k), (tc.v, jc.v)):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-5)
+        jc, _ = jc.advance(t), tc.advance(t)

@@ -13,6 +13,10 @@
     step's keys and hands the port's step the same lam and permutation):
     loss rtol 1e-5, params after the step atol 5e-6, rtol 1e-5; the eval
     step: loss rtol 1e-5;
+  * two train steps of ViT-3D ``vit3d_tiny_test`` with its classifier
+    (fp32, dropout 0, no augmentation) from the same weights and clips:
+    loss rtol 1e-5, params after each step atol 5e-6, rtol 1e-5; the eval
+    step: loss rtol 1e-5;
   * the port alone: a step with the on-card pixel battery, and
     ``train_epoch`` / ``validate_epoch`` over ``array_batches``."""
 
@@ -25,8 +29,10 @@ import torch
 from flax.linen import meta
 
 from vats_tpu.configs.vit2d import vit2d_xsmall as j_vit2d_xsmall
+from vats_tpu.configs.vit3d import vit3d_tiny_test as j_vit3d_tiny
 from vats_tpu.data.augmentations import mixup_data as j_mixup
 from vats_tpu.models.vit2d import ImageEncoder as JImageEncoder
+from vats_tpu.models.vit3d import VideoTransformer as JVideoTransformer
 from vats_tpu.train.state import TrainState as JTrainState
 from vats_tpu.train.vision import VisionTrainingArgs as JArgs
 from vats_tpu.train.vision import create_vision_optimizer as j_create_opt
@@ -34,10 +40,10 @@ from vats_tpu.train.vision import make_vision_eval_step as j_eval_step
 from vats_tpu.train.vision import make_vision_train_step as j_train_step
 from vats_tpu.train.vision import smoothed_ce as j_ce
 from vats_tpu.train.vision import warmup_cosine_epoch_schedule as j_schedule
-from vats_tpu_torch.configs import vit2d_xsmall
+from vats_tpu_torch.configs import vit2d_xsmall, vit3d_tiny_test
 from vats_tpu_torch.data import array_batches
 from vats_tpu_torch.data.augmentations import mixup_blend
-from vats_tpu_torch.models import ImageEncoder
+from vats_tpu_torch.models import ImageEncoder, VideoTransformer
 from vats_tpu_torch.train import create_train_state
 from vats_tpu_torch.train import vision as tv
 from vats_tpu_torch.train.vision import (
@@ -196,6 +202,38 @@ def test_train_step_with_mixup_matches_jax_given_its_draws(monkeypatch):
     assert float(met["lam"]) == pytest.approx(float(jmet["lam"]))
     np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]), rtol=1e-5)
     compare_params(model, jstate)
+
+
+def test_vit3d_train_and_eval_steps_match_jax():
+    """ViT-3D tiny with its 10-class head, fp32, dropout 0, no augmentation:
+    two steps (warmup, then the cosine) and the eval step."""
+    kw = dict(dtype="float32", use_classifier_head=True)
+    jcfg, cfg = j_vit3d_tiny(**kw), vit3d_tiny_test(**kw)
+    rs = np.random.RandomState(7)
+    b = {"images": rs.rand(2, 3, 8, 32, 32).astype(np.float32),
+         "labels": np.array([3, 8], np.int32)}
+    jm = JVideoTransformer(jcfg)
+    jparams = meta.unbox(jm.init(jax.random.PRNGKey(0), jnp.asarray(b["images"]))["params"])
+    args = dict(grad_accum_steps=1, epochs=4, warmup_epochs=1, learning_rate=1e-3,
+                use_augmentation=False)
+    jstate = JTrainState.create(apply_fn=jm.apply, params=jparams,
+                                tx=j_create_opt(JArgs(**args), steps_per_epoch=1))
+    jstep = j_train_step(jm, JArgs(**args), cfg.num_classes)
+    model = VideoTransformer(cfg, device="cpu")
+    targs = VisionTrainingArgs(**args)
+    state = create_train_state(model, create_vision_optimizer(targs, 1),
+                               params=params_from_jax(jax.device_get(jparams), cfg))
+    step = make_vision_train_step(model, targs, cfg.num_classes)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    for i in range(2):
+        jstate, jmet = jstep(jstate, jb, jax.random.PRNGKey(i))
+        state, met = step(state, b, i)
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]), rtol=1e-5)
+        compare_params(model, jstate)
+    jev = j_eval_step(jm, cfg.num_classes)(jstate.params, jb)
+    ev = make_vision_eval_step(model, cfg.num_classes)(state.params, b)
+    np.testing.assert_allclose(float(ev["loss"]), float(jev["loss"]), rtol=1e-5)
+    assert float(ev["acc"]) == pytest.approx(float(jev["acc"]))
 
 
 def test_train_step_with_pixel_battery_and_epoch_loops():

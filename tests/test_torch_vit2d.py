@@ -163,7 +163,7 @@ def test_attention_uncached_rope_types_match_jax(rope_type):
     with pytest.raises(NotImplementedError, match="rope_type"):
         tm(t(x), causal=True, cache=kv, grid_shape=(3, 4))
     with pytest.raises(NotImplementedError, match="rope_type"):
-        Attention(d, h, g, rope_type="2d_ntk")
+        Attention(d, h, g, rope_type="3d_ntk")  # '2d_ntk' is ported since image gen
 
 
 # --- ImageEncoder --------------------------------------------------------------

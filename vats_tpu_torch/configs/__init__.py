@@ -1,3 +1,8 @@
+from vats_tpu_torch.configs.image_gen import (
+    ImageGenArgs,
+    image_gen_tiny_test,
+    image_gen_xsmall,
+)
 from vats_tpu_torch.configs.nlp import (
     NLP_TIERS,
     GenerationArgs,
@@ -26,10 +31,13 @@ from vats_tpu_torch.configs.vit3d import (
 __all__ = [
     "NLP_TIERS",
     "GenerationArgs",
+    "ImageGenArgs",
     "ModelArgs",
     "TrainingArgs",
     "ViT2DArgs",
     "ViT3DArgs",
+    "image_gen_tiny_test",
+    "image_gen_xsmall",
     "nlp_large",
     "nlp_medium",
     "nlp_small",

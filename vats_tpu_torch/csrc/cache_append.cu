@@ -20,6 +20,13 @@
 //           hd] (q heads, then k heads), which K1/K4 take with the
 //           unchanged v; nothing is committed here (K1/K4 commit).
 //
+// Table mode (DENSE, RING and PAGED, `cos_tab` set): the rotation reads fp32
+// cos / sin of pair i from a per-row table [R, hd/2] (R = 1 shared by every
+// row, or B; row stride `tab_row`) in place of cosf / sinf of pos * inv_freq.
+// The table is made on the device by the chain's own code (nn/rope.py
+// rope_2d_ntk_cos_sin for the image-generation stack's '2d_ntk' RoPE), so
+// the rotation below is the chain's op for op and the result bit-equal.
+//
 // Numerics follow the unfused chain (nn/norms.py l2_normalize, nn/rope.py
 // apply_rope_1d), op by op, with no contraction into FMAs:
 //   n  = T(x / sqrt(max(sum x^2, 1e-12)))   (IEEE sqrt and division; n is
@@ -55,7 +62,10 @@ struct Args {
   const void* v;
   long long q_row, k_row, v_row;
   const int* pos;          // int32: a scalar (APPEND, DENSE, RING) or [B] (PAGED)
-  const float* inv_freq;   // [hd/2] fp32 (not read in APPEND)
+  const float* inv_freq;   // [hd/2] fp32 (1-D mode; not read in APPEND)
+  const float* cos_tab;    // table mode: [R, hd/2] fp32, or null
+  const float* sin_tab;
+  long long tab_row;       // elements between two rows of the table (0: shared)
   void* q_out;             // DENSE, RING: [B, Hq, D]; PAGED: [B, Hq+G, hd]
   void* cache_k;           // [L, B, G, D, S] (APPEND, DENSE, RING)
   void* cache_v;
@@ -133,8 +143,15 @@ __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
           n1 = round_to<T>(__fdiv_rn(n1, norm));
           n2 = round_to<T>(__fdiv_rn(n2, norm));
         }
-        const float ang = __fmul_rn(fpos, a.inv_freq[d / 2]);
-        const float c = cosf(ang), s = sinf(ang);
+        float c, s;
+        if (a.cos_tab != nullptr) {
+          c = a.cos_tab[b * a.tab_row + d / 2];
+          s = a.sin_tab[b * a.tab_row + d / 2];
+        } else {
+          const float ang = __fmul_rn(fpos, a.inv_freq[d / 2]);
+          c = cosf(ang);
+          s = sinf(ang);
+        }
         raw[p] = from_f2<T>(__fsub_rn(__fmul_rn(n1, c), __fmul_rn(n2, s)),
                             __fadd_rn(__fmul_rn(n1, s), __fmul_rn(n2, c)));
       }
@@ -200,10 +217,13 @@ void launch_mode(const Args& a, bool norm, cudaStream_t stream) {
 template <typename T>
 int launch(const void* q, const void* k, const void* v, long long q_row,
            long long k_row, long long v_row, const void* pos,
-           const void* inv_freq, void* q_out, void* cache_k, void* cache_v,
+           const void* inv_freq, const void* cos_tab, const void* sin_tab,
+           long long tab_row, void* q_out, void* cache_k, void* cache_v,
            int mode, int norm, int B, int Hq, int G, int hd, int D, int S,
            int layer, void* stream) {
+  if (cos_tab != nullptr && mode == APPEND) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, q_row, k_row, v_row, (const int*)pos, (const float*)inv_freq,
+         (const float*)cos_tab, (const float*)sin_tab, tab_row,
          q_out, cache_k, cache_v, B, Hq, G, hd, D, S, layer};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
@@ -221,13 +241,14 @@ int launch(const void* q, const void* k, const void* v, long long q_row,
 #define VATS_PROLOGUE_ENTRY(name, T)                                            \
   extern "C" int name(const void* q, const void* k, const void* v,             \
                       long long q_row, long long k_row, long long v_row,       \
-                      const void* pos, const void* inv_freq, void* q_out,      \
-                      void* cache_k, void* cache_v, int mode, int norm, int B, \
-                      int Hq, int G, int hd, int D, int S, int layer,          \
-                      void* stream) {                                          \
-    return launch<T>(q, k, v, q_row, k_row, v_row, pos, inv_freq, q_out,       \
-                     cache_k, cache_v, mode, norm, B, Hq, G, hd, D, S, layer,  \
-                     stream);                                                  \
+                      const void* pos, const void* inv_freq,                   \
+                      const void* cos_tab, const void* sin_tab,                \
+                      long long tab_row, void* q_out, void* cache_k,           \
+                      void* cache_v, int mode, int norm, int B, int Hq, int G, \
+                      int hd, int D, int S, int layer, void* stream) {         \
+    return launch<T>(q, k, v, q_row, k_row, v_row, pos, inv_freq, cos_tab,     \
+                     sin_tab, tab_row, q_out, cache_k, cache_v, mode, norm, B, \
+                     Hq, G, hd, D, S, layer, stream);                          \
   }
 
 VATS_PROLOGUE_ENTRY(vats_decode_prologue_bf16, __nv_bfloat16)

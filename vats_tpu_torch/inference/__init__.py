@@ -1,4 +1,10 @@
 from vats_tpu_torch.inference.generate import TokenGenerator, generate, generate_paged
+from vats_tpu_torch.inference.image_generation import (
+    ImageGenerationPipeline,
+    ImageGenerationSampler,
+    generate_image_tokens,
+    generate_image_tokens_paged,
+)
 from vats_tpu_torch.inference.quantize import (
     QTensor,
     QuantizedModel,
@@ -25,6 +31,8 @@ from vats_tpu_torch.inference.serving import (
 )
 
 __all__ = [
+    "ImageGenerationPipeline",
+    "ImageGenerationSampler",
     "PageAllocator",
     "PrefixCache",
     "QTensor",
@@ -40,6 +48,8 @@ __all__ = [
     "dequantize_tensor",
     "exact_top_k",
     "generate",
+    "generate_image_tokens",
+    "generate_image_tokens_paged",
     "generate_paged",
     "quantize_params",
     "quantize_tensor",

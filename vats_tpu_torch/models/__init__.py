@@ -1,3 +1,12 @@
+from vats_tpu_torch.models.image_gen import (
+    VQVAE,
+    ARImageTransformerBlock,
+    AutoregressiveImageTransformer,
+    TransformerTextEncoder,
+    VectorQuantizer,
+    VQVAEDecoder,
+    VQVAEEncoder,
+)
 from vats_tpu_torch.models.text_lm import TextLM, TransformerBlock
 from vats_tpu_torch.models.vit2d import (
     ImageEncoder,
@@ -15,6 +24,8 @@ from vats_tpu_torch.models.vit3d import (
 )
 
 __all__ = [
+    "ARImageTransformerBlock",
+    "AutoregressiveImageTransformer",
     "ImageEncoder",
     "ImageEncoderTransformer",
     "PatchEmbeddings2D",
@@ -24,6 +35,11 @@ __all__ = [
     "SpatioTemporalAttentionBlock",
     "TextLM",
     "TransformerBlock",
+    "TransformerTextEncoder",
+    "VQVAE",
+    "VQVAEDecoder",
+    "VQVAEEncoder",
+    "VectorQuantizer",
     "VideoTransformer",
     "VideoTransformerBlock",
     "resize_and_center_crop",

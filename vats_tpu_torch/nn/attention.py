@@ -24,11 +24,17 @@ Attention runs by one of these paths:
     ``gather_dense_t`` (int8 pages dequantized into bf16) +
     ``cached_decode_attention``.
 
-RoPE: '1d' on every path; '2d_axial' (ViT-2D, over ``grid_shape``) and
-'none' on the uncached path only (the cache paths raise for them, as JAX's
-raise for '2d_axial').  The NTK and 3-D modes and ``context_parallel !=
-'none'`` are not ported yet and raise.  The JAX module's logical-sharding
-constraints have no counterpart on one card.
+RoPE: '1d' and '2d_ntk' (the image-generation stack's raster-order 2-D
+rotation over a grid of width ``grid_shape[-1]``, positions scaled by
+``rope_ntk_scale``) on every path; '2d_axial' (ViT-2D, over
+``grid_shape``) and 'none' on the uncached path only (the cache paths raise
+for them, as JAX's raise for '2d_axial').  Caller-supplied per-token
+``rope_angles`` (cos, sin) take the place of any mode, as in JAX.  A
+'2d_ntk' or ``rope_angles`` decode token runs K3's prologue in table mode:
+the kernel reads the (cos, sin) table that
+``nn/rope.rope_2d_ntk_cos_sin`` makes on the device.  The 3-D NTK mode and
+``context_parallel != 'none'`` are not ported yet and raise.  The JAX
+module's logical-sharding constraints have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -43,7 +49,13 @@ from vats_tpu_torch.nn.dropout import SITE_ATTN, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
-from vats_tpu_torch.nn.rope import apply_rope_1d, apply_rope_2d_axial, rope_inv_freq
+from vats_tpu_torch.nn.rope import (
+    apply_rope_1d,
+    apply_rope_2d_axial,
+    apply_rope_interleaved,
+    rope_2d_ntk_cos_sin,
+    rope_inv_freq,
+)
 from vats_tpu_torch.ops import cache_append
 from vats_tpu_torch.ops.attention_ref import (
     cached_decode_attention,
@@ -55,8 +67,9 @@ from vats_tpu_torch.ops.flash_attention import flash_attention
 #: below this sequence length 'auto' takes the plain attention, as in the
 #: JAX package (the flash kernel has no blocks to skip at short lengths)
 FLASH_MIN_SEQ_LEN = 256
-#: RoPE modes the port runs (the uncached path; the cache paths take '1d')
-ROPE_TYPES = ("1d", "2d_axial", "none")
+#: RoPE modes the port runs on the uncached path, and on the cache paths
+ROPE_TYPES = ("1d", "2d_axial", "2d_ntk", "none")
+CACHE_ROPE_TYPES = ("1d", "2d_ntk")
 
 
 def select_attention_impl(
@@ -99,6 +112,7 @@ class Attention(nn.Module):
         num_layers: int = 1,
         impl: str = "auto",
         rope_type: str = "1d",
+        rope_ntk_scale: Optional[float] = None,
         context_parallel: str = "none",
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
@@ -132,6 +146,7 @@ class Attention(nn.Module):
         self.num_layers = num_layers
         self.impl = impl
         self.rope_type = rope_type
+        self.rope_ntk_scale = rope_ntk_scale
         self.dtype = dtype
         hd, h, g = self.head_dim, num_heads, query_groups
         lin = lambda i, o: nn.Linear(  # noqa: E731
@@ -165,14 +180,27 @@ class Attention(nn.Module):
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
 
-    def _apply_rope(self, x, positions, grid_shape):
-        """RoPE of an uncached forward at ``positions`` (1-D) or over
-        ``grid_shape`` ((gh, gw) for '2d_axial')."""
+    def _cos_sin(self, positions, grid_shape, rope_angles):
+        """The per-token (cos, sin) table of a table-driven rotation:
+        ``rope_angles`` when given, the '2d_ntk' table at ``positions``
+        (raster order over a grid ``grid_shape[-1]`` wide), else None."""
+        if rope_angles is not None:
+            return rope_angles
+        if self.rope_type == "2d_ntk":
+            return rope_2d_ntk_cos_sin(positions, self.head_dim, grid_shape[-1],
+                                       self.rope_theta, self.rope_ntk_scale)
+        return None
+
+    def _apply_rope(self, x, positions, grid_shape, cos_sin=None):
+        """RoPE of a forward at ``positions`` (1-D), by the table
+        ``cos_sin``, or over ``grid_shape`` ((gh, gw) for '2d_axial')."""
+        if cos_sin is not None:
+            return apply_rope_interleaved(x, *cos_sin)
         if self.rope_type == "none":
             return x
         if self.rope_type == "2d_axial":
             gh, gw = grid_shape
-            return apply_rope_2d_axial(x, gh, gw, self.rope_theta)
+            return apply_rope_2d_axial(x, gh, gw, self.rope_theta, self.rope_ntk_scale)
         return apply_rope_1d(x, positions, self.rope_theta)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -213,15 +241,20 @@ class Attention(nn.Module):
         layer_idx: int = 0,
         segment_ids: Optional[torch.Tensor] = None,
         grid_shape: Optional[Tuple[int, ...]] = None,
+        rope_angles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """x: [B, T, d_model] -> ([B, T, d_model], updated cache or None).
 
         padding_mask: bool, True = valid token; [B, T] for uncached forwards.
         With a dense ``cache`` it may instead be [B, max_seq_len], a validity
         mask over the whole buffer kept by the generation loop.
-        grid_shape: the patch grid of a '2d_axial' forward (T == gh * gw)."""
+        grid_shape: the patch grid of a '2d_axial' forward (T == gh * gw);
+        for '2d_ntk' its last entry is the raster grid's width.
+        rope_angles: fp32 (cos, sin) per token ([T, hd/2], or [B, T, hd/2]
+        on the paged path) in place of the rope mode."""
         b, t, _ = x.shape
-        if (cache is not None or paged_cache is not None) and self.rope_type != "1d":
+        if ((cache is not None or paged_cache is not None) and rope_angles is None
+                and self.rope_type not in CACHE_ROPE_TYPES):
             raise NotImplementedError(
                 f"KV-cached attention not supported for rope_type={self.rope_type}")
         q, k, v = self.project_qkv(x)
@@ -240,12 +273,14 @@ class Attention(nn.Module):
 
         if paged_cache is not None:
             out, new_cache = self._paged_attention(
-                q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window
+                q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window,
+                grid_shape, rope_angles,
             )
         elif cache is None:
             positions = torch.arange(t, device=x.device)
-            q = self._apply_rope(q, positions, grid_shape)
-            k = self._apply_rope(k, positions, grid_shape)
+            cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
+            q = self._apply_rope(q, positions, grid_shape, cos_sin)
+            k = self._apply_rope(k, positions, grid_shape, cos_sin)
             impl = select_attention_impl(self.impl, seq_len=t, device=q.device)
             attend = flash_attention if impl == "flash" else dot_product_attention
             out = attend(
@@ -257,15 +292,17 @@ class Attention(nn.Module):
         else:
             start = cache.length
             positions = start + torch.arange(t, device=x.device)
+            cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
             if decode:
                 q = cache.decode_token(
-                    layer_idx, q, k, v, self._rope_table(x.device),
-                    theta=self.rope_theta, qk_norm=self.use_qk_norm,
+                    layer_idx, q, k, v,
+                    self._rope_table(x.device) if cos_sin is None else None,
+                    theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=cos_sin,
                 )
                 new_cache = cache
             else:
-                q = apply_rope_1d(q, positions, self.rope_theta)
-                k = apply_rope_1d(k, positions, self.rope_theta)
+                q = self._apply_rope(q, positions, grid_shape, cos_sin)
+                k = self._apply_rope(k, positions, grid_shape, cos_sin)
                 new_cache = cache.update_layer(layer_idx, k, v)
             if cache.ring:
                 out = self._ring_cached_attention(
@@ -335,16 +372,20 @@ class Attention(nn.Module):
         )
 
     def _paged_attention(
-        self, q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window
+        self, q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window,
+        grid_shape=None, rope_angles=None,
     ):
         """Ragged-batch causal attention over a PagedKVCache; each row's
         positions start at its own ``lengths[b]``."""
         b, t = q.shape[0], q.shape[1]
         lengths = paged_cache.lengths
+        positions = lengths[:, None] + torch.arange(t, device=q.device)[None, :]
+        cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
         if t == 1:
             q1, k1, v1 = cache_append.paged_decode_prologue(
-                q, k, v, lengths, self._rope_table(q.device),
-                theta=self.rope_theta, qk_norm=self.use_qk_norm,
+                q, k, v, lengths,
+                self._rope_table(q.device) if cos_sin is None else None,
+                theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=cos_sin,
             )
             out = paged_decode_attention_commit(
                 q1, paged_cache.kv_pages, layer_idx, paged_cache.page_table,
@@ -354,9 +395,8 @@ class Attention(nn.Module):
             paged_cache.fresh = False
             return out[:, None], paged_cache
 
-        positions = lengths[:, None] + torch.arange(t, device=q.device)[None, :]
-        q = apply_rope_1d(q, positions, self.rope_theta)
-        k = apply_rope_1d(k, positions, self.rope_theta)
+        q = self._apply_rope(q, positions, grid_shape, cos_sin)
+        k = self._apply_rope(k, positions, grid_shape, cos_sin)
 
         if paged_cache.fresh:
             # fresh-cache prefill: every row starts at 0, so attention is
@@ -421,6 +461,7 @@ class AttentionBlock(nn.Module):
         num_layers: int = 1,
         impl: str = "auto",
         rope_type: str = "1d",
+        rope_ntk_scale: Optional[float] = None,
         context_parallel: str = "none",
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
@@ -434,7 +475,7 @@ class AttentionBlock(nn.Module):
             softmax_scale=softmax_scale, use_proj_bias=use_proj_bias,
             use_qkv_proj=use_qkv_proj, use_qk_norm=use_qk_norm,
             num_layers=num_layers, impl=impl, rope_type=rope_type,
-            context_parallel=context_parallel, dtype=dtype, param_dtype=param_dtype,
+            rope_ntk_scale=rope_ntk_scale, context_parallel=context_parallel, dtype=dtype, param_dtype=param_dtype,
             device=device,
         )
 

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``flax.linen.Dropout`` sites: the embedding
 (or patch-embedding) output, each attention block's output, each MoE layer's
-output and each MoE block's output, and the dense FFN's two (the SwiGLU's
-output and the FFN block's).  Flax draws every mask from the step's dropout key folded
+output and each MoE block's output, the dense FFN's two (the SwiGLU's
+output and the FFN block's) and each cross-attention block's output.  Flax draws every mask from the step's dropout key folded
 with the module path; here every mask is drawn from its own
 ``torch.Generator`` seeded from the step seed and the (layer, site) pair.
 
@@ -23,7 +23,7 @@ import torch
 
 #: dropout sites within a layer (the embedding uses layer -1)
 SITE_EMBED, SITE_ATTN, SITE_MOE_LAYER, SITE_MOE_BLOCK = 0, 1, 2, 3
-SITE_SWIGLU, SITE_FFN_BLOCK = 4, 5
+SITE_SWIGLU, SITE_FFN_BLOCK, SITE_CROSS = 4, 5, 6
 
 
 def mask_seed(seed: int, layer: int, site: int) -> int:

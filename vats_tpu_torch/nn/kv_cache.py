@@ -19,7 +19,7 @@ The clamp ``min(length, S-1)`` is semantics and stays.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -118,19 +118,21 @@ class KVCache:
         q: torch.Tensor,
         k: torch.Tensor,
         v: torch.Tensor,
-        inv_freq: torch.Tensor,
+        inv_freq: Optional[torch.Tensor],
         *,
         theta: float,
         qk_norm: bool,
+        cos_sin: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         """One decode token ([B, 1, H, hd] q, k, v from the projection):
         q and k L2-normalised (``qk_norm``) and rotated at position
-        ``length``, k and v written at offset ``length`` for one layer (as
-        :meth:`update_layer`), in one launch on the card.  Returns q
-        zero-padded to the stored head dim.  Does not advance ``length``."""
+        ``length`` (1-D RoPE, or by the table ``cos_sin``), k and v written
+        at offset ``length`` for one layer (as :meth:`update_layer`), in one
+        launch on the card.  Returns q zero-padded to the stored head dim.
+        Does not advance ``length``."""
         return cache_append.dense_decode_prologue(
             q, k, v, self.k, self.v, self.length, layer_idx, inv_freq,
-            theta=theta, qk_norm=qk_norm, ring=self.ring,
+            theta=theta, qk_norm=qk_norm, ring=self.ring, cos_sin=cos_sin,
         )
 
     def slot_positions(self, extra: int = 0) -> torch.Tensor:

@@ -7,9 +7,11 @@ Counterpart of the 1-D part of ``vats_tpu/nn/rope.py``::
     out[..., 1::2] = x1*sin + x2*cos
 
 Positions are absolute (decode passes each row's own positions).  The
-axial 2-D (ViT-2D) and 3-D (ViT-3D) rotations are here too; the NTK-scaled
-raster-order variants of the generation stacks are not ported yet.  Angles
-are fp32 and each result is cast back to x's dtype, as in JAX.
+axial 2-D (ViT-2D) and 3-D (ViT-3D) rotations are here too, and the
+NTK-scaled raster-order 2-D rotation of the image-generation stack, whose
+per-token table (:func:`rope_2d_ntk_cos_sin`) is also what K3's table mode
+reads (``ops/cache_append.py``).  Angles are fp32 and each result is cast
+back to x's dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -100,6 +102,70 @@ def apply_rope_2d_axial(
     out = torch.cat([x1 * cos_r - x2 * sin_r, x1 * sin_r + x2 * cos_r,
                      y1 * cos_c - y2 * sin_c, y1 * sin_c + y2 * cos_c], dim=-1)
     return out.to(x.dtype)
+
+
+# --- NTK-scaled raster 2-D RoPE (image generation) ----------------------------
+
+
+def _ntk_cos_sin(rows: torch.Tensor, cols: torch.Tensor, head_dim: int, theta: float,
+                 ntk_scale_factor: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (cos, sin) of shape rows.shape + [hd/2]: the first hd/4 pairs
+    rotate by the row, the rest by the column, positions scaled by
+    ``ntk_scale_factor``."""
+    if head_dim % 4 != 0:
+        raise ValueError(f"head_dim ({head_dim}) must be divisible by 4")
+    inv_freq = rope_inv_freq(head_dim // 2, theta, device=rows.device)  # [hd/4]
+    rows, cols = rows.float(), cols.float()
+    if ntk_scale_factor is not None:
+        rows = rows * ntk_scale_factor
+        cols = cols * ntk_scale_factor
+    angles = torch.cat([rows[..., None] * inv_freq, cols[..., None] * inv_freq], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_2d_ntk_cos_sin(
+    positions: torch.Tensor,
+    head_dim: int,
+    grid_w: int,
+    theta: float,
+    ntk_scale_factor: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token table of the raster 2-D NTK rotation: integer
+    positions (any shape; row = pos // grid_w, col = pos % grid_w) -> fp32
+    cos / sin of shape positions.shape + [hd/2].  Computed on the
+    positions' device with no host sync, so a captured decode step makes it
+    from the cache's length."""
+    rows = torch.div(positions, grid_w, rounding_mode="floor")
+    cols = torch.remainder(positions, grid_w)
+    return _ntk_cos_sin(rows, cols, head_dim, theta, ntk_scale_factor)
+
+
+def apply_rope_2d_ntk(
+    x: torch.Tensor,
+    grid_h: int,
+    grid_w: int,
+    theta: float,
+    ntk_scale_factor: Optional[float] = None,
+) -> torch.Tensor:
+    """NTK-scaled 2-D RoPE on [B, N, heads, hd] over a row-major
+    grid_h x grid_w grid: interleaved pairs, the first hd/4 rotated by the
+    row and the rest by the column."""
+    rows, cols = grid_positions_2d(grid_h, grid_w, device=x.device)
+    return apply_rope_interleaved(
+        x, *_ntk_cos_sin(rows, cols, x.shape[-1], theta, ntk_scale_factor))
+
+
+def apply_rope_2d_ntk_positions(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    grid_w: int,
+    theta: float,
+    ntk_scale_factor: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`apply_rope_2d_ntk` at raster-order positions ([T] or [B, T]),
+    for cached decode where a token sits at any absolute position."""
+    return apply_rope_interleaved(
+        x, *rope_2d_ntk_cos_sin(positions, x.shape[-1], grid_w, theta, ntk_scale_factor))
 
 
 # --- axial 3-D RoPE (ViT-3D) -------------------------------------------------

@@ -171,6 +171,18 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype=None, shape=None,
         require(t.is_contiguous(), f"{name} must be contiguous")
 
 
+class LaunchCount:
+    """A launch count of its own for one mode of a wrapper's kernel (the
+    wrapper keeps counting every launch as well)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+    def __repr__(self) -> str:
+        return f"LaunchCount({self.__name__!r}, {self.launches})"
+
+
 def count_launch(counted) -> None:
     """One launch of ``counted``'s kernel (``counted`` is the wrapper, or any
     object with a ``launches`` count).  Outside a capture ``counted.launches``

@@ -1,3 +1,4 @@
+from vats_tpu_torch.train.image_gen import ImageGenTrainer, ImageGenTrainingArgs
 from vats_tpu_torch.train.optimizer import (
     cosine_with_warmup_schedule,
     create_optimizer,
@@ -24,6 +25,8 @@ from vats_tpu_torch.train.vision import (
 )
 
 __all__ = [
+    "ImageGenTrainer",
+    "ImageGenTrainingArgs",
     "TrainState",
     "VisionTrainingArgs",
     "compute_loss",

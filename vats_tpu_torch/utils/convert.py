@@ -18,6 +18,16 @@ kernel is HWIO (DHWIO), a torch one OIHW (OIDHW), and flax's auto-names
 (``RMSNorm_0``, ``SwiGLU_0``, ``Attention_0``) map onto the port's
 attributes.  The JAX vision models have no scan mode.
 
+Given an ``ImageGenArgs`` config it carries any tree of the image-generation
+stack, told apart by its keys: the ``TransformerTextEncoder``, the
+``AutoregressiveImageTransformer``, the ``VQVAEEncoder``, the
+``VQVAEDecoder``, the ``VectorQuantizer`` (the codebook), or the whole
+``VQVAE``; a variables dict (``{"params", "batch_stats"}``) brings its
+BatchNorm running statistics into the port's fp32 ``running_mean`` /
+``running_var`` buffers.  A flax ``ConvTranspose`` kernel (kH, kW, in, out)
+becomes the (in, out, kH, kW) weight of ``conv_transpose2d``, flipped in
+both spatial axes.
+
 A gradient tree has the params' structure, so the same function carries JAX
 gradients across for a leaf-by-leaf comparison with the port's ``.grad``,
 and optax's moments and accumulated gradients into the port's optimizer
@@ -31,6 +41,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from vats_tpu_torch.configs.image_gen import ImageGenArgs
 from vats_tpu_torch.configs.nlp import ModelArgs, TrainingArgs
 from vats_tpu_torch.configs.vit2d import ViT2DArgs
 from vats_tpu_torch.configs.vit3d import ViT3DArgs
@@ -67,11 +78,11 @@ class _StateDict(dict):
         super().__init__()
         self.dtype = dtype
 
-    def put(self, name, arr, perm=None):
+    def put(self, name, arr, perm=None, dtype=None):
         a = np.array(arr, dtype=np.float32)  # an owned, writable copy
         if perm is not None:
             a = np.ascontiguousarray(a.transpose(perm))
-        self[name] = torch.from_numpy(a).to(self.dtype)
+        self[name] = torch.from_numpy(a).to(dtype or self.dtype)
 
     def put_dense(self, prefix, tree):
         """flax Dense / DenseGeneral ``kernel`` [in, out] -> Linear [out, in]."""
@@ -130,11 +141,84 @@ def _vit3d_params_from_jax(params_np: Mapping, cfg: ViT3DArgs,
     return dict(sd)
 
 
+def _put_attention(sd: _StateDict, prefix: str, ab: Mapping, fused: bool) -> None:
+    """An AttentionBlock (RMSNorm_0, Attention_0)."""
+    sd.put(f"{prefix}.norm.weight", ab["RMSNorm_0"]["weight"])
+    for name in ("w_qkv", "w_o") if fused else ("w_q", "w_k", "w_v", "w_o"):
+        sd.put_dense(f"{prefix}.attn.{name}", ab["Attention_0"][name])
+
+
+def _put_bn(sd: _StateDict, prefix: str, p: Mapping, stats: Mapping) -> None:
+    """flax BatchNorm: scale / bias parameters, fp32 running statistics."""
+    sd.put(f"{prefix}.weight", p["scale"])
+    sd.put(f"{prefix}.bias", p["bias"])
+    if stats:
+        sd.put(f"{prefix}.running_mean", stats["mean"], dtype=torch.float32)
+        sd.put(f"{prefix}.running_var", stats["var"], dtype=torch.float32)
+
+
+def _image_gen_into(sd: _StateDict, prefix: str, p: Mapping, stats: Mapping,
+                    cfg: ImageGenArgs) -> None:
+    """One tree of the image-generation stack into ``sd`` under ``prefix``."""
+    fused = cfg.use_qkv_proj
+    if "token_embed" in p:  # TransformerTextEncoder
+        sd.put(f"{prefix}token_embed.weight", p["token_embed"]["embedding"])
+        for i in range(cfg.text_num_layers):
+            _put_attention(sd, f"{prefix}attn_blocks.{i}", p[f"attn_{i}"], fused)
+            sd.put_ffn(f"{prefix}ffn_blocks.{i}", p[f"ffn_{i}"])
+        sd.put(f"{prefix}norm.weight", p["RMSNorm_0"]["weight"])
+    elif "embedding_proj" in p:  # AutoregressiveImageTransformer
+        sd.put(f"{prefix}embedding_proj.weight", p["embedding_proj"]["embedding"])
+        for i in range(cfg.num_layers):
+            lp, pre = p[f"layer_{i}"], f"{prefix}layers.{i}"
+            _put_attention(sd, f"{pre}.causal_attention_block",
+                           lp["causal_attention_block"], fused)
+            cb = lp["cross_attention_block"]
+            sd.put(f"{pre}.cross_attention_block.norm.weight", cb["RMSNorm_0"]["weight"])
+            for name in ("w_q", "w_k", "w_v", "w_o"):
+                sd.put_dense(f"{pre}.cross_attention_block.attn.{name}",
+                             cb["CrossAttention_0"][name])
+            sd.put_ffn(f"{pre}.ffn_block", lp["ffn_block"])
+        sd.put(f"{prefix}norm.weight", p["RMSNorm_0"]["weight"])
+        sd.put_dense(f"{prefix}to_logits", p["to_logits"])
+    elif "conv1" in p:  # VQVAEEncoder: HWIO -> OIHW
+        for i in range(3):
+            c = p[f"conv{i + 1}"]
+            sd.put(f"{prefix}convs.{i}.weight", c["kernel"], perm=(3, 2, 0, 1))
+            sd.put(f"{prefix}convs.{i}.bias", c["bias"])
+            _put_bn(sd, f"{prefix}bns.{i}", p[f"bn{i + 1}"], stats.get(f"bn{i + 1}"))
+    elif "deconv1" in p:  # VQVAEDecoder: (kH, kW, in, out) flipped -> (in, out, kH, kW)
+        for i in range(3):
+            c = p[f"deconv{i + 1}"]
+            sd.put(f"{prefix}deconvs.{i}.weight", np.asarray(c["kernel"])[::-1, ::-1],
+                   perm=(2, 3, 0, 1))
+            sd.put(f"{prefix}deconvs.{i}.bias", c["bias"])
+            if i < 2:
+                _put_bn(sd, f"{prefix}bns.{i}", p[f"bn{i + 1}"], stats.get(f"bn{i + 1}"))
+    elif set(p) == {"embedding"}:  # VectorQuantizer
+        sd.put(f"{prefix}embedding", p["embedding"])
+    else:  # VQVAE
+        for name in ("encoder", "quantizer", "model", "decoder"):
+            _image_gen_into(sd, f"{prefix}{name}.", p[name], stats.get(name, {}), cfg)
+
+
+def _image_gen_params_from_jax(tree: Mapping, cfg: ImageGenArgs,
+                               dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """A JAX image-generation tree (params, or variables with
+    batch_stats; numpy) -> the port module's state_dict."""
+    sd = _StateDict(dtype or resolve_dtype(cfg.param_dtype))
+    _image_gen_into(sd, "", tree.get("params", tree), tree.get("batch_stats", {}), cfg)
+    return dict(sd)
+
+
 def params_from_jax(params_np: Mapping, cfg,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """JAX TextLM params (numpy) -> port TextLM state_dict, in ``dtype``
     (by default cfg.param_dtype); a ViT2DArgs or ViT3DArgs config carries
-    the vision model of that config instead."""
+    the vision model of that config instead, an ImageGenArgs config any
+    tree of the image-generation stack."""
+    if isinstance(cfg, ImageGenArgs):
+        return _image_gen_params_from_jax(params_np, cfg, dtype)
     if isinstance(cfg, ViT2DArgs):
         return _vit2d_params_from_jax(params_np, cfg, dtype)
     if isinstance(cfg, ViT3DArgs):
