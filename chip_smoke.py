@@ -33,7 +33,14 @@ Phases:
            padded to 32, causal).  K3's table mode (image generation's
            '2d_ntk' RoPE from a (cos, sin) table) in the dense, ring and
            paged modes against its plain version given the table, timed
-           beside the chain; K1 at head dim 24 with 8 heads a group.
+           beside the chain; K1 at head dim 24 with 8 heads a group.  The
+           video and multimodal shapes: K3's append mode at video_gen_large's
+           temporal cache (256 rows, 4 groups of head dim 144, 15 slots; the
+           ``dense_cache_append`` row), K3's table mode dense and paged at
+           8 / 4 heads of 96 with a table of text, image and video rows, K1
+           at head dim 96 with 2 heads a group over ragged lengths up to 2367,
+           K2 at T=256, head dim 96 -> 128, causal with a ragged key mask,
+           timed beside SDPA.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -53,7 +60,7 @@ Phases:
            bound, and reported.
   serve    the continuous-batching ``ServingEngine`` at full width
            (nlp_medium, 8 experts, top-2, bf16; depth cut to SERVE_LAYERS =
-           10 of 20 to keep the run under half its limit): 64 requests (32 sharing a
+           5 of 20 to keep the run under half its limit): 64 requests (32 sharing a
            256-token prefix) through 32 rows, a 129-page pool (requests queue
            and rows are preempted), prefix caching, 4-step decode blocks,
            greedy; three configurations: bf16 KV (K1), int8 KV (K4), int8
@@ -108,8 +115,9 @@ Phases:
            and one train step (loss, grad norm, params) on the card against
            the CPU; ViT-3D xsmall at its full config, B=1, the last 6 frames
            padded: features card against CPU.
-  image_gen  text->image generation at image_gen_xsmall's full width and
-           depth (d768, 12 layers, 32/4 heads of 24): ``generate_image_tokens``
+  image_gen  text->image generation at image_gen_xsmall's full width (d768,
+           32/4 heads of 24; the generation runs at IMG_GEN_LAYERS = 6 of 12
+           layers, the trainer and the script at 12): ``generate_image_tokens``
            and ``generate_image_tokens_paged`` at tools/bench_gen.py's shape
            (B=4, 16x16, temperature 0.9, top-k 64), graph and eager in turns
            (equal tokens), each profiled; the ``ImageGenerationPipeline`` on
@@ -124,6 +132,38 @@ Phases:
            32 teacher-forced cached decode steps' logits; one fp32 trainer
            step at 64 px: loss, quantizer indices, per-leaf gradients and
            change, BatchNorm statistics.
+  video_gen  text->video generation at video_gen_large's full width and depth
+           (d1728, 20 layers, 12/4 heads of 144, 16x16 latent grid): the
+           inner raster step of ``generate_video_tokens`` (a read-mode
+           forward of the whole frame) replayed from a CUDA graph over 2
+           latent frames, in turns with the eager loop over the first
+           (graph, eager, graph; equal tokens), B=1, temperature 0.9, top-k
+           64; the same at the JAX bench's shape (video_gen_xsmall, B=2, 5
+           frames of 8x8); the ``VideoGenerationPipeline`` over 2 latent
+           frames; ``VideoTokenTrainer`` steps at B=1 over 15 latent frames
+           (remat, dropout 0.2) and ``VQVAE3DTrainer`` steps on a 30-frame
+           128x128 clip.  Exact gates: K3's append mode once a layer a
+           cached forward (read steps too), nothing else; tokens/s, kernels
+           and device ms a step, idle share, peak memory.
+  video_gen_parity  video_gen_large's width at 2 layers on a 4x4 grid, card
+           against CPU: greedy tokens over 2 frames (a near tie excused), the
+           logits of three cached forwards (append, read, append), and one
+           fp32 ``VideoTokenTrainer`` step: loss, per-leaf gradients and
+           change.
+  multimodal  the fused text+image+video stream at multimodal_small's full
+           width and depth (d768, 12 layers, 8/4 heads of 96):
+           ``generate_multimodal`` at the JAX bench's shape (B=4, t_text 64,
+           2304 tokens a row, 2303 decode forwards), graph and eager in
+           turns (equal codes); ragged prompts at t_text 256 (the prefill
+           through K2); 64 decode steps through the dense and the paged
+           cache fed the same tokens.  Exact gates: K1 and K3's paged table
+           mode 12 a decode forward, K2 12 a prefill at t_text 256 and none
+           at 64, K3's dense table mode 12 a dense decode forward; tokens/s,
+           kernels and device ms a step, idle share, peak memory.
+  multimodal_parity  multimodal_small's width at 2 layers and 2 video
+           frames, ragged prompts at t_text 256, card against CPU: greedy
+           codes (a near tie excused) and the logits of the prefill and of
+           32 forced decode steps.
 
 ``run_census`` (kernels per decode forward and the chain K3's prologue
 replaced) needs only what every slice has, so it also measures a checkout
@@ -151,7 +191,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
           "train_parity", "scripts", "vision", "vision_parity", "image_gen",
-          "image_gen_parity")
+          "image_gen_parity", "video_gen", "video_gen_parity", "multimodal",
+          "multimodal_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -881,14 +922,15 @@ def check_k3_prologue(gen):
 IMG_DEC_B, IMG_DEC_S, IMG_GRID_W = 4, 256, 16
 
 
-def _table_cost(b, hq, g, hd, paged):
+def _table_cost(b, hq, g, hd, paged, table_rows=None):
     """(bytes, fp32 operations) of one table-mode call: the q, k, v rows and
-    the (cos, sin) rows (one shared row dense, one a row paged) read once;
+    the (cos, sin) rows (``table_rows``; by default one shared row dense,
+    one a row paged) read once;
     q and the k, v columns (dense) or q and k (paged) written once.  Per
     q/k element a square, an add and a division (the norm); per pair 4
     products and 2 sums."""
     es = 2  # bf16
-    rows = b if paged else 1
+    rows = table_rows or (b if paged else 1)
     read = b * (hq + 2 * g) * hd * es + 2 * rows * hd // 2 * 4 + (4 * b if paged else 4)
     write = b * (hq + g) * hd * es if paged else b * (hq + 2 * g) * hd * es
     n = b * (hq + g) * hd
@@ -2349,10 +2391,11 @@ def drive(engine, stream):
     return outs, done_s, time.perf_counter() - t0
 
 
-# The serve phase's depth: nlp_medium's 20 layers cut to 10
-# so the whole script stays under half its time limit; its eager drives
-# are host-bound, and their time goes with the launches, with the depth.
-SERVE_LAYERS = 10
+# The serve phase's depth: nlp_medium's 20 layers cut to 5 (10 until the
+# video and multimodal phases came) so the whole script stays under half
+# its time limit; its eager drives are host-bound, and their time goes with
+# the launches, with the depth.
+SERVE_LAYERS = 5
 
 
 def run_serve(kernel_fns):
@@ -3218,6 +3261,11 @@ def run_vision_parity():
 # heads of 24), dropout 0, B=4, 16 text tokens, a 16 x 16 grid, sampled at
 # temperature 0.9 and top-k 64.
 IMG_GEN_B, IMG_GEN_GRID, IMG_TEXT_T = 4, 16, 16
+# the generation runs' depth: image_gen_xsmall's 12 layers cut to 6 when the
+# video and multimodal phases came, to keep the script under half its
+# limit (the eager loops are host-bound: their time goes with the depth);
+# the trainer and the script keep all 12
+IMG_GEN_LAYERS = 6
 IMG_PIPE_GRID = 64  # the config's own 256 px target: a 64 x 64 latent grid
 IMG_TRAIN_B, IMG_TRAIN_STEPS = 2, 3
 
@@ -3229,7 +3277,8 @@ def _image_gate(label, fns, want):
 
 
 def run_image_gen(fns):
-    """Image generation at image_gen_xsmall's full width and depth:
+    """Image generation at image_gen_xsmall's full width (the generation
+    runs at IMG_GEN_LAYERS = 6 of its 12 layers, the trainer at all 12):
     ``generate_image_tokens`` (dense cache) and ``generate_image_tokens_paged``
     at the JAX bench's shape, each with its decode replayed from a CUDA graph
     and eagerly, in turns (graph, eager, graph; equal tokens), each profiled
@@ -3253,7 +3302,7 @@ def run_image_gen(fns):
         fn.__name__ for fn in fns)
     none = {name: 0 for name in _counts(fns)}
     gen = torch.Generator(device="cuda").manual_seed(31)
-    cfg = image_gen_xsmall(dropout=0.0, use_checkpointing=False)
+    cfg = image_gen_xsmall(dropout=0.0, use_checkpointing=False, num_layers=IMG_GEN_LAYERS)
     L = cfg.num_layers
     model = AutoregressiveImageTransformer(cfg, device="cuda", seed=0).eval()
     n_params = sum(p.numel() for p in model.parameters())
@@ -3358,6 +3407,7 @@ def run_image_gen(fns):
     # training: image_gen_xsmall as configured (dropout 0.2, remat), 256 px,
     # B=2, the loss VQ + recon + token CE; an evaluation
     tcfg = image_gen_xsmall()
+    L = tcfg.num_layers
     trainer = ImageGenTrainer(tcfg, ImageGenTrainingArgs(), num_training_steps=100,
                               device="cuda")
     px = tcfg.target_size
@@ -3599,6 +3649,889 @@ def run_image_gen_parity():
     torch.cuda.empty_cache()
 
 
+# --- video generation and the fused multimodal stream: kernel checks ----------
+
+# video_gen_large's temporal cache (B=1 over a 16 x 16 latent grid: B*HW =
+# 256 rows; 4 KV groups of head dim 144, which K3 covers with three pairs a
+# lane; 30 frames / pt 2 = 15 slots; 20 layers).
+VID_L, VID_ROWS, VID_G, VID_HD, VID_S = 20, 256, 4, 144, 15
+# multimodal_small's attention (8 query heads over 4 groups of head dim 96,
+# 12 layers) at the JAX bench's B=4, t_text=64: 64 + 256 + 2048 = 2368 slots.
+MM_HQ, MM_G, MM_HD, MM_L, MM_B, MM_T_TEXT = 8, 4, 96, 12, 4, 64
+MM_SLOTS = MM_T_TEXT + 256 + 2048
+MM_RAGGED = (256, 200, 131, 17)  # prompt lengths of the K2 prefill (t_text 256)
+
+
+def check_k3_video(gen):
+    """K3's append mode at both video caches the video phase writes:
+    video_gen_large's (head dim 144) and video_gen_xsmall's at the JAX
+    bench's B=2 (head dim 18, stored as 24), each bit-equal to
+    ``append_token_ref`` at the first, a middle and the last slot and
+    clamped; timed at the large shape beside the plain version, two
+    ``scatter_`` and the bound."""
+    import torch
+
+    from vats_tpu_torch.configs import video_gen_xsmall
+    from vats_tpu_torch.ops.cache_append import append_token_inplace, append_token_ref
+
+    xs = video_gen_xsmall()
+    xs_shape = (xs.num_layers, VID_BENCH_B * xs.latent_height * xs.latent_width,
+                xs.query_groups, -(-xs.head_dim // 8) * 8, xs.max_frames // xs.patch_size[0])
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    n0 = append_token_inplace.launches
+    for shape in (xs_shape, (VID_L, VID_ROWS, VID_G, VID_HD, VID_S)):
+        n_l, rows, g, d, n_s = shape
+        layer = min(5, n_l - 1)
+        k, v = mk(*shape), mk(*shape)
+        kn, vn = mk(rows, g, d), mk(rows, g, d)
+        for pos in (0, n_s // 2, n_s - 1, n_s + 3):
+            length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            ka, va, kb, vb = k.clone(), v.clone(), k.clone(), v.clone()
+            append_token_inplace(ka, va, layer, kn, vn, length)
+            append_token_ref(kb, vb, layer, kn, vn, length)
+            torch.cuda.synchronize()
+            require(torch.equal(ka, kb) and torch.equal(va, vb),
+                    f"K3 append at the video cache {shape} differs from the plain version "
+                    f"at {pos}")
+    require(append_token_inplace.launches == n0 + 8, "K3 append (video shapes) did not launch")
+    length = torch.tensor(7, dtype=torch.int32, device="cuda")
+    ms, call_ms = timed(lambda: append_token_inplace(ka, va, 5, kn, vn, length))
+    plain_ms, _ = timed(lambda: append_token_ref(kb, vb, 5, kn, vn, length))
+    b_ms, by = bound(2 * kn.numel() * 2 * 2 + 4, 0)  # new K/V read, the same written
+    idx = torch.full((VID_ROWS, VID_G, VID_HD, 1), 7, dtype=torch.int64, device="cuda")
+    kc, vc = k.clone(), v.clone()
+
+    def scatter():
+        kc[5].scatter_(-1, idx, kn[..., None])
+        vc[5].scatter_(-1, idx, vn[..., None])
+
+    library_ms, _ = timed(scatter)
+    log(f"K3 append at the video caches {list(xs_shape)} (xsmall, B=2) and [{VID_L},"
+        f"{VID_ROWS},{VID_G},{VID_HD},{VID_S}] (large): bit-equal at the first, middle and last "
+        f"slot and clamped; at the large shape kernel_ms={ms:.5f} plain_ms="
+        f"{plain_ms:.4f} library_ms={library_ms:.4f} (two scatter_) bound_ms={b_ms:.6f} "
+        f"({by}); per call with host overhead {call_ms:.4f}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=library_ms)
+
+
+def _mm_table(cfg, b, dev="cuda"):
+    """A (cos, sin) table [b, 1, hd/2] whose rows are text, image, video,
+    video tokens (``multimodal_rope_angles`` on the card)."""
+    import torch
+
+    from vats_tpu_torch.models.multimodal import multimodal_rope_angles
+
+    mod = torch.tensor([0, 1, 2, 2] * (b // 4 + 1), dtype=torch.int32, device=dev)[:b, None]
+    loc = torch.tensor([63, 200, 1500, 2047] * (b // 4 + 1), dtype=torch.int32,
+                       device=dev)[:b, None]
+    return multimodal_rope_angles(cfg, mod, loc)
+
+
+def check_k3_multimodal_table(gen):
+    """K3's table mode at multimodal_small's heads (8 / 4 of 96), dense and
+    paged, bf16 and fp32, with and without the QK-norm, B=4, each row its
+    own modality's rotation from ``multimodal_rope_angles``: within
+    PROLOGUE_ULPS of the plain chain given the same table, v and the cache
+    outside the written column exact; timed at B=4 in bf16 beside the chain
+    and the bound (the table one row a batch row in both modes)."""
+    import torch
+
+    from vats_tpu_torch.configs import multimodal_small
+    from vats_tpu_torch.ops import cache_append as ca
+
+    cfg = multimodal_small()
+    hq, g, hd, b, S = MM_HQ, MM_G, MM_HD, MM_B, MM_SLOTS
+    cs = _mm_table(cfg, b)
+    worst = 0.0
+    n0 = (ca.dense_decode_prologue.table.launches, ca.paged_decode_prologue.table.launches)
+    calls = [0, 0]
+
+    def inputs(dtype):
+        row = torch.randn((b, 1, (hq + 2 * g) * hd), generator=gen, device="cuda").to(dtype)
+        q, k, v = torch.split(row, [hq * hd, g * hd, g * hd], dim=-1)
+        return q.reshape(b, 1, hq, hd), k.reshape(b, 1, g, hd), v.reshape(b, 1, g, hd)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        cache = torch.randn((2, 2, b, g, hd, S), generator=gen, device="cuda").to(dtype)
+        for mode, qk_norm, pos in (("dense", True, 64), ("dense", False, S + 3),
+                                   ("paged", True, 0), ("paged", False, 2367)):
+            q, k, v = inputs(dtype)
+            kw = dict(theta=10000.0, qk_norm=qk_norm, cos_sin=cs)
+            tol = PROLOGUE_ULPS[(str(dtype).split(".")[1], qk_norm)]
+            if mode == "paged":
+                lens = torch.randint(0, S, (b,), generator=gen, device="cuda")
+                lens[0] = pos
+                lens = lens.to(torch.int32)
+                got = ca.paged_decode_prologue(q, k, v, lens, None, **kw)
+                want = ca.paged_decode_prologue_ref(q, k, v, lens, **kw)
+                calls[1] += 1
+                pairs = list(zip(got[:2], want[:2]))
+                require(torch.equal(got[2], want[2]), "K3 multimodal table paged: v differs")
+            else:
+                ka, va, kb, vb = (cache[i % 2].clone() for i in range(4))
+                length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                got = ca.dense_decode_prologue(q, k, v, ka, va, length, 1, None, ring=False,
+                                               **kw)
+                want = ca.dense_decode_prologue_ref(q, k, v, kb, vb, length, 1, ring=False,
+                                                    **kw)
+                calls[0] += 1
+                col = min(pos, S - 1)
+                rest = torch.ones(S, dtype=torch.bool, device="cuda")
+                rest[col] = False
+                require(torch.equal(va, vb) and torch.equal(ka[..., rest], kb[..., rest])
+                        and torch.equal(ka[0], kb[0]),
+                        "K3 multimodal table dense: the cache differs outside the k column")
+                pairs = [(got, want), (ka[1, ..., col], kb[1, ..., col])]
+            torch.cuda.synchronize()
+            for x, y in pairs:
+                ulps = float(rotated_ulps(x, y).max())
+                require(ulps <= tol and bool(torch.isfinite(x.float()).all()),
+                        f"K3 multimodal table {mode} {dtype}: {ulps:.2f} ulps beyond {tol}")
+                worst = max(worst, float((x.float() - y.float()).abs().max()))
+    require((ca.dense_decode_prologue.table.launches - n0[0],
+             ca.paged_decode_prologue.table.launches - n0[1]) == tuple(calls),
+            "K3 multimodal table: a wrapper did not launch its kernel in table mode")
+    q, k, v = inputs(torch.bfloat16)
+    kc = torch.zeros((MM_L, b, g, hd, S), dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    length = torch.tensor(1000, dtype=torch.int32, device="cuda")
+    lens = torch.randint(MM_T_TEXT, S, (b,), generator=gen, device="cuda").to(torch.int32)
+    kw = dict(theta=1e4, qk_norm=True, cos_sin=cs)
+    for key, kern, plain in (
+            ("dense", lambda: ca.dense_decode_prologue(q, k, v, kc, vc, length, 5, None,
+                                                       ring=False, **kw),
+             lambda: ca.dense_decode_prologue_ref(q, k, v, kc, vc, length, 5, ring=False, **kw)),
+            ("paged", lambda: ca.paged_decode_prologue(q, k, v, lens, None, **kw),
+             lambda: ca.paged_decode_prologue_ref(q, k, v, lens, **kw))):
+        ms, call_ms = timed(kern)
+        plain_ms, _ = timed(plain)
+        nbytes, ops = _table_cost(b, hq, g, hd, key == "paged", table_rows=b)
+        b_ms, by = bound(nbytes, ops, PEAK_FP32_FLOPS)
+        log(f"K3 table {key} at the multimodal decode (Hq 8, G 4, hd 96, B={b}, rows text/"
+            f"image/video/video) bf16: kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} (the chain "
+            f"given the table) bound_ms={b_ms:.7f} ({by}: {nbytes} bytes, {ops} fp32 ops); "
+            f"per call with host overhead {call_ms:.4f}")
+    log(f"K3 multimodal table (bf16, fp32; dense, paged; QK-norm on and off): within "
+        f"PROLOGUE_ULPS of the chain given the table, largest |err| {worst:.3e}; v and the "
+        f"rest of the cache exact")
+
+
+def check_k1_multimodal(gen):
+    """K1 at the multimodal decode: head dim 96, 2 query heads a group, 4
+    groups, bf16 pool of 128-token pages, B=4 at ragged lengths up to 2367
+    (t_text 64 + 2303 decode steps; 19 pages a row): output within the bf16
+    tolerance, the committed pool bit-equal; timed beside the plain version
+    and the bound.  The kernels line keeps the LM's row."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import (
+        PagedKVCache,
+        paged_decode_attention_commit,
+        paged_decode_attention_ref,
+    )
+
+    g, n, hd, ps, b = MM_G, MM_HQ // MM_G, MM_HD, 128, MM_B
+    pps = -(-MM_SLOTS // ps)
+    pool = torch.randn((MM_L, b * pps, 2, g, ps, hd), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32)
+    table = table.reshape(b, pps)
+    lens = torch.tensor((2367, 2303, 1200, 65), dtype=torch.int32, device="cuda")
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, kc, vc = mk(b, g * n, hd), mk(b, g, hd), mk(b, g, hd)
+    kw = dict(scale=hd**-0.5, k_cur=kc, v_cur=vc)
+    pk, pp = pool.clone(), pool.clone()
+    del pool
+    n0 = paged_decode_attention_commit.launches
+    out = paged_decode_attention_commit(q, pk, 3, table, lens, **kw)
+    ref = paged_decode_attention_ref(q, pp[3], table, lens, **kw)
+    PagedKVCache(pp, table, lens).append_token(3, kc, vc)
+    torch.cuda.synchronize()
+    require(paged_decode_attention_commit.launches == n0 + 1, "K1 (hd 96) did not launch")
+    err = expect_close("K1 hd 96 N=2", out, ref, BF16_ATOL, BF16_RTOL)
+    require(torch.equal(pk, pp), "K1 hd 96 N=2: committed pool differs")
+    kern = lambda: paged_decode_attention_commit(q, pk, 3, table, lens, **kw)  # noqa: E731
+    ms, call_ms = timed(kern)
+    plain_ms, _ = timed(lambda: paged_decode_attention_ref(q, pp[3], table, lens, **kw))
+    alone = kernel_alone_ms(kern, "paged_decode")
+    tokens = int(lens.sum())
+    nbytes = (2 * b * g * n * hd * 2 + 2 * b * g * hd * 2 + tokens * 2 * g * hd * 2
+              + b * 2 * g * hd * 2 + b * pps * 4 + b * 4)
+    b_ms, by = bound(nbytes, 4 * g * n * hd * (tokens + b))
+    log(f"K1 paged decode+commit at the multimodal decode B={b} lengths 2367/2303/1200/65 "
+        f"(Hq 8, G 4, hd 96, N=2): max_abs_err={err:.3e} pool bit-equal; kernel_ms={ms:.4f} "
+        f"(kernel alone {_fmt(alone)}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); "
+        f"per call with host overhead {call_ms:.4f}")
+    del pk, pp
+    torch.cuda.empty_cache()
+
+
+def check_k2_multimodal(gen):
+    """K2 at the multimodal prefill: B=4, T=S=256 (t_text 256), 8 / 4 heads
+    of 96 padded to 128 in the wrapper, causal, the ragged key validity of
+    prompts 256/200/131/17: within the bf16 tolerance plus the p flip
+    allowance of the plain version; timed in turns with SDPA (causal, head
+    dim 96, no key mask), with the bound on the attended pairs of this
+    input.  The kernels line keeps the LM's row."""
+    import torch
+
+    from vats_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    b, t, hq, g, hd = MM_B, 256, MM_HQ, MM_G, MM_HD
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, k, v = mk(b, t, hq, hd), mk(b, t, g, hd), mk(b, t, g, hd)
+    lens = torch.tensor(MM_RAGGED, device="cuda")
+    valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+    kw = dict(scale=hd**-0.5, causal=True, kv_valid=valid)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(flash_attention.launches == n0 + 1, "K2 (hd 96) did not launch")
+    err = expect_close("K2 hd 96 ragged", got, want, BF16_ATOL, BF16_RTOL,
+                       p_flip_allowance(q, k, v, **kw))
+    # attended pairs: query i over keys j <= i with j < the row's length
+    pairs = int(sum(torch.clamp(torch.arange(1, t + 1), max=int(n_)).sum() for n_ in MM_RAGGED))
+    flops = 4 * hq * hd * pairs
+    b_ms, by = bound((q.numel() * 2 + k.numel() + v.numel()) * 2, flops)
+    plain_ms, _ = timed(lambda: flash_attention_ref(q, k, v, **kw))
+    ms, lib_ms, alone = flash_vs_sdpa("K2 multimodal prefill B=4 T=256 hd 96->128",
+                                      lambda: flash_attention(q, k, v, **kw), q, k, v,
+                                      hd**-0.5, b_ms, flops)
+    log(f"K2 at the multimodal prefill (B={b}, T=S={t}, Hq 8, G 4, hd 96 -> 128, causal, "
+        f"prompts {MM_RAGGED}): max_abs_err={err:.3e}; kernel_ms={ms:.4f} (forward kernel "
+        f"alone {_fmt(alone)}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA causal, "
+        f"hd 96) bound_ms={b_ms:.5f} ({by}, {pairs} attended pairs)")
+
+
+# --- phase: video_gen ---------------------------------------------------------
+
+VID_TEXT_T, VID_FRAMES = 8, 2  # tools/bench_gen.py's 8 text tokens; 2 latent frames
+VID_BENCH_B, VID_BENCH_FRAMES = 2, 5  # tools/bench_gen.py:84-116 (video_gen_xsmall)
+VID_TRAIN_STEPS, VQ_TRAIN_STEPS = 3, 2
+
+
+def _video_gate(label, fns, want):
+    got = _counts(fns)
+    _gate(label, got, want, phase="video_gen")
+    return got
+
+
+def video_step_census(model, label, b, n=4, top=8):
+    """Kernels and device ms of one inner decode step of
+    ``generate_video_tokens`` (a read-mode forward of the whole frame and
+    the sampling of one token), from ``n`` eager steps under torch.profiler;
+    returns (kernels a step, device ms a step) or (None, None)."""
+    import torch
+
+    from vats_tpu_torch.inference import VideoGenerationSampler
+
+    cfg = model.cfg
+    hw = cfg.latent_height * cfg.latent_width
+    cache = model.init_cache(b)
+    text = torch.zeros((b, VID_TEXT_T, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    inp = torch.zeros((b, 1, cfg.latent_height, cfg.latent_width), dtype=torch.int32,
+                      device="cuda")
+    valid = torch.ones((b, hw), dtype=torch.bool, device="cuda")
+    sampler = VideoGenerationSampler(temperature=0.9, top_k=64)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def steps():
+        with torch.no_grad():
+            for _ in range(n):
+                lg, _ = model(inp, text, None, cache=cache, spatial_valid=valid,
+                              cache_mode="read", return_logits=True)
+                sampler(g, lg[:, 0, 0])
+
+    steps()
+    torch.cuda.synchronize()
+    per, _ = profiled(steps)
+    if not per:
+        log(f"census {label}: not measured (the profiler recorded no device time)")
+        return None, None
+    count = sum(c for _, c in per.values()) / n
+    busy = sum(us for us, _ in per.values()) / n / 1e3
+    log(f"census {label} B={b}: {count:.1f} kernels a decode step ({count / cfg.num_layers:.1f} "
+        f"a layer), {busy:.3f} device ms a step; heaviest:")
+    for name, (us, c) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {us / n / 1e3:9.3f} ms {c / n:8.1f}x  {name[:100]}")
+    return count, busy
+
+
+def run_video_gen(fns):
+    """Text->video generation at video_gen_large's full width and depth:
+    ``generate_video_tokens`` at B=1 over 2 latent frames (512 raster steps,
+    each a 256-token full-frame forward) with the inner step replayed from a
+    CUDA graph, in turns with the eager loop over the first frame (graph,
+    eager, graph; equal tokens); the JAX bench's shape (video_gen_xsmall,
+    B=2, 5 frames of 8 x 8) likewise; the ``VideoGenerationPipeline`` over 2
+    latent frames; three ``VideoTokenTrainer`` steps at B=1 over 15 latent
+    frames (remat, dropout 0.2) after a warm-up, and ``VQVAE3DTrainer``
+    steps on a 30-frame 128 x 128 clip.  Exact gates: K3's append mode once
+    a layer a cached forward (read steps and frame appends alike), nothing
+    else.  Tokens/s, device ms and kernels a step (``video_step_census``),
+    idle share (1 - census busy x steps / wall), peak memory."""
+    import torch
+
+    from vats_tpu_torch.configs import video_gen_large, video_gen_xsmall
+    from vats_tpu_torch.inference import VideoGenerationPipeline, VideoGenerationSampler
+    from vats_tpu_torch.inference.video_generation import _generate_video_tokens
+    from vats_tpu_torch.models import AutoregressiveVideoTransformer
+    from vats_tpu_torch.ops.cache_append import append_token_inplace
+    from vats_tpu_torch.train import VideoGenTrainingArgs, VideoTokenTrainer, VQVAE3DTrainer
+
+    none = {name: 0 for name in _counts(fns)}
+    append = append_token_inplace.__name__
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    sampler = VideoGenerationSampler(temperature=0.9, top_k=64)
+    result, main_counts = {}, {}
+
+    def generation(tag, cfg, b, frames, eager_frames):
+        model = AutoregressiveVideoTransformer(cfg, device="cuda", seed=0).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        L, hw = cfg.num_layers, cfg.latent_height * cfg.latent_width
+        text = torch.randn((b, VID_TEXT_T, cfg.d_model), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        log(f"video_gen: {tag} d{cfg.d_model}/{L}L {cfg.num_heads}H/{cfg.query_groups}G hd "
+            f"{cfg.head_dim}, {n_params / 1e6:.1f}M params (fp32, bf16 compute), B={b}, "
+            f"{cfg.latent_height}x{cfg.latent_width} grid, {frames} latent frames")
+
+        def drive(use_graph):
+            n_fr = frames if use_graph else eager_frames
+            want = dict(none)
+            want[append] = L * n_fr * (hw + 1)  # hw read steps and one append a frame
+            _zero(fns)
+            t0 = time.perf_counter()
+            tokens, graph = _generate_video_tokens(
+                model, text, None, torch.Generator(device="cuda").manual_seed(5),
+                num_frames=n_fr, sampler=sampler, start_token_id=0, use_graph=use_graph)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _video_gate(f"{tag} {'graph' if use_graph else 'eager'}", fns, want)
+            return (dict(wall_s=wall, tokens_per_s=b * n_fr * hw / wall, steps=n_fr * hw,
+                         capture_s=graph.capture_s if graph else 0.0), (tokens, got))
+
+        runs = in_turns(f"video_gen: {tag}", [("graph", lambda: drive(True)),
+                                              ("eager", lambda: drive(False))],
+                        order=(0, 1, 0))
+        toks = [res[0] for name in runs for _, res in runs[name]]
+        require(all(torch.equal(x[:, :eager_frames], toks[0][:, :eager_frames])
+                    for x in toks), f"video_gen: {tag}: graph and eager runs drew different tokens")
+        require(tuple(toks[0].shape) == (b, frames, cfg.latent_height, cfg.latent_width)
+                and 0 <= int(toks[0].min()) and int(toks[0].max()) < cfg.num_embeddings,
+                f"video_gen: {tag} tokens")
+        count, step_ms = video_step_census(model, tag, b)
+        rates = {m: [nums["tokens_per_s"] for nums, _ in runs[m]] for m in runs}
+        idle = {}
+        for m in runs:
+            nums = min((nums for nums, _ in runs[m]), key=lambda x: x["wall_s"])
+            # the frames' append forwards cost about a read step each
+            steps = nums["steps"] + nums["steps"] // hw
+            busy = None if step_ms is None else step_ms / 1e3 * steps
+            idle[m] = "not measured" if busy is None else f"{1 - busy / nums['wall_s']:.3f}"
+        peak = max(nums["peak_mem_gb"] for m in runs for nums, _ in runs[m])
+        log(f"video_gen: {tag}: tokens/s graph {rates['graph']} eager ({eager_frames} frame"
+            f"{'s' if eager_frames > 1 else ''}) {rates['eager']}; launches "
+            f"{json.dumps(runs['graph'][0][1][1])}; {_fmt(count, 1)} kernels and "
+            f"{_fmt(step_ms, 3)} device ms a step; idle share graph {idle['graph']} eager "
+            f"{idle['eager']} (census busy x steps over the fastest run's wall); "
+            f"peak_mem_gb={peak:.3f}")
+        result[tag] = dict(tokens_per_s=rates, idle=idle, kernels_a_step=count,
+                           device_ms_a_step=step_ms, peak_mem_gb=peak)
+        if not main_counts:  # the kernels line reads video_gen_large's first graph run
+            main_counts.update(runs["graph"][0][1][1])
+        del model
+        torch.cuda.empty_cache()
+
+    generation("video_gen_large", video_gen_large(dropout=0.0), 1, VID_FRAMES, 1)
+    generation("video_gen_xsmall (the JAX bench's shape)",
+               video_gen_xsmall(dropout=0.0, use_checkpointing=False), VID_BENCH_B,
+               VID_BENCH_FRAMES, VID_BENCH_FRAMES)
+
+    # the pipeline at large: the text encoder, 2 latent frames replayed from
+    # a graph, the codebook, the 3-D decoder -> 4 frames of 128 x 128
+    cfg = video_gen_large(dropout=0.0)
+    L, hw = cfg.num_layers, cfg.latent_height * cfg.latent_width
+    pipe = VideoGenerationPipeline(cfg, seed=1, device="cuda")
+    ids = torch.randint(1, cfg.vocab_size, (1, VID_TEXT_T), generator=gen, device="cuda")
+    want = dict(none)
+    want[append] = L * VID_FRAMES * (hw + 1)
+    _zero(fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    videos, tokens = pipe.generate_videos(ids, torch.Generator(device="cuda").manual_seed(6),
+                                          num_frames=VID_FRAMES, sampler=sampler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _video_gate("pipeline", fns, want)
+    pt, ph, pw = cfg.patch_size
+    require(tuple(videos.shape) == (1, 3, VID_FRAMES * pt, cfg.latent_height * ph,
+                                    cfg.latent_width * pw)
+            and bool(torch.isfinite(videos).all()) and 0 <= float(videos.min())
+            and float(videos.max()) <= 1, f"video_gen: pipeline videos {tuple(videos.shape)}")
+    log(f"video_gen: pipeline video_gen_large (B=1, {VID_FRAMES} latent frames, graphs): "
+        f"wall_s={wall:.3f} tokens_per_s={VID_FRAMES * hw / wall:.1f} capture_s="
+        f"{pipe.last_graph.capture_s:.3f} peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} launches {json.dumps(got)}; videos "
+        f"{tuple(videos.shape)} in [0, 1]")
+    result["pipeline_tokens_per_s"] = VID_FRAMES * hw / wall
+    del pipe, videos
+    torch.cuda.empty_cache()
+
+    # the token trainer at large as configured (dropout 0.2, remat), B=1,
+    # 15 latent frames (3840 tokens), 8 text tokens
+    tcfg = video_gen_large()
+    lat_t = tcfg.max_frames // tcfg.patch_size[0]
+    trainer = VideoTokenTrainer(tcfg, VideoGenTrainingArgs(), num_training_steps=100,
+                                device="cuda")
+
+    def batch():
+        return {"indices": torch.randint(0, tcfg.num_embeddings,
+                                         (1, lat_t, tcfg.latent_height, tcfg.latent_width),
+                                         generator=gen, device="cuda"),
+                "text_embeddings": torch.randn((1, VID_TEXT_T, tcfg.d_model), generator=gen,
+                                               device="cuda").to(torch.bfloat16)}
+
+    _zero(fns)
+    first = trainer.train_step(batch())  # warm-up (cuBLAS, allocator)
+    batches = [batch() for _ in range(VID_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(bt) for bt in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = _video_gate(f"{VID_TRAIN_STEPS + 1} token-trainer steps", fns, none)
+    require(all(np.isfinite(x) for x in [first] + losses), f"video_gen: train loss {losses}")
+    busy = profile_breakdown("video_gen token-trainer step", lambda: trainer.train_step(batches[0]),
+                             top=8)
+    ms = wall / VID_TRAIN_STEPS * 1e3
+    log(f"video_gen: VideoTokenTrainer video_gen_large B=1, {lat_t} latent frames "
+        f"({lat_t * hw} tokens; remat, dropout 0.2): ms_per_step={ms:.1f} tokens_per_s="
+        f"{lat_t * hw * 1e3 / ms:.1f} peak_mem_gb={peak:.3f} device_busy_s (one profiled "
+        f"step)={_fmt(busy, 4)} idle share "
+        + (f"{1 - busy / (ms / 1e3):.3f}" if busy else "not measured")
+        + f"; losses {first:.4f} then " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {json.dumps(got)}")
+    result["token_train_ms_per_step"] = ms
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # the 3-D VQ-VAE trainer at large: a 30-frame 128 x 128 clip, B=1
+    vq = VQVAE3DTrainer(tcfg, VideoGenTrainingArgs(), num_training_steps=100, device="cuda")
+    px = tcfg.latent_height * ph
+    clips = [torch.rand((1, 3, tcfg.max_frames, px, px), generator=gen, device="cuda")
+             for _ in range(VQ_TRAIN_STEPS + 1)]
+    _zero(fns)
+    first = vq.train_step(clips[0])  # warm-up (cuDNN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [vq.train_step(c) for c in clips[1:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _video_gate("VQ-VAE trainer steps", fns, none)
+    require(all(np.isfinite(x) for x in [first] + losses), f"video_gen: VQ-VAE loss {losses}")
+    log(f"video_gen: VQVAE3DTrainer video_gen_large (d{tcfg.d_model} 3x3x3 convolutions over "
+        f"a {lat_t}x{tcfg.latent_height}x{tcfg.latent_width} latent grid; clip "
+        f"1x3x{tcfg.max_frames}x{px}x{px}): ms_per_step="
+        f"{wall / VQ_TRAIN_STEPS * 1e3:.1f} peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}; losses {first:.4f} then "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; launches {json.dumps(got)}")
+    result["vq_train_ms_per_step"] = wall / VQ_TRAIN_STEPS * 1e3
+    del vq, clips
+    torch.cuda.empty_cache()
+    log("video_gen: " + json.dumps(result))
+    return main_counts
+
+
+# Card against CPU at video_gen_large's width (d1728, 12/4 heads of 144),
+# 2 layers, the latent grid cut to 4 x 4 (the CPU runs every step's
+# full-frame forward).  bf16 on both sides (LOGIT_ATOL, the near-tie rule);
+# the trainer step in fp32, as image_gen_parity's.
+VID_PARITY_GRID = 4
+
+
+def run_video_gen_parity():
+    """video_gen_large's width at 2 layers on a 4 x 4 grid, card against
+    CPU from the same weights: greedy ``generate_video_tokens`` over 2
+    frames (a near tie excused, as in ``parity``), the logits of the
+    cached forwards append frame 0, read frame 1, append frame 1 (fed the
+    CPU's tokens), and one fp32 ``VideoTokenTrainer`` step at B=1 over 15
+    latent frames: loss, per-leaf gradients and change in the step."""
+    import torch
+
+    from vats_tpu_torch.configs import video_gen_large
+    from vats_tpu_torch.inference import generate_video_tokens
+    from vats_tpu_torch.models import AutoregressiveVideoTransformer
+    from vats_tpu_torch.ops.cache_append import append_token_inplace
+    from vats_tpu_torch.train import VideoGenTrainingArgs, VideoTokenTrainer
+
+    gh = VID_PARITY_GRID
+    cfg = video_gen_large(num_layers=2, dropout=0.0, latent_height=gh, latent_width=gh)
+    gpu = AutoregressiveVideoTransformer(cfg, device="cuda", seed=7).eval()
+    cpu = AutoregressiveVideoTransformer(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    g = torch.Generator().manual_seed(43)
+    text = torch.randn((2, VID_TEXT_T, cfg.d_model), generator=g).to(torch.bfloat16)
+    kw = dict(num_frames=VID_FRAMES, temperature=0.0, do_sample=False)
+    n0 = append_token_inplace.launches
+    tok_g = generate_video_tokens(gpu, text.cuda(), None, None, **kw).cpu()
+    require(append_token_inplace.launches - n0 == 2 * VID_FRAMES * (gh * gh + 1),
+            "video_gen_parity: K3 append launches")
+    tok_c = generate_video_tokens(cpu, text, None, None, **kw)
+    # the cached forwards fed the CPU's tokens
+    flat = tok_c.reshape(2, -1)
+    seq = torch.cat([torch.zeros((2, 1), dtype=torch.int32), flat[:, :-1]], 1).reshape(
+        tok_c.shape)
+
+    def cached(model):
+        cache = model.init_cache(2)
+        s = seq.to(model.device)
+        out = []
+        with torch.no_grad():
+            for f, mode in ((0, "append"), (1, "read"), (1, "append")):
+                lg, _ = model(s[:, f:f + 1], text.to(model.device), cache=cache,
+                              cache_mode=mode, return_logits=True)
+                out.append(lg.float().cpu())
+        return torch.stack(out)
+
+    err = expect_close("video_gen_parity logits", cached(gpu), cached(cpu), LOGIT_ATOL, 0.0)
+    with torch.no_grad():
+        full, _ = cpu(seq, text, return_logits=True)
+    top2 = full.reshape(2, flat.shape[1], -1).topk(2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    same = (tok_g.reshape(2, -1) == flat).all(0)
+    first = int((~same).nonzero()[0]) if not bool(same.all()) else None
+    if first is not None:
+        require(bool((gaps[:, first] <= 2 * LOGIT_ATOL).any()),
+                f"video_gen_parity: tokens differ at step {first} beyond a near tie")
+    rep = (f"logits of 3 cached forwards max |err| {err:.3e} (atol {LOGIT_ATOL}); greedy "
+           "tokens equal " + (f"over all {flat.shape[1]} steps" if first is None else
+                              f"up to step {first}, a near tie (CPU top-2 gap "
+                              f"{float(gaps[:, first].min()):.3e})"))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    tcfg = video_gen_large(num_layers=2, dropout=0.0, latent_height=gh, latent_width=gh,
+                           dtype="float32")
+    lat_t = tcfg.max_frames // tcfg.patch_size[0]
+    targs = VideoGenTrainingArgs(seed=3)
+    tg = VideoTokenTrainer(tcfg, targs, num_training_steps=10, device="cuda")
+    tc = VideoTokenTrainer(tcfg, targs, num_training_steps=10,
+                           params={k: v.cpu() for k, v in tg.model.state_dict().items()},
+                           device="cpu")
+    start = {n: p.detach().clone() for n, p in tc.model.named_parameters()}
+    batch = {"indices": torch.randint(0, tcfg.num_embeddings, (1, lat_t, gh, gh), generator=g),
+             "text_embeddings": torch.randn((1, VID_TEXT_T, tcfg.d_model), generator=g)}
+    lg_, lc_ = tg.train_step({k: v.cuda() for k, v in batch.items()}), tc.train_step(batch)
+    require(abs(lg_ - lc_) <= PARITY_LOSS_ATOL, f"video_gen_parity: loss {lg_} vs {lc_}")
+    grads = leaf_errors(tg.model, tc.model, leaf_grad)
+    change = leaf_errors(tg.model, tc.model, lambda n, p: p.detach().cpu() - start[n])
+    log(f"video_gen_parity (video_gen_large width, 2 layers, {gh}x{gh} grid, B=2, card vs "
+        f"CPU): {rep}; token trainer (fp32, B=1, {lat_t} latent frames, one step): loss card "
+        f"{lg_:.5f} cpu {lc_:.5f}; " + leaf_report("gradients", grads, PARITY_LEAF_GRAD_RTOL)
+        + "; " + leaf_report("change in the step", change, PARITY_LEAF_CHANGE_RTOL))
+    del tg, tc
+    torch.cuda.empty_cache()
+
+
+# --- phase: multimodal --------------------------------------------------------
+
+
+def _mm_gate(label, fns, want):
+    got = _counts(fns)
+    _gate(label, got, want, phase="multimodal")
+    return got
+
+
+def mm_step_census(model, label, b, length, n=4, top=8):
+    """Kernels and device ms of one decode step of ``generate_multimodal``
+    (a paged T == 1 forward at ``length`` tokens a row and the masked
+    sampling), from ``n`` eager steps under torch.profiler; returns (kernels
+    a step, device ms a step) or (None, None)."""
+    import torch
+
+    from vats_tpu_torch.inference import ImageGenerationSampler
+
+    cfg = model.cfg
+    cache = model.init_paged_cache(b, MM_SLOTS)
+    cache.lengths.fill_(length)
+    cache.fresh = False
+    tok = torch.full((b, 1), cfg.text_vocab_size, dtype=torch.int32, device="cuda")
+    mod = torch.full((b, 1), 2, dtype=torch.int32, device="cuda")
+    loc = torch.full((b, 1), 100, dtype=torch.int32, device="cuda")
+    sampler = ImageGenerationSampler(temperature=0.9, top_k=64)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    allowed = torch.arange(cfg.vocab_size, device="cuda") >= cfg.text_vocab_size
+
+    def steps():
+        with torch.no_grad():
+            for _ in range(n):
+                lg, _ = model(tok, mod, loc, paged_cache=cache)
+                cache.lengths.fill_(length)  # every step at the same length
+                sampler(g, torch.where(allowed, lg[:, 0], float("-inf")))
+
+    steps()
+    torch.cuda.synchronize()
+    per, _ = profiled(steps)
+    if not per:
+        log(f"census {label}: not measured (the profiler recorded no device time)")
+        return None, None
+    count = sum(c for _, c in per.values()) / n
+    busy = sum(us for us, _ in per.values()) / n / 1e3
+    log(f"census {label} B={b} at {length} tokens a row: {count:.1f} kernels a decode step "
+        f"({count / cfg.num_layers:.1f} a layer), {busy:.3f} device ms a step; heaviest:")
+    for name, (us, c) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {us / n / 1e3:9.3f} ms {c / n:8.1f}x  {name[:100]}")
+    return count, busy
+
+
+def run_multimodal(fns):
+    """The fused stream at multimodal_small's full width and depth (d768, 12
+    layers, 8/4 heads of 96, vocabulary 4864): ``generate_multimodal`` at
+    the JAX bench's shape (B=4, t_text=64, 256 image + 2048 video tokens a
+    row: 2303 decode forwards; temperature 0.9, top-k 64), every step after
+    the first replayed from a CUDA graph, in turns with the eager loop
+    (graph, eager, graph; equal codes); a ragged call at t_text=256
+    (prompts 256/200/131/17) whose prefill takes K2; 64 decode steps through
+    the dense cache and the paged cache fed the same tokens (K3's dense and
+    paged table modes; logits within LOGIT_ATOL).  Exact gates: K1 and K3's
+    paged table mode 12 a decode forward, K2 12 a prefill at t_text >= 256
+    and none at 64.  Tokens/s, kernels and device ms a step
+    (``mm_step_census`` at a mid-stream length), idle share (census busy x
+    steps over the wall, and a profiled graph run on a sample: one video
+    frame), peak memory."""
+    import torch
+
+    from vats_tpu_torch.configs import multimodal_small
+    from vats_tpu_torch.inference import ImageGenerationSampler
+    from vats_tpu_torch.inference.multimodal import _generate_multimodal
+    from vats_tpu_torch.models import MultimodalLM
+    from vats_tpu_torch.ops import cache_append as ca
+    from vats_tpu_torch.ops import flash_attention as fa
+    from vats_tpu_torch.ops.decode_attention import paged_decode_attention_commit
+
+    none = {name: 0 for name in _counts(fns)}
+    k1, k2 = paged_decode_attention_commit.__name__, fa.flash_attention.__name__
+    ptab, dtab = ca.paged_decode_prologue.table.__name__, ca.dense_decode_prologue.table.__name__
+    pp, dp = ca.paged_decode_prologue.__name__, ca.dense_decode_prologue.__name__
+    cfg = multimodal_small()
+    L = cfg.num_layers
+    n_total = cfg.image_tokens + cfg.video_tokens
+    model = MultimodalLM(cfg, device="cuda", seed=0).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    sampler = ImageGenerationSampler(temperature=0.9, top_k=64)
+    b = MM_B
+    log(f"multimodal: multimodal_small d{cfg.d_model}/{L}L {cfg.num_heads}H/"
+        f"{cfg.query_groups}G hd {cfg.head_dim}, vocabulary {cfg.vocab_size}, "
+        f"{n_params / 1e6:.1f}M params (fp32, bf16 compute), B={b}, t_text {MM_T_TEXT}, "
+        f"{cfg.image_tokens} image + {cfg.video_tokens} video tokens a row")
+    ids = torch.randint(1, cfg.text_vocab_size, (b, MM_T_TEXT), generator=gen, device="cuda")
+    decode_want = dict(none)
+    decode_want.update({k1: L * (n_total - 1), ptab: L * (n_total - 1), pp: L * (n_total - 1)})
+
+    def drive(use_graph, text_ids=ids, mask=None, m=model, want=decode_want):
+        _zero(fns)
+        t0 = time.perf_counter()
+        img, vid, graph = _generate_multimodal(
+            m, text_ids, mask, torch.Generator(device="cuda").manual_seed(5), sampler=sampler,
+            page_size=128, use_graph=use_graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _mm_gate(f"generate_multimodal {'graph' if use_graph else 'eager'} t_text "
+                       f"{text_ids.shape[1]}", fns, want)
+        steps = m.cfg.image_tokens + m.cfg.video_tokens
+        return (dict(wall_s=wall, tokens_per_s=text_ids.shape[0] * steps / wall,
+                     capture_s=graph.capture_s if graph else 0.0), (img, vid, got))
+
+    runs = in_turns("multimodal: generate_multimodal", [("graph", lambda: drive(True)),
+                                                        ("eager", lambda: drive(False))],
+                    order=(0, 1, 0))
+    outs = [res for name in runs for _, res in runs[name]]
+    require(all(torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1]) for o in outs),
+            "multimodal: graph and eager runs drew different codes")
+    img, vid = outs[0][0], outs[0][1]
+    require(tuple(img.shape) == (b, cfg.image_grid_h, cfg.image_grid_w)
+            and tuple(vid.shape) == (b, cfg.video_grid_t, cfg.video_grid_h, cfg.video_grid_w)
+            and 0 <= int(img.min()) and int(img.max()) < cfg.image_vocab_size
+            and 0 <= int(vid.min()) and int(vid.max()) < cfg.video_vocab_size,
+            "multimodal: codes out of range")
+    count, step_ms = mm_step_census(model, "multimodal decode", b, MM_T_TEXT + n_total // 2)
+    rates = {m: [nums["tokens_per_s"] for nums, _ in runs[m]] for m in runs}
+    idle = {}
+    for m in runs:
+        nums = min((nums for nums, _ in runs[m]), key=lambda x: x["wall_s"])
+        idle[m] = ("not measured" if step_ms is None else
+                   f"{1 - step_ms / 1e3 * (n_total - 1) / nums['wall_s']:.3f}")
+    peak = max(nums["peak_mem_gb"] for m in runs for nums, _ in runs[m])
+    # a profiled graph run on a sample: one video frame (256 + 256 steps)
+    one = MultimodalLM(multimodal_small(video_grid_t=1), device="meta")
+    one.load_state_dict(model.state_dict(), assign=True)
+    one = one.eval()
+    sample_want = dict(none)
+    sample_want.update({k1: L * 511, ptab: L * 511, pp: L * 511})
+    busy = profile_breakdown("multimodal graph run on a sample (video_grid_t 1: 511 steps)",
+                             lambda: drive(True, m=one, want=sample_want), top=6,
+                             also=("prologue", "paged_decode"))
+    log(f"multimodal: generate_multimodal B={b} t_text {MM_T_TEXT} ({n_total} tokens a row, "
+        f"{n_total - 1} decode forwards): tokens/s graph {rates['graph']} eager "
+        f"{rates['eager']}; launches {json.dumps(runs['graph'][0][1][2])}; {_fmt(count, 1)} "
+        f"kernels and {_fmt(step_ms, 3)} device ms a decode step; idle share graph "
+        f"{idle['graph']} eager {idle['eager']} (census busy x steps over the fastest run's "
+        f"wall); sample run busy {_fmt(busy, 3)} s; peak_mem_gb={peak:.3f}")
+    main_counts = {k_: v for k_, v in runs["graph"][0][1][2].items() if v}
+    del one
+
+    # ragged prompts at t_text 256: the prefill takes K2 (12 launches)
+    t_long = MM_RAGGED[0]
+    ids_long = torch.randint(1, cfg.text_vocab_size, (b, t_long), generator=gen, device="cuda")
+    mask = torch.arange(t_long, device="cuda")[None, :] < torch.tensor(MM_RAGGED,
+                                                                          device="cuda")[:, None]
+    ids_long = torch.where(mask, ids_long, 0)
+    want = dict(decode_want)
+    want[k2] = L
+    nums, (img, vid, got) = drive(True, ids_long, mask, want=want)
+    require(0 <= int(img.min()) and int(vid.max()) < cfg.video_vocab_size,
+            "multimodal: ragged codes out of range")
+    log(f"multimodal: ragged prompts {MM_RAGGED} at t_text {t_long} (graph): tokens_per_s="
+        f"{nums['tokens_per_s']:.1f} wall_s={nums['wall_s']:.3f}; launches {json.dumps(got)}")
+
+    # the dense cache against the paged one: 64 decode steps fed the same
+    # tokens after the same prefill (K3's dense table mode, the plain cached
+    # attention; the paged table mode and K1)
+    steps = min(64, cfg.image_tokens)
+    feed = (img.reshape(b, -1)[:, :steps] + cfg.text_vocab_size).to(torch.int32)
+    pre_mod = torch.zeros_like(ids)
+    pre_loc = torch.arange(MM_T_TEXT, device="cuda")[None, :].expand(b, -1)
+
+    def forced(paged):
+        cache = (model.init_paged_cache(b, MM_SLOTS) if paged
+                 else model.init_cache(b, MM_SLOTS))
+        key = "paged_cache" if paged else "cache"
+        out = []
+        with torch.no_grad():
+            lg, _ = model(ids, pre_mod, pre_loc, **{key: cache})
+            for i in range(steps):
+                one_mod = torch.full((b, 1), 1, dtype=torch.int32, device="cuda")
+                one_loc = torch.full((b, 1), i, dtype=torch.int32, device="cuda")
+                lg, _ = model(feed[:, i:i + 1], one_mod, one_loc, **{key: cache})
+                out.append(lg[:, 0].float())
+        return torch.stack(out, 1)
+
+    _zero(fns)
+    dense_lg = forced(False)
+    got_d = _mm_gate("dense-cache decode", fns, {**none, dtab: L * steps, dp: L * steps})
+    _zero(fns)
+    paged_lg = forced(True)
+    got_p = _mm_gate("paged-cache decode", fns, {**none, ptab: L * steps, pp: L * steps,
+                                                  k1: L * steps})
+    err = expect_close("multimodal dense vs paged cache logits", dense_lg, paged_lg,
+                       LOGIT_ATOL, 0.0)
+    log(f"multimodal: {steps} decode steps through the dense and the paged cache: logits max "
+        f"|err| {err:.3e} (atol {LOGIT_ATOL}); launches dense {json.dumps(got_d)} paged "
+        f"{json.dumps(got_p)}")
+    del model
+    torch.cuda.empty_cache()
+    log("multimodal: " + json.dumps(dict(tokens_per_s=rates, idle=idle, kernels_a_step=count,
+                                         device_ms_a_step=step_ms, peak_mem_gb=peak)))
+    return main_counts
+
+
+def run_multimodal_parity():
+    """multimodal_small's width at 2 layers with 2 video frames (256 image
+    + 512 video tokens a row), card against CPU from the same weights:
+    greedy ``generate_multimodal`` over the ragged prompts 256/200/131/17
+    (the card's prefill through K2, its decode through K3's paged table
+    mode and K1; codes equal up to a near tie of the CPU's masked top two
+    logits, as in ``parity``), and the logits of the prefill's readout and
+    of 32 decode steps fed the CPU's tokens."""
+    import torch
+
+    from vats_tpu_torch.configs import multimodal_small
+    from vats_tpu_torch.inference import generate_multimodal
+    from vats_tpu_torch.models import MultimodalLM
+    from vats_tpu_torch.ops import cache_append as ca
+    from vats_tpu_torch.ops import flash_attention as fa
+
+    cfg = multimodal_small(num_layers=2, video_grid_t=2)
+    vt, vi = cfg.text_vocab_size, cfg.image_vocab_size
+    n_img, n_total = cfg.image_tokens, cfg.image_tokens + cfg.video_tokens
+    gpu = MultimodalLM(cfg, device="cuda", seed=9).eval()
+    cpu = MultimodalLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    g = torch.Generator().manual_seed(47)
+    b, t_long = len(MM_RAGGED), MM_RAGGED[0]
+    lens = torch.tensor(MM_RAGGED)
+    mask = torch.arange(t_long)[None, :] < lens[:, None]
+    ids = torch.where(mask, torch.randint(1, vt, (b, t_long), generator=g), 0)
+    kw = dict(temperature=0.0, do_sample=False)
+    n0 = (fa.flash_attention.launches, ca.paged_decode_prologue.table.launches)
+    out_g = generate_multimodal(gpu, ids.cuda(), mask.cuda(), None, **kw)
+    require((fa.flash_attention.launches - n0[0],
+             ca.paged_decode_prologue.table.launches - n0[1])
+            == (cfg.num_layers, cfg.num_layers * (n_total - 1)),
+            "multimodal_parity: K2 / K3 table launches")
+    out_c = generate_multimodal(cpu, ids, mask, None, **kw)
+    flat = lambda o: torch.cat([o[0].reshape(b, -1).cpu() + vt,  # noqa: E731
+                                o[1].reshape(b, -1).cpu() + vt + vi], 1)
+    gen_g, gen_c = flat(out_g), flat(out_c)
+    pre_mod = torch.zeros((b, t_long), dtype=torch.int32)
+    pre_loc = torch.arange(t_long, dtype=torch.int32)[None, :].expand(b, -1)
+
+    def forced(model, steps=min(32, n_img)):
+        dev = model.device
+        cache = model.init_paged_cache(b, t_long + n_total)
+        out = []
+        with torch.no_grad():
+            lg, _ = model(ids.to(dev), pre_mod.to(dev), pre_loc.to(dev),
+                          padding_mask=mask.to(dev), paged_cache=cache,
+                          readout_positions=(lens - 1).to(dev))
+            out.append(lg[:, 0].float().cpu())
+            for i in range(steps):
+                full = lambda x: torch.full((b, 1), x, dtype=torch.int32, device=dev)  # noqa: E731
+                lg, _ = model(gen_c[:, i:i + 1].to(dev), full(1), full(i), paged_cache=cache)
+                out.append(lg[:, 0].float().cpu())
+        return torch.stack(out, 1)
+
+    err = expect_close("multimodal_parity logits", forced(gpu), forced(cpu), LOGIT_ATOL, 0.0)
+    # the CPU's masked top-two gaps along its own streams (uncached forwards)
+    vocab = torch.arange(cfg.vocab_size)
+    gaps = torch.empty((b, n_total))
+    with torch.no_grad():
+        for r in range(b):
+            n_ = int(lens[r])
+            seq = torch.cat([ids[r, :n_], gen_c[r]])[None]
+            mod = torch.cat([torch.zeros(n_), torch.ones(n_img),
+                             torch.full((n_total - n_img,), 2)]).to(torch.int32)[None]
+            loc = torch.cat([torch.arange(n_), torch.arange(n_img),
+                             torch.arange(n_total - n_img)]).to(torch.int32)[None]
+            lg, _ = cpu(seq, mod, loc)
+            lg = lg[0, n_ - 1:n_ - 1 + n_total]
+            img_rows = torch.arange(n_total)[:, None] < n_img
+            lo = torch.where(img_rows, vt, vt + vi)
+            hi = torch.where(img_rows, vt + vi, cfg.vocab_size)
+            top2 = torch.where((vocab >= lo) & (vocab < hi), lg, float("-inf")).topk(2).values
+            gaps[r] = top2[:, 0] - top2[:, 1]
+    same = (gen_g == gen_c).all(0)
+    first = int((~same).nonzero()[0]) if not bool(same.all()) else None
+    if first is not None:
+        require(bool((gaps[:, first] <= 2 * LOGIT_ATOL).any()),
+                f"multimodal_parity: codes differ at step {first} beyond a near tie")
+    log(f"multimodal_parity (multimodal_small width, 2 layers, 2 video frames, prompts "
+        f"{MM_RAGGED}, card vs CPU): logits of the prefill readout and 32 forced decode steps "
+        f"max |err| {err:.3e} (atol {LOGIT_ATOL}); greedy codes equal "
+        + (f"over all {n_total} steps" if first is None else
+           f"up to step {first}, a near tie (CPU masked top-2 gap "
+           f"{float(gaps[:, first].min()):.3e})"))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3670,12 +4603,13 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/flash_attention.cu",
              replaces="vats_tpu/ops/flash_attention.py:67", fn=fa.flash_attention,
              path="main"),
-        # K3's append-only mode: off the main path since K3 became the fused
-        # prologue (the main phase gates it at 0 launches)
+        # K3's append mode: off the LM's decode since K3 became the fused
+        # prologue (the main phase gates it at 0 launches); video generation's
+        # temporal cache writes every cached forward through it
         dict(name="dense_cache_append", route="cuda",
              source="vats_tpu_torch/csrc/cache_append.cu",
              replaces="vats_tpu/ops/cache_append.py:47", fn=append_token_inplace,
-             path="main"),
+             path="video_gen"),
         dict(name="dense_decode_prologue", route="cuda",
              source="vats_tpu_torch/csrc/cache_append.cu",
              replaces="vats_tpu/ops/cache_append.py:47", fn=dense_decode_prologue,
@@ -3715,7 +4649,6 @@ def main(argv=None) -> int:
         results["paged_decode_attention_commit"] = check_k1(gen(0))
         results["paged_decode_attention_commit_int8"] = check_k4(gen(1))
         results["flash_attention_forward"] = check_k2(gen(2))
-        results["dense_cache_append"] = check_k3(gen(3))
         (results["dense_decode_prologue"],
          results["paged_decode_prologue"]) = check_k3_prologue(gen(6))
         results["flash_attention_forward_lse"] = check_k2_lse(gen(4))
@@ -3726,10 +4659,23 @@ def main(argv=None) -> int:
          results["paged_decode_prologue_table"]) = check_k3_table(gen(8))
         check_k1_image_gen(gen(9))
         check_image_gen_flash(gen(10))
+        check_k3(gen(3))  # the LM's cache shape (the row keeps the video shape's)
+        results["dense_cache_append"] = check_k3_video(gen(11))
+        check_k3_multimodal_table(gen(12))
+        check_k1_multimodal(gen(13))
+        check_k2_multimodal(gen(14))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
-    counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}}
+    counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
+              "multimodal": {}}
+    every_kernel = [append_token_inplace, dense_decode_prologue, paged_decode_prologue,
+                    dense_decode_prologue.table, paged_decode_prologue.table,
+                    paged_decode_attention_commit, paged_decode_attention_commit_int8,
+                    fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv,
+                    fa.flash_bwd_dq]
     runners = {
-        "main": lambda: run_main([r["fn"] for r in kernel_rows if r["path"] == "main"]),
+        # the main phase gates K3's append mode at 0 besides the main path's rows
+        "main": lambda: run_main([r["fn"] for r in kernel_rows if r["path"] == "main"]
+                                 + [append_token_inplace]),
         "parity": run_parity,
         "serve": lambda: run_serve({r["name"]: r["fn"] for r in kernel_rows}),
         "serve_parity": run_serve_parity,
@@ -3745,6 +4691,10 @@ def main(argv=None) -> int:
             fa.flash_bwd_dkv, fa.flash_bwd_dq, dense_decode_prologue, paged_decode_prologue,
             append_token_inplace]),
         "image_gen_parity": run_image_gen_parity,
+        "video_gen": lambda: run_video_gen(every_kernel),
+        "video_gen_parity": run_video_gen_parity,
+        "multimodal": lambda: run_multimodal(every_kernel),
+        "multimodal_parity": run_multimodal_parity,
     }
     for phase, run in runners.items():
         if phase in phases:

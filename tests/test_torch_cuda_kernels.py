@@ -148,6 +148,51 @@ def test_paged_decode_repeats_bit_equal_and_clamps_past_capacity(gen, dtype):
         torch.testing.assert_close(runs[0][2], c.kv_scales, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_paged_decode_rows_sharing_a_slot_commit_the_last_row(gen, dtype):
+    """Rows parked on one scratch page (the serving engine's idle rows, all
+    at one length) commit into the same slot with different values: the
+    highest row's value lands, as a loop over the rows would write it, in
+    every one of 20 calls whatever order their CTAs end in; the rows with
+    pages of their own commit as before."""
+    b, g, n, hd, ps, pps = 32, 8, 3, 64, 128, 2
+    c = da.PagedKVCache.create(2, 1 + b * pps, ps, g, hd, page_size=ps, dtype=dtype,
+                               device="cuda")
+    hist = rand(gen, 2, (1 + b * pps) * ps, 2, g, hd)
+    if dtype == torch.int8:
+        q8, sc = da.quantize_kv(hist)
+        c.kv_pages[..., :hd] = q8.reshape(2, 1 + b * pps, ps, 2, g, hd).permute(
+            0, 1, 3, 4, 2, 5)
+        c.kv_scales[:] = sc.reshape(2, 1 + b * pps, ps, 2, g).permute(0, 1, 3, 4, 2)
+    else:
+        c.kv_pages[..., :hd] = hist.reshape(2, 1 + b * pps, ps, 2, g, hd).permute(
+            0, 1, 3, 4, 2, 5).to(dtype)
+    table = (1 + torch.arange(b * pps, device="cuda", dtype=torch.int32)).reshape(b, pps)
+    idle = torch.arange(b, device="cuda") % 3 != 0  # two rows in three on page 0
+    table[idle] = 0
+    lens = torch.where(idle, 2, torch.randint(0, pps * ps, (b,), generator=gen,
+                                              device="cuda")).to(torch.int32)
+    q = rand(gen, b, g * n, hd, dtype=torch.bfloat16)
+    kc, vc = rand(gen, b, g, hd, dtype=torch.bfloat16), rand(gen, b, g, hd, dtype=torch.bfloat16)
+    want_p, want_s = c.kv_pages.clone(), c.kv_scales.clone() if c.quantized else None
+    for r in range(b):  # one row at a time: the last writer of a slot wins
+        da.PagedKVCache(want_p, table[r:r + 1], lens[r:r + 1], want_s).append_token(
+            1, kc[r:r + 1], vc[r:r + 1])
+    runs = []
+    for _ in range(20):
+        pk = c.kv_pages.clone()
+        sk = c.kv_scales.clone() if c.quantized else None
+        da.paged_decode_attention_commit(q, pk, 1, table, lens, scale=0.2, k_cur=kc,
+                                         v_cur=vc, kv_scales=sk)
+        runs.append((pk, sk))
+    torch.cuda.synchronize()
+    for pk, sk in runs:
+        assert torch.equal(pk, want_p)
+        if sk is not None:  # scales as in the int8 commit test above
+            assert torch.equal(sk, runs[0][1])
+            torch.testing.assert_close(sk, want_s, rtol=1e-6, atol=0)
+
+
 def test_paged_decode_on_two_streams_at_once(gen):
     """Calls on two streams that overlap on the card: each stream keeps its
     own per-row counters, so every output equals the same call made alone
@@ -1004,3 +1049,149 @@ def test_image_gen_tiny_on_the_card_matches_the_cpu(gen):
         torch.cuda.synchronize()
         assert counted.launches - n0 == cfg.num_layers * 16  # 16 forwards of one token
         assert torch.equal(got.cpu(), fn(cpu, text, None, None, **kw))
+
+
+# --- video generation and the fused multimodal stream: K3's append mode at head
+# dim 144, its table mode and K1 at head dim 96, K2 at head dim 96 ------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [0, 7, 14, 20])  # S = 15: 20 clamps to 14
+def test_cache_append_at_video_shape_matches_plain(gen, dtype, pos):
+    """K3's append mode at video_gen_large's temporal cache (B*HW = 256
+    rows, 4 groups, head dim 144: three pairs a lane), bit-equal to
+    ``append_token_ref`` over the whole cache."""
+    L, b, g, hd, S = 3, 256, 4, 144, 15
+    k, v = rand(gen, L, b, g, hd, S, dtype=dtype), rand(gen, L, b, g, hd, S, dtype=dtype)
+    kn, vn = rand(gen, b, g, hd, dtype=dtype), rand(gen, b, g, hd, dtype=dtype)
+    length = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    ka, va, kb, vb = k.clone(), v.clone(), k.clone(), v.clone()
+    n0 = ca.append_token_inplace.launches
+    ca.append_token_inplace(ka, va, 1, kn, vn, length)
+    ca.append_token_ref(kb, vb, 1, kn, vn, length)
+    torch.cuda.synchronize()
+    assert ca.append_token_inplace.launches == n0 + 1
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_decode_prologue_multimodal_table_matches_plain(gen, mode, dtype):
+    """K3 in table mode at multimodal_small's heads (8 / 4 of 96), B=4,
+    each row at its own modality (text, image, video, video) and position:
+    the table ``multimodal_rope_angles`` makes on the card; within
+    PROLOGUE_ULPS of the plain chain given the same table."""
+    from vats_tpu_torch.configs import multimodal_small
+    from vats_tpu_torch.models.multimodal import multimodal_rope_angles
+
+    cfg = multimodal_small()
+    b, hq, g, hd, S = 4, 8, 4, 96, 2560
+    mod = torch.tensor([[0], [1], [2], [2]], dtype=torch.int32, device="cuda")
+    loc = torch.tensor([[63], [200], [1500], [2047]], dtype=torch.int32, device="cuda")
+    cs = multimodal_rope_angles(cfg, mod, loc)  # [B, 1, hd/2]
+    row = rand(gen, b, 1, (hq + 2 * g) * hd, dtype=dtype)
+    q, k, v = torch.split(row, [hq * hd, g * hd, g * hd], dim=-1)
+    q, k, v = q.reshape(b, 1, hq, hd), k.reshape(b, 1, g, hd), v.reshape(b, 1, g, hd)
+    kw = dict(theta=10000.0, qk_norm=True)
+    tol, bits = PROLOGUE_ULPS[(dtype, True)], 7 if dtype == torch.bfloat16 else 23
+    if mode == "paged":
+        lengths = (loc[:, 0] + 64).to(torch.int32)
+        got = ca.paged_decode_prologue(q, k, v, lengths, None, cos_sin=cs, **kw)
+        want = ca.paged_decode_prologue_ref(q, k, v, lengths, cos_sin=cs, **kw)
+        for x, y in zip(got[:2], want[:2]):
+            assert float(rotated_ulps(x, y, bits).max()) <= tol
+        return
+    cache = rand(gen, 2, 2, b, g, hd, S, dtype=dtype)
+    length = torch.tensor(321, dtype=torch.int32, device="cuda")
+    ka, va, kb, vb = cache[0].clone(), cache[1].clone(), cache[0].clone(), cache[1].clone()
+    got = ca.dense_decode_prologue(q, k, v, ka, va, length, 1, None, ring=False, cos_sin=cs,
+                                   **kw)
+    want = ca.dense_decode_prologue_ref(q, k, v, kb, vb, length, 1, ring=False, cos_sin=cs,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert float(rotated_ulps(got, want, bits).max()) <= tol
+    assert float(rotated_ulps(ka[1, ..., 321], kb[1, ..., 321], bits).max()) <= tol
+    assert torch.equal(va, vb)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_multimodal_heads_through_k1_and_k2_match_plain(gen, dtype):
+    """K1 at multimodal_small's decode (head dim 96, 2 query heads a group,
+    4 groups; ragged lengths up to 2369, 19 pages a row) and K2 at its
+    prefill (T = 256, head dim 96 padded to 128, causal, ragged key
+    validity) against the plain versions."""
+    b, g, n, hd, ps = 4, 4, 2, 96, 128
+    lengths = [2369, 2303, 1500, 64]
+    pps = 19
+    pool = rand(gen, 2, b * pps, 2, g, ps, hd, dtype=dtype)
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32).reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, g * n, hd, dtype=dtype)
+    kc, vc = rand(gen, b, g, hd, dtype=dtype), rand(gen, b, g, hd, dtype=dtype)
+    pk, pp = pool.clone(), pool.clone()
+    out = da.paged_decode_attention_commit(q, pk, 1, table, lens, scale=hd**-0.5,
+                                           k_cur=kc, v_cur=vc)
+    ref = da.paged_decode_attention_ref(q, pp[1], table, lens, scale=hd**-0.5,
+                                        k_cur=kc, v_cur=vc)
+    da.PagedKVCache(pp, table, lens).append_token(1, kc, vc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(pk, pp)
+    t = 256
+    qf = rand(gen, b, t, 2 * g, hd, dtype=dtype)
+    kf, vf = rand(gen, b, t, g, hd, dtype=dtype), rand(gen, b, t, g, hd, dtype=dtype)
+    valid = torch.arange(t, device="cuda")[None, :] < torch.tensor(
+        [[256], [200], [131], [17]], device="cuda")
+    kw = dict(scale=hd**-0.5, causal=True, kv_valid=valid)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(qf, kf, vf, **kw)
+    want = fa.flash_attention_ref(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    keep = valid[:, :, None, None]  # a padded query's row is free (its logits are not read)
+    torch.testing.assert_close((got.float() * keep), (want.float() * keep), **TOL[dtype])
+
+
+def test_video_and_multimodal_tiny_on_the_card_match_the_cpu(gen):
+    """video_gen_tiny_test and a tiny multimodal config (fp32) on the card
+    and on the CPU from the same weights: greedy video tokens (inner steps
+    replayed from a CUDA graph, K3's append mode once a layer a cached
+    forward) and greedy multimodal codes (K3's paged table mode and K1 once
+    a layer a decode forward) equal."""
+    from vats_tpu_torch.configs import MultimodalStreamArgs, video_gen_tiny_test
+    from vats_tpu_torch.inference import generate_multimodal, generate_video_tokens
+    from vats_tpu_torch.models import AutoregressiveVideoTransformer, MultimodalLM
+
+    def pair(cls, cfg):
+        gpu = cls(cfg, device="cuda", seed=3).eval()
+        cpu = cls(cfg, device="meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+        return gpu, cpu
+
+    cfg = video_gen_tiny_test(dtype="float32")
+    gpu, cpu = pair(AutoregressiveVideoTransformer, cfg)
+    text = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    kw = dict(num_frames=2, temperature=0.0, do_sample=False)
+    n0 = ca.append_token_inplace.launches
+    got = generate_video_tokens(gpu, text.cuda(), None, None, **kw)
+    torch.cuda.synchronize()
+    # 16 read forwards and one append a frame, one launch a layer each
+    assert ca.append_token_inplace.launches - n0 == cfg.num_layers * 2 * 17
+    assert torch.equal(got.cpu(), generate_video_tokens(cpu, text, None, None, **kw))
+
+    mcfg = MultimodalStreamArgs(
+        d_model=48, num_heads=4, query_groups=2, d_ffn=96, num_layers=2, text_vocab_size=64,
+        image_vocab_size=16, video_vocab_size=32, image_grid_h=2, image_grid_w=2,
+        video_grid_t=2, video_grid_h=2, video_grid_w=2, max_text_len=8, dtype="float32")
+    gpu, cpu = pair(MultimodalLM, mcfg)
+    ids = torch.tensor([[5, 9, 2, 7, 1, 3], [11, 4, 8, 0, 0, 0]])
+    mask = ids > 0
+    n0 = (ca.paged_decode_prologue.table.launches, da.paged_decode_attention_commit.launches)
+    img, vid = generate_multimodal(gpu, ids.cuda(), mask.cuda(), None, temperature=0.0,
+                                   do_sample=False)
+    torch.cuda.synchronize()
+    forwards = mcfg.image_tokens + mcfg.video_tokens - 1
+    assert (ca.paged_decode_prologue.table.launches - n0[0],
+            da.paged_decode_attention_commit.launches - n0[1]) == (2 * forwards,) * 2
+    want = generate_multimodal(cpu, ids, mask, None, temperature=0.0, do_sample=False)
+    assert torch.equal(img.cpu(), want[0]) and torch.equal(vid.cpu(), want[1])

@@ -33,6 +33,7 @@ from vats_tpu.models.vit2d import resize_and_center_crop as j_resize
 from vats_tpu.nn.activations import FFNBlock as JFFNBlock
 from vats_tpu.nn.activations import SwiGLU as JSwiGLU
 from vats_tpu.nn.attention import Attention as JAttention
+from vats_tpu.nn.kv_cache import KVCache as JKVCache
 from vats_tpu.nn.rope import apply_rope_2d_axial as j_rope_2d
 from vats_tpu.nn.rope import grid_positions_2d as j_grid
 from vats_tpu_torch.configs import vit2d_xsmall
@@ -140,7 +141,7 @@ def test_resize_keeps_a_matching_size_exactly():
     np.testing.assert_array_equal(got, np.asarray(j_resize(jnp.asarray(x), 64)))
 
 
-# --- attention: 2-D RoPE and 'none', the cache paths refuse them ---------------
+# --- attention: 2-D RoPE, 'none' and '3d_ntk'; the cache paths refuse '2d_axial' -
 
 
 @pytest.mark.parametrize("rope_type", ["2d_axial", "none"])
@@ -160,10 +161,33 @@ def test_attention_uncached_rope_types_match_jax(rope_type):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
     kv = KVCache.create(num_layers=1, batch_size=2, max_seq_len=16, kv_heads=g,
                         head_dim=d // h, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="rope_type"):
-        tm(t(x), causal=True, cache=kv, grid_shape=(3, 4))
-    with pytest.raises(NotImplementedError, match="rope_type"):
-        Attention(d, h, g, rope_type="3d_ntk")  # '2d_ntk' is ported since image gen
+    if rope_type == "2d_axial":  # JAX refuses it under a cache too
+        with pytest.raises(NotImplementedError, match="rope_type"):
+            tm(t(x), causal=True, cache=kv, grid_shape=(3, 4))
+    else:  # 'none' under a dense cache: a prefill, then a decode token
+        jkv = JKVCache.create(num_layers=1, batch_size=2, max_seq_len=16, kv_heads=g,
+                              head_dim=d // h, dtype=jnp.float32)
+        x1 = np.random.RandomState(9).randn(2, 1, d).astype(np.float32)
+        for xs in (x, x1):
+            want, jkv = jm.apply(p, jnp.asarray(xs), causal=True, cache=jkv)
+            jkv = jkv.advance(xs.shape[1])
+            with torch.no_grad():
+                got, kv = tm(t(xs), causal=True, cache=kv)
+            kv = kv.advance(xs.shape[1])
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    # '3d_ntk' (ported with video generation; head dim 12): raster t-major
+    # positions over 2 frames of 2 x 3, uncached
+    j3 = JAttention(48, 4, 2, rope_type="3d_ntk", rope_ntk_scale=0.7, impl="xla")
+    x3 = np.random.RandomState(10).randn(2, 12, 48).astype(np.float32)
+    p3 = jax.device_get(meta.unbox(j3.init(jax.random.PRNGKey(11), jnp.asarray(x3),
+                                           grid_shape=(2, 2, 3))))
+    want, _ = j3.apply(p3, jnp.asarray(x3), grid_shape=(2, 2, 3))
+    t3 = Attention(48, 4, 2, rope_type="3d_ntk", rope_ntk_scale=0.7, impl="xla")
+    t3.load_state_dict({f"{n}.weight": t(np.array(p3["params"][n]["kernel"]).T.copy())
+                        for n in ("w_qkv", "w_o")})
+    with torch.no_grad():
+        got, _ = t3(t(x3), grid_shape=(2, 2, 3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
 # --- ImageEncoder --------------------------------------------------------------

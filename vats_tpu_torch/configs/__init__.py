@@ -3,6 +3,11 @@ from vats_tpu_torch.configs.image_gen import (
     image_gen_tiny_test,
     image_gen_xsmall,
 )
+from vats_tpu_torch.configs.multimodal import (
+    MultimodalStreamArgs,
+    multimodal_small,
+    multimodal_xsmall,
+)
 from vats_tpu_torch.configs.nlp import (
     NLP_TIERS,
     GenerationArgs,
@@ -14,6 +19,12 @@ from vats_tpu_torch.configs.nlp import (
     nlp_xlarge,
     nlp_xsmall,
     validate_model_args,
+)
+from vats_tpu_torch.configs.video_gen import (
+    VideoGenArgs,
+    video_gen_large,
+    video_gen_tiny_test,
+    video_gen_xsmall,
 )
 from vats_tpu_torch.configs.vit2d import (
     ViT2DArgs,
@@ -33,17 +44,24 @@ __all__ = [
     "GenerationArgs",
     "ImageGenArgs",
     "ModelArgs",
+    "MultimodalStreamArgs",
     "TrainingArgs",
+    "VideoGenArgs",
     "ViT2DArgs",
     "ViT3DArgs",
     "image_gen_tiny_test",
     "image_gen_xsmall",
+    "multimodal_small",
+    "multimodal_xsmall",
     "nlp_large",
     "nlp_medium",
     "nlp_small",
     "nlp_xlarge",
     "nlp_xsmall",
     "validate_model_args",
+    "video_gen_large",
+    "video_gen_tiny_test",
+    "video_gen_xsmall",
     "vit2d_medium",
     "vit2d_small",
     "vit2d_xsmall",

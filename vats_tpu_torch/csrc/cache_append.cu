@@ -42,7 +42,9 @@
 // 3.35 TB/s), far below the time of an empty launch; what the design does
 // is to replace the ~50 small kernels of the chain with this one.  One warp
 // per head vector; lane i owns the interleaved pairs (2i, 2i+1) and
-// (2i+64, 2i+65), so the rotation needs no exchange and the norm is one
+// (2i+64, 2i+65), and (2i+128, 2i+129) where the head is wider than 128
+// (template flag PAIRS: 2 up to hd 128, 3 up to 192, as video generation's
+// 144 needs), so the rotation needs no exchange and the norm is one
 // shuffle reduction; 4 warps a CTA over a (head block, row) grid, so B=1
 // still fills several SMs.  The dense commit writes stride-S columns as the
 // old K3 did (2*G*D elements a row).
@@ -54,7 +56,7 @@ namespace {
 enum Mode { APPEND = 0, DENSE = 1, RING = 2, PAGED = 3 };
 
 constexpr int WARPS = 4;
-constexpr int MAX_PAIRS = 2;  // head dims up to 128: two pairs a lane
+constexpr int MAX_PAIRS = 3;  // head dims up to 192: three pairs a lane
 
 struct Args {
   const void* q;  // sources, [B, ..., H, hd] with row strides (elements)
@@ -93,7 +95,7 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return vats::to_f(vats::from_f<T>(x));
 }
 
-template <typename T, int MODE, bool NORM>
+template <typename T, int MODE, bool NORM, int PAIRS>
 __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
   using V2 = typename Vec2<T>::type;
   const int lane = threadIdx.x & 31;
@@ -113,10 +115,10 @@ __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
   const bool rotate = MODE != APPEND && (is_q || is_k);
 
   // this lane's pairs; pad pairs (hd <= d < D) stay zero
-  V2 raw[MAX_PAIRS];
-  float2 x[MAX_PAIRS];
+  V2 raw[PAIRS];
+  float2 x[PAIRS];
 #pragma unroll
-  for (int p = 0; p < MAX_PAIRS; ++p) {
+  for (int p = 0; p < PAIRS; ++p) {
     const int d = 2 * (lane + 32 * p);
     raw[p] = from_f2<T>(0.f, 0.f);
     if (d < a.hd) raw[p] = *reinterpret_cast<const V2*>(src + d);
@@ -128,14 +130,14 @@ __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
     if (NORM) {
       float ss = 0.f;
 #pragma unroll
-      for (int p = 0; p < MAX_PAIRS; ++p)
+      for (int p = 0; p < PAIRS; ++p)
         ss = __fadd_rn(ss, __fadd_rn(__fmul_rn(x[p].x, x[p].x), __fmul_rn(x[p].y, x[p].y)));
       ss = vats::warp_sum(ss);
       norm = __fsqrt_rn(fmaxf(ss, 1e-12f));
     }
     const float fpos = __int2float_rn(pos);
 #pragma unroll
-    for (int p = 0; p < MAX_PAIRS; ++p) {
+    for (int p = 0; p < PAIRS; ++p) {
       const int d = 2 * (lane + 32 * p);
       if (d < a.hd) {
         float n1 = x[p].x, n2 = x[p].y;
@@ -161,7 +163,7 @@ __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
   if (MODE == PAGED) {  // q heads, then k heads, unpadded
     T* dst = (T*)a.q_out + ((size_t)b * (a.Hq + a.G) + vec) * a.hd;
 #pragma unroll
-    for (int p = 0; p < MAX_PAIRS; ++p) {
+    for (int p = 0; p < PAIRS; ++p) {
       const int d = 2 * (lane + 32 * p);
       if (d < a.hd) *reinterpret_cast<V2*>(dst + d) = raw[p];
     }
@@ -170,7 +172,7 @@ __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
   if (is_q) {  // padded to D
     T* dst = (T*)a.q_out + ((size_t)b * a.Hq + h) * a.D;
 #pragma unroll
-    for (int p = 0; p < MAX_PAIRS; ++p) {
+    for (int p = 0; p < PAIRS; ++p) {
       const int d = 2 * (lane + 32 * p);
       if (d < a.D) *reinterpret_cast<V2*>(dst + d) = raw[p];
     }
@@ -186,7 +188,7 @@ __global__ void __launch_bounds__(WARPS * 32) prologue_kernel(Args a) {
   T* dst = (T*)(is_k ? a.cache_k : a.cache_v) +
            (((size_t)a.layer * a.B + b) * a.G + h) * (size_t)a.D * a.S + col;
 #pragma unroll
-  for (int p = 0; p < MAX_PAIRS; ++p) {
+  for (int p = 0; p < PAIRS; ++p) {
     const int d = 2 * (lane + 32 * p);
     if (d < a.D) {
       dst[(size_t)d * a.S] = raw[p].x;
@@ -205,13 +207,21 @@ dim3 grid_of(int mode, int B, int Hq, int G) {
   return dim3((nvec + WARPS - 1) / WARPS, B);
 }
 
-template <typename T, int MODE>
-void launch_mode(const Args& a, bool norm, cudaStream_t stream) {
+template <typename T, int MODE, int PAIRS>
+void launch_pairs(const Args& a, bool norm, cudaStream_t stream) {
   const dim3 grid = grid_of(MODE, a.B, a.Hq, a.G);
   if (norm)
-    prologue_kernel<T, MODE, true><<<grid, WARPS * 32, 0, stream>>>(a);
+    prologue_kernel<T, MODE, true, PAIRS><<<grid, WARPS * 32, 0, stream>>>(a);
   else
-    prologue_kernel<T, MODE, false><<<grid, WARPS * 32, 0, stream>>>(a);
+    prologue_kernel<T, MODE, false, PAIRS><<<grid, WARPS * 32, 0, stream>>>(a);
+}
+
+template <typename T, int MODE>
+void launch_mode(const Args& a, bool norm, cudaStream_t stream) {
+  if ((a.hd > a.D ? a.hd : a.D) <= 128)
+    launch_pairs<T, MODE, 2>(a, norm, stream);
+  else
+    launch_pairs<T, MODE, MAX_PAIRS>(a, norm, stream);
 }
 
 template <typename T>

@@ -32,7 +32,9 @@
 //   * with commit, the current K/V is written into slot
 //     pos = min(lengths[b], PPS*PS - 1) of its page, in place, after every
 //     read of the row's pages by its group, so a row at capacity attends the
-//     old value of the clamped slot, as the oracle does.  K4 quantizes it
+//     old value of the clamped slot, as the oracle does.  Where rows share a
+//     slot, the highest row's value is written (the oracle's sequential
+//     scatter), whatever the order in which their CTAs finish.  K4 quantizes it
 //     first, per (K/V, group), exactly as quantize_kv does: amax over the
 //     stored head dim (pad elements are 0), scale = max(amax, 1e-8) / 127,
 //     q = clip(rint(x / scale), -127, 127) with IEEE divisions and
@@ -208,6 +210,18 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
   // the commit's page (used by the row's last CTA), read while the copies fly
   const int pos = min(len, cap - 1);
   if (p.commit && tid == 0) cpage_s = p.table[(size_t)b * p.PPS + pos / PS];
+  // Rows may share a commit slot (the serving engine parks idle rows on one
+  // scratch page): the highest such row writes it, as a loop over the rows
+  // in order would, so the pool never depends on which CTA ends last.
+  // Whether a higher row commits here is also read while the copies fly.
+  int later = 0;
+  if (p.commit) {
+    const int cpage = p.table[(size_t)b * p.PPS + pos / PS];
+    for (int r = b + 1 + tid; r < (int)gridDim.z; r += THREADS) {
+      const int rpos = min(max(p.lengths[r], 0), cap - 1);
+      later |= rpos % PS == pos % PS && p.table[(size_t)r * p.PPS + rpos / PS] == cpage;
+    }
+  }
 
   // lpt lanes a token row, EPL head-dim elements a lane: lane `sub` of a
   // row holds elements [sub * EPL, sub * EPL + EPL) of every head's q
@@ -366,7 +380,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
     rec[tid * W + 1] = l_s[tid];
   }
   __threadfence();
-  __syncthreads();
+  const bool later_writer = __syncthreads_or(later) != 0;
   if (tid == 0) {
     const int arrived = atomicAdd(p.counters + (size_t)b * G + g, 1);
     if (arrived >= row_tiles) __trap();  // the counter is not this call's alone
@@ -420,7 +434,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
     }
   }
 
-  if (p.commit) {
+  if (p.commit && !later_writer) {
     // every CTA of this (row, group) has read its tile (their bulk copies
     // completed before they arrived), so the slot may change now
     const int cpage = cpage_s;

@@ -5,6 +5,7 @@ from vats_tpu_torch.inference.image_generation import (
     generate_image_tokens,
     generate_image_tokens_paged,
 )
+from vats_tpu_torch.inference.multimodal import generate_multimodal
 from vats_tpu_torch.inference.quantize import (
     QTensor,
     QuantizedModel,
@@ -29,6 +30,11 @@ from vats_tpu_torch.inference.serving import (
     SamplingParams,
     ServingEngine,
 )
+from vats_tpu_torch.inference.video_generation import (
+    VideoGenerationPipeline,
+    VideoGenerationSampler,
+    generate_video_tokens,
+)
 
 __all__ = [
     "ImageGenerationPipeline",
@@ -41,6 +47,8 @@ __all__ = [
     "SamplingParams",
     "ServingEngine",
     "TokenGenerator",
+    "VideoGenerationPipeline",
+    "VideoGenerationSampler",
     "apply_repetition_penalty",
     "apply_top_k",
     "apply_top_p",
@@ -50,7 +58,9 @@ __all__ = [
     "generate",
     "generate_image_tokens",
     "generate_image_tokens_paged",
+    "generate_multimodal",
     "generate_paged",
+    "generate_video_tokens",
     "quantize_params",
     "quantize_tensor",
     "quantized_bytes",

@@ -474,21 +474,22 @@ class VectorQuantizer(nn.Module):
             self.embedding.uniform_(-1.0 / e, 1.0 / e, generator=generator)
 
     def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """z [B, H, W, d] -> (z_q in z's dtype, fp32 loss, indices [B, H, W])."""
-        b, h, w, d = z.shape
-        zf = z.reshape(-1, d).float()
+        """z [..., d] (image latents [B, H, W, d], video latents [B, T, H,
+        W, d]) -> (z_q in z's dtype, fp32 loss, indices z.shape[:-1])."""
+        shape = z.shape
+        zf = z.reshape(-1, shape[-1]).float()
         cb = self.embedding.float()
         with _no_tf32():
             prod = zf @ cb.T
         d2 = zf.square().sum(dim=1, keepdim=True) - 2.0 * prod + cb.square().sum(dim=1)[None, :]
         indices = torch.argmin(d2, dim=-1)
-        z_q = cb[indices].reshape(b, h, w, d)
+        z_q = cb[indices].reshape(shape)
         z32 = z.float()
         codebook_loss = (z_q.detach() - z32).square().mean()
         commit_loss = (z_q - z32.detach()).square().mean()
         loss = codebook_loss + self.cfg.commitment_beta * commit_loss
         z_q = z32 + (z_q - z32).detach()
-        return z_q.to(z.dtype), loss, indices.reshape(b, h, w)
+        return z_q.to(z.dtype), loss, indices.reshape(shape[:-1])
 
 
 class VQVAE(nn.Module):

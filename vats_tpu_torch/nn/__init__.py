@@ -15,9 +15,11 @@ from vats_tpu_torch.nn.rope import (
     apply_rope_2d_ntk,
     apply_rope_2d_ntk_positions,
     apply_rope_3d_axial,
+    apply_rope_3d_ntk_positions,
     apply_rope_interleaved,
     grid_positions_2d,
     rope_2d_ntk_cos_sin,
+    rope_3d_ntk_cos_sin,
     rope_cos_sin,
     rope_inv_freq,
 )
@@ -41,11 +43,13 @@ __all__ = [
     "apply_rope_2d_ntk",
     "apply_rope_2d_ntk_positions",
     "apply_rope_3d_axial",
+    "apply_rope_3d_ntk_positions",
     "apply_rope_interleaved",
     "grid_positions_2d",
     "l2_normalize",
     "ring_slots_for_window",
     "rope_2d_ntk_cos_sin",
+    "rope_3d_ntk_cos_sin",
     "rope_cos_sin",
     "rope_inv_freq",
     "select_attention_impl",

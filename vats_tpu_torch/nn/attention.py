@@ -24,17 +24,21 @@ Attention runs by one of these paths:
     ``gather_dense_t`` (int8 pages dequantized into bf16) +
     ``cached_decode_attention``.
 
-RoPE: '1d' and '2d_ntk' (the image-generation stack's raster-order 2-D
+RoPE: '1d', '2d_ntk' (the image-generation stack's raster-order 2-D
 rotation over a grid of width ``grid_shape[-1]``, positions scaled by
-``rope_ntk_scale``) on every path; '2d_axial' (ViT-2D, over
-``grid_shape``) and 'none' on the uncached path only (the cache paths raise
-for them, as JAX's raise for '2d_axial').  Caller-supplied per-token
+``rope_ntk_scale``), '3d_ntk' (the raster-order, t-major 3-D rotation of
+video token streams over frames of ``grid_shape[-2:]``) and 'none' on every
+path; '2d_axial' (ViT-2D, over ``grid_shape``) and the axial '3d_spatial',
+'3d_temporal' and '3d_all' (over a (gt, gh, gw) ``grid_shape``) on the
+uncached path only (the cache paths raise for them, as JAX's do).  Caller-supplied per-token
 ``rope_angles`` (cos, sin) take the place of any mode, as in JAX.  A
-'2d_ntk' or ``rope_angles`` decode token runs K3's prologue in table mode:
-the kernel reads the (cos, sin) table that
-``nn/rope.rope_2d_ntk_cos_sin`` makes on the device.  The 3-D NTK mode and
-``context_parallel != 'none'`` are not ported yet and raise.  The JAX
-module's logical-sharding constraints have no counterpart on one card.
+'2d_ntk', '3d_ntk' or ``rope_angles`` decode token runs K3's prologue in
+table mode: the kernel reads the (cos, sin) table that
+``nn/rope.rope_2d_ntk_cos_sin`` / ``rope_3d_ntk_cos_sin`` make on the
+device; a 'none' decode token reads the identity table (cos 1, sin 0: the
+rotation is exact).  ``context_parallel != 'none'`` is not ported yet and
+raises.  The JAX module's logical-sharding constraints have no counterpart
+on one card.
 """
 
 from __future__ import annotations
@@ -52,8 +56,10 @@ from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
 from vats_tpu_torch.nn.rope import (
     apply_rope_1d,
     apply_rope_2d_axial,
+    apply_rope_3d_axial,
     apply_rope_interleaved,
     rope_2d_ntk_cos_sin,
+    rope_3d_ntk_cos_sin,
     rope_inv_freq,
 )
 from vats_tpu_torch.ops import cache_append
@@ -68,8 +74,9 @@ from vats_tpu_torch.ops.flash_attention import flash_attention
 #: JAX package (the flash kernel has no blocks to skip at short lengths)
 FLASH_MIN_SEQ_LEN = 256
 #: RoPE modes the port runs on the uncached path, and on the cache paths
-ROPE_TYPES = ("1d", "2d_axial", "2d_ntk", "none")
-CACHE_ROPE_TYPES = ("1d", "2d_ntk")
+ROPE_TYPES = ("1d", "2d_axial", "2d_ntk", "3d_ntk", "3d_spatial", "3d_temporal", "3d_all",
+              "none")
+CACHE_ROPE_TYPES = ("1d", "2d_ntk", "3d_ntk", "none")
 
 
 def select_attention_impl(
@@ -159,22 +166,39 @@ class Attention(nn.Module):
             self.w_k = lin(d_model, g * hd)
             self.w_v = lin(d_model, g * hd)
         self.w_o = lin(h * hd, d_model)
-        # the decode prologue's fp32 RoPE table per device, made at first use
-        # on that device by rope_inv_freq (as apply_rope_1d makes it); not a
-        # buffer: a model built on the meta device could not move it
+        # the decode prologue's fp32 tables per device, made at first use on
+        # that device: rope_inv_freq (as apply_rope_1d makes it) for '1d',
+        # the identity (cos 1, sin 0) for 'none'; not buffers: a model built
+        # on the meta device could not move them
         self._rope_tables = {}
 
-    def _rope_table(self, device: torch.device) -> torch.Tensor:
-        table = self._rope_tables.get(device)
+    def _table(self, key: str, device: torch.device, make):
+        table = self._rope_tables.get((key, device))
         if table is None:
             if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 # made here, the table would be filled only by replays
                 raise RuntimeError(
                     "decode prologue: no RoPE table for this device yet; run the "
                     "step once before capturing it")
-            table = rope_inv_freq(self.head_dim, self.rope_theta, device=device)
-            self._rope_tables[device] = table
+            table = make()
+            self._rope_tables[(key, device)] = table
         return table
+
+    def _rope_table(self, device: torch.device) -> torch.Tensor:
+        return self._table("inv_freq", device, lambda: rope_inv_freq(
+            self.head_dim, self.rope_theta, device=device))
+
+    def _decode_rotation(self, cos_sin, device: torch.device):
+        """(inv_freq, cos_sin) of a decode token's prologue: the table when
+        there is one, the identity table for 'none', else the 1-D
+        inv_freq."""
+        if cos_sin is not None:
+            return None, cos_sin
+        if self.rope_type == "none":
+            half = self.head_dim // 2
+            return None, self._table("identity", device, lambda: (
+                torch.ones(half, device=device), torch.zeros(half, device=device)))
+        return self._rope_table(device), None
 
     @property
     def head_dim(self) -> int:
@@ -183,17 +207,24 @@ class Attention(nn.Module):
     def _cos_sin(self, positions, grid_shape, rope_angles):
         """The per-token (cos, sin) table of a table-driven rotation:
         ``rope_angles`` when given, the '2d_ntk' table at ``positions``
-        (raster order over a grid ``grid_shape[-1]`` wide), else None."""
+        (raster order over a grid ``grid_shape[-1]`` wide) or the '3d_ntk'
+        one (t-major raster over frames of ``grid_shape[-2:]``), else
+        None."""
         if rope_angles is not None:
             return rope_angles
         if self.rope_type == "2d_ntk":
             return rope_2d_ntk_cos_sin(positions, self.head_dim, grid_shape[-1],
                                        self.rope_theta, self.rope_ntk_scale)
+        if self.rope_type == "3d_ntk":
+            return rope_3d_ntk_cos_sin(positions, self.head_dim, grid_shape[-2],
+                                       grid_shape[-1], self.rope_theta,
+                                       self.rope_ntk_scale)
         return None
 
     def _apply_rope(self, x, positions, grid_shape, cos_sin=None):
         """RoPE of a forward at ``positions`` (1-D), by the table
-        ``cos_sin``, or over ``grid_shape`` ((gh, gw) for '2d_axial')."""
+        ``cos_sin``, or over ``grid_shape`` ((gh, gw) for '2d_axial',
+        (gt, gh, gw) for the axial 3-D modes)."""
         if cos_sin is not None:
             return apply_rope_interleaved(x, *cos_sin)
         if self.rope_type == "none":
@@ -201,6 +232,11 @@ class Attention(nn.Module):
         if self.rope_type == "2d_axial":
             gh, gw = grid_shape
             return apply_rope_2d_axial(x, gh, gw, self.rope_theta, self.rope_ntk_scale)
+        if self.rope_type in ("3d_spatial", "3d_temporal", "3d_all"):  # axial, (gt, gh, gw)
+            gt, gh, gw = grid_shape
+            return apply_rope_3d_axial(x, gt, gh, gw, self.rope_theta,
+                                       mode=self.rope_type[3:],
+                                       ntk_scale_factor=self.rope_ntk_scale)
         return apply_rope_1d(x, positions, self.rope_theta)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -249,7 +285,8 @@ class Attention(nn.Module):
         With a dense ``cache`` it may instead be [B, max_seq_len], a validity
         mask over the whole buffer kept by the generation loop.
         grid_shape: the patch grid of a '2d_axial' forward (T == gh * gw);
-        for '2d_ntk' its last entry is the raster grid's width.
+        for '2d_ntk' its last entry is the raster grid's width, for '3d_ntk'
+        its last two the frame's (gh, gw).
         rope_angles: fp32 (cos, sin) per token ([T, hd/2], or [B, T, hd/2]
         on the paged path) in place of the rope mode."""
         b, t, _ = x.shape
@@ -294,10 +331,10 @@ class Attention(nn.Module):
             positions = start + torch.arange(t, device=x.device)
             cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
             if decode:
+                inv_freq, table = self._decode_rotation(cos_sin, x.device)
                 q = cache.decode_token(
-                    layer_idx, q, k, v,
-                    self._rope_table(x.device) if cos_sin is None else None,
-                    theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=cos_sin,
+                    layer_idx, q, k, v, inv_freq,
+                    theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=table,
                 )
                 new_cache = cache
             else:
@@ -382,10 +419,10 @@ class Attention(nn.Module):
         positions = lengths[:, None] + torch.arange(t, device=q.device)[None, :]
         cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
         if t == 1:
+            inv_freq, table = self._decode_rotation(cos_sin, q.device)
             q1, k1, v1 = cache_append.paged_decode_prologue(
-                q, k, v, lengths,
-                self._rope_table(q.device) if cos_sin is None else None,
-                theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=cos_sin,
+                q, k, v, lengths, inv_freq,
+                theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=table,
             )
             out = paged_decode_attention_commit(
                 q1, paged_cache.kv_pages, layer_idx, paged_cache.page_table,

@@ -12,7 +12,8 @@ The attention's decode step (T == 1) goes through :meth:`decode_token`:
 K3's dense prologue (``ops/cache_append.py``), which norms and rotates the
 token's q and k and commits k and v in one launch on CUDA, for every S (the
 JAX package takes its append kernel only when S is a multiple of 128, a TPU
-tiling rule).  :meth:`update_layer` at T == 1 takes K3's append-only mode.
+tiling rule).  :meth:`update_layer` at T == 1 takes K3's append-only mode
+(the video generation stack's temporal cache writes every frame so).
 The clamp ``min(length, S-1)`` is semantics and stays.
 """
 
@@ -152,6 +153,13 @@ class KVCache:
     def layer_t(self, layer_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Native full-buffer views for a layer: ([B, G, hd_pad, S], same)."""
         return self.k[layer_idx], self.v[layer_idx]
+
+    def layer(self, layer_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Classic [B, S, G, hd] views of a layer, cut to the logical head
+        dim (strided views of the buffer, no copy)."""
+        hd = self.head_dim or self.k.shape[3]
+        return (self.k[layer_idx].permute(0, 3, 1, 2)[..., :hd],
+                self.v[layer_idx].permute(0, 3, 1, 2)[..., :hd])
 
     def valid_mask(self, batch_size: int, extra: int = 0) -> torch.Tensor:
         """[B, S] bool: True where a slot holds a written entry, counting

@@ -7,10 +7,11 @@ Counterpart of the 1-D part of ``vats_tpu/nn/rope.py``::
     out[..., 1::2] = x1*sin + x2*cos
 
 Positions are absolute (decode passes each row's own positions).  The
-axial 2-D (ViT-2D) and 3-D (ViT-3D) rotations are here too, and the
-NTK-scaled raster-order 2-D rotation of the image-generation stack, whose
-per-token table (:func:`rope_2d_ntk_cos_sin`) is also what K3's table mode
-reads (``ops/cache_append.py``).  Angles are fp32 and each result is cast
+axial 2-D (ViT-2D) and 3-D (ViT-3D, video generation) rotations are here
+too, and the NTK-scaled raster-order 2-D and 3-D rotations of the
+generation stacks, whose per-token tables (:func:`rope_2d_ntk_cos_sin`,
+:func:`rope_3d_ntk_cos_sin`) are also what K3's table mode reads
+(``ops/cache_append.py``).  Angles are fp32 and each result is cast
 back to x's dtype, as in JAX.
 """
 
@@ -168,7 +169,105 @@ def apply_rope_2d_ntk_positions(
         x, *rope_2d_ntk_cos_sin(positions, x.shape[-1], grid_w, theta, ntk_scale_factor))
 
 
+# --- NTK-scaled raster 3-D RoPE (video token streams) --------------------------
+
+
+def rope_3d_ntk_cos_sin(
+    positions: torch.Tensor,
+    head_dim: int,
+    grid_h: int,
+    grid_w: int,
+    theta: float,
+    ntk_scale_factor: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token table of the raster 3-D NTK rotation: integer
+    positions (any shape; t-major raster over frames of grid_h x grid_w:
+    t = pos // (grid_h grid_w), then row and column within the frame) ->
+    fp32 cos / sin of shape positions.shape + [hd/2].  The hd/2 pairs split
+    into three chunks of hd/6 rotated by t, row and column, each with
+    inv_freq = theta^-(i / (hd/6)); ``ntk_scale_factor`` scales the
+    coordinates.  Computed on the positions' device with no host sync."""
+    if head_dim % 6 != 0:
+        raise ValueError(f"head_dim ({head_dim}) must be divisible by 6")
+    c = head_dim // 6
+    inv_freq = 1.0 / (theta ** (torch.arange(c, dtype=torch.float32,
+                                             device=positions.device) / c))
+    fpf = grid_h * grid_w
+    rem = torch.remainder(positions, fpf)
+    coords = [torch.div(positions, fpf, rounding_mode="floor").float(),
+              torch.div(rem, grid_w, rounding_mode="floor").float(),
+              torch.remainder(rem, grid_w).float()]
+    if ntk_scale_factor is not None:
+        coords = [x * ntk_scale_factor for x in coords]
+    angles = torch.cat([x[..., None] * inv_freq for x in coords], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope_3d_ntk_positions(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    grid_h: int,
+    grid_w: int,
+    theta: float,
+    ntk_scale_factor: Optional[float] = None,
+) -> torch.Tensor:
+    """Interleaved 3-D RoPE on [B, T, heads, hd] at t-major raster positions
+    ([T] or [B, T]) by :func:`rope_3d_ntk_cos_sin`: full forwards
+    (positions == arange(N)) and cached decode alike."""
+    return apply_rope_interleaved(
+        x, *rope_3d_ntk_cos_sin(positions, x.shape[-1], grid_h, grid_w, theta,
+                                ntk_scale_factor))
+
+
 # --- axial 3-D RoPE (ViT-3D) -------------------------------------------------
+
+
+def rope_3d_axial_cos_sin(
+    mode: str,
+    head_dim: int,
+    theta: float,
+    *,
+    grid_t: int = 1,
+    grid_h: int = 1,
+    grid_w: int = 1,
+    t_positions: Optional[torch.Tensor] = None,
+    ntk_scale_factor: Optional[float] = None,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole-head (cos, sin) table [N, hd/2] of the axial 3-D RoPE: hd
+    splits into t, h and w thirds, each rotated as interleaved pairs by its
+    own coordinate (inv_freq over the third, positions scaled by
+    ``ntk_scale_factor``).
+
+    mode='all':      N = grid_t * grid_h * grid_w, t-major; all three thirds.
+    mode='spatial':  N = grid_h * grid_w; h and w, the t third's pairs get
+                     the identity (cos 1, sin 0: they pass unchanged).
+    mode='temporal': N = len(t_positions); t, identity for h and w.
+
+    Made once a forward, the table rotates every tensor of that forward."""
+    if head_dim % 6 != 0:
+        raise ValueError(f"head_dim ({head_dim}) must be divisible by 6 for 3D RoPE")
+    third = head_dim // 3
+
+    def cos_sin(p):
+        if ntk_scale_factor is not None:
+            p = p.float() * ntk_scale_factor
+        return rope_cos_sin(p, third, theta)
+
+    rows, cols = grid_positions_2d(grid_h, grid_w, device=device)
+    if mode == "spatial":
+        parts = [None, cos_sin(rows), cos_sin(cols)]
+    elif mode == "temporal":
+        parts = [cos_sin(t_positions), None, None]
+    elif mode == "all":
+        ts = torch.arange(grid_t, device=device).repeat_interleave(grid_h * grid_w)
+        parts = [cos_sin(ts), cos_sin(rows.repeat(grid_t)), cos_sin(cols.repeat(grid_t))]
+    else:
+        raise ValueError(f"unknown 3D RoPE mode: {mode}")
+    n = next(p_[0].shape[0] for p_ in parts if p_ is not None)
+    ident = (torch.ones(n, third // 2, device=device), torch.zeros(n, third // 2, device=device))
+    parts = [ident if p_ is None else p_ for p_ in parts]
+    return (torch.cat([c for c, _ in parts], dim=-1), torch.cat([s_ for _, s_ in parts], dim=-1))
 
 
 def apply_rope_3d_axial(
@@ -181,43 +280,20 @@ def apply_rope_3d_axial(
     ntk_scale_factor: Optional[float] = None,
     t_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Axial 3-D RoPE; hd splits into t, h and w thirds, each rotated as
-    interleaved pairs by its own coordinate.
+    """Axial 3-D RoPE by :func:`rope_3d_axial_cos_sin`.
 
     mode='all':      x [B, T*H*W, heads, hd]; rotate all three thirds.
     mode='spatial':  x [B*T, H*W, heads, hd]; rotate h and w, pass t.
     mode='temporal': x [B*H*W, T, heads, hd]; rotate t (at ``t_positions``
                      when given, else 0..T-1), pass h and w."""
-    head_dim = x.shape[-1]
-    if head_dim % 6 != 0:
-        raise ValueError(f"head_dim ({head_dim}) must be divisible by 6 for 3D RoPE")
-    third = head_dim // 3
-    dev = x.device
-
-    def cos_sin(p):
-        if ntk_scale_factor is not None:
-            p = p.float() * ntk_scale_factor
-        return rope_cos_sin(p, third, theta)
-
-    t_part, h_part, w_part = x[..., :third], x[..., third:2 * third], x[..., 2 * third:]
-    if mode == "spatial":
-        if x.shape[1] != grid_h * grid_w:
-            raise ValueError(f"spatial mode expects N == grid_h*grid_w, got {x.shape[1]}")
-        rows, cols = grid_positions_2d(grid_h, grid_w, device=dev)
-        h_part = apply_rope_interleaved(h_part, *cos_sin(rows))
-        w_part = apply_rope_interleaved(w_part, *cos_sin(cols))
-    elif mode == "temporal":
-        pos_t = t_positions if t_positions is not None else torch.arange(x.shape[1], device=dev)
-        t_part = apply_rope_interleaved(t_part, *cos_sin(pos_t))
-    elif mode == "all":
-        if x.shape[1] != grid_t * grid_h * grid_w:
-            raise ValueError("mode='all' expects N == grid_t*grid_h*grid_w")
-        hw = grid_h * grid_w
-        ts = torch.arange(grid_t, device=dev).repeat_interleave(hw)
-        rows, cols = grid_positions_2d(grid_h, grid_w, device=dev)
-        t_part = apply_rope_interleaved(t_part, *cos_sin(ts))
-        h_part = apply_rope_interleaved(h_part, *cos_sin(rows.repeat(grid_t)))
-        w_part = apply_rope_interleaved(w_part, *cos_sin(cols.repeat(grid_t)))
-    else:
-        raise ValueError(f"unknown 3D RoPE mode: {mode}")
-    return torch.cat([t_part, h_part, w_part], dim=-1)
+    if x.shape[-1] % 6 != 0:
+        raise ValueError(f"head_dim ({x.shape[-1]}) must be divisible by 6 for 3D RoPE")
+    if mode == "spatial" and x.shape[1] != grid_h * grid_w:
+        raise ValueError(f"spatial mode expects N == grid_h*grid_w, got {x.shape[1]}")
+    if mode == "all" and x.shape[1] != grid_t * grid_h * grid_w:
+        raise ValueError("mode='all' expects N == grid_t*grid_h*grid_w")
+    if mode == "temporal" and t_positions is None:
+        t_positions = torch.arange(x.shape[1], device=x.device)
+    return apply_rope_interleaved(x, *rope_3d_axial_cos_sin(
+        mode, x.shape[-1], theta, grid_t=grid_t, grid_h=grid_h, grid_w=grid_w,
+        t_positions=t_positions, ntk_scale_factor=ntk_scale_factor, device=x.device))

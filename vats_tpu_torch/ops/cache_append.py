@@ -47,6 +47,8 @@ from vats_tpu_torch.ops import kernels
 
 # kernel modes (csrc/cache_append.cu)
 _APPEND, _DENSE, _RING, _PAGED = 0, 1, 2, 3
+#: the kernel's widest head (three interleaved pairs a lane of a warp)
+MAX_HEAD_DIM = 192
 
 
 def append_token_ref(
@@ -238,8 +240,8 @@ def _check_cache(k, v, layer_idx):
                     f"layer {layer_idx} out of range of a cache {tuple(k.shape)}")
     for name, t in (("k", k), ("v", v)):
         kernels.check_cuda_tensor(t, name, dtype=k.dtype, shape=k.shape)
-    kernels.require(k.shape[3] % 2 == 0 and k.shape[3] <= 128,
-                    f"stored head dim {k.shape[3]} must be even and at most 128")
+    kernels.require(k.shape[3] % 2 == 0 and k.shape[3] <= MAX_HEAD_DIM,
+                    f"stored head dim {k.shape[3]} must be even and at most {MAX_HEAD_DIM}")
 
 
 def _check_sources(q, k, v, dtype, inv_freq, cos_sin):
@@ -249,7 +251,8 @@ def _check_sources(q, k, v, dtype, inv_freq, cos_sin):
     b, t, _, hd = q.shape
     g = k.shape[2]
     kernels.require(t == 1, f"the decode prologue takes one token a row, got {t}")
-    kernels.require(hd % 2 == 0 and hd <= 128, f"head dim {hd} must be even and <= 128")
+    kernels.require(hd % 2 == 0 and hd <= MAX_HEAD_DIM,
+                    f"head dim {hd} must be even and <= {MAX_HEAD_DIM}")
     kernels.require(b <= 65535, f"batch {b} beyond the grid")
     for name, x, h in (("q", q, q.shape[2]), ("k", k, g), ("v", v, g)):
         kernels.check_cuda_tensor(x, name, dtype=dtype, shape=(b, 1, h, hd), strided=True)

@@ -373,8 +373,10 @@ def paged_decode_attention_commit(
 
     q [B, Hq, hd]; kv_pages: the full pool [L, P, 2, G, ps, hd_pad], updated
     in place; k_cur/v_cur [B, G, hd].  Returns the attention [B, Hq, hd].
-    int8 pools pass the full ``kv_scales`` (also updated in place) and go to
-    K4 (:func:`paged_decode_attention_commit_int8`)."""
+    Rows that share a slot (idle rows parked on one scratch page) leave the
+    highest row's value there, as a loop over the rows would.  int8 pools
+    pass the full ``kv_scales`` (also updated in place) and go to K4
+    (:func:`paged_decode_attention_commit_int8`)."""
     if kv_scales is not None:
         return paged_decode_attention_commit_int8(
             q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale=scale,

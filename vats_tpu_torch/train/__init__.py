@@ -13,6 +13,11 @@ from vats_tpu_torch.train.loop import (
     train,
     validate,
 )
+from vats_tpu_torch.train.video_gen import (
+    VideoGenTrainingArgs,
+    VideoTokenTrainer,
+    VQVAE3DTrainer,
+)
 from vats_tpu_torch.train.vision import (
     VisionTrainingArgs,
     create_vision_optimizer,
@@ -28,6 +33,9 @@ __all__ = [
     "ImageGenTrainer",
     "ImageGenTrainingArgs",
     "TrainState",
+    "VQVAE3DTrainer",
+    "VideoGenTrainingArgs",
+    "VideoTokenTrainer",
     "VisionTrainingArgs",
     "compute_loss",
     "compute_perplexity",

@@ -28,6 +28,14 @@ BatchNorm running statistics into the port's fp32 ``running_mean`` /
 becomes the (in, out, kH, kW) weight of ``conv_transpose2d``, flipped in
 both spatial axes.
 
+Given a ``VideoGenArgs`` config it carries any tree of the video-generation
+stack, told apart the same way: the ``AutoregressiveVideoTransformer``, the
+``Encoder3D``, the ``Decoder3D``, the quantizer's codebook, or the whole
+``VQVAE3D`` with its ``batch_stats``.  A flax ``Conv`` kernel (kT, kH, kW,
+in, out) becomes OIDHW; a ``ConvTranspose`` one becomes the (in, out, kT,
+kH, kW) weight of ``conv_transpose3d``, flipped in all three spatial axes.
+Given a ``MultimodalStreamArgs`` config it carries the ``MultimodalLM``.
+
 A gradient tree has the params' structure, so the same function carries JAX
 gradients across for a leaf-by-leaf comparison with the port's ``.grad``,
 and optax's moments and accumulated gradients into the port's optimizer
@@ -42,7 +50,9 @@ import numpy as np
 import torch
 
 from vats_tpu_torch.configs.image_gen import ImageGenArgs
+from vats_tpu_torch.configs.multimodal import MultimodalStreamArgs
 from vats_tpu_torch.configs.nlp import ModelArgs, TrainingArgs
+from vats_tpu_torch.configs.video_gen import VideoGenArgs
 from vats_tpu_torch.configs.vit2d import ViT2DArgs
 from vats_tpu_torch.configs.vit3d import ViT3DArgs
 from vats_tpu_torch.device import resolve_dtype
@@ -211,14 +221,79 @@ def _image_gen_params_from_jax(tree: Mapping, cfg: ImageGenArgs,
     return dict(sd)
 
 
+def _put_factorized(sd: _StateDict, prefix: str, p: Mapping) -> None:
+    """A factorized (causal or cross) attention of the video transformer."""
+    for name in ("q_proj", "k_proj", "v_proj", "spatio_temporal_proj", "o_proj"):
+        sd.put_dense(f"{prefix}.{name}", p[name])
+
+
+def _video_gen_into(sd: _StateDict, prefix: str, p: Mapping, stats: Mapping,
+                    cfg: VideoGenArgs) -> None:
+    """One tree of the video-generation stack into ``sd`` under ``prefix``."""
+    if set(p) == {"embedding"}:  # the quantizer's codebook
+        sd.put(f"{prefix}embedding", p["embedding"])
+    elif "layer_0" in p:  # AutoregressiveVideoTransformer
+        sd.put(f"{prefix}embedding.weight", p["embedding"]["embedding"])
+        for i in range(cfg.num_layers):
+            lp, pre = p[f"layer_{i}"], f"{prefix}layers.{i}"
+            sd.put(f"{pre}.norm1.weight", lp["RMSNorm_0"]["weight"])
+            sd.put(f"{pre}.norm2.weight", lp["RMSNorm_1"]["weight"])
+            _put_factorized(sd, f"{pre}.attention", lp["attention"])
+            _put_factorized(sd, f"{pre}.cross_attention", lp["cross_attention"])
+            sd.put_ffn(f"{pre}.ffn_block", lp["ffn_block"])
+        sd.put(f"{prefix}norm.weight", p["RMSNorm_0"]["weight"])
+        sd.put_dense(f"{prefix}to_logits", p["to_logits"])
+    elif "conv1" in p:  # Encoder3D: DHWIO -> OIDHW
+        for i in range(3):
+            c = p[f"conv{i + 1}"]
+            sd.put(f"{prefix}convs.{i}.weight", c["kernel"], perm=(4, 3, 0, 1, 2))
+            sd.put(f"{prefix}convs.{i}.bias", c["bias"])
+            _put_bn(sd, f"{prefix}bns.{i}", p[f"bn{i + 1}"], stats.get(f"bn{i + 1}"))
+    elif "deconv1" in p:  # Decoder3D: (kT, kH, kW, in, out) flipped -> (in, out, kT, kH, kW)
+        for i in range(3):
+            c = p[f"deconv{i + 1}"]
+            sd.put(f"{prefix}deconvs.{i}.weight", np.asarray(c["kernel"])[::-1, ::-1, ::-1],
+                   perm=(3, 4, 0, 1, 2))
+            sd.put(f"{prefix}deconvs.{i}.bias", c["bias"])
+            if i < 2:
+                _put_bn(sd, f"{prefix}bns.{i}", p[f"bn{i + 1}"], stats.get(f"bn{i + 1}"))
+    else:  # VQVAE3D
+        for name in ("encoder", "quantizer", "decoder"):
+            _video_gen_into(sd, f"{prefix}{name}.", p[name], stats.get(name, {}), cfg)
+
+
+def _multimodal_params_from_jax(p: Mapping, cfg: MultimodalStreamArgs,
+                                dtype: Optional[torch.dtype] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX MultimodalLM params (numpy) -> port MultimodalLM state_dict."""
+    sd = _StateDict(dtype or resolve_dtype(cfg.param_dtype))
+    sd.put("token_embed.weight", p["token_embed"]["embedding"])
+    for i in range(cfg.num_layers):
+        _put_attention(sd, f"attn_blocks.{i}", p[f"attn_{i}"], cfg.use_qkv_proj)
+        sd.put_ffn(f"ffn_blocks.{i}", p[f"ffn_{i}"])
+    sd.put("norm.weight", p["RMSNorm_0"]["weight"])
+    if not cfg.tie_weights:
+        sd.put_dense("lm_head", p["lm_head"])
+    return dict(sd)
+
+
 def params_from_jax(params_np: Mapping, cfg,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """JAX TextLM params (numpy) -> port TextLM state_dict, in ``dtype``
     (by default cfg.param_dtype); a ViT2DArgs or ViT3DArgs config carries
-    the vision model of that config instead, an ImageGenArgs config any
-    tree of the image-generation stack."""
+    the vision model of that config instead, an ImageGenArgs or
+    VideoGenArgs config any tree of that generation stack (params, or
+    variables with batch_stats), a MultimodalStreamArgs config the
+    MultimodalLM."""
     if isinstance(cfg, ImageGenArgs):
         return _image_gen_params_from_jax(params_np, cfg, dtype)
+    if isinstance(cfg, VideoGenArgs):
+        sd = _StateDict(dtype or resolve_dtype(cfg.param_dtype))
+        _video_gen_into(sd, "", params_np.get("params", params_np),
+                        params_np.get("batch_stats", {}), cfg)
+        return dict(sd)
+    if isinstance(cfg, MultimodalStreamArgs):
+        return _multimodal_params_from_jax(params_np.get("params", params_np), cfg, dtype)
     if isinstance(cfg, ViT2DArgs):
         return _vit2d_params_from_jax(params_np, cfg, dtype)
     if isinstance(cfg, ViT3DArgs):
