@@ -40,7 +40,12 @@ Phases:
            8 / 4 heads of 96 with a table of text, image and video rows, K1
            at head dim 96 with 2 heads a group over ragged lengths up to 2367,
            K2 at T=256, head dim 96 -> 128, causal with a ragged key mask,
-           timed beside SDPA.
+           timed beside SDPA.  K2', K5a and K5b at a ring hop of the
+           context_parallel phase (``check_ring_hop``: nlp_medium's heads,
+           T = S = 2048, B = 2): the past shard at offset +tl (causal), a
+           wrapped future shard at offset -tl (non-causal, right window),
+           the backward fed a merged lse and di from outside with rows at
+           1e30 (dq exactly 0 there); timed at the past hop beside SDPA.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -83,6 +88,21 @@ Phases:
   train_parity  2 layers at full width, B=2, T=512, dropout 0: three train
            steps on the card (flash kernels) and on the CPU from the same
            weights and batch; loss, grad norm and params after each step.
+  context_parallel  CP_RANKS = 2 ranks spawned on cuda:0 (the card's
+           compute mode printed first: an exclusive mode stops the second
+           rank, and the phase fails), over gloo with CUDA tensors staged
+           through host buffers (NCCL needs one GPU a rank).  Ring attention
+           at nlp_medium's attention shape over T = 4096 (tl 2048, B = 2,
+           bf16), causal without and with left_window 384, forward and
+           backward against single-process flash on the card (CP_REL_L2);
+           one sequence-parallel medium_dense step at full width and depth
+           (T = 4096, dropout 0) with 'ring' and with 'ulysses' against the
+           single-process step (train_parity's limits, leaf by leaf).  Exact
+           launch gates a rank: K2', K5a, K5b = live hops of ``_ring_steps``
+           (x 20 layers, K2' x 2 under remat in the step), none under
+           Ulysses.  Step walls, bytes sent, the seconds in collectives
+           (waiting for queued device work, host copies, exchange) and
+           peak memory per rank, beside the card's name and power limit.
   scripts  the LM's own entry points in-process through their ``main(argv)``,
            in a temporary directory under ``checkpoints/`` that it deletes
            (it first checks for twice a checkpoint's bytes free): the train
@@ -190,8 +210,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
-          "train_parity", "scripts", "vision", "vision_parity", "image_gen",
-          "image_gen_parity", "video_gen", "video_gen_parity", "multimodal",
+          "train_parity", "context_parallel", "scripts", "vision", "vision_parity",
+          "image_gen", "image_gen_parity", "video_gen", "video_gen_parity", "multimodal",
           "multimodal_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -1437,6 +1457,108 @@ def check_flash_at(gen, tag, B, T, Hq, G, hd, causal):
         f"max_abs_err K2 {err_k2:.3e} K2' {err_k2l:.3e} (out within {BF16_ATOL} + "
         f"{BF16_RTOL}*|ref| + the p flip allowance, lse 1e-4) K5 dq {errs[0]:.3e} dk "
         f"{errs[1]:.3e} dv {errs[2]:.3e} (within {BWD_ATOL} + {BWD_RTOL}*|ref|); "
+        + "; ".join(f"{n} " + " ".join(f"{k_}={v_ if k_ == 'bound_by' else _fmt(v_, 5)}"
+                                        for k_, v_ in r.items()) for n, r in rows.items()))
+    return rows
+
+
+# One ring hop at nlp_medium's attention (24 / 8 heads of 60, padded to 64 in
+# the ring, bf16) on a 2-rank ring over max_seq_len 4096: T = S = tl = 2048,
+# B = 2 (the context_parallel phase's shape).
+HOP_B, HOP_TL, HOP_RW = 2, 2048, 2300
+
+
+def check_ring_hop(gen):
+    """K2', K5a and K5b at a ring hop: the past shard (offset +tl, causal:
+    every key of it visible), a wrapped future shard (offset -tl,
+    non-causal, right window HOP_RW: a band of it visible, block skipping
+    on both sides), each against its plain version; the backward fed a
+    merged lse and di from outside, with rows at the 1e30 of a row that
+    attends nothing anywhere (their dq must be exactly 0).  Each kernel
+    timed at the past hop beside its bound, its plain version and SDPA
+    over the same (fully visible) block.  Returns {K2', K5a, K5b: numbers}."""
+    import torch
+
+    from vats_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_lse,
+        flash_attention_lse_ref,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    B, T, Hq, G, hd = HOP_B, HOP_TL, TRAIN_HQ, TRAIN_G, TRAIN_HD
+    scale = 1.0 / hd**0.5
+    q, k, v, do = _train_attention_inputs(gen, B, T, Hq, G, hd)
+    hops = {"past +tl causal": dict(scale=scale, causal=True, q_pos_offset=T),
+            f"future -tl right_window {HOP_RW}": dict(scale=scale, causal=False,
+                                                     right_window=HOP_RW, q_pos_offset=-T)}
+    fns = (flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
+    errs, outs = {}, {}
+    for name, kw in hops.items():
+        n0 = [fn.launches for fn in fns]
+        o_k, lse_k = flash_attention_lse(q, k, v, **kw)
+        o_p, lse_p = flash_attention_lse_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        require(flash_attention_lse.launches == n0[0] + 1, f"ring hop {name}: K2' did not launch")
+        errs[f"K2' {name}"] = max(
+            expect_close(f"ring hop {name} K2' out", o_k, o_p, BF16_ATOL, BF16_RTOL,
+                         p_flip_allowance(q, k, v, **kw)),
+            expect_close(f"ring hop {name} K2' lse", lse_k, lse_p, 1e-4, 1e-5))
+        outs[name] = (o_p, lse_p)
+    # the global statistics of the two hops merged, as the ring passes them
+    (o_a, l_a), (o_b, l_b) = outs.values()
+    la, lb = (torch.where(x > 1e29, -torch.inf, x) for x in (l_a, l_b))
+    lse = torch.logaddexp(la, lb)
+    wa = torch.exp(la - lse).nan_to_num().transpose(1, 2)[..., None]
+    wb = torch.exp(lb - lse).nan_to_num().transpose(1, 2)[..., None]
+    o = (o_a.float() * wa + o_b.float() * wb).to(q.dtype)
+    lse[0, :, :5] = 1e30  # rows with no key anywhere
+    lse = torch.where(torch.isfinite(lse), lse, 1e30).contiguous()
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    for name, kw in hops.items():
+        n0 = [fn.launches for fn in fns[1:]]
+        got = flash_attention_bwd(q, k, v, do, lse, di, **kw)
+        want = flash_attention_bwd_ref(q, k, v, do, lse, di, **kw)
+        torch.cuda.synchronize()
+        require([fn.launches - n for fn, n in zip(fns[1:], n0)] == [1, 1],
+                f"ring hop {name}: K5a/K5b did not launch")
+        for part, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            errs[f"K5 {part} {name}"] = expect_close(f"ring hop {name} K5 {part}", a, b_,
+                                                    BWD_ATOL, BWD_RTOL)
+        require(bool((got[0][0, :5] == 0).all()),
+                f"ring hop {name}: rows whose lse is 1e30 must get dq = 0")
+
+    kw = hops["past +tl causal"]
+    pairs = B * T * T  # the past shard: every (query, key) pair attended
+    flops = 4 * Hq * hd * pairs
+    in_bytes = (q.numel() + k.numel() + v.numel()) * 2
+    stats = 2 * B * Hq * T * 4
+    rows = {}
+    b_ms, by = bound(in_bytes + q.numel() * 2 + B * Hq * T * 4, flops)
+    plain_ms, _ = timed(lambda: flash_attention_lse_ref(q, k, v, **kw))
+    ms, lib_ms, alone = flash_vs_sdpa(f"ring hop K2' B={B} T=S={T} offset +tl",
+                                      lambda: flash_attention_lse(q, k, v, **kw), q, k, v,
+                                      scale, b_ms, flops, causal=False)
+    rows["K2'"] = dict(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain_ms,
+                       library_ms=lib_ms, kernel_alone_ms=alone)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 64 - hd)).contiguous()  # noqa: E731
+    qp, kp, vp, dop = map(pad, (q, k, v, do))
+    plain_bwd, _ = timed(lambda: flash_attention_bwd_ref(q, k, v, do, lse, di, **kw))
+    lib_bwd, _, _ = backward_vs_sdpa(f"ring hop backward B={B} T=S={T} (SDPA non-causal)",
+                                     q, k, v, o_a, do, l_a, dict(scale=scale, causal=False))
+    for name, fn, out_bytes, fl in (
+            ("K5a", lambda: flash_bwd_dkv(qp, kp, vp, dop, lse, di, **kw), 2 * k.numel() * 4, 8),
+            ("K5b", lambda: flash_bwd_dq(qp, kp, vp, dop, lse, di, **kw), q.numel() * 4, 6)):
+        b_ms, by = bound(in_bytes + q.numel() * 2 + stats + out_bytes, fl * Hq * hd * pairs)
+        ms = device_ms(fn)
+        rows[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain_bwd,
+                          library_ms=lib_bwd)
+    log(f"ring hop (B={B}, T=S={T}, Hq={Hq}, G={G}, hd={hd}->64, bf16): max_abs_err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (out within {BF16_ATOL} + {BF16_RTOL}*|ref| + the p flip allowance, lse 1e-4, "
+        f"K5 within {BWD_ATOL} + {BWD_RTOL}*|ref|; lse-1e30 rows dq exactly 0); "
         + "; ".join(f"{n} " + " ".join(f"{k_}={v_ if k_ == 'bound_by' else _fmt(v_, 5)}"
                                         for k_, v_ in r.items()) for n, r in rows.items()))
     return rows
@@ -4532,6 +4654,295 @@ def run_multimodal_parity():
     torch.cuda.empty_cache()
 
 
+# --- phase: context_parallel ------------------------------------------------
+
+CP_RANKS, CP_B, CP_T = 2, 2, 4096  # nlp_medium's max_seq_len: tl = 2048 a rank
+CP_WINDOWS = (-1, 384)  # no window; nlp_medium's own left_window
+# Ring against single-process flash over the whole sequence, both bf16 on the
+# card: the ring rounds each hop's output to bf16 before the fp32 merge and
+# feeds K5a/K5b the merged lse and di of its own output, so the two part by
+# a few bf16 roundings (2^-8 relative): each of out, dq, dk and dv is held to
+# a relative L2 error ||ring - flash|| / ||flash|| of at most 1e-2.
+CP_REL_L2 = 1e-2
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _cp_times(traffic):
+    """A rank's seconds in its collectives, split as ``collectives.traffic``
+    splits them."""
+    return (f"in them waiting for queued device work {traffic['wait_s'] * 1e3:.1f} ms, "
+            f"host staging copies {traffic['staging_s'] * 1e3:.1f} ms, exchange "
+            f"{traffic['exchange_s'] * 1e3:.1f} ms")
+
+
+def _cp_live_hops(rank, left_window):
+    """The hops of ``_ring_steps`` that launch kernels on ``rank``."""
+    from vats_tpu_torch.ops.ring_attention import _hop_offset, _ring_steps, _RingCfg
+
+    cfg = _RingCfg(axis_name="seq", n_seq=CP_RANKS, t_local=CP_T // CP_RANKS, scale=1.0,
+                   causal=True, left_window=left_window, right_window=0, use_segids=False)
+    return sum(_hop_offset(cfg, rank, i, *alive) is not None
+               for i, alive in enumerate(_ring_steps(cfg)))
+
+
+def _cp_batch(vocab):
+    import torch
+
+    g = torch.Generator().manual_seed(12)
+    ids = torch.randint(1, vocab, (CP_B, CP_T), generator=g, dtype=torch.int32)
+    lens = torch.tensor([CP_T, CP_T - 40])
+    mask = torch.arange(CP_T)[None, :] < lens[:, None]
+    ids = torch.where(mask, ids, 0)
+    labels = torch.cat([ids[:, 1:], torch.full((CP_B, 1), -100, dtype=torch.int32)], 1)
+    labels = torch.where(torch.arange(CP_T)[None, :] < (lens - 1)[:, None], labels, -100)
+    return {"input_ids": ids, "labels": labels, "padding_mask": mask}
+
+
+def _cp_step(step, state, batch, fns, label):
+    """One train step with the launch counters zeroed just before and read
+    just after: (state, metrics as floats, counts, wall s)."""
+    import torch
+
+    for fn in fns:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in m.items()}
+    require(all(np.isfinite(list(metrics.values()))), f"{label}: non-finite {metrics}")
+    return state, metrics, {fn.__name__: fn.launches for fn in fns}, wall
+
+
+def cp_rank(rank, init_file, queue, t_spawn):
+    """One rank of the context_parallel phase (a spawned process on cuda:0;
+    gloo, CUDA tensors staged through host buffers).  ``t_spawn``: the
+    parent's clock when it started the ranks."""
+    import traceback
+
+    try:
+        queue.put((rank, _cp_rank(rank, init_file, t_spawn)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _cp_rank(rank, init_file, t_spawn):
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.ops import flash_attention as fa
+    from vats_tpu_torch.ops.ring_attention import ring_attention
+    from vats_tpu_torch.parallel import collectives, create_mesh
+    from vats_tpu_torch.parallel.multihost import initialize_multihost
+    from vats_tpu_torch.parallel.sharded import make_sharded_train
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    initialize_multihost(f"file://{init_file}", CP_RANKS, rank, backend="gloo")
+    mesh = create_mesh(data=1, fsdp=1, expert=1, tensor=1, seq=CP_RANKS)
+    torch.zeros(1, device="cuda")  # the CUDA context
+    fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    out = {"start_s": time.perf_counter() - t_spawn, "ring": {}, "train": {}}
+    tl = CP_T // CP_RANKS
+    sl = slice(rank * tl, (rank + 1) * tl)
+
+    # ring attention at nlp_medium's attention shape against single-process flash
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do = _train_attention_inputs(gen, CP_B, CP_T, TRAIN_HQ, TRAIN_G, TRAIN_HD)
+    scale = 1.0 / TRAIN_HD**0.5
+    for lw in CP_WINDOWS:
+        kw = dict(scale=scale, causal=True, left_window=lw)
+        shards = [x[:, sl].clone().requires_grad_() for x in (q, k, v)]
+        for fn in fns:
+            fn.launches = 0
+        collectives.reset_traffic()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ring_attention(*shards, mesh=mesh, **kw)
+        o.backward(do[:, sl])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in fns}
+        traffic = dict(collectives.traffic)
+        full = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = fa.flash_attention(*full, **kw)
+        ref.backward(do)
+        errs = {"out": _rel_l2(o, ref[:, sl])}
+        for name, a, b in zip(("dq", "dk", "dv"), shards, full):
+            errs[name] = _rel_l2(a.grad, b.grad[:, sl])
+        out["ring"][lw] = dict(errs=errs, counts=counts, wall=wall, traffic=traffic,
+                               hops=_cp_live_hops(rank, lw))
+        del shards, full, o, ref
+    del q, k, v, do
+
+    # the sequence-parallel train step at medium_dense's full width and depth
+    targs = train_args()
+    batch = _cp_batch(train_cfg("medium_dense").vocab_size)
+    keep = {}
+    for mode in ("ring", "ulysses"):
+        cfg = train_cfg("medium_dense", max_seq_len=CP_T, dropout=0.0, context_parallel=mode)
+        model = TextLM(cfg, device="cuda", seed=0)
+        init, step, _ = make_sharded_train(model, targs, mesh, batch, num_training_steps=20)
+        state = init()
+        torch.cuda.reset_peak_memory_stats()
+        # step 0 runs at lr 0: the second step sees the same weights
+        state, _, _, warm = _cp_step(step, state, batch, fns, f"{mode} warm-up")
+        collectives.reset_traffic()
+        state, m, counts, wall = _cp_step(step, state, batch, fns, mode)
+        out["train"][mode] = dict(metrics=m, counts=counts, wall=wall, warm=warm,
+                                  traffic=dict(collectives.traffic),
+                                  peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                  layers=cfg.num_layers,
+                                  grad_bytes=sum(p.numel() * 4 for p in model.parameters()))
+        if rank == 0:
+            keep[mode] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model, state, init, step
+        torch.cuda.empty_cache()
+
+    if rank == 0:  # the single-process step on the whole batch, same weights
+        cfg = train_cfg("medium_dense", max_seq_len=CP_T, dropout=0.0)
+        model = TextLM(cfg, device="cuda", seed=0)
+        state = create_train_state(model, create_optimizer(targs, 20))
+        step = make_train_step(model, targs)
+        dev_batch = {k_: v_.cuda() for k_, v_ in batch.items()}
+        torch.cuda.reset_peak_memory_stats()
+        state, _, _, warm = _cp_step(step, state, dev_batch, fns, "single warm-up")
+        state, m, counts, wall = _cp_step(step, state, dev_batch, fns, "single")
+        single = {n: p.grad.detach() for n, p in model.named_parameters()}
+        out["single"] = dict(metrics=m, counts=counts, wall=wall, warm=warm,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        for mode, grads in keep.items():
+            errs = {}
+            for n, g in grads.items():
+                d, nb = float((g - single[n]).float().norm()), float(single[n].float().norm())
+                errs[n] = d / nb if nb > 0 else (0.0 if d == 0 else float("inf"))
+            out["train"][mode]["leaf_errs"] = errs
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    out["total_s"] = time.perf_counter() - t_spawn
+    return out
+
+
+def run_context_parallel():
+    """CP_RANKS ranks spawned on cuda:0 over gloo (host-staged): ring
+    attention at nlp_medium's attention shape over T = CP_T against
+    single-process flash, and one sequence-parallel medium_dense step at T =
+    CP_T with ring and with Ulysses against the single-process step; exact
+    per-rank K2', K5a, K5b launch gates."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line()
+    log(f"context_parallel: compute mode {mode}; {CP_RANKS} ranks on cuda:0, gloo with "
+        f"CUDA tensors staged through host buffers; {card}")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_spawn = time.perf_counter()  # CLOCK_MONOTONIC: the ranks read the same clock
+        procs = [ctx.Process(target=cp_rank,
+                             args=(r, os.path.join(tmp, "init"), queue, t_spawn))
+                 for r in range(CP_RANKS)]
+        for p in procs:
+            p.start()
+        results = {}
+        deadline = time.perf_counter() + 600
+        try:
+            while len(results) < CP_RANKS and time.perf_counter() < deadline:
+                try:
+                    r, res = queue.get(timeout=5)
+                except queue_mod.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        break  # a rank died without a word
+                    continue
+                results[r] = res
+                if "error" in res:
+                    break
+        finally:
+            whole = len(results) == CP_RANKS and not any("error" in v for v in results.values())
+            for p in procs:
+                p.join(60 if whole else 0)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    errors = {r: res.get("error") for r, res in results.items() if "error" in res}
+    require(len(results) == CP_RANKS and not errors
+            and all(p.exitcode == 0 for p in procs),
+            f"context_parallel: ranks failed or did not report (exit codes "
+            f"{[p.exitcode for p in procs]}, reports from {sorted(results)}): "
+            + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
+
+    for r in range(CP_RANKS):
+        res = results[r]
+        for lw, ring in res["ring"].items():
+            h = ring["hops"]
+            want = {"flash_attention": 0, "flash_attention_lse": h, "flash_bwd_dkv": h,
+                    "flash_bwd_dq": h}
+            require(ring["counts"] == want, f"context_parallel: ring (left_window {lw}) "
+                    f"rank {r} launched {ring['counts']}, expected {want}")
+            bad = {k: e for k, e in ring["errs"].items() if not e <= CP_REL_L2}
+            require(not bad, f"context_parallel: ring (left_window {lw}) rank {r} beyond "
+                    f"{CP_REL_L2} relative L2 of single-process flash: {bad}")
+            log(f"context_parallel: ring attention B={CP_B} T={CP_T} (tl {CP_T // CP_RANKS}) "
+                f"Hq={TRAIN_HQ} G={TRAIN_G} hd={TRAIN_HD} bf16 causal left_window {lw}, rank "
+                f"{r}: {h} live hops, launches {ring['counts']}; relative L2 against "
+                f"single-process flash " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                                     ring["errs"].items())
+                + f" (limit {CP_REL_L2}); forward + backward {ring['wall'] * 1e3:.1f} ms, "
+                f"{ring['traffic']['bytes'] / 1e6:.1f} MB sent in {ring['traffic']['calls']} "
+                f"collectives, {_cp_times(ring['traffic'])}; {card}")
+        for mode, tr in res["train"].items():
+            h = _cp_live_hops(r, -1) if mode == "ring" else 0
+            L = tr["layers"]
+            want = {"flash_attention": 0, "flash_attention_lse": 2 * L * h,
+                    "flash_bwd_dkv": L * h, "flash_bwd_dq": L * h}
+            require(tr["counts"] == want, f"context_parallel: {mode} step rank {r} "
+                    f"launched {tr['counts']}, expected {want}")
+            ring_mb = (tr["traffic"]["bytes"] - tr["grad_bytes"]) / 1e6
+            log(f"context_parallel: {mode} step rank {r} (medium_dense d1440/{L}L, B={CP_B} "
+                f"T={CP_T}, seq={CP_RANKS}): loss {tr['metrics']['loss']:.5f} grad norm "
+                f"{tr['metrics']['grad_norm']:.5f} tokens {tr['metrics']['tokens']:.0f}; "
+                f"launches {tr['counts']}; step wall {tr['wall'] * 1e3:.1f} ms (warm-up "
+                f"{tr['warm'] * 1e3:.1f}); {tr['traffic']['bytes'] / 1e6:.1f} MB sent in "
+                f"{tr['traffic']['calls']} collectives ({tr['grad_bytes'] / 1e6:.1f} MB the "
+                f"gradient all-reduce, {ring_mb:.1f} MB attention and metrics), "
+                f"{_cp_times(tr['traffic'])}; peak memory {tr['peak_gb']:.2f} GB; {card}")
+        log(f"context_parallel: rank {r} joined the world with a CUDA context "
+            f"{res['start_s']:.1f} s after the spawn, ended at {res['total_s']:.1f} s")
+    single = results[0]["single"]
+    log(f"context_parallel: single-process step (whole batch, one process): loss "
+        f"{single['metrics']['loss']:.5f} grad norm {single['metrics']['grad_norm']:.5f}; "
+        f"launches {single['counts']}; step wall {single['wall'] * 1e3:.1f} ms (warm-up "
+        f"{single['warm'] * 1e3:.1f}); peak memory {single['peak_gb']:.2f} GB; {card}")
+    for mode in ("ring", "ulysses"):
+        tr = results[0]["train"][mode]
+        dl = abs(tr["metrics"]["loss"] - single["metrics"]["loss"])
+        dn = abs(tr["metrics"]["grad_norm"] - single["metrics"]["grad_norm"])
+        require(dl <= PARITY_LOSS_ATOL and dn <= PARITY_NORM_RTOL * single["metrics"]["grad_norm"],
+                f"context_parallel: {mode} step loss {tr['metrics']['loss']} / grad norm "
+                f"{tr['metrics']['grad_norm']} against single {single['metrics']}")
+        log(f"context_parallel: {mode} against the single-process step: |loss diff| "
+            f"{dl:.2e} (limit {PARITY_LOSS_ATOL}), |grad norm diff| {dn:.2e} (limit "
+            f"{PARITY_NORM_RTOL} relative); "
+            + leaf_report(f"{mode} gradients", tr["leaf_errs"], PARITY_LEAF_GRAD_RTOL))
+    log(f"context_parallel: phase {time.perf_counter() - t0:.1f} s (its budget: 90 s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4664,6 +5075,7 @@ def main(argv=None) -> int:
         check_k3_multimodal_table(gen(12))
         check_k1_multimodal(gen(13))
         check_k2_multimodal(gen(14))
+        check_ring_hop(gen(15))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
               "multimodal": {}}
@@ -4681,6 +5093,7 @@ def main(argv=None) -> int:
         "serve_parity": run_serve_parity,
         "train": lambda: run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention]),
         "train_parity": run_train_parity,
+        "context_parallel": run_context_parallel,
         "scripts": lambda: run_scripts({r["name"]: r["fn"] for r in kernel_rows}),
         "vision": lambda: run_vision([fa.flash_attention, fa.flash_attention_lse,
                                       fa.flash_bwd_dkv, fa.flash_bwd_dq]),

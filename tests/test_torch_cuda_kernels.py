@@ -1195,3 +1195,78 @@ def test_video_and_multimodal_tiny_on_the_card_match_the_cpu(gen):
             da.paged_decode_attention_commit.launches - n0[1]) == (2 * forwards,) * 2
     want = generate_multimodal(cpu, ids, mask, None, temperature=0.0, do_sample=False)
     assert torch.equal(img.cpu(), want[0]) and torch.equal(vid.cpu(), want[1])
+
+
+# Ring hops (context parallelism): K2' at a negative q_pos_offset (a wrapped
+# shard from ahead, only a right window reaching it) and at a positive one
+# (a past shard), and K5a/K5b fed a merged lse and di from outside with rows
+# at 1e30 (no key anywhere: dq exactly 0), each against its plain version.
+RING_HOPS = {
+    "past_causal": dict(causal=True, q_pos_offset=300),
+    "future_right_window": dict(causal=False, right_window=420, q_pos_offset=-300),
+    "future_both_windows": dict(causal=False, left_window=40, right_window=350,
+                                q_pos_offset=-300),
+    "future_out_of_reach": dict(causal=True, q_pos_offset=-300),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hop", sorted(RING_HOPS))
+def test_flash_ring_hop_with_outside_statistics_matches_plain(gen, hop, dtype):
+    b, t, hq, g, hd = 2, 300, 6, 2, 60
+    q = rand(gen, b, t, hq, hd, dtype=dtype)
+    k, v = rand(gen, b, t, g, hd, dtype=dtype), rand(gen, b, t, g, hd, dtype=dtype)
+    do = rand(gen, b, t, hq, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, **RING_HOPS[hop])
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if hop == "future_out_of_reach":  # every query row attends nothing here
+        assert bool((lse == 1e30).all()) and bool((out == 0).all())
+    # statistics from outside: this hop merged with a hop of its own (the
+    # shard itself, causal), and rows with no key anywhere
+    own, lse_own = fa.flash_attention_lse_ref(q, k, v, scale=kw["scale"], causal=True)
+    la, lb = (torch.where(x > 1e29, -torch.inf, x) for x in (lse_ref, lse_own))
+    glob = torch.logaddexp(la, lb)
+    glob[1, :, :7] = torch.inf
+    glob = torch.where(torch.isfinite(glob), glob, 1e30).contiguous()
+    di = rand(gen, b, hq, t)
+    n0 = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    got = fa.flash_attention_bwd(q, k, v, do, glob, di, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, glob, di, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (n0[0] + 1, n0[1] + 1)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **tol)
+    assert bool((got[0][1, :7] == 0).all())
+
+
+def test_two_rank_ring_on_one_card_matches_flash(tmp_path):
+    """Two ranks on cuda:0 over gloo (CUDA tensors staged through host
+    buffers): ring attention forward and backward (K2' and K5a/K5b a live
+    hop) against single-process flash over the whole sequence, bf16,
+    within 1e-2 relative L2 (each hop's output is rounded to bf16 before
+    the merge)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's hand-written kernels)")
+    from torch_parallel_ranks import spawn
+
+    b, t, hq, g, hd = 2, 1024, 6, 2, 60
+    rng = torch.Generator().manual_seed(5)
+    q, do = (torch.randn((b, t, hq, hd), generator=rng) for _ in range(2))
+    k, v = (torch.randn((b, t, g, hd), generator=rng) for _ in range(2))
+    kw = dict(scale=hd**-0.5, causal=True, left_window=700)
+    ranks = spawn("card_ring", 2, tmp_path, dict(q=q, k=k, v=v, do=do, kw=kw))
+    full = [x.cuda().bfloat16().requires_grad_() for x in (q, k, v)]
+    ref = fa.flash_attention(*full, **kw)
+    ref.backward(do.cuda().bfloat16())
+    want = [ref] + [x.grad for x in full]
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        got = torch.cat([r[name] for r in ranks], dim=1)
+        w = want[i].detach().float().cpu()
+        assert float((got - w).norm() / w.norm()) <= 1e-2, name
+    # rank 0 runs its own shard, rank 1 the past shard too
+    assert [r["launches"] for r in ranks] == [(1, 1, 1), (2, 2, 2)]

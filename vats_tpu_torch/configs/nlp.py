@@ -47,7 +47,7 @@ class ModelArgs:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     attention_impl: str = "auto"  # 'auto' | 'xla' (plain PyTorch) | 'flash'
-    context_parallel: str = "none"  # only 'none' is ported
+    context_parallel: str = "none"  # 'none' | 'ring' | 'ulysses'
     moe_dispatch: str = "auto"  # 'auto' | 'dense' | 'scatter' | 'sort'
     capacity_factor: float = -1.0  # <=0: lossless dispatch
     moe_double_norm: bool = True

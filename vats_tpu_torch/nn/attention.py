@@ -36,13 +36,25 @@ uncached path only (the cache paths raise for them, as JAX's do).  Caller-suppli
 table mode: the kernel reads the (cos, sin) table that
 ``nn/rope.rope_2d_ntk_cos_sin`` / ``rope_3d_ntk_cos_sin`` make on the
 device; a 'none' decode token reads the identity table (cos 1, sin 0: the
-rotation is exact).  ``context_parallel != 'none'`` is not ported yet and
-raises.  The JAX module's logical-sharding constraints have no counterpart
-on one card.
+rotation is exact).  The JAX module's logical-sharding constraints have no
+counterpart (an eager tensor is already laid out on its rank).
+
+Context parallelism (``_maybe_context_parallel``, uncached forwards only):
+under a mesh whose ``seq`` axis is > 1, ``context_parallel`` 'ring'
+(``ops/ring_attention.py``: K2' per live hop, K5a/K5b in the backward) or
+'ulysses' (``ops/ulysses.py``) attends.  Under ``mesh.batch_sharded()``
+each rank holds its tokens ``[r * tl, (r + 1) * tl)``, so RoPE takes those
+global positions; where context parallelism cannot run on such a shard
+(mode 'none', or segment ids under Ulysses) the K/V shards are
+all-gathered and this rank's queries attend the whole sequence (logged
+once, "UNSHARDED").  Under ``with mesh:`` alone each rank holds whole
+sequences and attention stays local, as the JAX module falls back on a
+length the seq axis does not divide (quiet at T == 1).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import torch
@@ -69,6 +81,25 @@ from vats_tpu_torch.ops.attention_ref import (
 )
 from vats_tpu_torch.ops.decode_attention import paged_decode_attention_commit
 from vats_tpu_torch.ops.flash_attention import flash_attention
+from vats_tpu_torch.ops.ring_attention import ring_attention
+from vats_tpu_torch.ops.ulysses import ulysses_attention
+from vats_tpu_torch.parallel.collectives import GatherFn, all_gather
+from vats_tpu_torch.parallel.mesh import ambient_mesh, inputs_sharded
+
+CONTEXT_PARALLEL_MODES = ("none", "ring", "ulysses")
+
+_warned_cp_fallbacks = set()
+
+
+def _warn_cp_fallback(reason: str) -> None:
+    """Log once per distinct reason when configured context parallelism
+    falls back (a packed long-context train would otherwise lose its
+    sequence sharding with no visible signal)."""
+    if reason in _warned_cp_fallbacks:
+        return
+    _warned_cp_fallbacks.add(reason)
+    logging.getLogger("vats_tpu_torch").warning("context-parallel fallback: %s", reason)
+
 
 #: below this sequence length 'auto' takes the plain attention, as in the
 #: JAX package (the flash kernel has no blocks to skip at short lengths)
@@ -139,10 +170,8 @@ class Attention(nn.Module):
             raise NotImplementedError(
                 f"rope_type={rope_type!r} is not ported yet (only {ROPE_TYPES})"
             )
-        if context_parallel != "none":
-            raise NotImplementedError(
-                f"context_parallel={context_parallel!r} is not ported yet"
-            )
+        if context_parallel not in CONTEXT_PARALLEL_MODES:
+            raise ValueError(f"unknown context_parallel mode: {context_parallel}")
         self.d_model = d_model
         self.num_heads = num_heads
         self.query_groups = query_groups
@@ -154,6 +183,7 @@ class Attention(nn.Module):
         self.impl = impl
         self.rope_type = rope_type
         self.rope_ntk_scale = rope_ntk_scale
+        self.context_parallel = context_parallel
         self.dtype = dtype
         hd, h, g = self.head_dim, num_heads, query_groups
         lin = lambda i, o: nn.Linear(  # noqa: E731
@@ -314,17 +344,21 @@ class Attention(nn.Module):
                 grid_shape, rope_angles,
             )
         elif cache is None:
-            positions = torch.arange(t, device=x.device)
+            positions = self._seq_offset(t) + torch.arange(t, device=x.device)
             cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
             q = self._apply_rope(q, positions, grid_shape, cos_sin)
             k = self._apply_rope(k, positions, grid_shape, cos_sin)
-            impl = select_attention_impl(self.impl, seq_len=t, device=q.device)
-            attend = flash_attention if impl == "flash" else dot_product_attention
-            out = attend(
-                q, k, v, scale=scale, causal=causal, left_window=left_window,
-                right_window=right_window, kv_valid=padding_mask,
-                q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
-            )
+            out = self._maybe_context_parallel(
+                q, k, v, scale, causal, left_window, right_window, padding_mask,
+                segment_ids)
+            if out is None:
+                impl = select_attention_impl(self.impl, seq_len=t, device=q.device)
+                attend = flash_attention if impl == "flash" else dot_product_attention
+                out = attend(
+                    q, k, v, scale=scale, causal=causal, left_window=left_window,
+                    right_window=right_window, kv_valid=padding_mask,
+                    q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                )
             new_cache = None
         else:
             start = cache.length
@@ -367,6 +401,92 @@ class Attention(nn.Module):
 
         out = out.reshape(b, t, self.num_heads * self.head_dim)
         return dense(self.w_o, out, self.dtype), new_cache
+
+    def _seq_offset(self, t: int) -> int:
+        """The global position of this rank's first token: r * t under
+        ``mesh.batch_sharded()`` with seq > 1 (r its seq coordinate), else 0."""
+        mesh = ambient_mesh()
+        if mesh is None or mesh.shape.get("seq", 1) == 1 or not inputs_sharded():
+            return 0
+        if self.rope_type in ("2d_axial", "3d_spatial", "3d_temporal", "3d_all"):
+            raise NotImplementedError(
+                f"rope_type={self.rope_type!r} over a sequence sharded on seq")
+        return mesh.axis_index("seq") * t
+
+    def _maybe_context_parallel(
+        self, q, k, v, scale, causal, left_window, right_window,
+        padding_mask, segment_ids,
+    ):
+        """Ring or Ulysses attention over the mesh's ``seq`` axis, or None to
+        fall through to local attention (see the module docstring).  Packed
+        sequences (segment ids) ride the ring (the ids rotate with their KV
+        shard); Ulysses takes the gathered path for them."""
+        mesh = ambient_mesh()
+        if mesh is None or mesh.shape.get("seq", 1) <= 1:
+            return None
+        sharded = inputs_sharded()
+        gathered = lambda: self._gathered_attention(  # noqa: E731
+            mesh, q, k, v, scale, causal, left_window, right_window, padding_mask,
+            segment_ids) if sharded else None
+        if self.context_parallel == "none":
+            return gathered()
+        if segment_ids is not None and self.context_parallel != "ring":
+            _warn_cp_fallback(
+                "packed sequences (segment_ids) — the Ulysses path has no "
+                "segment masking; attention runs UNSHARDED over seq "
+                "(use context_parallel='ring')"
+            )
+            return gathered()
+        if not sharded:
+            t, n = q.shape[1], mesh.shape["seq"]
+            if t % n != 0:
+                # decode-shaped calls (T=1) hit this by design: stay quiet there
+                if t > 1:
+                    _warn_cp_fallback(
+                        f"sequence length {t} not divisible by the seq axis ({n}); "
+                        "attention runs UNSHARDED over seq")
+            else:
+                _warn_cp_fallback(
+                    "whole sequences on every rank (not under mesh.batch_sharded()); "
+                    "attention runs UNSHARDED over seq")
+            return None
+        kv_valid = padding_mask.bool() if padding_mask is not None else None
+        if self.context_parallel == "ring":
+            return ring_attention(
+                q, k, v, mesh=mesh, scale=scale, causal=causal,
+                left_window=left_window, right_window=right_window,
+                kv_valid=kv_valid, q_segment_ids=segment_ids,
+                kv_segment_ids=segment_ids,
+            )
+        return ulysses_attention(
+            q, k, v, mesh=mesh, scale=scale, causal=causal, left_window=left_window,
+            right_window=right_window, kv_valid=kv_valid,
+        )
+
+    def _gathered_attention(self, mesh, q, k, v, scale, causal, left_window,
+                            right_window, padding_mask, segment_ids):
+        """This rank's queries against the whole sequence: K and V
+        all-gathered along seq (their gradients summed back over the ranks),
+        the key mask and the segment ids too; the queries at their global
+        positions."""
+        t = q.shape[1]
+        k, v = (GatherFn.apply(x, mesh, "seq", 1) for x in (k, v))
+        kv_valid = None if padding_mask is None else all_gather(
+            padding_mask.to(torch.int32), mesh, "seq", 1).bool()
+        kv_seg = None if segment_ids is None else all_gather(
+            segment_ids.to(torch.int32), mesh, "seq", 1)
+        offset = mesh.axis_index("seq") * t
+        impl = select_attention_impl(self.impl, seq_len=k.shape[1], device=q.device)
+        if impl == "flash":
+            return flash_attention(
+                q, k, v, scale=scale, causal=causal, left_window=left_window,
+                right_window=right_window, kv_valid=kv_valid,
+                q_segment_ids=segment_ids, kv_segment_ids=kv_seg, q_pos_offset=offset)
+        return dot_product_attention(
+            q, k, v, scale=scale, causal=causal, left_window=left_window,
+            right_window=right_window, kv_valid=kv_valid,
+            q_positions=offset + torch.arange(t, device=q.device),
+            q_segment_ids=segment_ids, kv_segment_ids=kv_seg)
 
     def _attend_buffer(self, q, k_buf, v_buf, **kw):
         """cached_decode_attention with q zero-padded to the stored head dim

@@ -13,6 +13,12 @@ Counterpart of ``vats_tpu/nn/moe.py``:
     the token count of each call, so a row-chunked prefill drops what the
     JAX row-chunked prefill drops.
   * ``MoEBlock``: pre-RMSNorm -> MoELayer -> dropout -> residual.
+
+Under a mesh whose ranks each hold a shard of the tokens
+(``parallel.mesh.sharded_token_mesh``) the router's expert mass is summed
+over the ranks before the aux loss, as the JAX step sums it over the global
+tokens; a capacity-limited dispatch (``capacity_factor > 0``) raises there,
+since its capacity is a global count too.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from torch import nn
 from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
+from vats_tpu_torch.parallel.collectives import global_sum
+from vats_tpu_torch.parallel.mesh import TOKEN_AXES, sharded_token_mesh
 
 
 class TopKRouter(nn.Module):
@@ -70,6 +78,9 @@ class TopKRouter(nn.Module):
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.use_aux_loss and not deterministic and self.num_experts > 1:
             mass = probs.sum(dim=0)
+            mesh = sharded_token_mesh()
+            if mesh is not None:  # the JAX step's mass is over the global tokens
+                mass = global_sum(mass, mesh, TOKEN_AXES)
             frac = mass / mass.sum()
             var = (frac - frac.mean()).square().mean()
             aux_loss = torch.sqrt(var + 1e-12) / frac.mean()
@@ -180,6 +191,12 @@ class MoELayer(nn.Module):
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 dropout_seed: Optional[int] = None, layer_idx: int = 0):
         b, t, d = x.shape
+        if (self.capacity_factor > 0 and self.num_experts > 1
+                and sharded_token_mesh() is not None):
+            raise NotImplementedError(
+                "MoE capacity under a mesh with data x seq > 1: the capacity is a "
+                "count over the global tokens (expert-parallel dispatch, ROADMAP item "
+                "19's remainder, is not ported yet); use capacity_factor <= 0")
         if self.norm is not None:
             x = self.norm(x)
         n = b * t

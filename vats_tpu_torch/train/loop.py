@@ -27,6 +27,8 @@ from torch.func import functional_call
 
 from vats_tpu_torch.configs.nlp import TrainingArgs
 from vats_tpu_torch.device import resolve_dtype
+from vats_tpu_torch.parallel.collectives import all_reduce
+from vats_tpu_torch.parallel.mesh import TOKEN_AXES, sharded_token_mesh
 from vats_tpu_torch.train.metrics import (
     IGNORE_INDEX,
     compute_loss,
@@ -42,21 +44,53 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _forward_loss(model, batch: Batch, training_args: TrainingArgs, rng: int):
-    """(total, lm, aux) of one training forward (dropout on)."""
+    """(objective, total, lm, aux) of one training forward (dropout on).
+
+    Under a mesh whose ranks each hold a shard of the batch
+    (``parallel.mesh.sharded_token_mesh``) the loss is the global mean: the
+    masked CE sum of this rank over the token count summed over data x seq.
+    ``objective`` is what this rank backpropagates (its CE sum over that
+    count, plus the aux loss, which every rank computes alike from the
+    router's global statistics); ``total`` and ``lm`` are global."""
     cfg = model.cfg
+    mesh = sharded_token_mesh()
+    denominator = None
+    if mesh is not None:
+        count = (batch["labels"] != IGNORE_INDEX).sum().float()
+        denominator = all_reduce(count, mesh, TOKEN_AXES).clamp(min=1)
     kw = dict(padding_mask=batch.get("padding_mask"),
               segment_ids=batch.get("segment_ids"), deterministic=False,
               dropout_seed=rng)
     fused_chunk = getattr(training_args, "fused_ce_chunk", None)
+    w = training_args.aux_loss_weight
     if fused_chunk:
         hidden, _, aux = model(batch["input_ids"], return_hidden=True, **kw)
         readout = model.token_embed.weight if cfg.tie_weights else model.lm_head.weight
         lm = fused_linear_cross_entropy(hidden, readout, batch["labels"],
                                         chunk=fused_chunk,
-                                        compute_dtype=resolve_dtype(cfg.dtype))
-        return lm + training_args.aux_loss_weight * aux, lm, aux
-    logits, _, aux = model(batch["input_ids"], **kw)
-    return compute_loss(logits, batch["labels"], aux, training_args.aux_loss_weight)
+                                        compute_dtype=resolve_dtype(cfg.dtype),
+                                        denominator=denominator)
+    else:
+        logits, _, aux = model(batch["input_ids"], **kw)
+        _, lm, aux = compute_loss(logits, batch["labels"], aux, w,
+                                  denominator=denominator)
+    objective = lm + w * aux
+    if mesh is not None:
+        lm = all_reduce(lm.detach(), mesh, TOKEN_AXES)
+    return objective, lm + w * aux, lm, aux
+
+
+def _all_reduce_grads(grads: Dict[str, torch.Tensor], mesh) -> None:
+    """Sum every gradient over data x seq in place (one flat buffer per
+    dtype, one all-reduce each), so each rank's ``.grad`` holds the global
+    gradient."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for g in grads.values():
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for gs in by_dtype.values():
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in gs]), mesh, TOKEN_AXES)
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view_as(g))
 
 
 def make_train_step_fn(
@@ -64,18 +98,23 @@ def make_train_step_fn(
 ) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The training step ``step(state, batch, rng) -> (state, metrics)``;
     ``state`` is updated in place and returned.  Metrics are device
-    tensors."""
+    tensors.  Under ``mesh.batch_sharded()`` (``parallel/sharded.py``) the
+    gradients are summed over data x seq before the clip and the update,
+    and the loss and the token count are global."""
     accum_in_step = getattr(training_args, "grad_accum_steps", 1) <= 1
 
     def step(state: TrainState, batch: Batch, rng: int):
         params = state.params
         for p in params.values():
             p.grad = None
-        total, lm, aux = _forward_loss(model, batch, training_args, rng)
-        total.backward()
+        objective, total, lm, aux = _forward_loss(model, batch, training_args, rng)
+        objective.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        mesh = sharded_token_mesh()
         with torch.no_grad():
+            if mesh is not None:
+                _all_reduce_grads(grads, mesh)
             if accum_in_step:
                 gnorm = global_norm(grads)
                 finite, scale = clip_scale(gnorm, float(training_args.clip_grad_norm))
@@ -88,6 +127,8 @@ def make_train_step_fn(
                 gn = find_grad_norm(state.opt_state)
                 gnorm = gn if gn is not None else global_norm(grads)
             tokens = (batch["labels"] != IGNORE_INDEX).sum().to(torch.int32)
+            if mesh is not None:
+                tokens = all_reduce(tokens, mesh, TOKEN_AXES)
             state.tokens_seen += tokens
         metrics = {"loss": total.detach(), "lm_loss": lm.detach(),
                    "aux_loss": aux.detach(), "tokens": tokens, "grad_norm": gnorm}

@@ -22,15 +22,19 @@ def compute_loss(
     labels: torch.Tensor,
     aux_loss: Optional[torch.Tensor] = None,
     aux_loss_weight: float = 0.01,
+    denominator: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits [B, T, V], labels [B, T] int (-100 = ignore) -> (total,
-    lm_loss, aux_loss): the mean CE over the labelled tokens."""
+    lm_loss, aux_loss): the mean CE over the labelled tokens (the CE sum
+    over ``denominator`` where given: a sharded batch's global count)."""
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    lm_loss = nll.sum() / valid.sum().clamp(min=1)
+    if denominator is None:
+        denominator = valid.sum().clamp(min=1)
+    lm_loss = nll.sum() / denominator
     if aux_loss is None:
         aux_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
     return lm_loss + aux_loss_weight * aux_loss, lm_loss, aux_loss
@@ -101,6 +105,7 @@ def fused_linear_cross_entropy(
     *,
     chunk: int = 128,
     compute_dtype: torch.dtype = torch.bfloat16,
+    denominator: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean CE of ``softmax(hidden @ readout^T)`` without the [B, T, V]
     logits: each ``chunk`` of positions computes its readout product and
@@ -112,7 +117,9 @@ def fused_linear_cross_entropy(
     The product takes its operands in ``compute_dtype`` and gives fp32
     logits, as the JAX version asks XLA for fp32 output from the same bf16
     product (``_ReadoutF32``: one GEMM with fp32 output on the card, never
-    an fp32 GEMM).  Plain PyTorch: no Pallas kernel here."""
+    an fp32 GEMM).  ``denominator``: the count to divide by in place of the
+    labelled tokens' (a sharded batch's global count).  Plain PyTorch: no
+    Pallas kernel here."""
     b, t, d = hidden.shape
     pad = (-t) % chunk
     if pad:
@@ -129,4 +136,6 @@ def fused_linear_cross_entropy(
             total = total + checkpoint(_chunk_nll, h_c, y_c, w, w_lp, use_reentrant=False)
         else:
             total = total + _chunk_nll(h_c, y_c, w, w_lp)
-    return total / (labels != IGNORE_INDEX).sum().clamp(min=1)
+    if denominator is None:
+        denominator = (labels != IGNORE_INDEX).sum().clamp(min=1)
+    return total / denominator
