@@ -103,6 +103,22 @@ Phases:
            Ulysses.  Step walls, bytes sent, the seconds in collectives
            (waiting for queued device work, host copies, exchange) and
            peak memory per rank, beside the card's name and power limit.
+  sharded  SH_RANKS = 4 ranks spawned on cuda:0 over gloo, host-staged (the
+           compute mode printed first; an exclusive mode fails the phase):
+           one medium_moe step at full width and depth (d768, 12 layers,
+           vocab 65536, E8 top-2, sort dispatch, capacity 1.25, remat 'dots',
+           dropout 0, bf16 AdamW mu, B=4, T=512) on fsdp=2 x expert=2 and on
+           fsdp=2 x tensor=2, in fp32 and in the config's bf16, each against
+           the single-process step from the same weights and batch
+           (train_parity's limits on the loss and grad norm; the dropped
+           assignments a layer equal, or apart by at most the assignments
+           that near-tie router flips move; in fp32 also the per-leaf
+           gradients and change, gathered to rank 0: ``SH_DTYPES`` says why
+           bf16 is not held leaf by leaf); exact per-rank gates K2' 24, K5a
+           12, K5b 12 a step; resident bytes a rank asserted equal to the
+           specs' sum, beside peak memory a rank and one process's; step
+           walls, bytes sent per mesh axis and the collectives' seconds a
+           rank.
   scripts  the LM's own entry points in-process through their ``main(argv)``,
            in a temporary directory under ``checkpoints/`` that it deletes
            (it first checks for twice a checkpoint's bytes free): the train
@@ -210,7 +226,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
-          "train_parity", "context_parallel", "scripts", "vision", "vision_parity",
+          "train_parity", "context_parallel", "sharded", "scripts", "vision", "vision_parity",
           "image_gen", "image_gen_parity", "video_gen", "video_gen_parity", "multimodal",
           "multimodal_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -4943,6 +4959,327 @@ def run_context_parallel():
     log(f"context_parallel: phase {time.perf_counter() - t0:.1f} s (its budget: 90 s)")
 
 
+# --- phase: sharded ---------------------------------------------------------
+
+SH_RANKS, SH_B, SH_T = 4, 4, 512
+SH_STEPS = 10  # the schedule's length: no warmup step, so step 0 moves the weights
+# The step in fp32 first, then in bf16 (the config's own compute dtype).  Each
+# is held to its single-process step's loss and grad norm and dropped
+# assignments; the fp32 step also leaf by leaf (train_parity's limits): in
+# bf16 the sharded and single steps round differently, a router near a tie
+# picks another expert, and at capacity the slot-major order then keeps
+# other tokens, so a few of 2048 tokens take another path through the layer
+# and every weight's gradient moves by a few percent (read on an H100: worst
+# leaf 8.9e-2, median 5.0e-2), as image_gen_parity's quantizer argmin flips
+# in bf16.
+SH_DTYPES = ("float32", "bfloat16")
+SH_LEAF_DTYPE = "float32"
+SH_MESHES = (("fsdp=2 x expert=2", dict(data=1, fsdp=2, expert=2, tensor=1, seq=1)),
+             ("fsdp=2 x tensor=2", dict(data=1, fsdp=2, expert=1, tensor=2, seq=1)))
+
+
+def _sh_batch(vocab):
+    import torch
+
+    g = torch.Generator().manual_seed(13)
+    ids = torch.randint(1, vocab, (SH_B, SH_T), generator=g, dtype=torch.int32)
+    lens = torch.tensor([SH_T, SH_T - 40, SH_T, SH_T - 7])
+    mask = torch.arange(SH_T)[None, :] < lens[:, None]
+    ids = torch.where(mask, ids, 0)
+    labels = torch.cat([ids[:, 1:], torch.full((SH_B, 1), -100, dtype=torch.int32)], 1)
+    labels = torch.where(torch.arange(SH_T)[None, :] < (lens - 1)[:, None], labels, -100)
+    return {"input_ids": ids, "labels": labels, "padding_mask": mask}
+
+
+def _to_root(t, info):
+    """The whole leaf on rank 0 (fp32, host), None on the other ranks: one
+    gather of every rank's block to rank 0, each placed by its rank's
+    coordinates (a replicated leaf is rank 0's own)."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    host = t.detach().float().cpu().clone()
+    if info is None:
+        return host if rank == 0 else None
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size())] if rank == 0 \
+        else None
+    dist.gather(host, parts, dst=0)
+    if rank != 0:
+        return None
+    whole = torch.empty(info.shape, dtype=torch.float32)
+    for r, part in enumerate(parts):
+        coords = dict(zip(info.mesh.axis_names, np.argwhere(info.mesh.devices == r)[0]))
+        whole[tuple(slice(None) if a is None else slice(int(coords[a]) * n, int(coords[a] + 1) * n)
+                    for a, n in zip(info.spec, part.shape))] = part
+    return whole
+
+
+def _sh_routing(layers):
+    return [tuple(x.detach().cpu() for x in (m.routing["experts"], m.routing["keep"],
+                                             m.routing["probs"])) for m in layers]
+
+
+def _sh_flips(single, sharded):
+    """Per MoE layer: (dropped assignments single, sharded, tokens whose
+    experts differ, the allowance), as ``router_flips`` reads a flip: every
+    flipped expert's probability within twice the token's own
+    single-vs-sharded probability gap of the k-th on both sides, else it
+    raises.  The allowance is the assignments the flips move: a moved
+    assignment changes the dropped count by at most one."""
+    out = []
+    for layer, ((es, ks, ps), (eh, kh, ph)) in enumerate(zip(single, sharded)):
+        k = es.shape[1]
+        flipped = (es.sort(dim=1).values != eh.sort(dim=1).values).any(dim=1).nonzero()[:, 0]
+        allowance = 0
+        for tok in flipped.tolist():
+            diff = set(es[tok].tolist()) ^ set(eh[tok].tolist())
+            gap = float((ps[tok] - ph[tok]).abs().max())
+            for probs in (ps[tok], ph[tok]):
+                kth = float(probs.topk(k).values[-1])
+                require(all(abs(float(probs[e]) - kth) <= 2 * gap for e in diff),
+                        f"sharded: layer {layer} token {tok} routes to other experts than the "
+                        f"single-process step, not a near tie (gap {gap:.2e})")
+            allowance += len(diff) // 2
+        out.append((int((~ks).sum()), int((~kh).sum()), len(flipped), allowance))
+    return out
+
+
+def sh_rank(rank, init_file, queue, t_spawn):
+    """One rank of the sharded phase (a spawned process on cuda:0; gloo,
+    CUDA tensors staged through host buffers)."""
+    import traceback
+
+    try:
+        queue.put((rank, _sh_rank(rank, init_file, t_spawn)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _sh_rank(rank, init_file, t_spawn):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.nn.moe import MoELayer
+    from vats_tpu_torch.ops import flash_attention as fa
+    from vats_tpu_torch.parallel import collectives, create_mesh
+    from vats_tpu_torch.parallel.layout import spec_bytes, tensor_bytes
+    from vats_tpu_torch.parallel.multihost import initialize_multihost
+    from vats_tpu_torch.parallel.sharded import make_sharded_train
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    initialize_multihost(f"file://{init_file}", SH_RANKS, rank, backend="gloo")
+    torch.zeros(1, device="cuda")  # the CUDA context
+    fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    out = {"start_s": time.perf_counter() - t_spawn, "single": {}, "meshes": {}}
+    targs = train_args()
+    cfgs = {dt: train_cfg("medium_moe", dropout=0.0, dtype=dt) for dt in SH_DTYPES}
+    batch = _sh_batch(cfgs["bfloat16"].vocab_size)
+
+    def routed(model):
+        layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+        for m in layers:
+            m.record_routing = True
+        return layers
+
+    ref = {}
+    if rank == 0:  # the single-process steps first: same weights, same batch
+        for dt, cfg in cfgs.items():
+            model = TextLM(cfg, device="cuda", seed=0)
+            layers = routed(model)
+            state = create_train_state(model, create_optimizer(targs, SH_STEPS))
+            start = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+            torch.cuda.reset_peak_memory_stats()
+            state, m, counts, wall = _cp_step(make_train_step(model, targs), state,
+                                              {k: v.cuda() for k, v in batch.items()}, fns,
+                                              f"sharded: single-process step {dt}")
+            if dt == SH_LEAF_DTYPE:
+                ref["leaves"] = {n: (leaf_grad(n, p).detach().float().cpu().clone(),
+                                     p.detach().float().cpu().clone())
+                                 for n, p in model.named_parameters()}
+                ref["moved"] = {n: float((a - start[n]).norm())
+                                for n, (_, a) in ref["leaves"].items()}
+            del start
+            ref[dt] = _sh_routing(layers)
+            out["single"][dt] = dict(
+                metrics=m, counts=counts, wall=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                resident=tensor_bytes(state.params) + tensor_bytes(state.opt_state),
+                params=sum(p.numel() for p in model.parameters()))
+            del model, state, layers
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+    for label, sizes in SH_MESHES:
+        mesh = create_mesh(**sizes)
+        for dt, cfg in cfgs.items():
+            model = TextLM(cfg, device="cuda", seed=0)
+            layers = routed(model)
+            init, step, _ = make_sharded_train(model, targs, mesh, batch,
+                                               num_training_steps=SH_STEPS)
+            state = init()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            collectives.reset_traffic()
+            state, m, counts, wall = _cp_step(step, state, batch, fns, f"sharded {label} {dt}")
+            res = dict(metrics=m, counts=counts, wall=wall, traffic=dict(collectives.traffic),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       resident=tensor_bytes(state.params) + tensor_bytes(state.opt_state),
+                       spec_resident=spec_bytes(state.params) + spec_bytes(state.opt_state),
+                       params=sum(p.numel() for p in model.parameters()))
+            if rank == 0:
+                res["flips"] = _sh_flips(ref[dt], _sh_routing(layers))
+            if dt == SH_LEAF_DTYPE:
+                errs_g, errs_c = {}, {}
+                for n, p in model.named_parameters():  # every rank: the gathers pair
+                    g = _to_root(leaf_grad(n, p), getattr(p, "shard_info", None))
+                    a = _to_root(p, getattr(p, "shard_info", None))
+                    if rank == 0:
+                        rg, ra = (x.cuda() for x in ref["leaves"][n])
+                        nb = float(rg.norm())
+                        d = float((g.cuda() - rg).norm())
+                        errs_g[n] = d / nb if nb > 0 else (0.0 if d == 0 else float("inf"))
+                        d, moved = float((a.cuda() - ra).norm()), ref["moved"][n]
+                        errs_c[n] = d / moved if moved > 0 else (0.0 if d == 0 else
+                                                                 float("inf"))
+                res.update(errs_grad=errs_g, errs_change=errs_c)
+            out["meshes"][(label, dt)] = res
+            del model, state, init, step, layers
+            torch.cuda.empty_cache()
+            dist.barrier()
+    dist.destroy_process_group()
+    out["total_s"] = time.perf_counter() - t_spawn
+    return out
+
+
+def run_sharded():
+    """SH_RANKS ranks spawned on cuda:0 over gloo (host-staged): one
+    medium_moe step at full width and depth on each mesh of SH_MESHES
+    against the single-process step from the same weights and batch;
+    exact per-rank K2', K5a, K5b gates; resident bytes a rank against the
+    specs."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line()
+    log(f"sharded: compute mode {mode}; {SH_RANKS} ranks on cuda:0, gloo with CUDA tensors "
+        f"staged through host buffers; {card}")
+    require("exclusive" not in mode.lower(),
+            f"sharded: compute mode {mode} admits one process: the ranks cannot share the card")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_spawn = time.perf_counter()
+        procs = [ctx.Process(target=sh_rank,
+                             args=(r, os.path.join(tmp, "init"), queue, t_spawn))
+                 for r in range(SH_RANKS)]
+        for p in procs:
+            p.start()
+        results = {}
+        deadline = time.perf_counter() + 600
+        try:
+            while len(results) < SH_RANKS and time.perf_counter() < deadline:
+                try:
+                    r, res = queue.get(timeout=5)
+                except queue_mod.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        break
+                    continue
+                results[r] = res
+                if "error" in res:
+                    break
+        finally:
+            whole = len(results) == SH_RANKS and not any("error" in v for v in results.values())
+            for p in procs:
+                p.join(60 if whole else 0)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    errors = {r: res.get("error") for r, res in results.items() if "error" in res}
+    require(len(results) == SH_RANKS and not errors and all(p.exitcode == 0 for p in procs),
+            f"sharded: ranks failed or did not report (exit codes "
+            f"{[p.exitcode for p in procs]}, reports from {sorted(results)}): "
+            + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
+
+    cfg = train_cfg("medium_moe")
+    L = cfg.num_layers
+    want = {"flash_attention": 0, "flash_attention_lse": 2 * L, "flash_bwd_dkv": L,
+            "flash_bwd_dq": L}
+    for dt in SH_DTYPES:
+        single = results[0]["single"][dt]
+        require(single["counts"] == want, f"sharded: single-process step ({dt}) launched "
+                f"{single['counts']}, expected {want}")
+        sm = single["metrics"]
+        log(f"sharded: single-process step {dt} (medium_moe d{cfg.d_model}/{L}L, "
+            f"E{cfg.num_experts} top-{cfg.top_k}, capacity {cfg.capacity_factor}, B={SH_B} "
+            f"T={SH_T}, one process): loss {sm['loss']:.5f} grad norm {sm['grad_norm']:.5f}; "
+            f"launches {single['counts']}; step wall {single['wall'] * 1e3:.1f} ms; "
+            f"{single['params'] / 1e9:.4f} B parameters, resident params + optimizer state "
+            f"{single['resident'] / 1e9:.4f} GB; peak memory {single['peak_gb']:.2f} GB; {card}")
+    for label, _ in SH_MESHES:
+        for dt in SH_DTYPES:
+            single = results[0]["single"][dt]
+            for r in range(SH_RANKS):
+                res = results[r]["meshes"][(label, dt)]
+                require(res["resident"] == res["spec_resident"],
+                        f"sharded {label} {dt} rank {r}: resident {res['resident']} bytes, the "
+                        f"specs give {res['spec_resident']}")
+                require(res["counts"] == want, f"sharded {label} {dt} rank {r} launched "
+                        f"{res['counts']}, expected {want}")
+                by_axis = ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in
+                                    sorted(res["traffic"]["by_axis"].items()))
+                log(f"sharded {label} {dt} rank {r}: loss {res['metrics']['loss']:.5f} grad "
+                    f"norm {res['metrics']['grad_norm']:.5f}; launches {res['counts']}; step "
+                    f"wall {res['wall'] * 1e3:.1f} ms; {res['traffic']['bytes'] / 1e6:.1f} MB "
+                    f"sent in {res['traffic']['calls']} collectives ({by_axis}), "
+                    f"{_cp_times(res['traffic'])}; resident params + optimizer state "
+                    f"{res['resident'] / 1e9:.4f} GB = the specs' sum (one process "
+                    f"{single['resident'] / 1e9:.4f} GB, ratio "
+                    f"{res['resident'] / single['resident']:.4f}), "
+                    f"{res['params'] / 1e9:.4f} B parameters a rank; peak memory "
+                    f"{res['peak_gb']:.2f} GB (one process {single['peak_gb']:.2f} GB); {card}")
+            res, sm = results[0]["meshes"][(label, dt)], single["metrics"]
+            st = res["metrics"]
+            dl = abs(st["loss"] - sm["loss"])
+            dn = abs(st["grad_norm"] - sm["grad_norm"])
+            drops = [f"{ds}/{dh}" + (f" ({fl} tokens routed elsewhere, allowance {al})"
+                                     if fl else "") for ds, dh, fl, al in res["flips"]]
+            log(f"sharded {label} {dt} against the single-process step: |loss diff| {dl:.2e} "
+                f"(limit {PARITY_LOSS_ATOL}), |grad norm diff| {dn:.2e} (limit "
+                f"{PARITY_NORM_RTOL} relative); dropped assignments a layer single/sharded: "
+                f"{', '.join(drops)}")
+            require(dl <= PARITY_LOSS_ATOL and dn <= PARITY_NORM_RTOL * sm["grad_norm"],
+                    f"sharded {label} {dt}: loss {st['loss']} / grad norm {st['grad_norm']} "
+                    f"against single {sm}")
+            for layer, (ds, dh, flips, allowance) in enumerate(res["flips"]):
+                require(abs(ds - dh) <= allowance, f"sharded {label} {dt} layer {layer}: "
+                        f"dropped {dh} assignments, the single-process step {ds}, {flips} "
+                        f"tokens routed elsewhere (allowance {allowance})")
+            if dt == SH_LEAF_DTYPE:
+                log(f"sharded {label} {dt}: "
+                    + leaf_report(f"{label} gradients", res["errs_grad"], PARITY_LEAF_GRAD_RTOL)
+                    + "; " + leaf_report(f"{label} change in the step", res["errs_change"],
+                                         PARITY_LEAF_CHANGE_RTOL))
+    for r in range(SH_RANKS):
+        log(f"sharded: rank {r} joined the world with a CUDA context "
+            f"{results[r]['start_s']:.1f} s after the spawn, ended at "
+            f"{results[r]['total_s']:.1f} s")
+    log(f"sharded: phase {time.perf_counter() - t0:.1f} s (its budget: 180 s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5094,6 +5431,7 @@ def main(argv=None) -> int:
         "train": lambda: run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention]),
         "train_parity": run_train_parity,
         "context_parallel": run_context_parallel,
+        "sharded": run_sharded,
         "scripts": lambda: run_scripts({r["name"]: r["fn"] for r in kernel_rows}),
         "vision": lambda: run_vision([fa.flash_attention, fa.flash_attention_lse,
                                       fa.flash_bwd_dkv, fa.flash_bwd_dq]),

@@ -1026,6 +1026,35 @@ def test_flash_at_image_gen_shape_matches_plain(gen, dtype):
         torch.testing.assert_close(a, b_, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_at_tensor_parallel_local_heads_matches_plain(gen, dtype):
+    """K2, K2', K5a and K5b at medium_moe's heads under tensor=2, as a rank
+    of the sharded step runs them: Hq 12 / 2 = 6 query heads over 4 / 2 = 2
+    KV groups (3 a group), head dim 64, B = 4, T = S = 512, causal; against
+    the plain versions (TOL, BWD_BF16_TOL; fp32 1e-4)."""
+    b, t, hq, g, hd = 4, 512, 6, 2, 64
+    q = rand(gen, b, t, hq, hd, dtype=dtype)
+    k, v = rand(gen, b, t, g, hd, dtype=dtype), rand(gen, b, t, g, hd, dtype=dtype)
+    do = rand(gen, b, t, hq, hd, dtype=dtype)
+    kw = dict(scale=hd**-0.5, causal=True)
+    fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    n0 = [fn.launches for fn in fns]
+    out = fa.flash_attention(q, k, v, **kw)
+    out_l, lse = fa.flash_attention_lse(q, k, v, **kw)
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    di = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse_ref, di, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse_ref, di, **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == [1, 1, 1, 1]
+    assert torch.equal(out, out_l)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **tol)
+
+
 def test_image_gen_tiny_on_the_card_matches_the_cpu(gen):
     """image_gen_tiny_test (fp32) on the card and on the CPU from the same
     weights: greedy tokens of ``generate_image_tokens`` and

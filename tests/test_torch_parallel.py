@@ -11,8 +11,10 @@ ranks (``tests/torch_parallel_ranks.py``; two spawns here):
     the JAX package's single-device step (JAX's own bound between its
     sharded and single steps); the all-reduced gradients, the same on every
     rank, against the port's single-process step leaf by leaf within atol
-    1e-6, rtol 1e-4 (fp32 sums in another order); a capacity-limited MoE
-    and an FSDP mesh raise NotImplementedError;
+    1e-6, rtol 1e-4 (fp32 sums in another order); the same for a
+    capacity-limited MoE (capacity 1.25, its global capacity and slot-major
+    positions) against JAX's and the port's single steps at that capacity,
+    and one step on an fsdp=2 x seq=2 mesh;
   * ``initialize_multihost`` from the environment on 2 ranks, with the
     host-sharded helpers.
 """
@@ -249,18 +251,22 @@ def sp(tmp_path_factory):
                                                                cfg).items()}
     running = Ranks("sp_train_steps", 4, tmp_path_factory.mktemp("sp"), dict(
         cfg=SP_CFG, params=params, batch=batch, data=2, cases=SP_CASES))
-    _, jm_metrics = jax.jit(j_make_train_step_fn(jm, jargs))(jstate, batch,
-                                                            jax.random.PRNGKey(2))
-    model = TextLM(cfg, device="meta")
-    model.load_state_dict({k: torch.tensor(v) for k, v in params.items()}, assign=True)
-    targs = TrainingArgs(grad_accum_steps=1)
-    state = create_train_state(model, create_optimizer(targs, 10))
-    _, m = make_train_step(model, targs)(state, {k: torch.tensor(v)
-                                                 for k, v in batch.items()}, 2)
-    single = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
-    return dict(jax_loss=float(jm_metrics["loss"]), single_loss=float(m["loss"]),
-                single_tokens=int(m["tokens"]), single_grads=single,
-                ranks=running.results())
+    refs = {}
+    for key, overrides in (("lossless", {}), ("capacity", SP_CASES["capacity"])):
+        jm = JTextLM(JModelArgs(**dict(SP_CFG, **overrides)))
+        _, jm_metrics = jax.jit(j_make_train_step_fn(jm, jargs))(jstate, batch,
+                                                                jax.random.PRNGKey(2))
+        model = TextLM(ModelArgs(**dict(SP_CFG, **overrides)), device="meta")
+        model.load_state_dict({k: torch.tensor(v) for k, v in params.items()}, assign=True)
+        targs = TrainingArgs(grad_accum_steps=1)
+        state = create_train_state(model, create_optimizer(targs, 10))
+        _, m = make_train_step(model, targs)(state, {k: torch.tensor(v)
+                                                     for k, v in batch.items()}, 2)
+        refs[key] = dict(jax_loss=float(jm_metrics["loss"]), single_loss=float(m["loss"]),
+                         single_tokens=int(m["tokens"]),
+                         single_grads={n: p.grad.numpy().copy()
+                                       for n, p in model.named_parameters()})
+    return dict(refs["lossless"], capacity=refs["capacity"], ranks=running.results())
 
 
 @pytest.mark.parametrize("case", STEP_CASES)
@@ -283,9 +289,20 @@ def test_seq_parallel_gradients_match_single_process(sp, case):
 
 
 def test_seq_parallel_refuses_what_is_not_ported(sp):
-    r0 = sp["ranks"][0]
-    assert "capacity" in r0["capacity"]["error"]
-    assert "fsdp > 1" in r0["fsdp_error"]
+    """What this slice once refused now trains: a capacity-limited MoE on
+    the data x seq mesh (its loss against JAX's single step at capacity
+    1.25, its gradients against the port's, leaf by leaf), and an fsdp x
+    seq mesh (its loss against JAX's)."""
+    ref = sp["capacity"]
+    for r in sp["ranks"]:
+        np.testing.assert_allclose(r["capacity"]["loss"], ref["jax_loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(r["fsdp_step"]["loss"], sp["jax_loss"], rtol=LOSS_RTOL)
+        assert r["fsdp_step"]["tokens"] == sp["single_tokens"]
+    np.testing.assert_allclose(ref["single_loss"], ref["jax_loss"], rtol=LOSS_RTOL)
+    assert abs(ref["jax_loss"] - sp["jax_loss"]) > 1e-6  # the capacity drops assignments
+    got = sp["ranks"][0]["capacity"]["grads"]
+    for name, want in ref["single_grads"].items():
+        np.testing.assert_allclose(got[name], want, err_msg=name, **GRAD_TOL)
 
 
 def test_initialize_multihost_from_the_environment(tmp_path):

@@ -112,9 +112,14 @@ def test_train_writes_checkpoints_and_resume_continues(in_tmp):
     assert np.isfinite(res["history"]["train_loss"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "fsdp=-1"], ["--multihost"]])
-def test_train_sharded_flags_raise(in_tmp, flag):
-    with pytest.raises(NotImplementedError, match="item 19"):
+@pytest.mark.parametrize("flag,match", [
+    (["--mesh", "fsdp=2"], "device count 1"),  # a mesh larger than this one-rank world
+    (["--multihost"], "backend"),  # no backend given (the caller's choice, never guessed)
+], ids=["flag0", "flag1"])
+def test_train_sharded_flags_raise(in_tmp, flag, match):
+    """The sharded flags train (tests/test_torch_sharded.py); what they
+    cannot lay out raises before anything is written."""
+    with pytest.raises(ValueError, match=match):
         train.main(TRAIN_ARGS + ["--ckpt-dir", str(in_tmp / "c")] + flag)
     assert not os.path.exists(in_tmp / "c")
 

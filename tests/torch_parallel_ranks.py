@@ -144,10 +144,9 @@ def _lm_batch(b):
 
 def sp_train_steps(rank, world, payload):
     """The sequence-parallel train step of a tiny TextLM on a data x seq
-    mesh, one case per (context_parallel, remat); returns each case's
-    metrics and (rank 0) global gradients, with every rank's gradient
-    checksum.  Also the errors that a capacity-limited MoE and an FSDP mesh
-    must raise."""
+    mesh, one case per (context_parallel, remat, capacity); returns each
+    case's metrics and (rank 0) global gradients, with every rank's gradient
+    checksum.  Also one step on an fsdp x seq mesh (its metrics)."""
     from vats_tpu_torch.configs import ModelArgs, TrainingArgs
     from vats_tpu_torch.models import TextLM
     from vats_tpu_torch.parallel import create_mesh
@@ -155,36 +154,30 @@ def sp_train_steps(rank, world, payload):
 
     targs = TrainingArgs(grad_accum_steps=1)
     batch = _lm_batch(payload["batch"])
+    params = {k: torch.tensor(v) for k, v in payload["params"].items()}
+
+    def model_of(overrides):
+        model = TextLM(ModelArgs(**dict(payload["cfg"], **overrides)), device="meta")
+        model.load_state_dict(params, assign=True)
+        return model
+
     mesh = _seq_mesh(world, data=payload["data"])
     out = {}
     for name, overrides in payload["cases"].items():
-        cfg = ModelArgs(**dict(payload["cfg"], **overrides))
-        model = TextLM(cfg, device="meta")
-        model.load_state_dict({k: torch.tensor(v) for k, v in payload["params"].items()},
-                              assign=True)
+        model = model_of(overrides)
         init, step, _ = make_sharded_train(model, targs, mesh, batch, num_training_steps=10)
-        state = init()
-        if cfg.capacity_factor > 0:
-            try:
-                step(state, batch, 2)
-            except NotImplementedError as e:
-                out[name] = dict(error=str(e))
-            else:
-                out[name] = dict(error=None)
-            continue
-        state, m = step(state, batch, 2)
+        state, m = step(init(), batch, 2)
         grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
         res = {k: float(v) for k, v in m.items()}
         res["checksum"] = float(sum(g.double().sum() for g in grads.values()))
         if rank == 0:
             res["grads"] = {n: g.numpy() for n, g in grads.items()}
         out[name] = res
-    try:
-        make_sharded_train(TextLM(ModelArgs(**payload["cfg"]), device="meta"), targs,
-                           create_mesh(data=1, fsdp=2, expert=1, tensor=1,
-                                       seq=world // 2), batch)
-    except NotImplementedError as e:
-        out["fsdp_error"] = str(e)
+    fsdp = create_mesh(data=1, fsdp=2, expert=1, tensor=1, seq=world // 2)
+    init, step, _ = make_sharded_train(model_of(dict(context_parallel="ring")), targs, fsdp,
+                                       batch, num_training_steps=10)
+    _, m = step(init(), batch, 2)
+    out["fsdp_step"] = {k: float(v) for k, v in m.items()}
     return out
 
 
@@ -237,3 +230,237 @@ def card_ring(rank, world, payload):
     return dict(out=o.detach().float().cpu(), dq=q.grad.float().cpu(),
                 dk=k.grad.float().cpu(), dv=v.grad.float().cpu(),
                 launches=tuple(fn.launches for fn in fns))
+
+
+# --- FSDP, tensor and expert sharding -----------------------------------------
+
+
+def _lm(cfg, params):
+    from vats_tpu_torch.configs import ModelArgs
+    from vats_tpu_torch.models import TextLM
+
+    model = TextLM(ModelArgs(**cfg), device="meta")
+    model.load_state_dict({k: torch.tensor(v) for k, v in params.items()}, assign=True)
+    return model
+
+
+def _record_routing(model):
+    from vats_tpu_torch.nn.moe import MoELayer
+
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    for m in layers:
+        m.record_routing = True
+    return layers
+
+
+def _whole(tensors):
+    """{name: whole array} of sharded tensors (a collective on every rank)."""
+    from vats_tpu_torch.parallel.layout import whole
+
+    out = {}
+    for name, (t, info) in tensors.items():
+        t = t.detach()
+        out[name] = (whole(t, info) if info is not None else t).numpy().copy()
+    return out
+
+
+def _grads_and_params(model):
+    grads = _whole({n: (p.grad if p.grad is not None else torch.zeros_like(p),
+                        getattr(p, "shard_info", None)) for n, p in model.named_parameters()})
+    params = _whole({n: (p, getattr(p, "shard_info", None))
+                     for n, p in model.named_parameters()})
+    return grads, params
+
+
+def sharded_train_cases(rank, world, payload):
+    """Each TextLM case: one sharded step over the case's mesh from the
+    payload's weights and whole batch; returns the rank's metrics, resident
+    bytes, traffic by axis and local head counts, and (rank 0) the whole
+    gradients, the whole params after the update and each MoE layer's
+    global keep mask.  Then the E32 expert=4 MoE layer case."""
+    from vats_tpu_torch.configs import TrainingArgs
+    from vats_tpu_torch.nn import attention as attn_mod
+    from vats_tpu_torch.parallel import collectives, create_mesh
+    from vats_tpu_torch.parallel.layout import tensor_bytes
+    from vats_tpu_torch.parallel.sharded import make_sharded_train
+
+    heads = []
+    plain = attn_mod.dot_product_attention
+
+    def seen(q, k, v, **kw):  # the heads this rank's attention sees
+        heads.append((q.shape[2], k.shape[2]))
+        return plain(q, k, v, **kw)
+
+    attn_mod.dot_product_attention = seen
+    batch = _lm_batch(payload["batch"])
+    out = {}
+    for name, case in payload["cases"].items():
+        mesh = create_mesh(**case["mesh"])
+        model = _lm(dict(payload["cfg"], **case.get("cfg", {})), payload["params"])
+        layers = _record_routing(model)
+        targs = TrainingArgs(grad_accum_steps=1, **case.get("targs", {}))
+        init, step, shardings = make_sharded_train(model, targs, mesh, batch,
+                                                   num_training_steps=10)
+        state = init()
+        heads.clear()
+        collectives.reset_traffic()
+        state, m = step(state, batch, 2)
+        res = {k: float(v) for k, v in m.items()}
+        res.update(resident=(tensor_bytes(state.params), tensor_bytes(state.opt_state)),
+                   by_axis=dict(collectives.traffic["by_axis"]), heads=sorted(set(heads)),
+                   specs={n: s.spec for n, s in shardings["params"].items()},
+                   shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
+        grads, params = _grads_and_params(model)
+        if rank == 0:
+            res.update(grads=grads, params=params,
+                       keep=[m_.routing and m_.routing["keep"].numpy() for m_ in layers])
+        out[name] = res
+    attn_mod.dot_product_attention = plain
+    case = payload["ulysses"]
+    model = _lm(dict(payload["cfg"], **case["cfg"]), payload["params"])
+    init, step, _ = make_sharded_train(model, TrainingArgs(grad_accum_steps=1),
+                                       create_mesh(**case["mesh"]), batch)
+    try:
+        step(init(), batch, 2)
+    except ValueError as e:
+        out["ulysses_error"] = str(e)
+    out["moe_ep"] = _moe_ep_case(payload["moe"])
+    return out
+
+
+def _moe_ep_case(p):
+    """An E32 top-2 'sort' MoELayer with its experts over expert=4: the
+    whole input on every rank, loss sum(out^2); forward traffic and the
+    whole gradients."""
+    from vats_tpu_torch.nn.moe import MoELayer
+    from vats_tpu_torch.parallel import collectives, create_mesh
+    from vats_tpu_torch.parallel.layout import ParamLayout
+
+    mesh = create_mesh(data=1, fsdp=1, expert=4, tensor=1, seq=1)
+    layer = MoELayer(**p["kw"], dispatch="sort", device="cpu")
+    layer.load_state_dict({k: torch.tensor(v) for k, v in p["params"].items()})
+    ParamLayout(layer, mesh).shard_(layer)
+    expert_bytes = sum(w.numel() * w.element_size() for w in layer.experts.parameters())
+    collectives.reset_traffic()
+    out, _ = layer(torch.tensor(p["x"]))
+    forward = dict(collectives.traffic["by_axis"]), collectives.traffic["bytes"]
+    (out.float() ** 2).sum().backward()
+    grads, _ = _grads_and_params(layer)
+    return dict(out=out.detach().numpy(), grads=grads, forward_by_axis=forward[0],
+                forward_bytes=forward[1], expert_bytes=expert_bytes,
+                shapes={n: tuple(w.shape) for n, w in layer.named_parameters()})
+
+
+def sharded_misc(rank, world, payload):
+    """Joins the world itself, through the train script's ``--multihost``
+    (the environment's coordinator, a default fsdp=-1 mesh); then the
+    script with ``--mesh fsdp=2,tensor=2`` resuming that run's checkpoint;
+    ViT-2D on fsdp=2 x tensor=2 with a caller's step; a sharded TextLM
+    checkpoint saved, loaded back into the sharded layout and stepped
+    beside an unbroken run."""
+    import torch.distributed as dist
+
+    from vats_tpu_torch.scripts.nlp import train as train_script
+
+    os.environ.update(COORDINATOR_ADDRESS=payload["address"], NUM_PROCESSES=str(world),
+                      PROCESS_ID=str(rank))
+    out = {}
+    script = payload["script"]
+    first = train_script.main(script["argv"] + ["--multihost", "--backend", "gloo",
+                                                "--max-train-tokens", "100",
+                                                "--ckpt-dir", script["dirs"][0]])
+    assert dist.is_initialized() and dist.get_world_size() == world
+    resume = os.path.join(script["dirs"][0], "best_model")
+    second = train_script.main(script["argv"] + ["--mesh", "fsdp=2,tensor=2", "--resume", resume,
+                                                 "--max-train-tokens", "200",
+                                                 "--ckpt-dir", script["dirs"][1]])
+    for key, res in (("multihost", first), ("mesh", second)):
+        p = res["state"].params["layers.0.attn_block.attn.w_o.weight"]
+        out[key] = dict(history=res["history"], tokens_seen=int(res["state"].tokens_seen),
+                        spec=p.shard_info.spec, shape=tuple(p.shape),
+                        mesh=dict(p.shard_info.mesh.shape))
+    out["vit"] = _vit_case(payload["vit"])
+    out["ckpt"] = _checkpoint_case(payload["ckpt"])
+    return out
+
+
+def _vit_step(model, num_classes):
+    """The caller's step of the JAX package's sharded vision test: the
+    smoothed CE of the rank's rows, backward, ``apply_gradients``."""
+    from vats_tpu_torch.train.vision import smoothed_ce
+
+    def step(state, batch, rng):
+        for p in state.params.values():
+            p.grad = None
+        logits = model(batch["images"], deterministic=False, dropout_seed=rng)
+        loss = smoothed_ce(logits, batch["labels"], 0.0, num_classes)
+        loss.backward()
+        state.apply_gradients({n: p.grad for n, p in state.params.items()})
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def _vit_case(p):
+    from vats_tpu_torch.configs.vit2d import ViT2DArgs
+    from vats_tpu_torch.models.vit2d import ImageEncoder
+    from vats_tpu_torch.parallel import create_mesh
+    from vats_tpu_torch.parallel.layout import tensor_bytes
+    from vats_tpu_torch.parallel.sharded import make_sharded_train
+    from vats_tpu_torch.train.vision import VisionTrainingArgs, create_vision_optimizer
+
+    cfg = ViT2DArgs(**p["cfg"])
+    model = ImageEncoder(cfg, device="meta")
+    model.load_state_dict({k: torch.tensor(v) for k, v in p["params"].items()}, assign=True)
+    targs = VisionTrainingArgs(grad_accum_steps=1, use_augmentation=False)
+    batch = {k: torch.tensor(v) for k, v in p["batch"].items()}
+    mesh = create_mesh(data=1, fsdp=2, expert=1, tensor=2, seq=1)
+    init, step, _ = make_sharded_train(
+        model, targs, mesh, batch, train_step_fn=_vit_step(model, cfg.num_classes),
+        tx=create_vision_optimizer(targs, steps_per_epoch=10))
+    state = init()
+    state, m = step(state, batch, 1)
+    _, params = _grads_and_params(model)
+    return dict(loss=float(m["loss"]), params=params,
+                resident=tensor_bytes(state.params) + tensor_bytes(state.opt_state))
+
+
+def _checkpoint_case(p):
+    from vats_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from vats_tpu_torch.configs import TrainingArgs
+    from vats_tpu_torch.parallel import create_mesh
+    from vats_tpu_torch.parallel.layout import whole_state_dict
+    from vats_tpu_torch.parallel.sharded import make_sharded_train
+
+    batch = _lm_batch(p["batch"])
+    targs = TrainingArgs(grad_accum_steps=1)
+    mesh = create_mesh(data=1, fsdp=2, expert=2, tensor=1, seq=1)
+    runs = []
+    for _ in range(2):
+        model = _lm(p["cfg"], p["params"])
+        init, step, _ = make_sharded_train(model, targs, mesh, batch, num_training_steps=10)
+        runs.append((model, init(), step))
+    (model, state, step), (model2, state2, step2) = runs
+    state, _ = step(state, batch, 2)
+    path = save_checkpoint(p["dir"], state, loss=2.0, is_best=True)
+    saved = {k: v.numpy().copy() for k, v in whole_state_dict(model).items()}
+    state2, _ = load_checkpoint(path, target=state2)
+    restored = {k: v.numpy().copy() for k, v in whole_state_dict(model2).items()}
+    state, m = step(state, batch, 3)
+    state2, m2 = step2(state2, batch, 3)
+    after = _grads_and_params(model)[1]
+    after2 = _grads_and_params(model2)[1]
+    # a non-finite gradient on one rank's shard alone: every rank skips
+    import torch.distributed as dist
+
+    w = dict(model.named_parameters())["layers.0.moe_block.moe.experts.w_gate"]
+    hook = w.register_hook(lambda g: torch.full_like(g, float("nan"))) \
+        if dist.get_rank() == 1 else None
+    state, m3 = step(state, batch, 4)
+    if hook is not None:
+        hook.remove()
+    unchanged = all(np.array_equal(a, after[n]) for n, a in _grads_and_params(model)[1].items())
+    return dict(path=path, saved=saved, restored=restored, loss=float(m["loss"]),
+                loss2=float(m2["loss"]), after=after, after2=after2,
+                nan_skip=dict(skipped=int(state.skipped_steps), unchanged=unchanged,
+                              grad_norm=float(m3["grad_norm"])))

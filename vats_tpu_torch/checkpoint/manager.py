@@ -26,6 +26,12 @@ Loading with a target copies params, optimizer state and counters into the
 target's own tensors, on the target's device; without one it returns the
 raw dict (tensors on the CPU), the args-only mode of the training script.
 ``unbox_restored`` has no counterpart: the port has no flax boxes.
+
+A sharded state (``parallel/sharded.py``: each rank holds its blocks) is
+saved whole, in the single-process format: every rank takes part in the
+gathers, the coordinator (rank 0) alone writes, and every rank waits for
+the file before it goes on.  Loaded into a sharded target, each rank keeps
+its blocks of the whole arrays in the file.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from vats_tpu_torch.parallel.layout import is_sharded, shard_of, whole
+from vats_tpu_torch.parallel.multihost import is_coordinator
 from vats_tpu_torch.train.state import TrainState
 
 _CLASS_KEY = "__dataclass__"
@@ -56,7 +65,8 @@ def _tree(obj, leaf):
     """``obj`` (dataclasses, dicts, tensors, Python scalars) as plain dicts,
     each tensor replaced by ``leaf(tensor)``."""
     if isinstance(obj, torch.Tensor):
-        return leaf(obj.detach())
+        info = getattr(obj, "shard_info", None)
+        return leaf(obj.detach() if info is None else whole(obj.detach(), info))
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         out = {_CLASS_KEY: type(obj).__name__}
         for f in dataclasses.fields(obj):
@@ -71,7 +81,8 @@ def _tree(obj, leaf):
 
 def state_tree(state: TrainState, leaf=lambda t: t) -> Dict[str, Any]:
     """The saved form of ``state``: {params, opt_state, step, tokens_seen,
-    skipped_steps}, each tensor passed through ``leaf``."""
+    skipped_steps}, each tensor passed through ``leaf`` (a sharded one
+    whole: a collective on every rank)."""
     out = {"params": _tree(dict(state.params), leaf),
            "opt_state": _tree(state.opt_state, leaf)}
     for name in _STATE_COUNTERS:
@@ -154,14 +165,23 @@ def save_checkpoint(
     if step_key is None:
         step_key = tokens_seen
     path = _checkpoint_path(directory, is_best, step_key)
-    return _write(path, state_tree(state),
-                  _meta(model_args, training_args, tokens_seen, loss, is_best))
+    tree = state_tree(state)
+    sharded = is_sharded(state.params)
+    if not sharded or is_coordinator():
+        _write(path, tree, _meta(model_args, training_args, tokens_seen, loss, is_best))
+    if sharded:
+        dist.barrier()  # the file is whole before any rank reads it
+    return path
 
 
 def _restore_into(target, saved, where: str):
     """Copy ``saved`` (a tree from :func:`state_tree`) into ``target``'s
     tensors in place; returns the target (or the saved Python scalar)."""
     if isinstance(target, torch.Tensor):
+        info = getattr(target, "shard_info", None)
+        if info is not None and isinstance(saved, torch.Tensor) \
+                and tuple(saved.shape) == info.shape:
+            saved = shard_of(saved, info)  # this rank's block of the whole array
         if not isinstance(saved, torch.Tensor) or saved.shape != target.shape \
                 or saved.dtype != target.dtype:
             got = (tuple(saved.shape), saved.dtype) if isinstance(saved, torch.Tensor) \
@@ -196,8 +216,9 @@ def _restore_into(target, saved, where: str):
 def load_checkpoint(path: str, target: Optional[TrainState] = None) -> Tuple[Any, Dict]:
     """Restore (state, meta).  With a ``target`` TrainState its params,
     optimizer state and counters are overwritten in place from the file
-    (on the target's devices) and the target is returned; without one the
-    raw saved dict is returned (CPU tensors)."""
+    (on the target's devices; a sharded target takes its blocks) and the
+    target is returned; without one the raw saved dict is returned (CPU
+    tensors)."""
     path = os.path.abspath(path)
     restored = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     meta: Dict = {}
@@ -269,6 +290,13 @@ class CheckpointManager:
             tree, ready = state_tree(state), None
         else:
             tree, ready = _host_snapshot(state)
+        sharded = is_sharded(state.params)
+        if sharded and not is_coordinator():
+            # the gathers above were this rank's part; the coordinator writes
+            dist.barrier()
+            for key, is_best in kinds:
+                saved[key] = _checkpoint_path(self.directory, is_best, tokens_seen)
+            return saved
         # a round that saves both writes the state once: the second name
         # is a hard link to the first file (a later best save replaces its
         # own name, never the shared file)
@@ -284,4 +312,7 @@ class CheckpointManager:
                                                          first))
             saved[key] = path
             first = first or path
+        if sharded:
+            self.wait()
+            dist.barrier()
         return saved

@@ -41,6 +41,7 @@ from vats_tpu_torch.nn.initializers import embed_init_, head_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.moe import MoEBlock
 from vats_tpu_torch.nn.norms import RMSNorm
+from vats_tpu_torch.parallel.layout import gathered
 
 
 class TransformerBlock(nn.Module):
@@ -172,6 +173,12 @@ class TextLM(nn.Module):
     def device(self) -> torch.device:
         return self.token_embed.weight.device
 
+    def param_logical_axes(self):
+        axes = {"token_embed.weight": ("vocab", "embed")}
+        if self.lm_head is not None:
+            axes["lm_head.weight"] = ("vocab", "embed")
+        return axes
+
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         embed_init_(self.token_embed.weight, generator)
         for layer in self.layers:
@@ -207,7 +214,7 @@ class TextLM(nn.Module):
         cfg = self.cfg
         if not deterministic and cfg.dropout > 0 and dropout_seed is None:
             dropout_seed = int(torch.randint(0, 1 << 62, (1,)))
-        x = F.embedding(input_ids.long(), self.token_embed.weight).to(self.dtype)
+        x = F.embedding(input_ids.long(), gathered(self.token_embed.weight)).to(self.dtype)
         x = dropout(x, cfg.dropout, deterministic=deterministic,
                     seed=dropout_seed, layer=-1, site=SITE_EMBED)
         remat = (cfg.gradient_checkpointing and not deterministic
@@ -261,7 +268,7 @@ class TextLM(nn.Module):
             return x, new_cache, total_aux
         if self.lm_head is None:
             # flax Embed.attend: both operands in the compute dtype
-            w = self.token_embed.weight
+            w = gathered(self.token_embed.weight)
             logits = F.linear(x.to(w.dtype).to(self.dtype), w.to(self.dtype))
         else:
             logits = dense(self.lm_head, x, self.dtype)

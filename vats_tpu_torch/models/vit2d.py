@@ -39,6 +39,7 @@ from vats_tpu_torch.nn.attention import AttentionBlock, dense
 from vats_tpu_torch.nn.dropout import SITE_EMBED, dropout
 from vats_tpu_torch.nn.initializers import normal_
 from vats_tpu_torch.nn.norms import RMSNorm
+from vats_tpu_torch.parallel.layout import gathered
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -84,6 +85,9 @@ class PatchEmbeddings2D(nn.Module):
         with torch.no_grad():
             self.proj.bias.zero_()
 
+    def param_logical_axes(self):
+        return {"proj.weight": ("conv_out", "conv_in", None, None)}  # OIHW
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 4:
             raise ValueError(f"expected [B, C, H, W], got {tuple(x.shape)}")
@@ -92,7 +96,7 @@ class PatchEmbeddings2D(nn.Module):
         dt = self.dtype
         x = resize_and_center_crop(x.to(dt), self.target_size)
         w = self.proj
-        x = F.conv2d(x, w.weight.to(dt), w.bias.to(dt), stride=self.patch_size)
+        x = F.conv2d(x, gathered(w.weight).to(dt), w.bias.to(dt), stride=self.patch_size)
         return x.flatten(2).transpose(1, 2)  # [B, gH*gW, d], row-major
 
 
@@ -165,6 +169,9 @@ class ImageEncoder(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.norm.weight.device
+
+    def param_logical_axes(self):
+        return {"classifier.weight": ("vocab", "embed")} if self.classifier is not None else {}
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.patch_embeddings.reset_parameters(generator)

@@ -51,8 +51,14 @@ class SwiGLU(nn.Module):
                              (lin.in_features, lin.out_features), generator)
         output_proj_init_(self.w_down.weight, self.num_layers, generator)
 
+    def param_logical_axes(self):
+        return {"w_gate.weight": ("mlp", "embed"), "w_up.weight": ("mlp", "embed"),
+                "w_down.weight": ("embed", "mlp")}
+
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 dropout_seed: Optional[int] = None, layer_idx: int = 0) -> torch.Tensor:
+        """Under tensor parallelism (``mlp`` over ``tensor``) w_gate and w_up
+        are column-parallel and w_down row-parallel (``attention.dense``)."""
         dt = self.dtype
         hidden = F.silu(dense(self.w_gate, x, dt)) * dense(self.w_up, x, dt)
         return dropout(dense(self.w_down, hidden, dt), self.dropout,

@@ -50,6 +50,14 @@ all-gathered and this rank's queries attend the whole sequence (logged
 once, "UNSHARDED").  Under ``with mesh:`` alone each rank holds whole
 sequences and attention stays local, as the JAX module falls back on a
 length the seq axis does not divide (quiet at T == 1).
+
+Tensor parallelism (uncached forwards): with ``heads`` / ``kv_heads`` over
+``tensor`` (``parallel/layout.py``) a rank projects, attends (the flash
+kernels included) and outputs its Hq/tp query heads and G/tp KV groups; a
+fused ``w_qkv``, replicated over ``tensor`` since "qkv" has no rule, gives
+each rank its q, k and v rows; ``w_o`` is row-parallel (:func:`dense`).
+Ring attention runs on the local heads; Ulysses needs them divisible by
+``seq`` and raises otherwise.
 """
 
 from __future__ import annotations
@@ -83,7 +91,8 @@ from vats_tpu_torch.ops.decode_attention import paged_decode_attention_commit
 from vats_tpu_torch.ops.flash_attention import flash_attention
 from vats_tpu_torch.ops.ring_attention import ring_attention
 from vats_tpu_torch.ops.ulysses import ulysses_attention
-from vats_tpu_torch.parallel.collectives import GatherFn, all_gather
+from vats_tpu_torch.parallel.collectives import all_gather, copy_to, gather, global_sum
+from vats_tpu_torch.parallel.layout import TENSOR_LOCAL, gathered, split_over
 from vats_tpu_torch.parallel.mesh import ambient_mesh, inputs_sharded
 
 CONTEXT_PARALLEL_MODES = ("none", "ring", "ulysses")
@@ -129,11 +138,39 @@ def select_attention_impl(
     return "xla"
 
 
+def _tensor_block(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """This ``tensor`` rank's block along ``dim`` of an ``x`` that every
+    rank holds alike (its gradient summed over the ranks)."""
+    size = x.shape[dim] // mesh.shape["tensor"]
+    return copy_to(x, mesh, ("tensor",)).narrow(dim, mesh.axis_index("tensor") * size, size)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax DenseGeneral(dtype=...) semantics: inputs, weight and bias are
-    cast to the compute dtype before the product."""
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    cast to the compute dtype before the product.
+
+    A sharded weight (``parallel/layout.py``) is gathered on use, except a
+    ``heads``/``kv_heads``/``mlp`` dimension over ``tensor``: sharded in its
+    output, the layer is column-parallel (this rank's outputs, and its block
+    of a replicated bias); in its input, row-parallel (the partial products
+    all-reduced over ``tensor`` in fp32, then the bias)."""
+    w = layer.weight
+    info = getattr(w, "shard_info", None)
+    bias = layer.bias
+    if info is None:
+        return F.linear(x.to(dtype), w.to(dtype), bias.to(dtype) if bias is not None else None)
+    weight = gathered(w, TENSOR_LOCAL)
+    mesh = info.mesh
+    local = [a == "tensor" and n in TENSOR_LOCAL for a, n in zip(info.spec, info.logical)]
+    if local[0]:
+        x = copy_to(x, mesh, ("tensor",))
+        if bias is not None:
+            bias = _tensor_block(bias, mesh)
+    if local[1]:  # the partial products summed in fp32
+        y = F.linear(x.to(dtype), weight.to(dtype))
+        y = global_sum(y.float(), mesh, ("tensor",)).to(dtype)
+        return y + bias.to(dtype) if bias is not None else y
+    return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype) if bias is not None else None)
 
 
 class Attention(nn.Module):
@@ -234,6 +271,25 @@ class Attention(nn.Module):
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
 
+    def param_logical_axes(self):
+        if self.use_qkv_proj:  # "qkv" has no rule: replicated over tensor
+            axes = {"w_qkv.weight": ("qkv", "embed")}
+        else:
+            axes = {"w_q.weight": ("heads", "embed"), "w_k.weight": ("kv_heads", "embed"),
+                    "w_v.weight": ("kv_heads", "embed")}
+        axes["w_o.weight"] = ("embed", "heads")
+        return axes
+
+    def _tensor_parallel(self):
+        """(mesh, tp): the ``tensor`` ranks this layer's heads are split
+        over (the output projection's input sharded there), else (None, 1)."""
+        mesh, tp = split_over(self.w_o.weight, "tensor")
+        if tp > 1 and (self.num_heads % tp or self.query_groups % tp):
+            raise ValueError(f"tensor parallelism over {tp} ranks needs the heads "
+                             f"({self.num_heads}) and the KV groups ({self.query_groups}) "
+                             "divisible by it")
+        return mesh, tp
+
     def _cos_sin(self, positions, grid_shape, rope_angles):
         """The per-token (cos, sin) table of a table-driven rotation:
         ``rope_angles`` when given, the '2d_ntk' table at ``positions``
@@ -283,9 +339,26 @@ class Attention(nn.Module):
                     lin.bias.zero_()
 
     def project_qkv(self, x: torch.Tensor):
+        """q [B, T, H, hd], k and v [B, T, G, hd]: this rank's H = Hq/tp
+        heads and G/tp groups under tensor parallelism."""
         b, t, _ = x.shape
-        h, g, hd = self.num_heads, self.query_groups, self.head_dim
-        if self.use_qkv_proj:
+        mesh, tp = self._tensor_parallel()
+        h, g, hd = self.num_heads // tp, self.query_groups // tp, self.head_dim
+        if self.use_qkv_proj and tp > 1:
+            # the fused weight is whole on every tensor rank: this rank's q, k
+            # and v rows (their gradients summed over the ranks)
+            r = mesh.axis_index("tensor")
+            rows = torch.cat([off + r * n * hd + torch.arange(n * hd, device=x.device)
+                              for off, n in ((0, h), (self.num_heads * hd, g),
+                                             ((self.num_heads + self.query_groups) * hd, g))])
+            w = copy_to(gathered(self.w_qkv.weight), mesh, ("tensor",))[rows]
+            bias = self.w_qkv.bias
+            if bias is not None:
+                bias = copy_to(bias, mesh, ("tensor",))[rows].to(self.dtype)
+            qkv = F.linear(copy_to(x, mesh, ("tensor",)).to(self.dtype), w.to(self.dtype),
+                           bias)
+            q, k, v = torch.split(qkv, [h * hd, g * hd, g * hd], dim=-1)
+        elif self.use_qkv_proj:
             qkv = dense(self.w_qkv, x, self.dtype)
             q, k, v = torch.split(qkv, [h * hd, g * hd, g * hd], dim=-1)
         else:
@@ -320,6 +393,8 @@ class Attention(nn.Module):
         rope_angles: fp32 (cos, sin) per token ([T, hd/2], or [B, T, hd/2]
         on the paged path) in place of the rope mode."""
         b, t, _ = x.shape
+        if (cache is not None or paged_cache is not None) and self._tensor_parallel()[1] > 1:
+            raise NotImplementedError("KV-cached attention with heads split over tensor")
         if ((cache is not None or paged_cache is not None) and rope_angles is None
                 and self.rope_type not in CACHE_ROPE_TYPES):
             raise NotImplementedError(
@@ -399,7 +474,7 @@ class Attention(nn.Module):
                     kv_valid=kv_valid,
                 )
 
-        out = out.reshape(b, t, self.num_heads * self.head_dim)
+        out = out.reshape(b, t, -1)  # this rank's heads under tensor parallelism
         return dense(self.w_o, out, self.dtype), new_cache
 
     def _seq_offset(self, t: int) -> int:
@@ -470,7 +545,7 @@ class Attention(nn.Module):
         the key mask and the segment ids too; the queries at their global
         positions."""
         t = q.shape[1]
-        k, v = (GatherFn.apply(x, mesh, "seq", 1) for x in (k, v))
+        k, v = (gather(x, mesh, "seq", 1) for x in (k, v))
         kv_valid = None if padding_mask is None else all_gather(
             padding_mask.to(torch.int32), mesh, "seq", 1).bool()
         kv_seg = None if segment_ids is None else all_gather(

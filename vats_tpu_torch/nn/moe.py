@@ -14,11 +14,31 @@ Counterpart of ``vats_tpu/nn/moe.py``:
     JAX row-chunked prefill drops.
   * ``MoEBlock``: pre-RMSNorm -> MoELayer -> dropout -> residual.
 
-Under a mesh whose ranks each hold a shard of the tokens
-(``parallel.mesh.sharded_token_mesh``) the router's expert mass is summed
-over the ranks before the aux loss, as the JAX step sums it over the global
-tokens; a capacity-limited dispatch (``capacity_factor > 0``) raises there,
-since its capacity is a global count too.
+Sharded (``parallel/layout.py``, under ``parallel/sharded.py``'s step), the
+layer computes what the JAX layer computes over the global batch:
+
+  * capacity and 'auto' are resolved from the global token count (the
+    local count times the ranks over data x fsdp x seq when each rank holds
+    its shard of the batch), and the router's expert mass for the aux loss
+    is summed over every rank that routed a share of the tokens;
+  * an assignment is kept where its position in the global slot-major
+    order (slot, batch row, sequence position) is below the capacity: the
+    ranks all-gather their expert ids (a few bytes a token), so each rank
+    reads the same global positions and keeps its own assignments (both
+    dispatch paths drop the same ones);
+  * with the experts sharded over ``expert`` (E/ep a rank) the ranks along
+    ``expert``, which hold the same tokens, each route 1/ep of them; the
+    kept rows travel to their expert's rank and back by a fixed-size
+    all_to_all of ``[E, S, d]`` buffers (S = min(capacity, tokens a rank),
+    the same on every rank; expert weights never travel), and the outputs
+    are all-gathered over ``expert``.  'dense' runs the rank's own experts
+    on every token and all-reduces their weighted sum over ``expert``;
+  * ``expert_mlp`` over ``tensor`` makes the experts column-parallel in and
+    row-parallel out, and ``embed`` over ``fsdp`` is gathered on use.
+
+``record_routing = True`` keeps, after each forward, the global expert ids,
+the keep mask and the router's probabilities (``routing``), for tests and
+the card's checks.
 """
 
 from __future__ import annotations
@@ -33,8 +53,35 @@ from torch import nn
 from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
-from vats_tpu_torch.parallel.collectives import global_sum
-from vats_tpu_torch.parallel.mesh import TOKEN_AXES, sharded_token_mesh
+from vats_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_to_all,
+    copy_to,
+    gather,
+    global_sum,
+    split,
+)
+from vats_tpu_torch.parallel.layout import TENSOR_LOCAL, gathered, split_over
+from vats_tpu_torch.parallel.mesh import MESH_AXES, TOKEN_AXES, sharded_token_mesh
+
+
+def _mesh_order(axes):
+    return tuple(a for a in MESH_AXES if a in axes)
+
+
+def _sorted_positions(expert_ids: torch.Tensor, n_experts: int):
+    """(order, sorted ids, each sorted assignment's position among its
+    expert's): the sort is stable, so positions follow the slot-major
+    order.  The per-expert counts need no host sync (bincount reads the
+    largest id back to size its output), so a captured decode step may
+    sort."""
+    order = torch.argsort(expert_ids, stable=True)
+    sorted_ids = expert_ids[order]
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=expert_ids.device)
+    counts.scatter_add_(0, expert_ids, torch.ones_like(expert_ids))
+    starts = torch.cumsum(counts, 0) - counts
+    return order, sorted_ids, torch.arange(len(expert_ids), device=expert_ids.device) \
+        - starts[sorted_ids]
 
 
 class TopKRouter(nn.Module):
@@ -58,6 +105,7 @@ class TopKRouter(nn.Module):
         self.router = nn.Linear(
             d_model, num_experts, bias=True, dtype=param_dtype, device=device
         )
+        self.record = False  # keep the last probabilities (MoELayer.record_routing)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         r = self.router
@@ -67,20 +115,38 @@ class TopKRouter(nn.Module):
         with torch.no_grad():
             r.bias.zero_()
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True):
-        """x: [N, d] -> (weights [N, k], indices [N, k], aux_loss [])."""
-        logits = F.linear(
-            x.float(), self.router.weight.float(), self.router.bias.float()
-        )
+    def param_logical_axes(self):
+        return {"router.weight": ("experts", "embed")}
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                token_split: bool = False):
+        """x: [N, d] -> (weights [N, k], indices [N, k], aux_loss []).
+
+        ``token_split``: the ranks along ``expert`` each route their own
+        share of tokens that they all hold (``MoELayer``), so the weight's
+        and the bias's gradients are summed over them."""
+        emesh, _ = split_over(self.router.weight, "expert")
+        weight = gathered(self.router.weight, reduce=("expert",) if token_split else ())
+        bias = self.router.bias
+        if token_split:
+            bias = copy_to(bias, emesh, ("expert",))
+        logits = F.linear(x.float(), weight.float(), bias.float())
         probs = torch.softmax(logits, dim=-1)
+        if self.record:
+            self.last_probs = probs.detach()
         top_vals, top_idx = torch.topk(probs, self.top_k, dim=-1)
         weights = top_vals / top_vals.sum(dim=-1, keepdim=True)
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.use_aux_loss and not deterministic and self.num_experts > 1:
             mass = probs.sum(dim=0)
-            mesh = sharded_token_mesh()
-            if mesh is not None:  # the JAX step's mass is over the global tokens
-                mass = global_sum(mass, mesh, TOKEN_AXES)
+            # the JAX step's mass is over the global tokens
+            mesh, axes = sharded_token_mesh(), ()
+            if mesh is not None:
+                axes = TOKEN_AXES
+            if token_split:
+                mesh, axes = emesh, axes + ("expert",)
+            if axes:
+                mass = global_sum(mass, mesh, _mesh_order(axes))
             frac = mass / mass.sum()
             var = (frac - frac.mean()).square().mean()
             aux_loss = torch.sqrt(var + 1e-12) / frac.mean()
@@ -115,13 +181,28 @@ class ExpertSwiGLU(nn.Module):
         input_proj_init_(self.w_up, self.num_layers, (d, f), generator)
         output_proj_init_(self.w_down, self.num_layers, generator)
 
+    def param_logical_axes(self):
+        return {"w_gate": ("experts", "embed", "expert_mlp"),
+                "w_up": ("experts", "embed", "expert_mlp"),
+                "w_down": ("experts", "expert_mlp", "embed")}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [E, C, d] per-expert token buffers -> [E, C, d]."""
+        """x: [E, C, d] per-expert token buffers -> [E, C, d] (E: this
+        rank's experts when they are sharded over ``expert``)."""
         dt = self.dtype
+        keep = ("experts",) + TENSOR_LOCAL
+        w_gate, w_up, w_down = (gathered(w, keep) for w in (self.w_gate, self.w_up,
+                                                             self.w_down))
+        mesh, tp = split_over(self.w_gate, "tensor")
         x = x.to(dt)
-        gate = torch.bmm(x, self.w_gate.to(dt))
-        up = torch.bmm(x, self.w_up.to(dt))
-        return torch.bmm(F.silu(gate) * up, self.w_down.to(dt))
+        if tp > 1:  # column-parallel in, row-parallel out
+            x = copy_to(x, mesh, ("tensor",))
+        gate = torch.bmm(x, w_gate.to(dt))
+        up = torch.bmm(x, w_up.to(dt))
+        out = torch.bmm(F.silu(gate) * up, w_down.to(dt))
+        if tp > 1:  # the partial products summed in fp32
+            out = global_sum(out.float(), mesh, ("tensor",)).to(dt)
+        return out
 
 
 class MoELayer(nn.Module):
@@ -163,6 +244,7 @@ class MoELayer(nn.Module):
             d_model, d_ffn, num_experts, num_layers=num_layers, dtype=dtype,
             param_dtype=param_dtype, device=device,
         )
+        self.routing = None  # see record_routing
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         if self.norm is not None:
@@ -188,90 +270,198 @@ class MoELayer(nn.Module):
         onehot_elems = n * self.top_k * self.num_experts * self._capacity(n)
         return "scatter" if onehot_elems <= (1 << 24) else "sort"
 
+    @property
+    def record_routing(self) -> bool:
+        return self.router.record
+
+    @record_routing.setter
+    def record_routing(self, on: bool) -> None:
+        self.router.record = bool(on)
+        self.routing = None
+
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 dropout_seed: Optional[int] = None, layer_idx: int = 0):
         b, t, d = x.shape
-        if (self.capacity_factor > 0 and self.num_experts > 1
-                and sharded_token_mesh() is not None):
-            raise NotImplementedError(
-                "MoE capacity under a mesh with data x seq > 1: the capacity is a "
-                "count over the global tokens (expert-parallel dispatch, ROADMAP item "
-                "19's remainder, is not ported yet); use capacity_factor <= 0")
         if self.norm is not None:
             x = self.norm(x)
         n = b * t
         flat = x.reshape(n, d)
-        weights, indices, aux_loss = self.router(flat, deterministic=deterministic)
-        capacity = self._capacity(n)
-        mode = self.dispatch_mode(n)
+        tok = sharded_token_mesh()
+        n_global = n * (tok.axis_size(TOKEN_AXES) if tok is not None else 1)
+        capacity = self._capacity(n_global)
+        mode = self.dispatch_mode(n_global)
+        emesh, ep = split_over(self.experts.w_gate, "expert")
+        lossless = self.capacity_factor <= 0
         if mode == "dense":
-            combine = torch.zeros(n, self.num_experts, dtype=weights.dtype,
-                                  device=x.device)
-            combine.scatter_add_(1, indices, weights)
-            all_out = self.experts(flat.expand(self.num_experts, n, d))
-            out = torch.einsum("ne,end->nd", combine.to(all_out.dtype), all_out)
-        elif mode == "sort":
-            out = self._sort_dispatch(flat, weights, indices, capacity)
+            out, aux_loss = self._dense(flat, deterministic, emesh, ep)
+        elif ep == 1 and (tok is None or lossless):
+            # every kept assignment is decided by this rank's tokens alone
+            weights, indices, aux_loss = self.router(flat, deterministic=deterministic)
+            dispatch = self._sort_dispatch if mode == "sort" else self._scatter_dispatch
+            out, keep = dispatch(flat, weights, indices, self._capacity(n), self.experts)
+            if self.record_routing:
+                self.routing = dict(experts=indices, keep=keep.reshape(self.top_k, n),
+                                    probs=self.router.last_probs)
         else:
-            out = self._scatter_dispatch(flat, weights, indices, capacity)
+            out, aux_loss = self._parallel_dispatch(mode, flat, deterministic, capacity,
+                                                    tok, emesh, ep, b, t)
         out = out.reshape(b, t, d)
         out = dropout(out, self.dropout, deterministic=deterministic,
                       seed=dropout_seed, layer=layer_idx, site=SITE_MOE_LAYER)
         return out.to(self.dtype), aux_loss
 
-    def _sort_dispatch(self, flat, weights, indices, capacity):
+    def _dense(self, flat, deterministic, emesh, ep):
+        """Every (local) expert on every token, combined by the router's
+        weights; with the experts over ``expert`` each rank runs its own and
+        the weighted sums are all-reduced."""
+        n, d = flat.shape
+        weights, indices, aux_loss = self.router(flat, deterministic=deterministic)
+        combine = torch.zeros(n, self.num_experts, dtype=weights.dtype, device=flat.device)
+        combine.scatter_add_(1, indices, weights)
+        e_local = self.num_experts // ep
+        if ep > 1:
+            first = emesh.axis_index("expert") * e_local
+            combine = copy_to(combine, emesh, ("expert",))[:, first:first + e_local]
+            flat = copy_to(flat, emesh, ("expert",))
+        all_out = self.experts(flat.expand(e_local, n, d))
+        out = torch.einsum("ne,end->nd", combine.to(all_out.dtype), all_out)
+        if ep > 1:
+            out = global_sum(out, emesh, ("expert",))
+        return out, aux_loss
+
+    def _parallel_dispatch(self, mode, flat, deterministic, capacity, tok, emesh, ep, b, t):
+        """Capacity from the global tokens, and (ep > 1) the expert
+        exchange: this rank's 1/ep of the tokens routed, its kept rows sent
+        to their experts' ranks in ``[E, S, d]`` buffers and back, the
+        outputs all-gathered over ``expert``."""
+        x = split(flat, emesh, "expert", 0) if ep > 1 else flat
+        ns = x.shape[0]
+        weights, indices, aux_loss = self.router(x, deterministic=deterministic,
+                                                 token_split=ep > 1)
+        keep = None
+        if self.capacity_factor > 0 or self.record_routing:
+            ids = self._to_global(indices, tok, emesh, ep, b, t)  # [N, k]
+            keep_g = self._global_keep(ids, capacity)  # [k, N] slot-major
+            if self.capacity_factor > 0:
+                mine = self._global_index(tok, emesh, ep, b, t, ns, x.device)
+                keep = keep_g[:, mine].transpose(0, 1)  # [ns, k]
+            if self.record_routing:
+                self.routing = dict(experts=ids, keep=keep_g, probs=self._to_global(
+                    self.router.last_probs, tok, emesh, ep, b, t))
+
+        def exchange(buf):  # [E, S, d] -> [E, S, d]
+            if ep > 1:
+                buf = all_to_all(buf, emesh, "expert", 0, 1)  # [E/ep, ep * S, d]
+            out = self.experts(buf)
+            return all_to_all(out, emesh, "expert", 1, 0) if ep > 1 else out
+
+        dispatch = self._sort_dispatch if mode == "sort" else self._scatter_dispatch
+        out, _ = dispatch(x, weights, indices, min(capacity, ns), exchange, keep)
+        if ep > 1:
+            out = gather(out, emesh, "expert", 0, reduce=False)
+        return out, aux_loss
+
+    @staticmethod
+    def _token_axes(tok, ep):
+        return _mesh_order((TOKEN_AXES if tok is not None else ()) + (("expert",) if ep > 1
+                                                                       else ()))
+
+    def _to_global(self, x, tok, emesh, ep, b, t):
+        """A per-token tensor of this rank's tokens ([ns, ...]) as the
+        global batch's ([N, ...], rows then positions), on every rank:
+        all-gathered over the axes that split the tokens."""
+        mesh = tok if tok is not None else emesh
+        axes = self._token_axes(tok, ep)
+        if not axes:
+            return x
+        g = all_gather(x.contiguous(), mesh, axes, 0)
+        size = lambda a: mesh.shape[a] if a in axes else 1  # noqa: E731
+        rows, seq = size("data") * size("fsdp"), size("seq")
+        # gathered in mesh order: [data x fsdp, expert, seq, ns, ...]; a rank's
+        # expert shares cut its [b, t] block row-major
+        g = g.reshape(rows, size("expert"), seq, -1, *x.shape[1:]).transpose(1, 2)
+        g = g.reshape(rows, seq, b, t, *x.shape[1:]).transpose(1, 2)
+        return g.reshape(rows * b * seq * t, *x.shape[1:])
+
+    def _global_index(self, tok, emesh, ep, b, t, ns, device):
+        """The global token index of each of this rank's ``ns`` tokens."""
+        mesh = tok if tok is not None else emesh
+        c = mesh.coords()
+        shard = lambda a, on: c[a] if on else 0  # noqa: E731
+        on = tok is not None
+        row0 = (shard("data", on) * mesh.shape["fsdp"] + shard("fsdp", on)) * b
+        seq = mesh.shape["seq"] if on else 1
+        i = shard("expert", ep > 1) * ns + torch.arange(ns, device=device)
+        return (row0 + i // t) * (seq * t) + shard("seq", on) * t + i % t
+
+    def _global_keep(self, ids, capacity):
+        """[k, N] bool: an assignment of the global slot-major order kept
+        where fewer than ``capacity`` earlier ones went to its expert."""
+        n, k = ids.shape
+        order, _, sorted_pos = _sorted_positions(ids.transpose(0, 1).reshape(n * k),
+                                                 self.num_experts)
+        pos = torch.empty_like(sorted_pos).scatter_(0, order, sorted_pos)
+        return (pos < capacity).reshape(k, n)
+
+    def _sort_dispatch(self, flat, weights, indices, capacity, experts, keep=None):
         """Stable sort by expert; rank within an expert is the slot-major
         one-hot cumsum position, so both capacity paths drop the same
-        assignments."""
+        assignments.  ``keep`` [N, k]: the assignments kept (the rest are
+        dropped before positions are counted).  Returns (out, kept [N*k],
+        slot-major)."""
         n, d = flat.shape
         e, k = self.num_experts, self.top_k
         nk = n * k
         dev = flat.device
         expert_ids = indices.transpose(0, 1).reshape(nk)  # slot-major
+        if keep is not None:  # dropped assignments sort last, as expert e
+            expert_ids = torch.where(keep.transpose(0, 1).reshape(nk), expert_ids, e)
         w_flat = weights.transpose(0, 1).reshape(nk).to(self.dtype)
         token_ids = torch.arange(n, device=dev).repeat(k)
-        sort_idx = torch.argsort(expert_ids, stable=True)
-        sorted_experts = expert_ids[sort_idx]
-        # per-expert counts without a host sync (bincount reads the largest id
-        # back to size its output), so a captured decode step may sort
-        counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
-            0, expert_ids, torch.ones_like(expert_ids))
-        starts = torch.cumsum(counts, 0) - counts
-        pos = torch.arange(nk, device=dev) - starts[sorted_experts]
-        keep = pos < capacity
-        dest = torch.where(keep, sorted_experts * capacity + pos, e * capacity)
+        sort_idx, sorted_experts, pos = _sorted_positions(expert_ids, e + 1)
+        kept = (pos < capacity) & (sorted_experts < e)
+        dest = torch.where(kept, sorted_experts * capacity + pos, e * capacity)
         gathered_in = flat[token_ids[sort_idx]].to(self.dtype)
         buf = torch.zeros(e * capacity + 1, d, dtype=self.dtype, device=dev)
         buf[dest] = gathered_in  # overflow rows all land in the trash row
-        expert_out = self.experts(buf[: e * capacity].reshape(e, capacity, d))
+        expert_out = experts(buf[: e * capacity].reshape(e, capacity, d))
         flat_out = torch.cat(
             [expert_out.reshape(e * capacity, d),
              torch.zeros(1, d, dtype=expert_out.dtype, device=dev)]
         )
         out_sorted = flat_out[dest] * w_flat[sort_idx][:, None]
         out = torch.zeros(n, d, dtype=self.dtype, device=dev)
-        return out.index_add_(0, token_ids[sort_idx], out_sorted.to(self.dtype))
+        out = out.index_add_(0, token_ids[sort_idx], out_sorted.to(self.dtype))
+        if not self.record_routing:
+            return out, None
+        return out, torch.zeros_like(kept).scatter_(0, sort_idx, kept)
 
-    def _scatter_dispatch(self, flat, weights, indices, capacity):
-        """GShard-style static capacity dispatch via one-hot einsums."""
+    def _scatter_dispatch(self, flat, weights, indices, capacity, experts, keep=None):
+        """GShard-style static capacity dispatch via one-hot einsums
+        (``keep`` and the result as in :meth:`_sort_dispatch`)."""
         n, d = flat.shape
         e, k = self.num_experts, self.top_k
         assign = F.one_hot(indices, e)  # [N, k, E] int64
         flat_assign = assign.transpose(0, 1).reshape(n * k, e)  # slot-major
+        if keep is not None:
+            kept_in = keep.transpose(0, 1).reshape(n * k)
+            flat_assign = flat_assign * kept_in[:, None]
         pos_in_expert = torch.cumsum(flat_assign, 0) - flat_assign
         pos = (pos_in_expert * flat_assign).sum(dim=-1)  # [N*k]
-        keep = pos < capacity
+        kept = pos < capacity
+        if keep is not None:
+            kept = kept & kept_in
         pos_oh = F.one_hot(torch.clamp(pos, max=capacity - 1), capacity)
         dispatch = (
-            flat_assign[:, :, None] * pos_oh[:, None, :] * keep[:, None, None]
+            flat_assign[:, :, None] * pos_oh[:, None, :] * kept[:, None, None]
         ).to(self.dtype)  # [N*k, E, C]
         w_flat = weights.transpose(0, 1).reshape(n * k)
         combine = dispatch * w_flat[:, None, None].to(self.dtype)
         x_rep = flat.repeat(k, 1).to(self.dtype)
         expert_in = torch.einsum("sec,sd->ecd", dispatch, x_rep)
-        expert_out = self.experts(expert_in)
+        expert_out = experts(expert_in)
         out = torch.einsum("sec,ecd->sd", combine, expert_out.to(self.dtype))
-        return out.reshape(k, n, d).sum(dim=0)
+        return out.reshape(k, n, d).sum(dim=0), kept
 
 
 class MoEBlock(nn.Module):

@@ -28,6 +28,9 @@ class RMSNorm(nn.Module):
             torch.ones(features, dtype=param_dtype, device=device)
         )
 
+    def param_logical_axes(self):
+        return {"weight": ("norm",)}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.features:
             raise ValueError(

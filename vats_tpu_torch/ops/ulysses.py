@@ -42,8 +42,8 @@ def ulysses_attention(
     hq, g = q.shape[2], k.shape[2]
     if hq % n != 0 or g % n != 0:
         raise ValueError(
-            f"Ulysses needs heads divisible by seq shards: Hq={hq}, G={g}, "
-            f"shards={n} (use ring_attention otherwise)"
+            f"Ulysses needs this rank's heads divisible by seq shards: Hq={hq}, "
+            f"G={g}, shards={n} (use ring_attention otherwise)"
         )
     if kv_valid is None:
         kv_valid = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)

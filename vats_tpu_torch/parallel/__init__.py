@@ -1,8 +1,8 @@
-"""Ranks, meshes and the collectives of data and context parallelism.
+"""Ranks, meshes, per-leaf shardings and the collectives of sharded training.
 
-Counterpart of ``vats_tpu/parallel`` (mesh, multihost and the data and
-sequence axes of sharded training; FSDP, tensor, expert and pipeline
-parallelism are not ported yet)."""
+Counterpart of ``vats_tpu/parallel`` (mesh, multihost, and sharded training
+over the data, fsdp, expert, tensor and seq axes; pipeline parallelism is
+not ported yet)."""
 
 from vats_tpu_torch.parallel.mesh import (
     MESH_AXES,

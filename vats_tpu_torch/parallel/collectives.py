@@ -9,9 +9,24 @@ process groups of a :class:`~vats_tpu_torch.parallel.mesh.Mesh`:
     tensors travel packed in one byte buffer;
   * :func:`all_to_all`: the tiled ``all_to_all`` (split one dimension over
     the axis, concatenate what arrives on another), differentiable;
-  * :func:`all_gather`: the tiled ``all_gather`` along a dimension;
+  * :func:`all_gather`: the tiled ``all_gather`` along a dimension, and
+    :func:`reduce_scatter`, its conjugate (each rank gets its block of the
+    sum);
   * :func:`all_reduce` over a set of axes, and :func:`global_sum`, its
     differentiable form for a sum that every rank's loss reads alike.
+
+The autograd pairs that sharding runs (Megatron's conjugates, and the
+gather of a shard on use):
+
+  * :func:`gather` (all_gather forward; backward reduce-scatter where the
+    ranks along the axis computed different parts of the loss, ``reduce``,
+    else this rank's block of the gradient, which every rank holds alike);
+  * :func:`copy_to` (identity forward, all-reduce backward): where a tensor
+    that every rank holds alike feeds work split over the axis;
+  * :func:`global_sum` (all-reduce forward, identity backward): where the
+    split work's partial sums join;
+  * :func:`split` (this rank's block forward, all_gather backward): the
+    expert ranks' share of the tokens that every one of them holds.
 
 Backends are the caller's choice (``parallel/multihost.py``).  NCCL moves
 CUDA tensors between GPUs and needs one GPU per rank.  gloo moves CPU
@@ -23,6 +38,8 @@ the work already queued on the device before a tensor can leave it (the
 compute that produced it, not communication); ``staging_s``, the copies to
 and from host buffers alone; ``exchange_s``, the backend's own send,
 receive or reduction, which includes waiting for the other ranks.
+``traffic["by_axis"]`` splits the bytes by the axes of the group they went
+over (keys like ``"fsdp"`` or ``"data+fsdp+seq"``).
 """
 
 from __future__ import annotations
@@ -35,13 +52,15 @@ import torch.distributed as dist
 
 #: per-process totals: bytes sent by shift / all_to_all / all_gather /
 #: all_reduce, calls, and seconds (see the module docstring)
-traffic = {"bytes": 0, "calls": 0, "wait_s": 0.0, "staging_s": 0.0, "exchange_s": 0.0}
+traffic = {"bytes": 0, "calls": 0, "wait_s": 0.0, "staging_s": 0.0, "exchange_s": 0.0,
+           "by_axis": {}}
 
 _ALIGN = 256  # byte offset of each tensor in a packed buffer (TMA wants 16)
 
 
 def reset_traffic() -> None:
-    traffic.update(bytes=0, calls=0, wait_s=0.0, staging_s=0.0, exchange_s=0.0)
+    traffic.update(bytes=0, calls=0, wait_s=0.0, staging_s=0.0, exchange_s=0.0,
+                   by_axis={})
 
 
 def _staged(group, x: torch.Tensor) -> bool:
@@ -69,11 +88,13 @@ def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return y
 
 
-def _count(nbytes: int, t0: float) -> None:
-    """Count one collective of ``nbytes`` sent, begun at ``t0``."""
+def _count(nbytes: int, t0: float, axes: Sequence[str]) -> None:
+    """Count one collective of ``nbytes`` sent over ``axes``, begun at ``t0``."""
     traffic["exchange_s"] += time.perf_counter() - t0
     traffic["bytes"] += int(nbytes)
     traffic["calls"] += 1
+    key = "+".join(axes)
+    traffic["by_axis"][key] = traffic["by_axis"].get(key, 0) + int(nbytes)
 
 
 def _pack(tensors: Sequence[torch.Tensor]):
@@ -120,7 +141,7 @@ def shift(tensors: Sequence[torch.Tensor], mesh, axis: str, distance: int = 1
     t0 = time.perf_counter()
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    _count(send.numel(), t0)
+    _count(send.numel(), t0, (axis,))
     if staged:
         recv = _to_device(recv, dev)
     return _unpack(recv, offsets, tensors)
@@ -143,7 +164,7 @@ def _all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: in
     recv = torch.empty_like(send)
     t0 = time.perf_counter()
     dist.all_to_all_single(recv, send, group=group)
-    _count(send.numel() * send.element_size() * (n - 1) // n, t0)
+    _count(send.numel() * send.element_size() * (n - 1) // n, t0, (axis,))
     if staged:
         recv = _to_device(recv, dev)
     return torch.cat(list(recv.unbind(0)), dim=concat_dim)
@@ -171,11 +192,14 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int
     return _AllToAllFn.apply(x, mesh, axis, split_dim, concat_dim)
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """Tiled all_gather along ``axis``: every rank's ``x`` concatenated
-    along ``dim`` in rank order.  Not differentiable (see
-    :class:`GatherFn`)."""
-    group, members = mesh.group((axis,))
+def all_gather(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Tiled all_gather along ``axis`` (one axis, or several in the mesh's
+    order): every rank's ``x`` concatenated along ``dim`` in shard order.
+    Not differentiable (see :func:`gather`)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    group, members = mesh.group(axes)
+    if members != sorted(members):  # the backend concatenates in rank order
+        raise ValueError(f"all_gather over {axes}: give the axes in the mesh's order")
     if len(members) == 1:
         return x
     x = x.contiguous()
@@ -186,26 +210,112 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in members]
     t0 = time.perf_counter()
     dist.all_gather(parts, x, group=group)
-    _count(x.numel() * x.element_size(), t0)
+    _count(x.numel() * x.element_size(), t0, axes)
     out = torch.cat(parts, dim=dim)
     return _to_device(out, dev) if staged else out
 
 
-class GatherFn(torch.autograd.Function):
-    """:func:`all_gather` under autograd, for an input that each rank holds
-    a shard of and whose gathered whole feeds each rank's own loss: the
-    gradient of a shard is the sum of every rank's gradient of its slice."""
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` along ``axis``, of which this rank gets
+    its block along ``dim`` (``x``'s size there divided by the ranks), as
+    :func:`all_gather` along ``dim`` would have laid it."""
+    group, members = mesh.group((axis,))
+    n = len(members)
+    if n == 1:
+        return x.clone()
+    if x.shape[dim] % n != 0:
+        raise ValueError(f"reduce_scatter: dimension {dim} of size {x.shape[dim]} does "
+                         f"not split over {n} ranks")
+    dev = x.device
+    staged = _staged(group, x)
+    if staged:
+        x = _to_host(x)
+    chunks = [c.contiguous() for c in x.chunk(n, dim)]
+    out = torch.empty_like(chunks[0])
+    t0 = time.perf_counter()
+    dist.reduce_scatter(out, chunks, group=group)
+    _count(x.numel() * x.element_size() * (n - 1) // n, t0, (axis,))
+    return _to_device(out, dev) if staged else out
+
+
+def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = mesh.shape[axis]
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axis) * size, size)
+
+
+class _GatherFn(torch.autograd.Function):
+    """:func:`all_gather` under autograd (see :func:`gather`)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.args = (mesh, axis, dim, x.shape[dim])
+    def forward(ctx, x, mesh, axis, dim, reduce):
+        ctx.args = (mesh, axis, dim, reduce)
         return all_gather(x, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axis, dim, size = ctx.args
-        g = all_reduce(g.contiguous(), mesh, (axis,))
-        return g.narrow(dim, mesh.shard_index((axis,)) * size, size), None, None, None
+        mesh, axis, dim, reduce = ctx.args
+        if mesh.shape[axis] == 1:
+            return g, None, None, None, None
+        g = (reduce_scatter(g.contiguous(), mesh, axis, dim) if reduce
+             else _block(g, mesh, axis, dim).contiguous())
+        return g, None, None, None, None
+
+
+def gather(x: torch.Tensor, mesh, axis: str, dim: int, reduce: bool = True) -> torch.Tensor:
+    """Every rank's shard ``x`` concatenated along ``dim`` (an all_gather
+    over ``axis``) under autograd.  With ``reduce`` the ranks' losses read
+    the whole differently (each its own rows of the batch): a shard's
+    gradient is the sum of every rank's gradient of its block, a
+    reduce-scatter.  Without it every rank computed the same loss from the
+    whole, so its gradient is already complete and a rank takes its
+    block."""
+    return _GatherFn.apply(x, mesh, axis, dim, reduce)
+
+
+class _SplitFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _block(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return all_gather(g.contiguous(), mesh, axis, dim), None, None, None
+
+
+def split(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of an ``x`` that every rank along
+    ``axis`` holds alike, under autograd: the backward gathers the blocks'
+    gradients, so every rank's ``x`` gets the whole gradient."""
+    if mesh.shape[axis] == 1:
+        return x
+    if x.shape[dim] % mesh.shape[axis] != 0:
+        raise ValueError(f"split: dimension {dim} of size {x.shape[dim]} does not split "
+                         f"over {axis} ({mesh.shape[axis]} ranks)")
+    return _SplitFn.apply(x, mesh, axis, dim)
+
+
+class _CopyToFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return all_reduce(g.contiguous(), mesh, axes), None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` as it is, under autograd, where every rank along ``axes`` holds
+    it alike and feeds it to its own part of work split over them: the
+    backward sums the parts' gradients (an all-reduce)."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _CopyToFn.apply(x, mesh, tuple(axes))
 
 
 def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
@@ -222,7 +332,7 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
         y = y.contiguous()
     t0 = time.perf_counter()
     dist.all_reduce(y, op=op, group=group)
-    _count(y.numel() * y.element_size(), t0)
+    _count(y.numel() * y.element_size(), t0, axes)
     return _to_device(y, dev) if staged else y
 
 
@@ -239,6 +349,7 @@ class _GlobalSumFn(torch.autograd.Function):
 def global_sum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """The sum of ``x`` over the ranks along ``axes``, under autograd: every
     rank's loss reads the same sum, so the gradient of a rank's own term is
-    the incoming gradient as it is, and the step's gradient all-reduce adds
-    the ranks' terms."""
+    the incoming gradient as it is (the conjugate of :func:`copy_to`)."""
+    if mesh.axis_size(axes) == 1:
+        return x
     return _GlobalSumFn.apply(x, mesh, tuple(axes))

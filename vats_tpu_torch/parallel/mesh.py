@@ -19,7 +19,9 @@ runs the collectives itself (``parallel/collectives.py``).
     ``parallel/sharded.py``'s step enters) each rank holds its shard as
     :func:`batch_sharding` cuts it: its rows over ``data`` x ``fsdp`` and
     its tokens ``[r * tl, (r + 1) * tl)`` over ``seq``; the loss, the MoE
-    router's statistics and the sequence positions are then made global.
+    router's statistics and capacity and the sequence positions are then
+    made global.  Parameters sharded over ``fsdp``, ``tensor`` or
+    ``expert`` carry their own mesh (``parallel/layout.py``).
   * The logical-axis rules and their resolution are the JAX package's,
     copied; :func:`logical_to_mesh_spec` returns a plain tuple where JAX
     returns a ``PartitionSpec``.  :func:`with_logical_constraint` is a no-op
@@ -284,6 +286,15 @@ def inputs_sharded() -> bool:
     """True under ``with mesh.batch_sharded():`` (each rank holds its shard
     of the batch and of the sequence)."""
     return bool(_AMBIENT) and _AMBIENT[-1][1]
+
+
+def sharded_mesh() -> Optional[Mesh]:
+    """The ambient mesh under ``mesh.batch_sharded()`` when it spans more
+    than one rank, else None."""
+    mesh = ambient_mesh()
+    if mesh is None or not inputs_sharded() or mesh.devices.size == 1:
+        return None
+    return mesh
 
 
 def sharded_token_mesh() -> Optional[Mesh]:

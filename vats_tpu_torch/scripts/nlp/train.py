@@ -15,7 +15,17 @@ the model args from the checkpoint's metadata first, then the train state.
 Runs on the card unless ``--device cpu`` is given; there is no environment
 switch to the CPU.  Checkpoints, their ``.meta.json``, the log
 (``logs/training.log``) and the metrics plot all go into ``--ckpt-dir``.
-Sharded training (``--mesh``, ``--multihost``) is not ported yet.
+
+Sharded training: ``--mesh data=2,fsdp=2`` (axes of ``parallel.create_mesh``,
+``fsdp=-1`` by default) trains through ``parallel.sharded.make_sharded_train``
+over the ranks of a ``torch.distributed`` world, which ``--multihost``
+joins first (``--coordinator`` / ``--num-processes`` / ``--process-id`` or
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID, and ``--backend``, the
+caller's choice: 'nccl' with a GPU a rank, 'gloo' for CPU processes or
+ranks sharing a GPU); without it this process must already belong to one.
+``--batch-size`` is the global batch: every rank reads the same seeded
+batch stream and the step keeps the rank's block.  Rank 0 logs, plots and
+writes the (whole) checkpoints; ``--resume`` loads each rank's blocks.
 
 :func:`main` takes the arguments as a list and returns the final state,
 the model, the loss history and, per evaluation round, the walls of the
@@ -57,14 +67,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a card) or 'cpu'")
     p.add_argument("--mesh", default=None,
-                   help="sharded training over a device mesh (not ported yet)")
+                   help="comma-separated mesh axes 'data=2,fsdp=4,tensor=1': sharded "
+                        "training over the world's ranks; -1 absorbs the rest "
+                        "(e.g. 'fsdp=-1')")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported yet)")
+                   help="join this process to a torch.distributed world first "
+                        "(--coordinator/--num-processes/--process-id or "
+                        "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID); --batch-size "
+                        "is the GLOBAL batch")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address host:port (--multihost)")
+                   help="coordinator address host:port or an init URL (--multihost)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend (--multihost): 'nccl' with a GPU "
+                        "a rank, 'gloo' for CPU processes or ranks sharing a GPU")
     return p.parse_args(argv)
+
+
+def parse_mesh_arg(spec: str) -> Dict[str, int]:
+    """'data=2,fsdp=-1' -> {'data': 2, 'fsdp': -1}."""
+    axes = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        axes[k.strip()] = int(v)
+    return axes
 
 
 def _logger(log_dir: str) -> logging.Logger:
@@ -84,10 +111,16 @@ def _close_handlers(logger: logging.Logger) -> None:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
+    mesh = None
     if args.mesh or args.multihost:
-        raise NotImplementedError(
-            "sharded training (--mesh, --multihost) is not ported yet: ROADMAP "
-            "item 19 (parallel/)")
+        from vats_tpu_torch.parallel import create_mesh
+        from vats_tpu_torch.parallel.multihost import initialize_multihost
+
+        if args.multihost:
+            initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                                 backend=args.backend)
+        mesh = create_mesh(**(parse_mesh_arg(args.mesh) if args.mesh else {"fsdp": -1}))
+    from vats_tpu_torch.parallel.multihost import is_coordinator
     from vats_tpu_torch.checkpoint import CheckpointManager, load_checkpoint
     from vats_tpu_torch.configs import GenerationArgs, ModelArgs, TrainingArgs
     from vats_tpu_torch.configs.nlp import NLP_TIERS
@@ -105,7 +138,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     device = resolve_device(args.device)
     os.makedirs(args.ckpt_dir, exist_ok=True)
-    logger = _logger(os.path.join(args.ckpt_dir, "logs"))
+    writer = is_coordinator()
+    logger = (_logger(os.path.join(args.ckpt_dir, "logs")) if writer
+              else logging.getLogger("training.rank"))
     try:
         model_args = NLP_TIERS[args.size]()
         if args.resume:
@@ -165,8 +200,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     val_ds.batches(args.batch_size, epochs=1, shuffle=False), device)
 
         est_steps = max(1, args.max_train_tokens // (args.batch_size * seq_len))
-        state = create_train_state(model, create_optimizer(training_args, est_steps))
-        step_fn = make_train_step(model, training_args)
+        if mesh is not None:
+            import itertools
+
+            from vats_tpu_torch.parallel.sharded import make_sharded_train
+
+            logger.info("mesh: %s", mesh.shape)
+            sample = next(train_iter)
+            train_iter = itertools.chain([sample], train_iter)
+            init_fn, step_fn, _ = make_sharded_train(
+                model, training_args, mesh, sample, num_training_steps=est_steps)
+            state = init_fn()
+        else:
+            state = create_train_state(model, create_optimizer(training_args, est_steps))
+            step_fn = make_train_step(model, training_args)
         if args.resume:
             state, _ = load_checkpoint(args.resume, target=state)
             logger.info("resumed state: tokens_seen=%d", int(state.tokens_seen))
@@ -212,15 +259,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
             if tokenizer is not None:
                 from vats_tpu_torch.inference import TokenGenerator
+                from vats_tpu_torch.parallel.layout import whole_state_dict
 
-                gen = TokenGenerator(model_args, params=model.state_dict(),
-                                     device=device)
+                params = whole_state_dict(model)  # every rank gathers
+                if not writer:
+                    continue
+                gen = TokenGenerator(model_args, params=params, device=device)
                 sample = gen.generate_tokens(
                     args.sample_prompt, GenerationArgs(max_new_tokens=48), tokenizer)
                 logger.info("sample: %s", sample)
 
-        plot_metrics(history, os.path.join(args.ckpt_dir, "nlp_training_metrics.png"),
-                     title="MoE Text LM")
+        if writer:
+            plot_metrics(history, os.path.join(args.ckpt_dir, "nlp_training_metrics.png"),
+                         title="MoE Text LM")
         logger.info("done: tokens_seen=%d", int(state.tokens_seen))
         return {"state": state, "model": model, "model_args": model_args,
                 "training_args": training_args, "history": history, "rounds": rounds}

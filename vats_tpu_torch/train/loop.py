@@ -28,7 +28,8 @@ from torch.func import functional_call
 from vats_tpu_torch.configs.nlp import TrainingArgs
 from vats_tpu_torch.device import resolve_dtype
 from vats_tpu_torch.parallel.collectives import all_reduce
-from vats_tpu_torch.parallel.mesh import TOKEN_AXES, sharded_token_mesh
+from vats_tpu_torch.parallel.layout import gathered, reduce_gradients
+from vats_tpu_torch.parallel.mesh import TOKEN_AXES, sharded_mesh, sharded_token_mesh
 from vats_tpu_torch.train.metrics import (
     IGNORE_INDEX,
     compute_loss,
@@ -65,7 +66,8 @@ def _forward_loss(model, batch: Batch, training_args: TrainingArgs, rng: int):
     w = training_args.aux_loss_weight
     if fused_chunk:
         hidden, _, aux = model(batch["input_ids"], return_hidden=True, **kw)
-        readout = model.token_embed.weight if cfg.tie_weights else model.lm_head.weight
+        readout = gathered(model.token_embed.weight if cfg.tie_weights
+                           else model.lm_head.weight)
         lm = fused_linear_cross_entropy(hidden, readout, batch["labels"],
                                         chunk=fused_chunk,
                                         compute_dtype=resolve_dtype(cfg.dtype),
@@ -80,27 +82,16 @@ def _forward_loss(model, batch: Batch, training_args: TrainingArgs, rng: int):
     return objective, lm + w * aux, lm, aux
 
 
-def _all_reduce_grads(grads: Dict[str, torch.Tensor], mesh) -> None:
-    """Sum every gradient over data x seq in place (one flat buffer per
-    dtype, one all-reduce each), so each rank's ``.grad`` holds the global
-    gradient."""
-    by_dtype: Dict[torch.dtype, list] = {}
-    for g in grads.values():
-        by_dtype.setdefault(g.dtype, []).append(g)
-    for gs in by_dtype.values():
-        flat = all_reduce(torch.cat([g.reshape(-1) for g in gs]), mesh, TOKEN_AXES)
-        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
-            g.copy_(part.view_as(g))
-
-
 def make_train_step_fn(
     model, training_args: TrainingArgs
 ) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The training step ``step(state, batch, rng) -> (state, metrics)``;
     ``state`` is updated in place and returned.  Metrics are device
-    tensors.  Under ``mesh.batch_sharded()`` (``parallel/sharded.py``) the
-    gradients are summed over data x seq before the clip and the update,
-    and the loss and the token count are global."""
+    tensors.  Under ``mesh.batch_sharded()`` (``parallel/sharded.py``) each
+    gradient is summed over the token axes that its shard's gather has not
+    summed (``parallel/layout.reduce_gradients``) before the clip and the
+    update, the global norm counts every leaf once, and the loss and the
+    token count are global."""
     accum_in_step = getattr(training_args, "grad_accum_steps", 1) <= 1
 
     def step(state: TrainState, batch: Batch, rng: int):
@@ -111,12 +102,12 @@ def make_train_step_fn(
         objective.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
-        mesh = sharded_token_mesh()
+        mesh = sharded_mesh()
         with torch.no_grad():
             if mesh is not None:
-                _all_reduce_grads(grads, mesh)
+                reduce_gradients(params, grads, mesh)
             if accum_in_step:
-                gnorm = global_norm(grads)
+                gnorm = global_norm(grads, params)
                 finite, scale = clip_scale(gnorm, float(training_args.clip_grad_norm))
                 state.opt_state = state.tx.update_(params, grads, state.opt_state,
                                                    scale=scale, finite=finite)
@@ -125,9 +116,9 @@ def make_train_step_fn(
             else:
                 state.apply_gradients(grads)
                 gn = find_grad_norm(state.opt_state)
-                gnorm = gn if gn is not None else global_norm(grads)
+                gnorm = gn if gn is not None else global_norm(grads, params)
             tokens = (batch["labels"] != IGNORE_INDEX).sum().to(torch.int32)
-            if mesh is not None:
+            if sharded_token_mesh() is not None:
                 tokens = all_reduce(tokens, mesh, TOKEN_AXES)
             state.tokens_seen += tokens
         metrics = {"loss": total.detach(), "lm_loss": lm.detach(),

@@ -34,6 +34,7 @@ import torch
 
 from vats_tpu_torch.configs.nlp import TrainingArgs
 from vats_tpu_torch.device import resolve_dtype
+from vats_tpu_torch.parallel.layout import is_sharded, sharded_global_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -61,8 +62,13 @@ def cosine_with_warmup_schedule(
     return schedule
 
 
-def global_norm(grads: Params) -> torch.Tensor:
-    """fp32 global L2 norm over every leaf."""
+def global_norm(grads: Params, params: Optional[Params] = None) -> torch.Tensor:
+    """fp32 global L2 norm over every leaf.  Given the ``params`` and their
+    blocks sharded (``parallel/layout.py``), the norm of the whole
+    gradients: each leaf's squares summed over its shards once, the same on
+    every rank."""
+    if params is not None and is_sharded(params):
+        return sharded_global_norm(params, grads)
     norms = torch._foreach_norm([g.float() for g in grads.values()])
     return torch.linalg.vector_norm(torch.stack(norms))
 
@@ -164,7 +170,7 @@ class ClipAndSkipNonFinite:
                              torch.zeros((), dtype=torch.float32, device=dev))
 
     def update_(self, params: Params, grads: Params, state: ClipSkipState) -> ClipSkipState:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, params)
         finite, scale = clip_scale(gnorm, self.max_norm)
         inner = self.inner.update_(params, grads, state.inner_state, scale=scale,
                                    finite=finite)
@@ -195,7 +201,7 @@ class ClipByGlobalNorm:
                                             device=inner.count.device))
 
     def update_(self, params: Params, grads: Params, state: ClipState) -> ClipState:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, params)
         scale = torch.where(gnorm < self.max_norm, 1.0, self.max_norm / gnorm)
         inner = self.inner.update_(params, grads, state.inner_state, scale=scale)
         return ClipState(inner, gnorm)

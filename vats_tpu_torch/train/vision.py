@@ -178,7 +178,7 @@ def make_vision_train_step(model, args: VisionTrainingArgs, num_classes: int) ->
             gn = find_grad_norm(state.opt_state)
             acc = (logits.argmax(dim=-1) == t_a).float().mean()
         return state, {"loss": loss.detach(), "acc": acc, "lam": lam,
-                       "grad_norm": gn if gn is not None else global_norm(grads)}
+                       "grad_norm": gn if gn is not None else global_norm(grads, state.params)}
 
     return step
 
