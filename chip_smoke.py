@@ -119,6 +119,24 @@ Phases:
            specs' sum, beside peak memory a rank and one process's; step
            walls, bytes sent per mesh axis and the collectives' seconds a
            rank.
+  pipeline  PP_RANKS = 4 ranks spawned on cuda:0 over gloo, host-staged (the
+           compute mode printed first; an exclusive mode fails the phase), one
+           GPipe stage a rank on a ``stage`` axis: medium_dense at full width
+           and depth (d1440, 20 layers, 24/8 heads of 60, vocab 65536, dropout
+           0, no remat; 5 blocks a rank, ``stage_model``), B=8, T=512, through
+           ``pipeline_text_lm_apply``, a masked CE and one AdamW update a
+           step.  fp32 at M=4 against the single-process step from the same
+           weights and batch (run first on rank 0): logits, loss, every
+           rank's own layers and the replicated leaves leaf by leaf
+           (gradient, change in the update; ``PP_*`` limits), the replicated
+           leaves equal on every rank.  bf16, three steps at M=4 and at M=8:
+           step walls, bytes sent a rank against the count the packed shapes
+           predict (exact), the seconds in the shifts against GPipe's bubble,
+           the collectives' waiting / copy / exchange split, resident bytes
+           against the stage's shapes (exact), peak memory, beside the
+           single-process step.  Exact gates a rank a step: K2 0, K2', K5a,
+           K5b 5 x M (a stage computes on its M active ticks only); the
+           single process 20 each.
   scripts  the LM's own entry points in-process through their ``main(argv)``,
            in a temporary directory under ``checkpoints/`` that it deletes
            (it first checks for twice a checkpoint's bytes free): the train
@@ -226,9 +244,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "main", "parity", "serve", "serve_parity", "train",
-          "train_parity", "context_parallel", "sharded", "scripts", "vision", "vision_parity",
-          "image_gen", "image_gen_parity", "video_gen", "video_gen_parity", "multimodal",
-          "multimodal_parity")
+          "train_parity", "context_parallel", "sharded", "pipeline", "scripts", "vision",
+          "vision_parity", "image_gen", "image_gen_parity", "video_gen", "video_gen_parity",
+          "multimodal", "multimodal_parity")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -5280,6 +5298,405 @@ def run_sharded():
     log(f"sharded: phase {time.perf_counter() - t0:.1f} s (its budget: 180 s)")
 
 
+# --- phase: pipeline --------------------------------------------------------
+
+PP_RANKS, PP_B, PP_T = 4, 8, 512
+PP_MICRO = (4, 8)  # M: microbatches of 2 and of 1 row
+PP_PARITY_M = 4
+PP_TIMED_STEPS = 3
+# The pipelined step against the single-process step, both fp32 on the card
+# through the same kernels: the two differ only in the order of fp32 sums
+# (each weight's gradient summed over 4 microbatches, not in one product,
+# and other GEMM shapes), ~1e-6 relative a sum, so every limit below is
+# >= 100x that, and far under train_parity's 0.04 / 0.2, which hold the
+# card against the CPU: logits relative L2, |loss - single|, each rank's
+# own layers and the replicated leaves leaf by leaf (gradient relative L2;
+# the change in one AdamW update against the single step's change).  The
+# replicated leaves' gradients are the same computation on the same inputs
+# on every rank: held equal to rank 0's within PP_REPLICA_RTOL.
+PP_LOGIT_RTOL = 1e-4
+PP_LOSS_ATOL = 1e-4
+PP_LEAF_GRAD_RTOL = 1e-3
+PP_LEAF_CHANGE_RTOL = 1e-2
+PP_REPLICA_RTOL = 1e-6
+
+
+def _pp_batch(vocab):
+    import torch
+
+    g = torch.Generator().manual_seed(14)
+    ids = torch.randint(1, vocab, (PP_B, PP_T), generator=g, dtype=torch.int32)
+    lens = torch.tensor([PP_T, PP_T - 40, PP_T, PP_T - 7, PP_T, PP_T - 100, PP_T, PP_T - 1])
+    mask = torch.arange(PP_T)[None, :] < lens[:, None]
+    ids = torch.where(mask, ids, 0)
+    labels = torch.cat([ids[:, 1:], torch.full((PP_B, 1), -100, dtype=torch.int32)], 1)
+    labels = torch.where(torch.arange(PP_T)[None, :] < (lens - 1)[:, None], labels, -100)
+    return {"input_ids": ids, "labels": labels, "padding_mask": mask}
+
+
+def _pp_loss(logits, labels):
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long(),
+                           ignore_index=-100)
+
+
+def _pp_predicted_bytes(cfg, m):
+    """Bytes a rank sends in one pipelined step over the stage axis: M + S - 1
+    shifts of the packed state (x in the compute dtype, fp32 aux, int8 mask)
+    and as many of its gradient (x, aux), the output collect's all-reduces
+    (x, aux, mask over the whole batch) and the input gradient's
+    all-reduce (x)."""
+    from vats_tpu_torch.parallel.collectives import _ALIGN  # a shift's packing
+
+    def packed(*nbytes):
+        return sum(-(-n // _ALIGN) * _ALIGN for n in nbytes)
+
+    mb, ticks = PP_B // m, m + PP_RANKS - 1
+    x_el = 2 if cfg.dtype == "bfloat16" else 4
+    x_mb, x_all = mb * PP_T * cfg.d_model * x_el, PP_B * PP_T * cfg.d_model * x_el
+    return (ticks * packed(x_mb, 4 * mb, mb * PP_T) + ticks * packed(x_mb, 4 * mb)
+            + (x_all + 4 * PP_B + PP_B * PP_T) + x_all)
+
+
+def _pp_stage_bytes(cfg, mu_el):
+    """Params + AdamW state a rank keeps, from the config's shapes alone:
+    the embedding, final norm (and head) whole, L/S blocks; mu at ``mu_el``
+    bytes an element, nu as the param, the count."""
+    from vats_tpu_torch.models import TextLM
+
+    whole = TextLM(cfg, device="meta")
+    per = cfg.num_layers // PP_RANKS
+    total = 0
+    for name, p in whole.named_parameters():
+        if name.startswith("layers.") and int(name.split(".")[1]) >= per:
+            continue  # every stage holds per blocks of the same shapes
+        total += p.numel() * (2 * p.element_size() + mu_el)
+    return total + 4
+
+
+def pp_rank(rank, init_file, queue, t_spawn):
+    """One rank of the pipeline phase (a spawned process on cuda:0; gloo, CUDA
+    tensors staged through host buffers)."""
+    import traceback
+
+    try:
+        queue.put((rank, _pp_rank(rank, init_file, t_spawn)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _pp_rank(rank, init_file, t_spawn):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.ops import flash_attention as fa
+    from vats_tpu_torch.parallel import Mesh, collectives
+    from vats_tpu_torch.parallel.layout import tensor_bytes
+    from vats_tpu_torch.parallel.multihost import initialize_multihost
+    from vats_tpu_torch.parallel.pipeline import pipeline_text_lm_apply, stage_model
+    from vats_tpu_torch.train import create_optimizer
+
+    initialize_multihost(f"file://{init_file}", PP_RANKS, rank, backend="gloo")
+    torch.zeros(1, device="cuda")  # the CUDA context
+    mesh = Mesh(np.arange(PP_RANKS), ("stage",))
+    fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    out = {"start_s": time.perf_counter() - t_spawn, "timed": {}, "single": {}}
+    targs = train_args()
+    cfgs = {dt: train_cfg("medium_dense", dropout=0.0, gradient_checkpointing=False, dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    batch = {k: v.cuda() for k, v in _pp_batch(cfgs["float32"].vocab_size).items()}
+    ids, mask, labels = batch["input_ids"], batch["padding_mask"], batch["labels"]
+    shift_s = [0.0]
+    plain_shift = collectives.shift
+
+    def timed_shift(*a, **kw):  # the pipeline's shifts alone, forward and backward
+        t0 = time.perf_counter()
+        try:
+            return plain_shift(*a, **kw)
+        finally:
+            shift_s[0] += time.perf_counter() - t0
+
+    collectives.shift = timed_shift
+
+    def step(model, state, forward):
+        """zero grads, forward, loss, backward, AdamW; (loss, logits, wall s,
+        launches, traffic, shift s)."""
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        for fn in fns:
+            fn.launches = 0
+        collectives.reset_traffic()
+        shift_s[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = forward(model)
+        loss = _pp_loss(logits, labels)
+        loss.backward()
+        with torch.no_grad():
+            state.tx.update_(params, {n: p.grad for n, p in params.items()}, state.opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        value = float(loss.detach())
+        require(np.isfinite(value), f"pipeline: non-finite loss {value}")
+        return (value, logits.detach(), wall, {fn.__name__: fn.launches for fn in fns},
+                dict(collectives.traffic), shift_s[0])
+
+    class _Opt:
+        def __init__(self, model):
+            self.tx = create_optimizer(targs, SH_STEPS)
+            self.opt = self.tx.init(dict(model.named_parameters()))
+
+    def single_forward(model):
+        return model(ids, padding_mask=mask, deterministic=True)[0]
+
+    def piped(m):
+        return lambda model: pipeline_text_lm_apply(model, ids, mask, mesh=mesh,
+                                                    axis_name="stage", num_microbatches=m)[0]
+
+    ref = {}
+    if rank == 0:  # the single-process steps first: same weights, same batch
+        model = TextLM(cfgs["float32"], device="cuda", seed=0)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        loss, logits, wall, counts, _, _ = step(model, _Opt(model), single_forward)
+        ref = dict(loss=loss, logits=logits.cpu(), leaves={
+            n: (leaf_grad(n, p).detach().float().cpu(), p.detach().float().cpu(),
+                float((p.detach() - start[n]).norm())) for n, p in model.named_parameters()})
+        out["single"]["float32"] = dict(loss=loss, wall=wall, counts=counts,
+                                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, start, logits
+        torch.cuda.empty_cache()
+        model = TextLM(cfgs["bfloat16"], device="cuda", seed=0)
+        state = _Opt(model)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(PP_TIMED_STEPS):
+            loss, _, wall, counts, _, _ = step(model, state, single_forward)
+            walls.append(wall)
+        out["single"]["bfloat16"] = dict(loss=loss, walls=walls, counts=counts,
+                                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, state
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # parity: one fp32 pipelined step at M = PP_PARITY_M on this rank's stage
+    model = stage_model(TextLM(cfgs["float32"], device="cuda", seed=0), mesh, "stage")
+    torch.cuda.empty_cache()
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss, logits, wall, counts, traffic, sh = step(model, _Opt(model), piped(PP_PARITY_M))
+    par = dict(loss=loss, wall=wall, counts=counts, traffic=traffic, shift_s=sh,
+               layers=(model.stage_layers.start, model.stage_layers.stop))
+    if rank == 0:
+        par["logit_err"] = float((logits.cpu() - ref["logits"]).norm() / ref["logits"].norm())
+    del logits
+    errs_g, errs_c, replica = {}, {}, {}
+    for name, p in model.named_parameters():  # every rank, in one order: the gathers pair
+        layered = name.startswith("layers.")
+        for kind, t in (("grad", leaf_grad(name, p)), ("param", p)):
+            host = t.detach().float().cpu().contiguous()
+            parts = [torch.empty_like(host) for _ in range(PP_RANKS)] if rank == 0 else None
+            dist.gather(host, parts, dst=0)
+            if rank != 0:
+                continue
+            for r, part in enumerate(parts):
+                if layered:
+                    i, rest = name[len("layers."):].split(".", 1)
+                    whole = f"layers.{int(i) + r * len(model.layers)}.{rest}"
+                elif r > 0:  # a replicated leaf: held to rank 0's
+                    d = float((part - parts[0]).norm())
+                    replica[(name, kind, r)] = (d / max(float(parts[0].norm()), 1e-30),
+                                                float((part - parts[0]).abs().max()))
+                    continue
+                else:
+                    whole = name
+                g_ref, p_ref, moved = ref["leaves"][whole]
+                if kind == "grad":
+                    nb, d = float(g_ref.norm()), float((part - g_ref).norm())
+                    errs_g[whole] = d / nb if nb > 0 else (0.0 if d == 0 else float("inf"))
+                else:
+                    d = float((part - p_ref).norm())
+                    errs_c[whole] = d / moved if moved > 0 else (0.0 if d == 0 else float("inf"))
+    par.update(errs_grad=errs_g, errs_change=errs_c, replica=replica)
+    out["parity"] = par
+    del model, start
+    ref.clear()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # timed: bf16, PP_TIMED_STEPS steps at each M
+    model = stage_model(TextLM(cfgs["bfloat16"], device="cuda", seed=0), mesh, "stage")
+    torch.cuda.empty_cache()
+    state = _Opt(model)
+    for m in PP_MICRO:
+        torch.cuda.reset_peak_memory_stats()
+        steps = [step(model, state, piped(m)) for _ in range(PP_TIMED_STEPS)]
+        out["timed"][m] = dict(
+            losses=[s[0] for s in steps], walls=[s[2] for s in steps],
+            counts=[s[3] for s in steps], traffic=[s[4] for s in steps],
+            shift_s=[s[5] for s in steps], peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            resident=tensor_bytes(dict(model.named_parameters())) + tensor_bytes(state.opt))
+    out["mu_el"] = next(iter(state.opt.mu.values())).element_size()
+    del model, state
+    torch.cuda.empty_cache()
+    collectives.shift = plain_shift
+    dist.barrier()
+    dist.destroy_process_group()
+    out["total_s"] = time.perf_counter() - t_spawn
+    return out
+
+
+def run_pipeline():
+    """PP_RANKS ranks spawned on cuda:0 over gloo (host-staged), one stage a
+    rank: medium_dense at full width and depth through GPipe over a stage
+    axis; fp32 parity with the single-process step, bf16 timed steps at
+    each M of PP_MICRO with exact per-rank gates.  Returns the launches a
+    rank a step at each M."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import statistics
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line()
+    log(f"pipeline: compute mode {mode}; {PP_RANKS} ranks (one stage each) on cuda:0, gloo "
+        f"with CUDA tensors staged through host buffers; {card}")
+    require("exclusive" not in mode.lower(),
+            f"pipeline: compute mode {mode} admits one process: the ranks cannot share the card")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_spawn = time.perf_counter()
+        procs = [ctx.Process(target=pp_rank, args=(r, os.path.join(tmp, "init"), queue, t_spawn))
+                 for r in range(PP_RANKS)]
+        for p in procs:
+            p.start()
+        results = {}
+        deadline = time.perf_counter() + 600
+        try:
+            while len(results) < PP_RANKS and time.perf_counter() < deadline:
+                try:
+                    r, res = queue.get(timeout=5)
+                except queue_mod.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        break
+                    continue
+                results[r] = res
+                if "error" in res:
+                    break
+        finally:
+            whole = len(results) == PP_RANKS and not any("error" in v for v in results.values())
+            for p in procs:
+                p.join(60 if whole else 0)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    errors = {r: res.get("error") for r, res in results.items() if "error" in res}
+    require(len(results) == PP_RANKS and not errors and all(p.exitcode == 0 for p in procs),
+            f"pipeline: ranks failed or did not report (exit codes "
+            f"{[p.exitcode for p in procs]}, reports from {sorted(results)}): "
+            + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
+
+    from vats_tpu_torch.models import TextLM
+
+    cfg = train_cfg("medium_dense", dropout=0.0, gradient_checkpointing=False)
+    L, per = cfg.num_layers, cfg.num_layers // PP_RANKS
+
+    def want(blocks):
+        return {"flash_attention": 0, "flash_attention_lse": blocks, "flash_bwd_dkv": blocks,
+                "flash_bwd_dq": blocks}
+
+    single = results[0]["single"]
+    for dt, s in single.items():
+        require(s["counts"] == want(L), f"pipeline: single-process step ({dt}) launched "
+                f"{s['counts']}, expected {want(L)}")
+    sb = single["bfloat16"]
+    single_ms = statistics.median(sb["walls"][1:]) * 1e3
+    log(f"pipeline: single-process step (medium_dense d{cfg.d_model}/{L}L, B={PP_B} T={PP_T}, "
+        f"no remat, one process): fp32 loss {single['float32']['loss']:.5f}, wall "
+        f"{single['float32']['wall'] * 1e3:.1f} ms (the process's first step), peak "
+        f"{single['float32']['peak_gb']:.2f} GB; "
+        f"bf16 walls {', '.join(f'{w * 1e3:.1f}' for w in sb['walls'])} ms (median of steps "
+        f"2-{PP_TIMED_STEPS} {single_ms:.1f}), peak {sb['peak_gb']:.2f} GB; launches "
+        f"{sb['counts']} a step; {card}")
+
+    # parity (fp32, M = PP_PARITY_M)
+    par0 = results[0]["parity"]
+    for r in range(PP_RANKS):
+        par = results[r]["parity"]
+        require(par["counts"] == want(per * PP_PARITY_M), f"pipeline: parity step rank {r} "
+                f"launched {par['counts']}, expected {want(per * PP_PARITY_M)}")
+        require(par["loss"] == par0["loss"], f"pipeline: rank {r} loss {par['loss']} differs "
+                f"from rank 0's {par0['loss']}")
+    dl = abs(par0["loss"] - single["float32"]["loss"])
+    bad_replica = {k: v for k, v in par0["replica"].items() if not v[0] <= PP_REPLICA_RTOL}
+    worst_replica = max(v[1] for v in par0["replica"].values())
+    log(f"pipeline: fp32 step at M={PP_PARITY_M} against the single-process step: logits "
+        f"relative L2 {par0['logit_err']:.3e} (limit {PP_LOGIT_RTOL}), |loss diff| {dl:.3e} "
+        f"(limit {PP_LOSS_ATOL}); the replicated leaves' gradients and updated values on "
+        f"ranks 1-{PP_RANKS - 1} against rank 0's: largest |difference| {worst_replica:.3e} "
+        f"(relative L2 limit {PP_REPLICA_RTOL}); "
+        + leaf_report("gradients", par0["errs_grad"], PP_LEAF_GRAD_RTOL) + "; "
+        + leaf_report("change in one AdamW update", par0["errs_change"], PP_LEAF_CHANGE_RTOL)
+        + f"; {card}")
+    require(par0["logit_err"] <= PP_LOGIT_RTOL and dl <= PP_LOSS_ATOL and not bad_replica,
+            f"pipeline: fp32 parity failed (logits {par0['logit_err']}, loss diff {dl}, "
+            f"replicated leaves beyond {PP_REPLICA_RTOL}: {bad_replica})")
+    n_leaves = len(list(TextLM(cfg, device="meta").parameters()))
+    require(len(par0["errs_grad"]) == len(par0["errs_change"]) == n_leaves,
+            f"pipeline: {len(par0['errs_grad'])} of the model's {n_leaves} leaves compared")
+
+    # timed (bf16)
+    counts = {}
+    for m in PP_MICRO:
+        bubble = (PP_RANKS - 1) / (m + PP_RANKS - 1)
+        predicted = _pp_predicted_bytes(cfg, m)
+        stage_bytes = _pp_stage_bytes(cfg, results[0]["mu_el"])
+        for r in range(PP_RANKS):
+            tm = results[r]["timed"][m]
+            for i, c in enumerate(tm["counts"]):
+                require(c == want(per * m), f"pipeline: M={m} step {i + 1} rank {r} launched "
+                        f"{c}, expected {want(per * m)}")
+            for i, tr in enumerate(tm["traffic"]):
+                require(tr["by_axis"] == {"stage": predicted}, f"pipeline: M={m} step {i + 1} "
+                        f"rank {r} sent {tr['by_axis']}, predicted {{'stage': {predicted}}}")
+            require(tm["resident"] == stage_bytes, f"pipeline: M={m} rank {r} holds "
+                    f"{tm['resident']} bytes, its stage's shapes give {stage_bytes}")
+            wall = statistics.median(tm["walls"][1:])
+            tr, sh = tm["traffic"][-1], tm["shift_s"][-1]  # the last step's split
+            log(f"pipeline: bf16 M={m} (mb {PP_B // m}) rank {r} (blocks {r * per}-"
+                f"{(r + 1) * per - 1}): losses {', '.join(f'{x:.5f}' for x in tm['losses'])}; "
+                f"step walls {', '.join(f'{w * 1e3:.1f}' for w in tm['walls'])} ms (median of "
+                f"steps 2-{PP_TIMED_STEPS} {wall * 1e3:.1f}; one process {single_ms:.1f}); "
+                f"launches {tm['counts'][-1]} a step; {predicted / 1e6:.3f} MB sent a step = "
+                f"the prediction from the packed shapes, in {tr['calls']} collectives; in the "
+                f"shifts {sh * 1e3:.1f} ms = {sh / tm['walls'][-1]:.3f} of the step (GPipe's "
+                f"bubble {bubble:.3f}), {_cp_times(tr)}; resident params + optimizer state "
+                f"{tm['resident'] / 1e9:.4f} GB = the stage's shapes; peak memory "
+                f"{tm['peak_gb']:.2f} GB (one process {sb['peak_gb']:.2f} GB); {card}")
+        counts[m] = results[0]["timed"][m]["counts"][-1]
+    log("pipeline: the ranks' compute serialises on one card, so the bubble shows as time "
+        "waiting in the shifts and their exchange, not as idle card time")
+    for r in range(PP_RANKS):
+        log(f"pipeline: rank {r} joined the world with a CUDA context "
+            f"{results[r]['start_s']:.1f} s after the spawn, ended at "
+            f"{results[r]['total_s']:.1f} s")
+    log(f"pipeline: phase {time.perf_counter() - t0:.1f} s (its budget: 120 s)")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5415,7 +5832,7 @@ def main(argv=None) -> int:
         check_ring_hop(gen(15))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
-              "multimodal": {}}
+              "multimodal": {}, "pipeline": {}}
     every_kernel = [append_token_inplace, dense_decode_prologue, paged_decode_prologue,
                     dense_decode_prologue.table, paged_decode_prologue.table,
                     paged_decode_attention_commit, paged_decode_attention_commit_int8,
@@ -5432,6 +5849,7 @@ def main(argv=None) -> int:
         "train_parity": run_train_parity,
         "context_parallel": run_context_parallel,
         "sharded": run_sharded,
+        "pipeline": run_pipeline,
         "scripts": lambda: run_scripts({r["name"]: r["fn"] for r in kernel_rows}),
         "vision": lambda: run_vision([fa.flash_attention, fa.flash_attention_lse,
                                       fa.flash_bwd_dkv, fa.flash_bwd_dq]),
@@ -5458,6 +5876,11 @@ def main(argv=None) -> int:
     for row in kernel_rows:
         entry = {k: row[k] for k in ("name", "route", "source", "replaces")}
         entry["launches"] = counts[row["path"]].get(row["fn"].__name__)
+        # launches a rank a pipelined step, at each M (the pipeline phase)
+        by_m = {f"M={m}": c[row["fn"].__name__] for m, c in counts["pipeline"].items()
+                if row["fn"].__name__ in c}
+        if by_m:
+            entry["pipeline_launches"] = by_m
         entry.update(results.get(row["name"], {}))
         line.append(entry)
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

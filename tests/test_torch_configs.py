@@ -161,8 +161,8 @@ def test_parallel_modules_are_ported():
     rule above), and the rank bodies its tests spawn import no JAX either
     (a spawned child does not run tests/conftest.py)."""
     for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
-                "parallel/multihost.py", "parallel/sharded.py", "ops/ring_attention.py",
-                "ops/ulysses.py"):
+                "parallel/multihost.py", "parallel/sharded.py", "parallel/layout.py",
+                "parallel/pipeline.py", "ops/ring_attention.py", "ops/ulysses.py"):
         assert (REPO / "vats_tpu_torch" / rel) in _port_sources(), rel
     src = (REPO / "tests" / "torch_parallel_ranks.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|vats_tpu)\b", src, re.M)

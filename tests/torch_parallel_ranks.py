@@ -464,3 +464,172 @@ def _checkpoint_case(p):
                 loss2=float(m2["loss"]), after=after, after2=after2,
                 nan_skip=dict(skipped=int(state.skipped_steps), unchanged=unchanged,
                               grad_norm=float(m3["grad_norm"])))
+
+
+# --- pipeline parallelism ------------------------------------------------------
+
+
+def _ce(logits, labels, mask):
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum()
+
+
+def _shift_case():
+    """ppermute of fp32, bf16 and int8 tensors one rank forward along seq=4,
+    its backward from a seeded gradient, and that gradient shifted back."""
+    from vats_tpu_torch.parallel import collectives, create_mesh
+
+    mesh = create_mesh(data=1, fsdp=1, expert=1, tensor=1, seq=4)
+    g = torch.Generator().manual_seed(100 + mesh.axis_index("seq"))
+    a = torch.randn(3, 5, generator=g).requires_grad_()
+    b = torch.randn(2, 4, generator=g).bfloat16().requires_grad_()
+    c = torch.randint(-100, 100, (7,), generator=g).to(torch.int8)
+    ga, gb = torch.randn(3, 5, generator=g), torch.randn(2, 4, generator=g).bfloat16()
+    collectives.reset_traffic()
+    (oa, ob, oc), _ = collectives.ppermute([a, b, c], mesh, "seq")
+    forward_bytes = collectives.traffic["bytes"]
+    ((oa * ga).sum() + (ob.float() * gb.float()).sum()).backward()
+    by_axis = dict(collectives.traffic["by_axis"])
+    back = collectives.shift([ga, gb], mesh, "seq", -1)
+    return dict(inputs=[x.detach().float().numpy() for x in (a, b, c)],
+                outputs=[x.detach().float().numpy() for x in (oa, ob, oc)],
+                int_grad=oc.requires_grad, grads=[a.grad.numpy(), b.grad.float().numpy()],
+                back=[x.float().numpy() for x in back], forward_bytes=forward_bytes,
+                by_axis=by_axis)
+
+
+def _mlp_cases(p):
+    """pipeline_apply of the tanh MLP over seq (data x seq = 4 ranks) at
+    each (S, M): the output and this rank's block of the gradients of
+    sum(out * gout)."""
+    from vats_tpu_torch.parallel import create_mesh
+    from vats_tpu_torch.parallel.pipeline import pipeline_apply
+
+    def block(params, h):
+        for w, b in zip(*params):
+            h = torch.tanh(h @ w + b)
+        return h
+
+    out = {}
+    for stages, m in p["cases"]:
+        mesh = create_mesh(data=4 // stages, fsdp=1, expert=1, tensor=1, seq=stages)
+        ws, bs = (torch.tensor(p[k]).requires_grad_() for k in ("ws", "bs"))
+        x = torch.tensor(p["x"]).requires_grad_()
+        y = pipeline_apply(block, (ws, bs), x, mesh=mesh, axis_name="seq", num_microbatches=m)
+        (y * torch.tensor(p["gout"])).sum().backward()
+        per = ws.shape[0] // stages
+        sl = slice(mesh.axis_index("seq") * per, (mesh.axis_index("seq") + 1) * per)
+        out[(stages, m)] = dict(out=y.detach().numpy(), layers=(sl.start, sl.stop),
+                                gw=ws.grad.numpy(), gb=bs.grad.numpy(), gx=x.grad.numpy())
+    return out
+
+
+def _lm_cases(p):
+    """pipeline_text_lm_apply of the tiny TextLM over seq, each case at
+    its (S, M) and config overrides: logits, aux, the masked CE and its
+    gradients (whole-model names), and the rank's resident parameter bytes.
+    ``staged`` cases cut the model with stage_model first; the others pass
+    the whole model."""
+    from vats_tpu_torch.parallel import create_mesh
+    from vats_tpu_torch.parallel.layout import tensor_bytes
+    from vats_tpu_torch.parallel.pipeline import pipeline_text_lm_apply, stage_model
+
+    ids, labels, mask = (torch.tensor(p[k]) for k in ("ids", "labels", "mask"))
+    out = {}
+    for case, (stages, m, staged, overrides) in p["cases"].items():
+        mesh = create_mesh(data=4 // stages, fsdp=1, expert=1, tensor=1, seq=stages)
+        model = _lm(dict(p["cfg"], **overrides), p["params"])
+        lo = 0
+        if staged:
+            stage_model(model, mesh, "seq")
+            lo = model.stage_layers.start
+        logits, aux = pipeline_text_lm_apply(model, ids, mask, mesh=mesh, axis_name="seq",
+                                             num_microbatches=m)
+        loss = _ce(logits, labels, mask)
+        loss.backward()
+        grads = {}
+        for name, prm in model.named_parameters():
+            if prm.grad is None:
+                continue
+            if name.startswith("layers."):
+                i, rest = name[len("layers."):].split(".", 1)
+                name = f"layers.{int(i) + lo}.{rest}"
+            grads[name] = prm.grad.numpy()
+        out[case] = dict(logits=logits.detach().numpy(), aux=float(aux), loss=float(loss),
+                         grads=grads, resident=tensor_bytes(dict(model.named_parameters())))
+    return out
+
+
+def _pipeline_train(p):
+    """Five AdamW steps (optax.adamw(3e-3)'s arithmetic) through the pipe
+    on data=2 x seq=2, M=4, the next-token loss of the JAX test: the losses,
+    the replicated leaves' first gradients and their values after."""
+    from vats_tpu_torch.parallel import create_mesh
+    from vats_tpu_torch.parallel.pipeline import pipeline_text_lm_apply, stage_model
+    from vats_tpu_torch.train.optimizer import AdamW
+
+    mesh = create_mesh(data=2, fsdp=1, expert=1, tensor=1, seq=2)
+    model = stage_model(_lm(p["cfg"], p["params"]), mesh, "seq")
+    params = dict(model.named_parameters())
+    tx = AdamW(lambda count: torch.tensor(3e-3), weight_decay=1e-4)
+    opt = tx.init(params)
+    ids = torch.tensor(p["train_ids"])
+    losses, first = [], None
+    for _ in range(5):
+        for prm in params.values():
+            prm.grad = None
+        logits, _ = pipeline_text_lm_apply(model, ids, mesh=mesh, axis_name="seq",
+                                           num_microbatches=4)
+        loss = _ce(logits[:, :-1], ids[:, 1:], torch.ones_like(ids[:, 1:]))
+        loss.backward()
+        if first is None:
+            first = {n: q.grad.numpy().copy() for n, q in params.items()
+                     if not n.startswith("layers.")}
+        with torch.no_grad():
+            tx.update_(params, {n: q.grad for n, q in params.items()}, opt)
+        losses.append(float(loss))
+    after = {n: q.detach().numpy().copy() for n, q in params.items()
+             if not n.startswith("layers.")}
+    return dict(losses=losses, first_grads=first, replicated_after=after)
+
+
+def _multihost_step(p):
+    """The counterpart of tests/multihost_runner.py: this process's rows by
+    host_shard_slice, the rank's block of the batch by make_global_batch,
+    one make_sharded_train step on data=2 x fsdp=2."""
+    from vats_tpu_torch.configs import TrainingArgs
+    from vats_tpu_torch.parallel import create_mesh
+    from vats_tpu_torch.parallel.multihost import (
+        host_shard_slice,
+        is_coordinator,
+        make_global_batch,
+    )
+    from vats_tpu_torch.parallel.sharded import make_sharded_train
+
+    mesh = create_mesh(data=2, fsdp=2, expert=1, tensor=1, seq=1)
+    batch = {k: np.asarray(v) for k, v in p["batch"].items()}
+    sl = host_shard_slice(len(batch["input_ids"]))
+    block = make_global_batch(batch, mesh)
+    rows_match = all(np.array_equal(block[k].numpy(), v[sl]) for k, v in batch.items())
+    model = _lm(p["cfg"], p["params"])
+    init, step, _ = make_sharded_train(model, TrainingArgs(grad_accum_steps=1), mesh, batch,
+                                       num_training_steps=10)
+    _, m = step(init(), batch, 2)
+    return dict(loss=float(m["loss"]), coordinator=is_coordinator(),
+                slice=(sl.start, sl.stop), rows_match=rows_match)
+
+
+def pipeline_cases(rank, world, payload):
+    """Joins the world through initialize_multihost, then: the ppermute
+    case, the MLP and TextLM pipelines, five AdamW steps through the pipe,
+    and the multihost sharded step."""
+    from vats_tpu_torch.parallel.multihost import initialize_multihost
+
+    initialize_multihost(payload["address"], world, rank, backend="gloo")
+    out = dict(shift=_shift_case(), mlp=_mlp_cases(payload["mlp"]))
+    out["lm"] = _lm_cases(payload["lm"])
+    out["train"] = _pipeline_train(payload["lm"])
+    out["multihost"] = _multihost_step(payload["multihost"])
+    return out

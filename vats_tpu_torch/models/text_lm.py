@@ -214,7 +214,7 @@ class TextLM(nn.Module):
         cfg = self.cfg
         if not deterministic and cfg.dropout > 0 and dropout_seed is None:
             dropout_seed = int(torch.randint(0, 1 << 62, (1,)))
-        x = F.embedding(input_ids.long(), gathered(self.token_embed.weight)).to(self.dtype)
+        x = self.embed(input_ids)
         x = dropout(x, cfg.dropout, deterministic=deterministic,
                     seed=dropout_seed, layer=-1, site=SITE_EMBED)
         remat = (cfg.gradient_checkpointing and not deterministic
@@ -266,13 +266,22 @@ class TextLM(nn.Module):
             x = torch.gather(x, 1, idx)
         if return_hidden:
             return x, new_cache, total_aux
+        return self.unembed(x), new_cache, total_aux
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding of ``input_ids``, in the compute dtype."""
+        return F.embedding(input_ids.long(), gathered(self.token_embed.weight)).to(self.dtype)
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits of post-norm hidden states: the tied embedding's
+        ``attend`` or ``lm_head``."""
         if self.lm_head is None:
             # flax Embed.attend: both operands in the compute dtype
             w = gathered(self.token_embed.weight)
             logits = F.linear(x.to(w.dtype).to(self.dtype), w.to(self.dtype))
         else:
             logits = dense(self.lm_head, x, self.dtype)
-        return logits.float(), new_cache, total_aux
+        return logits.float()
 
     def init_cache(
         self, batch_size: int, max_seq_len: Optional[int] = None, ring: bool = False

@@ -1,8 +1,8 @@
 """Ranks, meshes, per-leaf shardings and the collectives of sharded training.
 
-Counterpart of ``vats_tpu/parallel`` (mesh, multihost, and sharded training
-over the data, fsdp, expert, tensor and seq axes; pipeline parallelism is
-not ported yet)."""
+Counterpart of ``vats_tpu/parallel`` (mesh, multihost, sharded training
+over the data, fsdp, expert, tensor and seq axes, and GPipe pipeline
+parallelism over any of them)."""
 
 from vats_tpu_torch.parallel.mesh import (
     MESH_AXES,

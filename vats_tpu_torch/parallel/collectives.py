@@ -6,7 +6,8 @@ process groups of a :class:`~vats_tpu_torch.parallel.mesh.Mesh`:
   * :func:`shift`: every rank sends to the rank ``distance`` ahead of it
     along an axis and receives from the one as far behind (``ppermute``
     with a ``(s, s + d)`` permutation), by ``batch_isend_irecv``; the
-    tensors travel packed in one byte buffer;
+    tensors travel packed in one byte buffer; :func:`ppermute` is its
+    autograd pair (the gradient shifted back);
   * :func:`all_to_all`: the tiled ``all_to_all`` (split one dimension over
     the axis, concatenate what arrives on another), differentiable;
   * :func:`all_gather`: the tiled ``all_gather`` along a dimension, and
@@ -45,7 +46,7 @@ over (keys like ``"fsdp"`` or ``"data+fsdp+seq"``).
 from __future__ import annotations
 
 import time
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -145,6 +146,44 @@ def shift(tensors: Sequence[torch.Tensor], mesh, axis: str, distance: int = 1
     if staged:
         recv = _to_device(recv, dev)
     return _unpack(recv, offsets, tensors)
+
+
+class _ShiftFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, token, mesh, axis, distance, *tensors):
+        ctx.args = (mesh, axis, distance)
+        ctx.floating = [x.is_floating_point() for x in tensors]
+        out = shift(tensors, mesh, axis, distance)
+        ctx.mark_non_differentiable(*[y for y, f in zip(out, ctx.floating) if not f])
+        return (token.clone(), *out)
+
+    @staticmethod
+    def backward(ctx, g_token, *grads):
+        mesh, axis, distance = ctx.args
+        send = [g for g, f in zip(grads, ctx.floating) if f]
+        back = iter(shift(send, mesh, axis, -distance) if send else ())
+        return (g_token, None, None, None,
+                *[next(back) if f else None for f in ctx.floating])
+
+
+def ppermute(tensors: Sequence[torch.Tensor], mesh, axis: str, distance: int = 1,
+             token: Optional[torch.Tensor] = None
+             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """:func:`shift` under autograd: the forward shifts ``tensors`` (any
+    dtypes; integer ones carry no gradient) by ``distance`` along ``axis``,
+    the backward shifts their gradients back by ``-distance``
+    (``ppermute``'s transpose).  Returns (the shifted tensors, a token).
+
+    Every rank must run the backward of every shift, in the same order.
+    ``token`` (a 0-d floating tensor that requires grad; a fresh one when
+    None) makes that hold whatever the tensors require: the shift is
+    recorded on every rank, and passing the returned token to the next
+    shift chains the two, so the backward runs the later one first on every
+    rank."""
+    if token is None:
+        token = torch.zeros((), device=tensors[0].device, requires_grad=True)
+    token, *out = _ShiftFn.apply(token, mesh, axis, distance, *tensors)
+    return out, token
 
 
 def _all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int
