@@ -69,13 +69,23 @@ Phases:
            256-token prefix) through 32 rows, a 129-page pool (requests queue
            and rows are preempted), prefix caching, 4-step decode blocks,
            greedy; three configurations: bf16 KV (K1), int8 KV (K4), int8
-           weights + int8 KV.  Each is driven with its decode blocks replayed
-           from CUDA graphs and eagerly, in turns (equal tokens), each
-           drive profiled once more: throughput, request latency, capture
-           seconds, peak memory, device-busy time and idle share; pages,
-           preemptions, prefix hits; launch counts of K1, K4 and K3's paged
-           prologue against the decode forwards a hook counts; kernels per
-           decode forward of each configuration.
+           weights + int8 KV.  Each is driven with its tail prefills (one
+           graph per (bucket, padded group size), their keys gated equal to
+           the engine's prefill shapes) and decode blocks replayed from CUDA
+           graphs on a fresh engine (it captures every key) and on one
+           primed by an earlier drive of the stream (it only replays), and
+           eagerly, in turns (equal tokens), each drive profiled once more:
+           throughput with and without the captures, request
+           latency, capture seconds and replays (prefill graphs apart), peak
+           memory, device-busy time and idle share; pages, preemptions,
+           prefix hits; launch counts of K1, K4 and K3's paged prologue
+           against the decode forwards a hook counts; kernels per decode
+           forward of each configuration.  The bf16-KV stream once more with
+           speculative decoding (spec_k = SPEC_K = 4, greedy): the verify
+           forward from one graph, the same three paths in turns; equal
+           tokens and forwards on every path, exact launch gates; the
+           drafts' acceptance and the share of tokens equal to the plain
+           drive's.
   serve_parity  2 layers at full width: one int8-KV stream of 8 requests
            (prefix sharing, a preemption) on the card (K4, replayed graphs;
            logits from an eager drive with equal tokens) and on the CPU
@@ -156,15 +166,20 @@ Phases:
   vision   the vision encoders at full depth: ViT-2D medium forward (384 px /
            p16, d1152, 16 layers, bf16 params, B=16) on 384x384 and on 448x531
            (resize and crop on the card), K2 exactly 16 launches a forward;
-           images/s, device-busy time, idle share, peak memory.  ViT-2D
+           at 384x384 also from a CUDA graph (a ``GraphSet``, as the eval
+           step's), K2 16 a replay and the features bit-equal to eager's,
+           graph and eager in turns: images/s, device-busy time, idle
+           share, peak and reserved memory, capture seconds.  ViT-2D
            medium training through ``make_vision_train_step`` (1000 classes,
            dropout 0.2, remat, 4 micro-steps of B=32 with mixup / cutmix and
            the pixel battery on raw images on the card): K2' 32, K5a 16 and
            K5b 16 a micro-step, K2 16 in the eval step, exactly; images/s, ms
            a micro-step, peak memory, idle share, an eval loss that the
-           update moves.  ViT-3D xsmall (B=4, 32 frames at 128^2) and large
-           (B=4, 8 frames at 224^2) forwards with no flash launch (the JAX
-           model attends with XLA there): frames/s, busy, idle, memory.
+           update moves (the eval step replayed from its graph, equal to
+           eager bit for bit).  ViT-3D xsmall (B=4, 32 frames at 128^2) and
+           large (B=4, 8 frames at 224^2) forwards with no flash launch (the
+           JAX model attends with XLA there), eagerly and from graphs in
+           turns as ViT-2D's: frames/s, busy, idle, memory, capture seconds.
   vision_parity  ViT-2D at medium width, 2 layers, B=2: features, logits,
            and one train step (loss, grad norm, params) on the card against
            the CPU; ViT-3D xsmall at its full config, B=1, the last 6 frames
@@ -2599,10 +2614,14 @@ def run_serve(kernel_fns):
         drive(engine(True), stream)
         first = {}
 
-        def timed(use_graphs):
+        def timed(use_graphs, primed=False):
             def run():
+                # the hook counts in the captures (a primed engine's too), so
+                # it is installed first and zeroed after the priming drive
                 fwd = ForwardCount(model)
                 eng = engine(use_graphs)
+                before = prime(eng, stream) if primed else {}
+                fwd.launches = 0
                 torch.cuda.empty_cache()
                 for fn in kernel_fns.values():
                     fn.launches = 0
@@ -2619,20 +2638,22 @@ def run_serve(kernel_fns):
                     f"prefix_hit_tokens={eng.prefix_cache.hit_tokens}/"
                     f"{eng.prefix_cache.query_tokens}; forwards "
                     f"{json.dumps(eng.forwards)}", got))
+                if use_graphs:
+                    check_graph_runs(f"serve {name}", eng, before)
                 lat = np.asarray(list(done_s.values()))
                 nums = dict(
                     tokens_per_s=n_new / wall, wall_s=wall,
                     latency_p50_s=float(np.percentile(lat, 50)),
                     latency_p99_s=float(np.percentile(lat, 99)),
-                    capture_s=sum(g.capture_s for g in eng.graphs.values()),
-                    replays=sum(g.replays for g in eng.graphs.values()),
-                    decode_forwards=eng.forwards["decode"])
+                    decode_forwards=eng.forwards["decode"], **graph_numbers(eng, before, wall,
+                                                                            n_new))
                 del eng
                 return nums, outs
             return run
 
-        got_runs = in_turns(f"serve [{name}]", [("graph", timed(True)),
-                                                ("eager", timed(False))])
+        got_runs = in_turns(f"serve [{name}]", [
+            ("graph", timed(True)), ("eager", timed(False)),
+            ("graph primed", timed(True, primed=True))], order=(0, 1, 2, 2, 1, 0))
         tagged = [(f"{path} {i}", o) for path, rs in got_runs.items()
                   for i, (_, o) in enumerate(rs)]
         for tag, o in tagged[1:]:
@@ -2643,12 +2664,17 @@ def run_serve(kernel_fns):
         summary, got = first[True]
         outs = got_runs["graph"][0][1]
         log(f"serve [{name}]: {summary}; launches (graph) {json.dumps(got)}; the timed "
-            f"graph wall includes the capture")
+            f"graph wall includes the captures (a fresh engine captures every prefill key "
+            f"and block length again): tokens_per_s_without_capture leaves them out")
         # each path's own load, warm, once more under the profiler; its device
         # time over the mean unprofiled wall of that path is its idle share
-        for path, use_graphs in (("graph", True), ("eager", False)):
+        for path, use_graphs in (("graph", True), ("eager", False), ("graph primed", True)):
+            eng = engine(use_graphs)
+            if path == "graph primed":
+                prime(eng, stream)
             busy = profile_breakdown(f"serve [{name}] [{path}], the whole stream again",
-                                     lambda: drive(engine(use_graphs), stream))
+                                     lambda: drive(eng, stream))
+            del eng
             walls = [n["wall_s"] for n, _ in got_runs[path]]
             if busy is not None:
                 log(f"serve [{name}] [{path}]: device_busy_s={busy:.3f} over the mean "
@@ -2656,6 +2682,8 @@ def run_serve(kernel_fns):
                     f"{1 - busy / np.mean(walls):.3f}")
         decode_census(model, f"serve [{name}]", SERVE_ROWS, paged=True, kv_quant=kv_quant)
         runs[name], counts[name] = outs, got
+        if name == "bf16 KV":
+            serve_spec(model, stream, outs, engine_kw, kernel_fns, L)
     pairs = [(runs["bf16 KV"][r], runs["int8 KV"][r]) for r in runs["bf16 KV"]]
     same = sum(int(x == y) for a, b in pairs for x, y in zip(a, b))
     first_diff = sum(common_prefix(a, b) for a, b in pairs)
@@ -2665,6 +2693,156 @@ def run_serve(kernel_fns):
     torch.cuda.empty_cache()
     # the kernels line reports the int8 KV run's launches for K4
     return {**counts["bf16 KV"], k4.__name__: counts["int8 KV"][k4.__name__]}
+
+
+def prime(engine, stream):
+    """Drive ``stream`` through ``engine`` once, then rewind the engine to
+    take it again as a fresh one would (prefix cache emptied, its pages
+    back, counters and request ids at 0) with its graphs kept: the next
+    drive replays every graph and captures none, as a server does once its
+    shapes have come.  Returns {graph key: replays so far}."""
+    from vats_tpu_torch.inference.serving import PrefixCache
+
+    drive(engine, stream)
+    engine.allocator.free(engine.prefix_cache.reclaim(engine.allocator.capacity))
+    engine.prefix_cache = PrefixCache()
+    engine.preemptions = engine._next_rid = engine.spec_proposed = engine.spec_accepted = 0
+    engine.prefill_shapes = set()
+    engine.forwards = dict.fromkeys(engine.forwards, 0)
+    return {key: g.replays for key, g in engine.graphs.items()}
+
+
+def graph_runs(engine, kind, before):
+    """{key[1:]: runs in the last drive} of an engine's graphs of ``kind``
+    ('prefill', 'decode', 'verify'): a graph captured in it ran once as its
+    warm-up, then replayed; ``before`` holds the replays of graphs an
+    earlier drive captured (``prime``)."""
+    return {key[1:]: g.replays - before.get(key, -1) for key, g in engine.graphs.items()
+            if key[0] == kind}
+
+
+def check_graph_runs(label, engine, before):
+    """A graph drive's prefills and verify forwards: one graph per (bucket,
+    rpad) the engine met, every prefill forward (and every verify forward)
+    one run of its graph; a primed engine captures nothing."""
+    runs = graph_runs(engine, "prefill", before)
+    met = {k for k, n in runs.items() if n > 0}
+    require(met == engine.prefill_shapes, f"{label}: prefill graphs run {sorted(met)}, "
+            f"the prefill shapes {sorted(engine.prefill_shapes)}")
+    require(sum(runs.values()) == engine.forwards["prefill"], f"{label}: "
+            f"{sum(runs.values())} prefill graph runs for {engine.forwards['prefill']} "
+            f"prefill forwards")
+    verify = sum(graph_runs(engine, "verify", before).values())
+    require(verify == engine.forwards["verify"], f"{label}: {verify} verify graph runs for "
+            f"{engine.forwards['verify']} verify forwards")
+    require(not before or len(engine.graphs) == len(before),
+            f"{label}: the primed engine captured {len(engine.graphs) - len(before)} graphs")
+
+
+def graph_numbers(engine, before, wall, n_new):
+    """A drive's graph numbers: captures (count, seconds), replays, and the
+    prefill graphs' share of them."""
+    fresh = [g for key, g in engine.graphs.items() if key not in before]
+    prefill = [g for key, g in engine.graphs.items() if key[0] == "prefill"]
+    capture_s = sum(g.capture_s for g in fresh)
+    return dict(tokens_per_s_without_capture=n_new / (wall - capture_s),
+                captures=len(fresh), capture_s=capture_s,
+                replays=engine.graphs.replays - sum(before.values()),
+                prefill_graphs=len(prefill),
+                prefill_capture_s=sum(g.capture_s for g in prefill if g in fresh),
+                prefill_replays=sum(g.replays for g in prefill)
+                - sum(n for key, n in before.items() if key[0] == "prefill"))
+
+
+# The spec drive: prompt-lookup drafts of SPEC_K tokens, verified by one
+# forward over [rows, SPEC_K + 1] (greedy; the engine runs no decode blocks
+# with spec_k)
+SPEC_K = 4
+
+
+def serve_spec(model, stream, plain_outs, engine_kw, kernel_fns, L):
+    """The bf16-KV stream with speculative decoding (spec_k = SPEC_K, greedy,
+    one-token decode steps only near the context cap), from graphs (the
+    verify forward from one) on a fresh and on a primed engine (``prime``)
+    and eagerly, in turns.  Gates: every drive's tokens equal, the forwards
+    of each kind, the drafts and the preemptions equal on every path, the
+    verify graph run once a verify forward, one prefill graph a key, K1 and
+    K3's paged prologue once a layer a decode forward, every request whole
+    and every page back.  Reports tokens/s,
+    the drafts' acceptance and the share of positions whose token equals
+    the plain greedy drive's (``plain_outs``; the verify forward's plain
+    attention rounds bf16 otherwise than K1, so not gated)."""
+    import torch
+
+    from vats_tpu_torch.inference import ServingEngine
+
+    k1, k3 = kernel_fns["paged_decode_attention_commit"], kernel_fns["paged_decode_prologue"]
+    kw = dict(engine_kw, decode_block_steps=1, spec_k=SPEC_K)
+    n_new = sum(n for _, n in stream)
+    seen = {}
+
+    def engine(use_graphs):
+        eng = ServingEngine(model, **kw)
+        eng._use_graphs = use_graphs
+        return eng
+
+    def timed(use_graphs, primed=False):
+        def run():
+            eng = engine(use_graphs)
+            before = prime(eng, stream) if primed else {}
+            torch.cuda.empty_cache()
+            _zero(kernel_fns.values())
+            outs, done_s, wall = drive(eng, stream)
+            label = f"serve spec [{'graph' if use_graphs else 'eager'}]"
+            require(len(outs) == len(stream) and all(
+                len(outs[r]) == n for r, (_, n) in enumerate(stream)),
+                f"{label}: requests unfinished or cut")
+            eng.allocator.free(eng.prefix_cache.reclaim(eng.allocator.capacity))
+            require(eng.allocator.num_used == 0, f"{label}: pages leaked")
+            dec = eng.forwards["decode"]
+            require(k1.launches == k3.launches == L * dec, f"{label}: K1 {k1.launches}, "
+                    f"K3 paged {k3.launches} launches for {dec} decode forwards of {L} layers")
+            if use_graphs:
+                check_graph_runs(label, eng, before)
+            state = (dict(eng.forwards), eng.spec_proposed, eng.spec_accepted,
+                     eng.preemptions)
+            require(seen.setdefault("first", state) == state,
+                    f"{label}: forwards, drafts or preemptions {state}, first drive "
+                    f"{seen['first']}")
+            nums = dict(tokens_per_s=n_new / wall, wall_s=wall,
+                        verify_forwards=eng.forwards["verify"], decode_forwards=dec,
+                        **graph_numbers(eng, before, wall, n_new))
+            del eng
+            return nums, outs
+        return run
+
+    got = in_turns(f"serve spec_k={SPEC_K} [bf16 KV]", [
+        ("graph", timed(True)), ("eager", timed(False)),
+        ("graph primed", timed(True, primed=True))], order=(0, 1, 2, 2, 1, 0))
+    tagged = [(f"{path} {i}", o) for path, rs in got.items() for i, (_, o) in enumerate(rs)]
+    for tag, o in tagged[1:]:
+        diff = [r for r in o if o[r] != tagged[0][1][r]]
+        require(not diff, f"serve spec: {tagged[0][0]} and {tag} drives give other tokens "
+                f"for requests {diff[:8]}")
+    fw, proposed, accepted, preempt = seen["first"]
+    outs = got["graph"][0][1]
+    same = sum(int(x == y) for r in outs for x, y in zip(outs[r], plain_outs[r]))
+    log(f"serve spec_k={SPEC_K} [bf16 KV]: forwards {json.dumps(fw)} (equal on every path); "
+        f"drafts accepted {accepted}/{proposed} ({accepted / max(proposed, 1):.3f}); "
+        f"preemptions {preempt}; tokens equal to the plain greedy drive's at {same}/{n_new} "
+        f"positions ({same / n_new:.3f})")
+    for path, use_graphs in (("graph", True), ("eager", False), ("graph primed", True)):
+        eng = engine(use_graphs)
+        if path == "graph primed":
+            prime(eng, stream)
+        busy = profile_breakdown(
+            f"serve spec_k={SPEC_K} [bf16 KV] [{path}], the whole stream again",
+            lambda: drive(eng, stream))
+        del eng
+        walls = [n["wall_s"] for n, _ in got[path]]
+        if busy is not None:
+            log(f"serve spec [{path}]: device_busy_s={busy:.3f} over the mean timed wall_s="
+                f"{np.mean(walls):.3f}: idle_share={1 - busy / np.mean(walls):.3f}")
 
 
 def check_serve(name, engine, outs, stream, cfg, got, decode_fw, kv_quant, L, k1, k4):
@@ -3128,11 +3306,40 @@ def _vision_gate(label, fns, want):
     return got
 
 
+def graph_forward(model, x, like):
+    """``model``'s no-grad forward on ``x`` replayed from a CUDA graph: a
+    ``GraphSet`` (the eval step's helper) keyed on x's shape, x copied into
+    the key's static buffer at every call and the features written into a
+    static output shaped as ``like``.  Returns (call, the GraphSet)."""
+    import torch
+
+    from vats_tpu_torch.inference.graphs import GraphSet
+
+    graphs = GraphSet("cuda")
+
+    def build():
+        bufs = {"x": torch.empty_like(x)}
+        out = torch.empty_like(like)
+
+        def body():
+            with torch.no_grad():
+                out.copy_(model(bufs["x"]))
+
+        return bufs, body, out
+
+    return (lambda: graphs(tuple(x.shape), build, {"x": x})), graphs
+
+
 def vision_forward(label, model, x, fns, want, per_call, unit, iters):
-    """One forward with the flash counters zeroed just before and read just
-    after (held to ``want``), then ``iters`` timed forwards after a warm-up
-    (CUDA events), the peak memory of the timed calls and one profiled
-    forward (device-busy time, idle share).  Returns (output, numbers)."""
+    """One eager forward with the flash counters zeroed just before and read
+    just after (held to ``want``); then the forward from a graph
+    (``graph_forward``): its first call the warm-up and the capture, one
+    replay gated as the eager forward (counters zeroed just before, read
+    just after) and bit-equal to it.  Then graph and eager in turns (graph,
+    eager, eager, graph; ``iters`` forwards each, CUDA events, after a
+    warm-up), each with its peak and reserved memory, and one profiled
+    forward of each (device-busy time, idle share over the timed mean).
+    Returns (eager output, {path: numbers, 'replay_launches': counts})."""
     import torch
 
     with torch.no_grad():
@@ -3140,27 +3347,58 @@ def vision_forward(label, model, x, fns, want, per_call, unit, iters):
         out = model(x)
         torch.cuda.synchronize()
         got = _vision_gate(label, fns, want)
-        require(bool(torch.isfinite(out.float()).all()), f"vision: {label} not finite")
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: model(x), iters=iters, warmup=2)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        busy = profile_breakdown(f"{label} forward", lambda: model(x), top=8,
-                                 also=("flash",))
-    rate = per_call / (ms / 1e3)
-    log(f"vision: {label}: launches {json.dumps(got)}; ms_per_forward={ms:.3f} "
-        f"{unit}={rate:.1f} peak_mem_gb={peak:.2f} device_busy_s="
-        f"{_fmt(busy, 5)} (one profiled forward)")
-    return out, dict(ms=ms, rate=rate, peak_gb=peak, busy_s=busy)
+    require(bool(torch.isfinite(out.float()).all()), f"vision: {label} not finite")
+    call, graphs = graph_forward(model, x, out)
+    call()
+    torch.cuda.synchronize()
+    _zero(fns)
+    replayed = call()
+    torch.cuda.synchronize()
+    nums = {"replay_launches": _vision_gate(f"{label} graph replay", fns, want)}
+    require(torch.equal(replayed, out), f"vision: {label}: the graph's features are not "
+            f"eager's bit for bit (max |diff| {float((replayed - out).abs().max())})")
+
+    def eager():
+        with torch.no_grad():
+            return model(x)
+
+    def timed_path(fn):
+        def run():
+            ms = cuda_ms(fn, iters=iters, warmup=1)
+            return dict(ms=ms, rate=per_call / (ms / 1e3)), None
+        return run
+
+    turns = in_turns(f"vision: {label}", [("graph", timed_path(call)),
+                                          ("eager", timed_path(eager))])
+    for path, fn in (("graph", call), ("eager", eager)):
+        ms = float(np.mean([n["ms"] for n, _ in turns[path]]))
+        busy = profile_breakdown(f"{label} [{path}] forward", fn, top=8, also=("flash",))
+        idle = None if busy is None else 1 - busy / (ms / 1e3)
+        nums[path] = dict(ms=ms, rate=per_call / (ms / 1e3), busy_s=busy, idle=idle,
+                          peak_gb=max(n["peak_mem_gb"] for n, _ in turns[path]),
+                          reserved_gb=max(n["reserved_gb"] for n, _ in turns[path]))
+        log(f"vision: {label} [{path}]: launches a forward {json.dumps(got)}; "
+            f"ms_per_forward={ms:.3f} {unit}={per_call / (ms / 1e3):.1f} (mean of two "
+            f"turns) peak_mem_gb={nums[path]['peak_gb']:.2f} reserved_gb="
+            f"{nums[path]['reserved_gb']:.2f} device_busy_s={_fmt(busy, 5)} idle_share="
+            f"{'not measured' if idle is None else f'{idle:.3f}'} (one profiled forward)")
+    log(f"vision: {label}: graph capture_s={graphs.capture_s:.3f}, replays "
+        f"{graphs.replays}; features bit-equal to eager; {unit} graph/eager "
+        f"{nums['graph']['rate'] / nums['eager']['rate']:.3f}")
+    del call, graphs
+    return out, nums
 
 
 def run_vision(fns):
     """ViT-2D medium forward (K2 only, 16 launches a forward) at B=16 on
-    384x384 and on a non-square size (resize and crop on the card), ViT-2D
-    medium training through ``make_vision_train_step`` (one round of 4
-    micro-steps of B=32 with mixup / cutmix and the pixel battery on the
-    card; K2', K5a and K5b per micro-step as derived below) and its eval
-    step, then ViT-3D xsmall and large forwards (no flash kernel: the JAX
-    model attends with XLA there).  Depth uncut everywhere."""
+    384x384, eagerly and from a CUDA graph in turns, and on a non-square
+    size (resize and crop on the card), ViT-2D medium training through
+    ``make_vision_train_step`` (one round of 4 micro-steps of B=32 with
+    mixup / cutmix and the pixel battery on the card; K2', K5a and K5b per
+    micro-step as derived below) and its eval step from its graph, then
+    ViT-3D xsmall and large forwards, eagerly and from graphs in turns (no
+    flash kernel: the JAX model attends with XLA there).  Depth uncut
+    everywhere.  Returns the flash launches of one ViT-2D graph replay."""
     import math
 
     import torch
@@ -3174,6 +3412,7 @@ def run_vision(fns):
         make_vision_eval_step,
         make_vision_train_step,
     )
+    from vats_tpu_torch.train.vision import eval_metrics
 
     k2, k2l, k5a, k5b = (fn.__name__ for fn in fns)
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -3235,7 +3474,7 @@ def run_vision(fns):
     log(f"vision: vit2d_medium training, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
         f"params (fp32, bf16 compute), dropout {cfg.dropout}, remat, accum {VIT2D_ACCUM} x "
         f"B={B}; warm-up round {time.perf_counter() - t0:.2f}s")
-    ev0 = float(eval_step(state.params, ev_batch)["loss"])
+    ev0 = float(eval_step(state.params, ev_batch)["loss"])  # warm-up and capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(fns)
@@ -3251,9 +3490,14 @@ def run_vision(fns):
                        {k2l: 2 * L * VIT2D_ACCUM, k5a: L * VIT2D_ACCUM,
                         k5b: L * VIT2D_ACCUM, k2: 0})
     _zero(fns)
-    ev1 = eval_step(state.params, ev_batch)
+    ev1 = eval_step(state.params, ev_batch)  # a replay, on the updated params
     ev1_loss = float(ev1["loss"])
-    _vision_gate("vit2d eval step", fns, {k2: L, k2l: 0, k5a: 0, k5b: 0})
+    _vision_gate("vit2d eval step (a graph replay)", fns, {k2: L, k2l: 0, k5a: 0, k5b: 0})
+    ev_eager = eval_metrics(model, state.params, ev_batch["images"], ev_batch["labels"], 1000)
+    require(torch.equal(torch.stack([ev1["loss"], ev1["acc"]]), ev_eager),
+            f"vision: the eval step's graph gives {ev1}, eager {ev_eager.tolist()}")
+    require(len(eval_step.graphs) == 1 and eval_step.graphs.replays == 1,
+            "vision: the eval step did not replay its one graph")
     losses = [float(m["loss"]) for m in metrics]
     lams = [round(float(m["lam"]), 4) for m in metrics]
     norm = float(metrics[-1]["grad_norm"])
@@ -3264,7 +3508,8 @@ def run_vision(fns):
             and int(state.opt_state.gradient_step) == 2, "vision: step counters wrong")
     log(f"vision: vit2d training round launches {json.dumps(got)} = per micro-step K2' "
         f"{got[k2l] // VIT2D_ACCUM} ({L} forward + {L} recomputed), K5a "
-        f"{got[k5a] // VIT2D_ACCUM}, K5b {got[k5b] // VIT2D_ACCUM}; eval step K2 {L}")
+        f"{got[k5a] // VIT2D_ACCUM}, K5b {got[k5b] // VIT2D_ACCUM}; eval step K2 {L} a graph replay "
+        f"(equal to eager bit for bit; capture_s={eval_step.graphs.capture_s:.3f})")
     log(f"vision: vit2d training: ms_per_micro_step={wall / VIT2D_ACCUM * 1e3:.1f} "
         f"images_per_s={VIT2D_ACCUM * B / wall:.1f} peak_mem_gb={peak:.2f}; losses "
         f"{[round(v, 4) for v in losses]} lam {lams} grad norm (boundary) {norm:.4f}; eval "
@@ -3296,6 +3541,7 @@ def run_vision(fns):
                 f"vision: {name} features {tuple(out.shape)}")
         del model, out, x
         torch.cuda.empty_cache()
+    return fwd["replay_launches"]
 
 
 # Card (kernels, bf16 compute) against the CPU (plain versions), same
@@ -5832,7 +6078,7 @@ def main(argv=None) -> int:
         check_ring_hop(gen(15))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
-              "multimodal": {}, "pipeline": {}}
+              "multimodal": {}, "pipeline": {}, "vision": {}}
     every_kernel = [append_token_inplace, dense_decode_prologue, paged_decode_prologue,
                     dense_decode_prologue.table, paged_decode_prologue.table,
                     paged_decode_attention_commit, paged_decode_attention_commit_int8,
@@ -5881,6 +6127,9 @@ def main(argv=None) -> int:
                 if row["fn"].__name__ in c}
         if by_m:
             entry["pipeline_launches"] = by_m
+        # launches a replay of ViT-2D medium's forward graph (the vision phase)
+        if row["fn"].__name__ in counts["vision"]:
+            entry["vision_graph_launches"] = counts["vision"][row["fn"].__name__]
         entry.update(results.get(row["name"], {}))
         line.append(entry)
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

@@ -1,5 +1,6 @@
-"""Decode steps replayed from CUDA graphs against the same steps run eagerly,
-on the card (``inference/graphs.py``).
+"""Steps replayed from CUDA graphs against the same steps run eagerly, on
+the card (``inference/graphs.py``): decode, the serving engine's prefills
+and its speculative verify forward, and the vision eval step.
 
 These need an NVIDIA GPU and ``nvcc``; without them every test here skips.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -11,7 +12,10 @@ same inputs and in the same order, and draws from the same generator state,
 so tokens and lengths are bit-equal.  Also: launch counts are the eager
 warm-up's plus the capture's tally times the replays; two graphs on one
 stream, and an eager K1 call on another stream during replays, keep their own
-K1 counters; a capture that meets a host sync raises.
+K1 counters; a capture that meets a host sync raises.  The engine's graphs
+leave its page pool bit-equal to the eager engine's; an eval graph reads
+the parameters in place (an optimizer update shows at the next replay) and
+captures again for other tensors.
 """
 
 import pytest
@@ -175,10 +179,124 @@ def test_engine_graph_equals_eager(gen, mode, overlap):
                 == model.cfg.num_layers * eng.forwards["decode"])
         outs.append([out[r] for r in rids])
         if use_graphs:
-            assert sorted(eng.graphs) == [1, 4]
-            assert sum(k * (1 + g.replays) for k, g in eng.graphs.items()) == \
+            decode = {key[1]: g for key, g in eng.graphs.items() if key[0] == "decode"}
+            assert sorted(decode) == [1, 4]
+            assert sum(k * (1 + g.replays) for k, g in decode.items()) == \
                 eng.forwards["decode"]
+            assert_prefill_graphs(eng)
     assert outs[0] == outs[1]
+
+
+def assert_prefill_graphs(eng):
+    """One prefill graph per (bucket, rpad) the engine met, each run (its
+    warm-up, then replays) once per prefill forward."""
+    prefill = {key[1:]: g for key, g in eng.graphs.items() if key[0] == "prefill"}
+    assert set(prefill) == eng.prefill_shapes
+    assert sum(1 + g.replays for g in prefill.values()) == eng.forwards["prefill"]
+
+
+def group_stream(vocab):
+    """As ``tests/test_torch_serving.py``'s: groups padded to 16, 4, 1, 2
+    and 8 rows, and a preempted continuation past the largest bucket."""
+    import numpy as np
+
+    rs = np.random.RandomState(5)
+    ids = lambda n: rs.randint(1, vocab, n).tolist()  # noqa: E731
+    return ([(ids(110), 30), (ids(126), 30)]
+            + [(ids(rs.randint(3, 17)), 20) for _ in range(9)]
+            + [(ids(rs.randint(17, 33)), 20) for _ in range(4)] + [(ids(50), 20)]
+            + [(ids(rs.randint(3, 17)), 6) for _ in range(5)])
+
+
+def engine_pair(model, stream, **kw):
+    """The stream through a graph engine and an eager one: both engines'
+    tokens and pools (bf16 pages, or int8 pages and their scales)."""
+    from vats_tpu_torch.inference import ServingEngine
+
+    got = []
+    for use_graphs in (True, False):
+        eng = ServingEngine(model, **kw)
+        eng._use_graphs = use_graphs
+        rids = [eng.submit(p, max_new_tokens=n) for p, n in stream]
+        out = eng.run()
+        torch.cuda.synchronize()
+        got.append((eng, [out[r] for r in rids]))
+    return got
+
+
+@pytest.mark.parametrize("mode", ["bf16 KV", "int8 KV", "overlap"])
+def test_prefill_graphs_equal_eager_for_every_key(gen, mode):
+    """Every (bucket, rpad) key of a stream with groups of 1 to 16 rows and a
+    continuation past the largest bucket: graph and eager engines give the
+    same tokens and leave their pools bit-equal (every prefill's pages)."""
+    model = tiny_model()
+    kw = dict(max_batch=16, max_context=512, total_pages=1 + 17,
+              prompt_buckets=(16, 32, 64, 128), kv_quant="int8" if mode == "int8 KV" else None)
+    if mode == "overlap":
+        kw.update(decode_block_steps=4, overlap_scheduling=True)
+    (eg, tg), (ee, te) = engine_pair(model, group_stream(256), **kw)
+    assert tg == te
+    assert eg.prefill_shapes == ee.prefill_shapes == {
+        (16, 16), (32, 4), (64, 1), (128, 2), (16, 8), (256, 1)}
+    assert_prefill_graphs(eg)
+    assert len(ee.graphs) == 0 and eg.preemptions == ee.preemptions == 1
+    assert torch.equal(eg.pool, ee.pool)
+    assert (eg.scales is None) == (mode != "int8 KV")
+    if eg.scales is not None:
+        assert torch.equal(eg.scales, ee.scales)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_verify_graph_equals_eager(gen, kv_quant):
+    """spec_k = 4 (greedy, prefix caching, a preemption): every verify
+    forward replays one graph, and the tokens, the drafts' acceptance and
+    the pool equal the eager engine's."""
+    model = tiny_model()
+    kw = dict(max_batch=2, max_context=512, prefix_caching=True, total_pages=1 + 4,
+              kv_quant=kv_quant, spec_k=4)
+    (eg, tg), (ee, te) = engine_pair(model, engine_stream(), **kw)  # periodic prompts
+    assert tg == te and eg.preemptions >= 1
+    assert (eg.spec_proposed, eg.spec_accepted) == (ee.spec_proposed, ee.spec_accepted)
+    assert eg.spec_accepted > 0
+    assert eg.forwards == ee.forwards
+    assert eg.graphs[("verify",)].replays + 1 == eg.forwards["verify"]
+    assert_prefill_graphs(eg)
+    assert torch.equal(eg.pool, ee.pool)
+
+
+def test_host_sync_in_a_prefill_body_raises(gen):
+    """No fallback: a prefill whose forward reads a device value on the host
+    cannot be captured, and the engine's call raises."""
+    from vats_tpu_torch.inference import ServingEngine
+
+    model = tiny_model()
+    eng = ServingEngine(model, max_batch=2, max_context=512)
+
+    def sync(mod, args):
+        if args[0].shape[1] > 1:
+            bool(args[0].isnan().any())
+
+    handle = model.layers[0].register_forward_pre_hook(sync)
+    try:
+        eng.submit([5, 9, 17], max_new_tokens=4)
+        with pytest.raises(RuntimeError):
+            eng.run()
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    end_failed_capture()
+
+
+def end_failed_capture():
+    """A capture that raised leaves the CUDA generators it held marked as
+    capturing (PyTorch clears the mark at a capture's end), and the next
+    draw outside a capture raises; a capture that completes clears it, for
+    the tests that follow."""
+    x = torch.zeros(1, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.add_(1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
@@ -219,8 +337,9 @@ def test_engine_and_its_graphs_are_freed_when_dropped(gen):
                         decode_block_steps=4)
     eng.submit([5, 9, 17], max_new_tokens=9)
     eng.run()
-    assert eng.graphs[4].replays >= 1
-    refs = [weakref.ref(eng.pool), weakref.ref(eng.graphs[4])]
+    assert eng.graphs[("decode", 4)].replays >= 1
+    refs = [weakref.ref(eng.pool), weakref.ref(eng.graphs[("decode", 4)]),
+            weakref.ref(eng.graphs[("prefill", 32, 1)])]
     gc.disable()
     try:
         del eng
@@ -302,3 +421,68 @@ def test_capture_with_a_host_sync_raises(gen):
     with pytest.raises(RuntimeError):
         graph.run()
     torch.cuda.synchronize()
+    end_failed_capture()
+
+
+def vision_models():
+    """ViT-2D at 256 patches (the flash path: K2, one launch a layer) and
+    ViT-3D tiny, each with a 10-class head."""
+    from vats_tpu_torch.configs import vit2d_xsmall, vit3d_tiny_test
+    from vats_tpu_torch.models import ImageEncoder, VideoTransformer
+
+    return {
+        "vit2d": (ImageEncoder(vit2d_xsmall(target_size=256, patch_size=16, num_classes=10),
+                               device="cuda", seed=1), (3, 3, 256, 256)),
+        "vit3d": (VideoTransformer(vit3d_tiny_test(use_classifier_head=True), device="cuda",
+                                   seed=2), (3, 3, 8, 32, 32)),
+    }
+
+
+@pytest.mark.parametrize("kind", ["vit2d", "vit3d"])
+def test_eval_step_graphs_equal_eager(gen, kind):
+    """The eval step from graphs against ``eval_metrics`` run eagerly, bit
+    for bit, on a full batch and a smaller last one (a graph each); ViT-2D's
+    replay launches K2 once a layer.  Then an optimizer update in place
+    shows at the next replay, and params that are other tensors (a copy)
+    capture again."""
+    from vats_tpu_torch.ops import flash_attention as fa
+    from vats_tpu_torch.train import (
+        VisionTrainingArgs,
+        create_train_state,
+        create_vision_optimizer,
+        make_vision_eval_step,
+        make_vision_train_step,
+    )
+    from vats_tpu_torch.train.vision import eval_metrics
+
+    model, shape = vision_models()[kind]
+    x = torch.randn(shape, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (shape[0],), generator=gen, device="cuda")
+    step = make_vision_eval_step(model, 10)
+    state = create_train_state(model, create_vision_optimizer(
+        VisionTrainingArgs(grad_accum_steps=1, use_augmentation=False, warmup_epochs=1,
+                           epochs=4), 1))
+
+    def check(params, images, labels):
+        want = eval_metrics(model, params, images, labels, 10)
+        n0 = fa.flash_attention.launches
+        got = step(params, {"images": images, "labels": labels})
+        torch.cuda.synchronize()
+        assert torch.equal(torch.stack([got["loss"], got["acc"]]), want)
+        return want, fa.flash_attention.launches - n0
+
+    for images, labels in ((x, y), (x[:2], y[:2]), (x, y)):
+        _, k2 = check(state.params, images, labels)
+        if kind == "vit2d":
+            assert k2 == model.cfg.num_layers
+    assert sorted(step.graphs) == sorted(step.graphs.entries) and len(step.graphs) == 2
+    before = check(state.params, x, y)[0]
+    graph = step.graphs[tuple(step.graphs)[0]]
+    make_vision_train_step(model, VisionTrainingArgs(
+        grad_accum_steps=1, use_augmentation=False), 10)(state, {"images": x, "labels": y}, 0)
+    after = check(state.params, x, y)[0]
+    assert not torch.equal(before, after)
+    assert step.graphs[tuple(step.graphs)[0]] is graph  # replayed, not captured again
+    copies = {n: p.detach().clone() * 0.5 for n, p in state.params.items()}
+    halved = check(copies, x, y)[0]
+    assert not torch.equal(halved, after) and len(step.graphs) == 1

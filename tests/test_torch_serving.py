@@ -7,7 +7,10 @@ exactly the greedy tokens the port's ``generate_paged`` gives it alone.
 Cross-package: the JAX engine and the port's run one request stream on the
 same weights (fp32 on the CPU, greedy), with a full-precision pool and an
 int8 pool, prefix caching on and a pool that forces a preemption: every
-request's tokens are equal.
+request's tokens are equal; so with speculative decoding (spec_k 2 and 4),
+and on a stream whose prefill groups pad to 1, 2, 4, 8 and 16 rows with a
+preempted continuation past the largest bucket, where both engines build
+the same set of prefill programs.
 """
 
 import jax
@@ -418,6 +421,60 @@ def test_engine_tokens_equal_jax_engine(models, kv_quant):
     for jr, tr in zip(j_rids, t_rids):
         assert t_out[tr] == [int(x) for x in j_out[jr]], f"request {tr} differs"
     assert te.allocator.num_used == te.prefix_cache.num_cached
+
+
+@pytest.mark.parametrize("spec_k,kv_quant", [(2, None), (4, "int8")])
+def test_spec_engine_tokens_equal_jax_engine(models, spec_k, kv_quant):
+    """Speculative decoding (the verify forward over [B, spec_k + 1]) on the
+    stream above: the drafts, their acceptance, the preemption and the
+    prefix hits follow JAX's engine, and so does every token."""
+    jm, params, tm = models
+    kw = dict(max_batch=2, max_context=512, prefix_caching=True, total_pages=1 + 4,
+              kv_quant=kv_quant, spec_k=spec_k)
+    je, te = JServingEngine(jm, params, **kw), ServingEngine(tm, **kw)
+    j_rids = [je.submit(p, max_new_tokens=n) for p, n in request_stream()]
+    t_rids = [te.submit(p, max_new_tokens=n) for p, n in request_stream()]
+    j_out, t_out = je.run(), te.run()
+    assert te.preemptions == je.preemptions >= 1
+    assert te.prefix_cache.hit_tokens == je.prefix_cache.hit_tokens > 0
+    assert (te.spec_proposed, te.spec_accepted) == (je.spec_proposed, je.spec_accepted)
+    assert te.spec_accepted > 0 and te.forwards["verify"] > 0
+    for jr, tr in zip(j_rids, t_rids):
+        assert t_out[tr] == [int(x) for x in j_out[jr]], f"request {tr} differs"
+
+
+def group_stream():
+    """Sixteen rows admitted at once in tail buckets of 9, 4, 1 and 2 rows
+    (groups padded to 16, 4, 1 and 2); five more wait and come in later as
+    one group padded to 8.  The 17-page pool runs dry when row 0 grows into
+    its second page, and the youngest other row (126 prompt tokens, 19
+    generated) is preempted: its continuation lies past the largest bucket
+    and prefills at 256."""
+    rs = np.random.RandomState(5)
+    ids = lambda n: rs.randint(1, 128, n).tolist()  # noqa: E731
+    return ([(ids(110), 30), (ids(126), 30)]
+            + [(ids(rs.randint(3, 17)), 20) for _ in range(9)]
+            + [(ids(rs.randint(17, 33)), 20) for _ in range(4)] + [(ids(50), 20)]
+            + [(ids(rs.randint(3, 17)), 6) for _ in range(5)])
+
+
+def test_prefill_groups_and_a_long_continuation_equal_jax_engine(models):
+    """The prefill programs of both engines, one per (bucket, padded group
+    size), are the same set, and so are the port's static-buffer entries
+    (its graphs on the card); every token equals JAX's."""
+    jm, params, tm = models
+    kw = dict(max_batch=16, max_context=512, total_pages=1 + 17,
+              prompt_buckets=(16, 32, 64, 128))
+    je, te = JServingEngine(jm, params, **kw), ServingEngine(tm, **kw)
+    j_rids = [je.submit(p, max_new_tokens=n) for p, n in group_stream()]
+    t_rids = [te.submit(p, max_new_tokens=n) for p, n in group_stream()]
+    j_out, t_out = je.run(), te.run()
+    assert te.preemptions == je.preemptions == 1
+    want = {(16, 16), (32, 4), (64, 1), (128, 2), (16, 8), (256, 1)}
+    assert te.prefill_shapes == set(je._jit_prefill) == want
+    assert {k[1:] for k in te.graphs.entries if k[0] == "prefill"} == want
+    for jr, tr in zip(j_rids, t_rids):
+        assert t_out[tr] == [int(x) for x in j_out[jr]], f"request {tr} differs"
 
 
 # ---------------- per-row sampling ----------------

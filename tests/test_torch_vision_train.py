@@ -17,6 +17,8 @@
     (fp32, dropout 0, no augmentation) from the same weights and clips:
     loss rtol 1e-5, params after each step atol 5e-6, rtol 1e-5; the eval
     step: loss rtol 1e-5;
+  * the eval step of both models over batches whose last is smaller (one
+    entry, on the card one graph, a batch shape): loss rtol 1e-5, acc exact;
   * the port alone: a step with the on-card pixel battery, and
     ``train_epoch`` / ``validate_epoch`` over ``array_batches``."""
 
@@ -234,6 +236,46 @@ def test_vit3d_train_and_eval_steps_match_jax():
     ev = make_vision_eval_step(model, cfg.num_classes)(state.params, b)
     np.testing.assert_allclose(float(ev["loss"]), float(jev["loss"]), rtol=1e-5)
     assert float(ev["acc"]) == pytest.approx(float(jev["acc"]))
+
+
+def vit3d_pair(kw):
+    """JAX (model, params) and the port's model, ViT-3D tiny from the same
+    weights."""
+    jcfg, cfg = j_vit3d_tiny(**kw), vit3d_tiny_test(**kw)
+    jm = JVideoTransformer(jcfg)
+    x0 = jnp.zeros((1, 3, cfg.max_frames, *cfg.target_size), jnp.float32)
+    jparams = meta.unbox(jm.init(jax.random.PRNGKey(0), x0)["params"])
+    model = VideoTransformer(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.device_get(jparams), cfg))
+    return jm, jparams, model
+
+
+@pytest.mark.parametrize("kind", ["vit2d", "vit3d"])
+def test_eval_step_on_a_ragged_last_batch_matches_jax(kind):
+    """A validation set whose last batch is smaller: one entry a batch shape
+    (a graph each on the card), reused when the shape comes again.  Loss
+    rtol 1e-5 (fp32), acc exact."""
+    rs = np.random.RandomState(9)
+    if kind == "vit2d":
+        (jm, jstate, _), (model, state, _) = both(dict(use_augmentation=False))
+        jparams, params, n_classes = jstate.params, state.params, NUM_CLASSES
+        images = rs.randn(7, 3, 40, 36).astype(np.float32)
+        sizes = (4, 3)
+    else:
+        jm, jparams, model = vit3d_pair(dict(dtype="float32", use_classifier_head=True))
+        params, n_classes = dict(model.named_parameters()), model.cfg.num_classes
+        images = rs.rand(3, 3, 8, 32, 32).astype(np.float32)
+        sizes = (2, 1)
+    labels = rs.randint(0, n_classes, len(images)).astype(np.int32)
+    cuts = np.cumsum((0,) + sizes)
+    batches = [{"images": images[a:b], "labels": labels[a:b]} for a, b in zip(cuts, cuts[1:])]
+    jstep, step = j_eval_step(jm, n_classes), make_vision_eval_step(model, n_classes)
+    for b in batches + batches[:1]:
+        jev = jstep(jparams, {k: jnp.asarray(v) for k, v in b.items()})
+        ev = step(params, b)
+        np.testing.assert_allclose(float(ev["loss"]), float(jev["loss"]), rtol=1e-5)
+        assert float(ev["acc"]) == float(jev["acc"])
+    assert len(step.graphs.entries) == 2
 
 
 def test_train_step_with_pixel_battery_and_epoch_loops():

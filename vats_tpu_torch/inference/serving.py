@@ -19,16 +19,20 @@ What replaces the JAX machinery:
   * the pool (and the int8 scales pool) is one set of tensors updated in
     place by every forward (K1/K4 commit in the kernel, prefills append):
     no donated buffers;
-  * a k-step decode block is k forwards with the tokens kept on the
-    device, in place of the JAX ``fori_loop`` program.  It reads static
-    device buffers (tables, lengths, input tokens, the per-row sampling
-    values) and writes a static [B, k] output.  On the card each block
-    length in use (``decode_block_steps``, and 1 for the thin-margin
-    fallback) runs its first block eagerly as a warm-up and replays a CUDA
-    graph of it after that (``inference/graphs.py``); prefills and the
-    speculative verify forward stay eager.  The host syncs once per block,
-    when it reads the block's tokens (copied to pinned memory behind a
-    CUDA event);
+  * every program the JAX engine jits runs from the engine's
+    :class:`~vats_tpu_torch.inference.graphs.GraphSet` on the card: one
+    CUDA graph per tail prefill shape (bucket, padded group size), per
+    decode block length (``decode_block_steps``, and 1 for the thin-margin
+    fallback) and one for the speculative verify forward ([B, spec_k + 1]).
+    Each key's first call runs eagerly as a warm-up, and replays follow.
+    Each reads static device buffers that the host state is copied into
+    (ids, masks, tables, lengths, input tokens, drafts, the per-row
+    sampling values) and writes a static output: a prefill's first tokens,
+    a decode block's [B, k] tokens (k forwards with the tokens kept on the
+    device, in place of the JAX ``fori_loop``), the verify forward's
+    [B, spec_k + 1] greedy tokens.  The host syncs once per forward or
+    block, when it reads those tokens (copied to pinned memory behind a
+    CUDA event).  On the CPU the same bodies run eagerly;
   * overlap mode relies on the program order of one CUDA stream where the
     JAX engine relies on dispatch order: a page freed and reallocated on
     the host is written only by work queued later, which runs after every
@@ -53,7 +57,7 @@ import numpy as np
 import torch
 
 from vats_tpu_torch.device import resolve_dtype
-from vats_tpu_torch.inference.graphs import StepGraph
+from vats_tpu_torch.inference.graphs import GraphSet, copy_to_static
 from vats_tpu_torch.inference.sampling import sample_logits, sample_logits_per_row
 from vats_tpu_torch.ops.decode_attention import PagedKVCache
 
@@ -347,11 +351,10 @@ class ServingEngine:
         #: token per row), 'verify' (spec_k windows)
         self.forwards = {"prefill": 0, "decode": 0, "verify": 0}
 
-        # the decode block's static device buffers: the host state of a
-        # block is copied in before it runs, its tokens read from ``_out``
-        def buf(dtype, *shape):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
+        # the decode blocks' static device buffers (the verify forward reads
+        # tables and lengths too): the host state of a block is copied in
+        # before it runs
+        buf = self._zeros
         self._dev = {
             "tables": buf(torch.int32, max_batch, self.pages_per_row),
             "lengths": buf(torch.int32, max_batch),
@@ -359,16 +362,13 @@ class ServingEngine:
             "chain": buf(torch.bool, max_batch),
         }
         if per_request_sampling:
-            self._dev.update(temp=buf(torch.float32, max_batch),
-                             topk=buf(torch.int32, max_batch),
-                             topp=buf(torch.float32, max_batch),
-                             seed=buf(torch.int64, max_batch))
-        #: block length -> its [B, k] output
-        self._out: Dict[int, torch.Tensor] = {}
-        #: block length -> its graph; graphs share one side stream and pool
-        self.graphs: Dict[int, StepGraph] = {}
+            self._dev.update(self._sampling_buffers(max_batch))
+        #: ('prefill', bucket, rpad), ('decode', k) and ('verify',) -> the
+        #: graph of that program (every key's buffers in ``graphs.entries``);
+        #: the graphs share one side stream and pool
+        self.graphs = GraphSet(
+            self.device, generator=None if per_request_sampling else self._generator)
         self._use_graphs = self.device.type == "cuda"
-        self._graph_stream = self._graph_pool = None
 
     # ---------------- public API ----------------
 
@@ -443,18 +443,27 @@ class ServingEngine:
 
     # ---------------- internals ----------------
 
-    def _to_device(self, arr: np.ndarray, out: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-        """A device copy of a host array, into ``out`` when given (a static
-        buffer); on the card through pinned memory, so the copy is queued
-        behind the stream's work, never waits for it."""
-        t = torch.from_numpy(np.array(arr))  # a private copy
-        if out is not None:
-            return out.copy_(t.pin_memory() if out.is_cuda else t,
-                             non_blocking=out.is_cuda)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+    def _zeros(self, dtype: torch.dtype, *shape: int) -> torch.Tensor:
+        """A static buffer on the engine's device."""
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _sampling_buffers(self, rows: int) -> Dict[str, torch.Tensor]:
+        """Static per-row sampling values (per_request_sampling)."""
+        buf = self._zeros
+        return dict(temp=buf(torch.float32, rows), topk=buf(torch.int32, rows),
+                    topp=buf(torch.float32, rows), seed=buf(torch.int64, rows))
+
+    def _sample(self, logits: torch.Tensor, bufs: Dict[str, torch.Tensor],
+                positions: torch.Tensor) -> torch.Tensor:
+        """The next tokens from [rows, V] logits: per row from the sampling
+        values in ``bufs``, keyed by the (seed, position) of each row's draw,
+        or from the engine's generator with its engine-wide knobs."""
+        if self.per_request_sampling:
+            return sample_logits_per_row(
+                None, logits, temperature=bufs["temp"], top_k=bufs["topk"],
+                top_p=bufs["topp"], row_seeds=bufs["seed"], positions=positions,
+                kmax=self.sampling_kmax)
+        return sample_logits(self._generator, logits, **self._sample_kw)
 
     def _fetch(self, t: torch.Tensor):
         """Start copying ``t`` to the host; returns (host tensor, event).
@@ -549,7 +558,6 @@ class ServingEngine:
             for i in range(0, len(items), self.MAX_PREFILL_GROUP):
                 self._prefill_group(bucket, items[i:i + self.MAX_PREFILL_GROUP])
 
-    @torch.no_grad()
     def _prefill_group(
         self,
         bucket: int,
@@ -580,34 +588,22 @@ class ServingEngine:
             starts[g] = cached_len
             last_idx[g] = len(tail) - 1
 
+        inputs = dict(ids=ids, mask=mask, tables=tables, starts=starts,
+                      last_idx=last_idx)
+        if self.per_request_sampling:  # scratch rows draw greedily
+            inputs.update(temp=np.zeros((rpad,), np.float32), topk=np.ones((rpad,), np.int32),
+                          topp=np.zeros((rpad,), np.float32), seed=np.zeros((rpad,), np.int64),
+                          pos=np.zeros((rpad,), np.int32))
+            for g, (row, req, _, _) in enumerate(items):
+                for name, arr in (("temp", self.row_temp), ("topk", self.row_topk),
+                                  ("topp", self.row_topp), ("seed", self.row_seed)):
+                    inputs[name][g] = arr[row]
+                inputs["pos"][g] = len(req.prompt_ids)
         self.prefill_shapes.add((bucket, rpad))
         self.forwards["prefill"] += 1
-        cache = self._cache(self._to_device(tables), self._to_device(starts))
-        logits, _, _ = self.model(
-            self._to_device(ids), padding_mask=self._to_device(mask),
-            paged_cache=cache, readout_positions=self._to_device(last_idx),
-        )
-        logits = logits[:, 0]
-        if self.per_request_sampling:
-            g_temp = np.zeros((rpad,), np.float32)
-            g_topk = np.ones((rpad,), np.int32)
-            g_topp = np.zeros((rpad,), np.float32)
-            g_seed = np.zeros((rpad,), np.int64)
-            g_pos = np.zeros((rpad,), np.int32)
-            for g, (row, req, _, _) in enumerate(items):
-                g_temp[g] = self.row_temp[row]
-                g_topk[g] = self.row_topk[row]
-                g_topp[g] = self.row_topp[row]
-                g_seed[g] = self.row_seed[row]
-                g_pos[g] = len(req.prompt_ids)
-            toks = sample_logits_per_row(
-                None, logits, temperature=self._to_device(g_temp),
-                top_k=self._to_device(g_topk), top_p=self._to_device(g_topp),
-                row_seeds=self._to_device(g_seed),
-                positions=self._to_device(g_pos), kmax=self.sampling_kmax,
-            )
-        else:
-            toks = self._sample(logits)
+        toks = self.graphs(("prefill", bucket, rpad),
+                           lambda: self._prefill_entry(bucket, rpad), inputs,
+                           use_graph=self._use_graphs)
         toks = self._wait(self._fetch(toks))
         for g, (row, req, cached_len, keys) in enumerate(items):
             plen = len(req.prompt_ids)
@@ -624,8 +620,32 @@ class ServingEngine:
                         self.row_cached_keys[row].append(keys[i])
             self._maybe_finish(row, req, tok)
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        return sample_logits(self._generator, logits, **self._sample_kw)
+    def _prefill_entry(self, bucket: int, rpad: int):
+        """The (bucket, rpad) prefill's static buffers, body and [rpad]
+        token output: the tail prefill's forward, its logits at each row's
+        last token and the draw of the row's first token."""
+        # the body reaches the engine through a weak proxy: the engine owns
+        # its graphs, and dropping the engine frees them and its pool at
+        # once, not at the next cycle collection
+        engine = weakref.proxy(self)
+        buf = self._zeros
+        bufs = dict(ids=buf(torch.int32, rpad, bucket), mask=buf(torch.bool, rpad, bucket),
+                    tables=buf(torch.int32, rpad, self.pages_per_row),
+                    starts=buf(torch.int32, rpad), last_idx=buf(torch.int32, rpad))
+        if self.per_request_sampling:
+            bufs.update(self._sampling_buffers(rpad), pos=buf(torch.int32, rpad))
+        out = buf(torch.int32, rpad)
+
+        @torch.no_grad()
+        def body():
+            cache = engine._cache(bufs["tables"], bufs["starts"])
+            logits, _, _ = engine.model(
+                bufs["ids"], padding_mask=bufs["mask"], paged_cache=cache,
+                readout_positions=bufs["last_idx"],
+            )
+            out.copy_(engine._sample(logits[:, 0], bufs, bufs.get("pos")))
+
+        return bufs, body, out
 
     def _ensure_pages(self, lookahead: int = 1, lengths=None) -> None:
         """Map pages for every active row's next ``lookahead`` positions.
@@ -707,53 +727,31 @@ class ServingEngine:
         self._free_row(row)
 
     @torch.no_grad()
-    def _decode_body(self, k: int) -> None:
+    def _decode_body(self, k: int, out: torch.Tensor) -> None:
         """k decode forwards over the static buffers, each sampling the next
-        token on the device into column i of ``_out[k]``.  The same body runs
-        eagerly and as a captured graph."""
+        token on the device into column i of ``out``."""
         dev = self._dev
         cache = self._cache(dev["tables"], dev["lengths"])  # advanced in place
-        tokens, out = dev["tokens"], self._out[k]
+        tokens = dev["tokens"]
         for i in range(k):
             logits, cache, _ = self.model(tokens[:, None], paged_cache=cache)
-            if self.per_request_sampling:
-                # cache.lengths (advanced) is the position the sampled token
-                # will occupy: the key of the row's draw
-                tokens = sample_logits_per_row(
-                    None, logits[:, 0], temperature=dev["temp"], top_k=dev["topk"],
-                    top_p=dev["topp"], row_seeds=dev["seed"],
-                    positions=cache.lengths, kmax=self.sampling_kmax,
-                )
-            else:
-                tokens = self._sample(logits[:, 0])
+            # cache.lengths (advanced) is the position the sampled token will
+            # occupy: the key of a row's draw
+            tokens = self._sample(logits[:, 0], dev, cache.lengths)
             out[:, i] = tokens
 
     def _decode_block(self, k: int) -> torch.Tensor:
         """Run one k-step block on what the static buffers hold; returns its
         [B, k] tokens (the static output, not yet on the host)."""
-        if k not in self._out:
-            self._out[k] = torch.zeros((self.max_batch, k), dtype=torch.int32,
-                                       device=self.device)
-        if not self._use_graphs:
-            self._decode_body(k)
-        else:
-            graph = self.graphs.get(k)
-            if graph is None:
-                if self._graph_pool is None:
-                    self._graph_stream = torch.cuda.Stream(self.device)
-                    self._graph_pool = torch.cuda.graph_pool_handle()
-                # the graph reaches the engine through a weak proxy: the
-                # engine owns its graphs, and dropping the engine frees them
-                # and its pool at once, not at the next cycle collection
-                engine = weakref.proxy(self)
-                graph = self.graphs[k] = StepGraph(
-                    lambda: engine._decode_body(k), self.device,
-                    generator=None if self.per_request_sampling else self._generator,
-                    stream=self._graph_stream, pool=self._graph_pool,
-                )
-            graph.run()
+
+        def build():
+            engine = weakref.proxy(self)  # as in _prefill_entry
+            out = self._zeros(torch.int32, self.max_batch, k)
+            return {}, lambda: engine._decode_body(k, out), out
+
+        out = self.graphs(("decode", k), build, use_graph=self._use_graphs)
         self.forwards["decode"] += k
-        return self._out[k]
+        return out
 
     def _dispatch_block(self, chained=None):
         """Queue one k-step decode block; returns it unfetched.
@@ -789,17 +787,17 @@ class ServingEngine:
         # into the same static buffer), and the copies into the inputs come
         # after the block in flight has read them.
         dev = self._dev
-        self._to_device(self.tables, dev["tables"])
-        self._to_device(lengths, dev["lengths"])
-        self._to_device(self.last_tokens, dev["tokens"])
+        copy_to_static(dev["tables"], self.tables)
+        copy_to_static(dev["lengths"], lengths)
+        copy_to_static(dev["tokens"], self.last_tokens)
         if chained is not None:
-            self._to_device(chain_mask, dev["chain"])
+            copy_to_static(dev["chain"], chain_mask)
             dev["tokens"].copy_(torch.where(dev["chain"], chained["out"][:, -1],
                                             dev["tokens"]))
         if self.per_request_sampling:
             for name, arr in (("temp", self.row_temp), ("topk", self.row_topk),
                               ("topp", self.row_topp), ("seed", self.row_seed)):
-                self._to_device(arr, dev[name])
+                copy_to_static(dev[name], arr)
         out = self._decode_block(k)
         return {
             "out": out,
@@ -846,7 +844,6 @@ class ServingEngine:
                     return (cont + [cont[-1]] * k)[:k]
         return [context[-1]] * k
 
-    @torch.no_grad()
     def _spec_step(self) -> None:
         kp1 = self.spec_k + 1
         margin = min(
@@ -872,14 +869,10 @@ class ServingEngine:
         # at positions >= the corrected length and are overwritten before
         # they come into range
         self.forwards["verify"] += 1
-        cache = self._cache(self._to_device(self.tables),
-                            self._to_device(self.lengths))
-        tokens = self._to_device(drafts)
-        logits, _, _ = self.model(
-            tokens, padding_mask=torch.ones_like(tokens, dtype=torch.bool),
-            paged_cache=cache,
-        )
-        nxt = self._wait(self._fetch(torch.argmax(logits, dim=-1).to(torch.int32)))
+        nxt = self.graphs(("verify",), self._verify_entry,
+                          dict(tables=self.tables, lengths=self.lengths, drafts=drafts),
+                          use_graph=self._use_graphs)
+        nxt = self._wait(self._fetch(nxt))
         for row, req in enumerate(self.row_request):
             if req is None or req.done:
                 continue
@@ -897,6 +890,27 @@ class ServingEngine:
                     self.spec_accepted += 1
                     continue
                 break  # the first correction ends this row's window
+
+    def _verify_entry(self):
+        """The verify forward's buffers (the decode blocks' tables and
+        lengths, which spec_k never runs in blocks, and its own drafts), body
+        and [B, spec_k + 1] output: the forward, then the greedy tokens."""
+        engine = weakref.proxy(self)  # as in _prefill_entry
+        kp1 = self.spec_k + 1
+        bufs = dict(tables=self._dev["tables"], lengths=self._dev["lengths"],
+                    drafts=self._zeros(torch.int32, self.max_batch, kp1))
+        nxt = self._zeros(torch.int32, self.max_batch, kp1)
+
+        @torch.no_grad()
+        def body():
+            tokens = bufs["drafts"]
+            logits, _, _ = engine.model(
+                tokens, padding_mask=torch.ones_like(tokens, dtype=torch.bool),
+                paged_cache=engine._cache(bufs["tables"], bufs["lengths"]),
+            )
+            nxt.copy_(torch.argmax(logits, dim=-1))
+
+        return bufs, body, nxt
 
     def _maybe_finish(self, row: int, req: Request, tok: int) -> None:
         hit_eos = self.eos_token_id is not None and tok == self.eos_token_id

@@ -9,7 +9,8 @@ mixed-label smoothed cross-entropy, the backward and the (accumulated)
 optimizer update, eagerly.  The step's ``rng`` is an int seed: the
 augmentation, the pixel battery and the dropout masks each draw from a
 generator seeded from it (not JAX's bits; the packages agree given the
-same draws, and with dropout 0).
+same draws, and with dropout 0).  The eval step replays a CUDA graph per
+batch shape on the card (:func:`make_vision_eval_step`).
 
 The optimizer is optax's chain, written out: ``clip_by_global_norm`` (the
 plain clip: no skip on a non-finite norm) -> ``adamw`` on the epoch
@@ -31,6 +32,7 @@ from torch.func import functional_call
 
 from vats_tpu_torch.data.augmentations import random_augmentation
 from vats_tpu_torch.data.vision_data import IMAGENET_MEAN, IMAGENET_STD
+from vats_tpu_torch.inference.graphs import GraphSet
 from vats_tpu_torch.nn.dropout import mask_seed
 from vats_tpu_torch.train.optimizer import (
     AdamW,
@@ -183,21 +185,59 @@ def make_vision_train_step(model, args: VisionTrainingArgs, num_classes: int) ->
     return step
 
 
+def eval_metrics(model, params, images: torch.Tensor, labels: torch.Tensor,
+                 num_classes: int) -> torch.Tensor:
+    """[loss, acc] (fp32) of a deterministic forward of ``model`` with
+    ``params`` (a name -> tensor mapping) on a batch on its device: the eval
+    step's body, run eagerly."""
+    with torch.no_grad():
+        logits = functional_call(model, dict(params), (images,), dict(deterministic=True))
+        loss = smoothed_ce(logits, labels, 0.0, num_classes)
+        acc = (logits.argmax(dim=-1) == labels).float().mean()
+        return torch.stack([loss, acc])
+
+
 def make_vision_eval_step(model, num_classes: int) -> Callable:
-    """``step(params, batch) -> {'loss', 'acc'}``: a deterministic forward of
-    ``model`` with ``params`` (a name -> tensor mapping)."""
+    """``step(params, batch) -> {'loss', 'acc'}``: :func:`eval_metrics` on
+    the batch (numpy or tensors).
+
+    On the card the step replays a CUDA graph per batch shape (the images'
+    shape and dtype and the labels'; an epoch's smaller last batch gets one
+    of its own), the counterpart of the JAX step's ``jax.jit``: the batch is
+    copied into the shape's static buffers and the metrics read from its
+    static output.  A graph reads the parameters it was captured with, in
+    place: an update in place (``TrainState.apply_gradients``) shows at the
+    next replay, and a call whose params are other tensors drops the graphs
+    and captures again.  On the CPU the same body runs eagerly.  The
+    step's ``graphs`` is its :class:`GraphSet`."""
+    graphs = GraphSet(model.device)
+    captured = {}  # name -> data_ptr of the params the graphs read
 
     def step(params, batch: Batch):
         dev = model.device
-        labels = _to_device(batch["labels"], dev)
-        with torch.no_grad():
-            logits = functional_call(model, dict(params),
-                                     (_to_device(batch["images"], dev),),
-                                     dict(deterministic=True))
-            loss = smoothed_ce(logits, labels, 0.0, num_classes)
-            acc = (logits.argmax(dim=-1) == labels).float().mean()
-        return {"loss": loss, "acc": acc}
+        images, labels = torch.as_tensor(batch["images"]), torch.as_tensor(batch["labels"])
+        ptrs = {name: p.data_ptr() for name, p in params.items()}
+        if ptrs != captured:
+            graphs.clear()
+            captured.clear()
+            captured.update(ptrs)
 
+        def build():
+            bufs = {name: torch.empty(x.shape, dtype=x.dtype, device=dev)
+                    for name, x in (("images", images), ("labels", labels))}
+            out = torch.empty((2,), dtype=torch.float32, device=dev)
+
+            def body():
+                out.copy_(eval_metrics(model, params, bufs["images"], bufs["labels"],
+                                       num_classes))
+
+            return bufs, body, out
+
+        key = (tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype)
+        out = graphs(key, build, dict(images=images, labels=labels)).clone()
+        return {"loss": out[0], "acc": out[1]}
+
+    step.graphs = graphs
     return step
 
 
