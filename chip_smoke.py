@@ -91,10 +91,16 @@ Phases:
            logits from an eager drive with equal tokens) and on the CPU
            (plain version); per-forward logit error and token agreement.
   train    the training step at the JAX bench's ``medium_dense`` tier (d1440,
-           20 layers, vocab 65536, B=16, T=512, remat 'dots', fused CE 128,
-           bf16 AdamW mu): one warm-up step, timed steps with launch counts
-           of K2', K5a and K5b, a profiled step; then ``medium_moe`` (d768,
-           12 layers, 8 experts, top-2) for a few steps.
+           20 layers, vocab 65536, B=16, T=512, dropout 0.1, remat 'dots',
+           fused CE 128, bf16 AdamW mu) and ``medium_moe`` (d768, 12 layers,
+           8 experts, top-2) through ``make_train_step``: the first call
+           (eager warm-up and capture), then the step from its CUDA graph
+           and eagerly in turns from one snapshot of the state restored in
+           place (``train_turns``): params, moments, counters and metrics
+           bit-equal; K2' 2 x layers, K5a and K5b once a layer and K2 never,
+           a replay's tally and every turn's counts; ``state.step`` one a
+           call; ms a step, tokens/s, idle share, capture seconds, peak and
+           reserved memory; a profiled step of each path.
   train_parity  2 layers at full width, B=2, T=512, dropout 0: three train
            steps on the card (flash kernels) and on the CPU from the same
            weights and batch; loss, grad norm and params after each step.
@@ -105,36 +111,37 @@ Phases:
            at nlp_medium's attention shape over T = 4096 (tl 2048, B = 2,
            bf16), causal without and with left_window 384, forward and
            backward against single-process flash on the card (CP_REL_L2);
-           one sequence-parallel medium_dense step at full width and depth
-           (T = 4096, dropout 0) with 'ring' and with 'ulysses' against the
+           one sequence-parallel medium_dense step at full width, CP_LAYERS =
+           10 of its 20 layers (T = 4096, dropout 0) with 'ring' and with 'ulysses' against the
            single-process step (train_parity's limits, leaf by leaf).  Exact
            launch gates a rank: K2', K5a, K5b = live hops of ``_ring_steps``
-           (x 20 layers, K2' x 2 under remat in the step), none under
+           (x layers, K2' x 2 under remat in the step), none under
            Ulysses.  Step walls, bytes sent, the seconds in collectives
            (waiting for queued device work, host copies, exchange) and
            peak memory per rank, beside the card's name and power limit.
   sharded  SH_RANKS = 4 ranks spawned on cuda:0 over gloo, host-staged (the
            compute mode printed first; an exclusive mode fails the phase):
-           one medium_moe step at full width and depth (d768, 12 layers,
-           vocab 65536, E8 top-2, sort dispatch, capacity 1.25, remat 'dots',
-           dropout 0, bf16 AdamW mu, B=4, T=512) on fsdp=2 x expert=2 and on
+           one medium_moe step at full width, SH_LAYERS = 4 of its 12
+           layers (d768, vocab 65536, E8 top-2, sort dispatch, capacity
+           1.25, remat 'dots', dropout 0, bf16 AdamW mu, B=4, T=512) on
+           fsdp=2 x expert=2 and on
            fsdp=2 x tensor=2, in fp32 and in the config's bf16, each against
            the single-process step from the same weights and batch
            (train_parity's limits on the loss and grad norm; the dropped
            assignments a layer equal, or apart by at most the assignments
            that near-tie router flips move; in fp32 also the per-leaf
            gradients and change, gathered to rank 0: ``SH_DTYPES`` says why
-           bf16 is not held leaf by leaf); exact per-rank gates K2' 24, K5a
-           12, K5b 12 a step; resident bytes a rank asserted equal to the
+           bf16 is not held leaf by leaf); exact per-rank gates K2' 2 x
+           layers, K5a and K5b once a layer a step; resident bytes a rank asserted equal to the
            specs' sum, beside peak memory a rank and one process's; step
            walls, bytes sent per mesh axis and the collectives' seconds a
            rank.
   pipeline  PP_RANKS = 4 ranks spawned on cuda:0 over gloo, host-staged (the
            compute mode printed first; an exclusive mode fails the phase), one
-           GPipe stage a rank on a ``stage`` axis: medium_dense at full width
-           and depth (d1440, 20 layers, 24/8 heads of 60, vocab 65536, dropout
-           0, no remat; 5 blocks a rank, ``stage_model``), B=8, T=512, through
-           ``pipeline_text_lm_apply``, a masked CE and one AdamW update a
+           GPipe stage a rank on a ``stage`` axis: medium_dense at full width,
+           PP_LAYERS = 8 of its 20 layers (d1440, 24/8 heads of 60, vocab
+           65536, dropout 0, no remat; 2 blocks a rank, ``stage_model``),
+           B=8, T=512, through ``pipeline_text_lm_apply``, a masked CE and one AdamW update a
            step.  fp32 at M=4 against the single-process step from the same
            weights and batch (run first on rank 0): logits, loss, every
            rank's own layers and the replicated leaves leaf by leaf
@@ -172,9 +179,12 @@ Phases:
            share, peak and reserved memory, capture seconds.  ViT-2D
            medium training through ``make_vision_train_step`` (1000 classes,
            dropout 0.2, remat, 4 micro-steps of B=32 with mixup / cutmix and
-           the pixel battery on raw images on the card): K2' 32, K5a 16 and
-           K5b 16 a micro-step, K2 16 in the eval step, exactly; images/s, ms
-           a micro-step, peak memory, idle share, an eval loss that the
+           the pixel battery on raw images on the card), one CUDA graph a
+           micro-step position, graph and eager in turns from one snapshot
+           (``train_turns``, bit-equal): K2' 32, K5a 16 and K5b 16 a
+           micro-step (each graph's tally and every turn), K2 16 in the
+           eval step, exactly; images/s, ms a micro-step, peak and reserved
+           memory, idle share, capture seconds, an eval loss that the
            update moves (the eval step replayed from its graph, equal to
            eager bit for bit).  ViT-3D xsmall (B=4, 32 frames at 128^2) and
            large (B=4, 8 frames at 224^2) forwards with no flash launch (the
@@ -191,7 +201,9 @@ Phases:
            (B=4, 16x16, temperature 0.9, top-k 64), graph and eager in turns
            (equal tokens), each profiled; the ``ImageGenerationPipeline`` on
            the 64x64 grid (4096 graph steps); ``ImageGenTrainer`` steps at
-           256 px, B=2, and an ``evaluate``; the image-gen script for 3 steps.
+           256 px, B=2, from their graph and eagerly in turns (bit-equal,
+           cuDNN's deterministic algorithms), and an ``evaluate`` from its
+           graph (equal to eager); the image-gen script for 3 steps.
            Exact gates: K3's table mode (and K1 on the paged path) once a
            layer a decode forward, K2' 24, K5a 12, K5b 12 a train step, K2
            12 an evaluation; tokens/s, idle share, peak memory.  Graph and
@@ -211,7 +223,8 @@ Phases:
            frames of 8x8); the ``VideoGenerationPipeline`` over 2 latent
            frames; ``VideoTokenTrainer`` steps at B=1 over 15 latent frames
            (remat, dropout 0.2) and ``VQVAE3DTrainer`` steps on a 30-frame
-           128x128 clip.  Exact gates: K3's append mode once a layer a
+           128x128 clip, each from its graph and eagerly in turns
+           (bit-equal).  Exact gates: K3's append mode once a layer a
            cached forward (read steps too), nothing else; tokens/s, kernels
            and device ms a step, idle share, peak memory.
   video_gen_parity  video_gen_large's width at 2 layers on a 4x4 grid, card
@@ -247,6 +260,8 @@ device, or outside a checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import io
 import json
 import os
@@ -1639,97 +1654,323 @@ def train_args(**kw):
     return TrainingArgs(**base)
 
 
+TRAIN_TURN_STEPS = 3  # steps a turn of train_turns (graph, eager, eager, graph)
+
+
+def tally_names(step_graph) -> dict:
+    """{kernel wrapper's name: launches} a replay of ``step_graph`` adds."""
+    return {fn.__name__: n for fn, n in step_graph.tally.items()}
+
+
+def tally_gate(label, step_graph, want, phase):
+    """Hold the launches a replay of ``step_graph`` adds to ``want``."""
+    got = tally_names(step_graph)
+    _gate(f"{label} (a replay's tally)", {k: got.get(k, 0) for k in want}, want, phase=phase)
+
+
+def train_turns(label, graph_sets, tensors, run, fns, want, n, per_step, host=None,
+                exact=None):
+    """A train program from its graphs and eagerly in turns (graph, eager,
+    eager, graph), each turn ``n`` steps from one snapshot of the state,
+    restored in place: ``tensors`` (the state's and the model's buffers)
+    and ``host`` (get, set) of host state (the accumulation position, a
+    trainer's seed generator).  ``run(n)`` runs n steps and returns their
+    metrics as a list of numbers or 0-d tensors (read after the timed
+    wall); ``graph_sets`` are the step's
+    ``TrainGraphs`` (``use_graph`` off for an eager turn).  Gates: each
+    turn's launches of ``fns`` are n x ``want``; each turn's state and
+    metrics are bit-equal to the first graph turn's.
+
+    ``exact``: a context (``cudnn_deterministic``) without which the two
+    paths are not bit-equal.  The gated turns then run in it, from graphs
+    captured in it, and the timed turns run after them under the default
+    setting, from graphs captured again (launch gates only).  Returns
+    {path: {ms a step, rate (per_step units a second), peak and reserved
+    GB}} of the timed turns and the launches of a graph turn."""
+    import contextlib
+
+    import torch
+
+    snap = [t.detach().clone() for t in tensors]
+    saved = host[0]() if host else None
+    ref, launches = {}, {}
+
+    def restore(use_graph):
+        with torch.no_grad():
+            for t, x in zip(tensors, snap):
+                t.copy_(x)
+        if host:
+            host[1](saved)
+        for g in graph_sets:
+            g.use_graph = use_graph
+
+    def recapture():
+        """Drop the graphs and capture them again (a step from the
+        snapshot), so that what follows replays graphs captured under the
+        current setting."""
+        for g in graph_sets:
+            g.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        restore(True)
+        run(1)
+        torch.cuda.synchronize()
+
+    def turn(use_graph, check):
+        path = "graph" if use_graph else "eager"
+
+        def go():
+            restore(use_graph)
+            torch.cuda.synchronize()
+            _zero(fns)
+            t0 = time.perf_counter()
+            metrics = run(n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            metrics = [float(x) for x in metrics]
+            got = launches[path] = _counts(fns)
+            _gate(f"{label} [{path}] {n} steps", got, {k: v * n for k, v in want.items()},
+                  phase="train")
+            require(all(np.isfinite(metrics)), f"{label} [{path}]: metrics {metrics}")
+            if not check:
+                pass
+            elif not ref:
+                ref["metrics"], ref["state"] = metrics, [t.detach().clone() for t in tensors]
+            else:
+                diff = [i for i, (t, r) in enumerate(zip(tensors, ref["state"]))
+                        if not torch.equal(t, r)]
+                require(metrics == ref["metrics"] and not diff,
+                        f"{label} [{path}]: not bit-equal to the first graph turn: metrics "
+                        f"{metrics} against {ref['metrics']}; {len(diff)} of {len(tensors)} "
+                        f"state tensors differ, the first at {diff[:4]} of shapes "
+                        f"{[tuple(tensors[i].shape) for i in diff[:4]]}")
+            return dict(ms=wall / n * 1e3, rate=per_step * n / wall), None
+
+        return go
+
+    with exact() if exact else contextlib.nullcontext():
+        if exact:
+            recapture()
+        turns = in_turns(label + (" (bit-equality)" if exact else ""),
+                         [("graph", turn(True, True)), ("eager", turn(False, True))])
+    if exact:
+        recapture()
+        turns = in_turns(label, [("graph", turn(True, False)), ("eager", turn(False, False))])
+    for g in graph_sets:
+        g.use_graph = True
+    nums = {}
+    for path in ("graph", "eager"):
+        rows = [x for x, _ in turns[path]]
+        ms = float(np.mean([x["ms"] for x in rows]))
+        nums[path] = dict(ms=ms, rate=per_step / (ms / 1e3),
+                          peak_gb=max(x["peak_mem_gb"] for x in rows),
+                          reserved_gb=max(x["reserved_gb"] for x in rows))
+    del snap, ref
+    return nums, launches["graph"]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms: its default convolution backward
+    may add with atomics, which no two runs share, so graph and eager are
+    compared bit for bit in this context (and timed outside it)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def report_turns(label, nums, busy, unit, capture_s):
+    """One line a path: ms a step, the rate, idle share (one profiled step's
+    busy time over the timed mean), peak and reserved memory; then the
+    capture seconds and graph/eager."""
+    for path in ("graph", "eager"):
+        x = nums[path]
+        idle = None if busy.get(path) is None else 1 - busy[path] / (x["ms"] / 1e3)
+        x["idle"] = idle
+        log(f"{label} [{path}]: ms_per_step={x['ms']:.1f} {unit}={x['rate']:.1f} "
+            f"device_busy_s={_fmt(busy.get(path), 4)} idle_share="
+            f"{'not measured' if idle is None else f'{idle:.3f}'} (one profiled step) "
+            f"peak_mem_gb={x['peak_gb']:.2f} reserved_gb={x['reserved_gb']:.2f}")
+    log(f"{label}: capture_s={capture_s:.3f}; {unit} graph/eager "
+        f"{nums['graph']['rate'] / nums['eager']['rate']:.3f}; state, moments, counters "
+        f"and metrics bit-equal between graph and eager after every turn")
+
+
+def dropout_census(label, step, state, batch):
+    """The dropout masks of one eager step (forward and remat recompute), by
+    shape, and the device time of ``keep_mask`` alone at each shape: what
+    the device-seeded masks cost a step (the select and scale pass apart)."""
+    import torch
+
+    from vats_tpu_torch.nn import dropout as D
+
+    shapes = []
+    real = D.keep_mask
+
+    def counted(seed, shape, rate, **kw):
+        shapes.append((tuple(shape), rate))
+        return real(seed, shape, rate, **kw)
+
+    D.keep_mask = counted
+    step.graphs.use_graph = False
+    try:
+        step(state, batch, 202)
+    finally:
+        D.keep_mask = real
+        step.graphs.use_graph = True
+    seed = torch.tensor(5, dtype=torch.int64, device="cuda")
+    per = {}
+    for shape, rate in sorted(set(shapes)):
+        per[(shape, rate)] = device_ms(lambda: real(seed, shape, rate, layer=0, site=1,
+                                                    device="cuda"), iters=10)
+    total = sum(per[key] for key in shapes)
+    log(f"train: {label}: dropout masks {len(shapes)} a step (forward and remat "
+        f"recompute); keep_mask device ms each "
+        + ", ".join(f"{list(sh)} rate {r}: {ms:.4f}" for (sh, r), ms in per.items())
+        + f"; {total:.2f} device ms a step")
+
+
 def run_train(counters):
+    """medium_dense and medium_moe through ``make_train_step``: the first
+    call (the warm-up, a real step, and the capture), then graph and eager
+    in turns from one snapshot (``train_turns``), each path profiled once.
+    Returns the launches of a graph turn (TRAIN_TURN_STEPS steps)."""
+    import math
+
     import torch
 
     from vats_tpu_torch.data import synthetic_lm_batches
     from vats_tpu_torch.models import TextLM
     from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+    from vats_tpu_torch.train.step_graphs import state_tensors
 
-    B, T, timed_steps = TRAIN_B, TRAIN_T, 5
-    cfg = train_cfg("medium_dense")
+    B, T, n = TRAIN_B, TRAIN_T, TRAIN_TURN_STEPS
     targs = train_args()
-    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = None
+    for tier in ("medium_dense", "medium_moe"):
+        cfg = train_cfg(tier)
+        L = cfg.num_layers
+        t0 = time.perf_counter()
+        model = TextLM(cfg, device="cuda", seed=0)
+        state = create_train_state(model, create_optimizer(targs, 1000))
+        step = make_train_step(model, targs)
+        n_params = sum(p.numel() for p in model.parameters())
+        batches = list(synthetic_lm_batches(gen, vocab_size=cfg.vocab_size, batch_size=B,
+                                            seq_len=T, num_batches=n + 2))
+        torch.cuda.synchronize()
+        log(f"train: {tier} d{cfg.d_model}/{L}L E{cfg.num_experts} top-{cfg.top_k} vocab "
+            f"{cfg.vocab_size} {n_params / 1e9:.3f}B params, B={B} T={T}, dropout "
+            f"{cfg.dropout}, remat {cfg.remat_policy}, fused CE {targs.fused_ce_chunk}, mu "
+            f"{targs.adam_mu_dtype}; built in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0], 100)  # the warm-up step and the capture
+        torch.cuda.synchronize()
+        require(int(state.step) == 1 and len(step.graphs) == 1,
+                f"train: {tier}: after the first call step {int(state.step)}, "
+                f"{len(step.graphs)} graphs")
+        graph = step.graphs[next(iter(step.graphs))]
+        want = {"flash_attention_lse": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+                "flash_attention": 0}
+        tally_gate(f"{tier} graph", graph, want, "train")
+        log(f"train: {tier}: first call (eager warm-up + capture) "
+            f"{time.perf_counter() - t0:.2f}s, capture_s={graph.capture_s:.3f}, loss "
+            f"{float(m['loss']):.4f}; a replay's tally {json.dumps(tally_names(graph))}")
+
+        def run(k):
+            ms = [step(state, batches[1 + i], 101 + i)[1] for i in range(k)]
+            return [x[key] for x in ms for key in sorted(x)]
+
+        nums, got = train_turns(f"train: {tier}", [step.graphs],
+                                state_tensors(state, list(model.buffers())), run, counters,
+                                want, n, B * T)
+        require(int(state.step) == 1 + n and int(state.skipped_steps) == 0,
+                f"train: {tier}: step {int(state.step)} after 1 + {n} calls, skipped "
+                f"{int(state.skipped_steps)}")
+        metrics = [step(state, batches[-1], 200)[1]]
+        aux = float(metrics[0]["aux_loss"])
+        require(math.isfinite(aux) and (aux > 0) == (cfg.num_experts > 1),
+                f"train: {tier}: aux loss {aux}")
+        busy = {}
+        for path, use_graph in (("graph", True), ("eager", False)):
+            step.graphs.use_graph = use_graph
+            busy[path] = profile_breakdown(f"train {tier} step [{path}]",
+                                           lambda: step(state, batches[-1], 201), top=12,
+                                           also=("flash_fwd", "flash_bwd"))
+        step.graphs.use_graph = True
+        report_turns(f"train: {tier}", nums, busy, "tokens_per_s", graph.capture_s)
+        dropout_census(tier, step, state, batches[-1])
+        log(f"train: {tier}: launches over a graph turn of {n} steps {json.dumps(got)} = per "
+            f"step K2' {got['flash_attention_lse'] // n} ({L} forward + {L} recomputed under "
+            f"remat), K5a {got['flash_bwd_dkv'] // n}, K5b {got['flash_bwd_dq'] // n}; "
+            f"state.step {int(state.step)}; loss {float(metrics[0]['loss']):.4f} aux "
+            f"{aux:.4f} grad norm {float(metrics[0]['grad_norm']):.4f}")
+        out = out or got
+        del model, state, step, batches, graph
+        torch.cuda.empty_cache()
+    run_train_accum(counters, gen)
+    return out
+
+
+TRAIN_ACCUM = 4  # TrainingArgs' default grad_accum_steps
+
+
+def run_train_accum(counters, gen):
+    """medium_dense at grad_accum_steps=4, the default: one graph a window
+    position, against eager in turns of one window (``train_turns``' gates);
+    the peak and reserved memory of both paths, which says what four
+    captures cost beside eager (they share one gradient buffer a parameter
+    and one pool)."""
+    import torch
+
+    from vats_tpu_torch.data import synthetic_lm_batches
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+    from vats_tpu_torch.train.step_graphs import (
+        accumulation_position,
+        set_accumulation_position,
+        state_tensors,
+    )
+
+    B, T, k = TRAIN_B, TRAIN_T, TRAIN_ACCUM
+    targs = train_args(grad_accum_steps=k)
+    cfg = train_cfg("medium_dense")
+    L = cfg.num_layers
     model = TextLM(cfg, device="cuda", seed=0)
     state = create_train_state(model, create_optimizer(targs, 1000))
     step = make_train_step(model, targs)
-    n_params = sum(p.numel() for p in model.parameters())
-    gen = torch.Generator(device="cuda").manual_seed(1)
     batches = list(synthetic_lm_batches(gen, vocab_size=cfg.vocab_size, batch_size=B,
-                                        seq_len=T, num_batches=timed_steps + 2))
-    torch.cuda.synchronize()
-    log(f"train: medium_dense d{cfg.d_model}/{cfg.num_layers}L vocab {cfg.vocab_size} "
-        f"{n_params / 1e9:.3f}B params, B={B} T={T}, remat {cfg.remat_policy}, fused "
-        f"CE {targs.fused_ce_chunk}, mu {targs.adam_mu_dtype}; built in "
-        f"{time.perf_counter() - t0:.1f}s")
+                                        seq_len=T, num_batches=k))
     t0 = time.perf_counter()
-    state, m = step(state, batches[0], 100)  # warm-up
+    for i, batch in enumerate(batches):
+        step(state, batch, 300 + i)  # each position's warm-up step and capture
     torch.cuda.synchronize()
-    log(f"train: warm-up step {time.perf_counter() - t0:.2f}s loss "
-        f"{float(m['loss']):.4f}")
+    require(len(step.graphs) == k and int(state.step) == k
+            and accumulation_position(state) == 0,
+            f"train: medium_dense accumulation: {len(step.graphs)} graphs, step "
+            f"{int(state.step)}, position {accumulation_position(state)} after {k} calls")
+    log(f"train: medium_dense grad_accum_steps={k}: first window (four warm-ups and "
+        f"captures) {time.perf_counter() - t0:.2f}s")
+    want = {"flash_attention_lse": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+            "flash_attention": 0}
 
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    metrics = []
-    t0 = time.perf_counter()
-    for i in range(timed_steps):
-        state, m = step(state, batches[1 + i], 101 + i)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {c.__name__: c.launches for c in counters}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [float(m["loss"]) for m in metrics]
-    norms = [float(m["grad_norm"]) for m in metrics]
-    L = cfg.num_layers
-    want = {"flash_attention_lse": 2 * L * timed_steps, "flash_bwd_dkv": L * timed_steps,
-            "flash_bwd_dq": L * timed_steps, "flash_attention": 0}
-    for name, n in want.items():
-        if counts.get(name) != n:
-            raise AssertionError(f"train: {name} launched {counts.get(name)} times, "
-                                 f"expected {n}")
-    import math
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"train: non-finite loss or grad norm {losses} {norms}")
-    require(int(state.step) == timed_steps + 1 and int(state.skipped_steps) == 0,
-            "train: step or skip counters wrong")
-    ms_step = wall / timed_steps * 1e3
-    log(f"train: launches over {timed_steps} steps {json.dumps(counts)} = per step "
-        f"K2' {counts['flash_attention_lse'] // timed_steps} (20 forward + 20 "
-        f"recomputed under remat), K5a {counts['flash_bwd_dkv'] // timed_steps}, "
-        f"K5b {counts['flash_bwd_dq'] // timed_steps}")
-    log(f"train: losses {[round(x, 4) for x in losses]} grad norms "
-        f"{[round(x, 4) for x in norms]}")
-    log(f"train: ms_per_step={ms_step:.1f} tokens_per_s={B * T / (ms_step / 1e3):.1f} "
-        f"peak_mem_gb={peak_gb:.2f}")
-    profile_breakdown("train step", lambda: step(state, batches[-1], 200), top=12,
-                      also=("flash_fwd", "flash_bwd"))
+    def run(n):
+        ms = [step(state, batches[i % k], 310 + i)[1] for i in range(n)]
+        return [x[key] for x in ms for key in sorted(x)]
+
+    nums, _ = train_turns(f"train: medium_dense grad_accum_steps={k}", [step.graphs],
+                          state_tensors(state, list(model.buffers())), run, counters, want,
+                          k, B * T, host=(lambda: accumulation_position(state),
+                                          lambda pos: set_accumulation_position(state, pos)))
+    report_turns(f"train: medium_dense grad_accum_steps={k}", nums, {}, "tokens_per_s",
+                 step.graphs.capture_s)
     del model, state, step, batches
     torch.cuda.empty_cache()
-
-    cfg = train_cfg("medium_moe")
-    model = TextLM(cfg, device="cuda", seed=0)
-    state = create_train_state(model, create_optimizer(targs, 1000))
-    step = make_train_step(model, targs)
-    n_params = sum(p.numel() for p in model.parameters())
-    report = []
-    t0 = time.perf_counter()
-    for i, batch in enumerate(synthetic_lm_batches(gen, vocab_size=cfg.vocab_size,
-                                                   batch_size=B, seq_len=T,
-                                                   num_batches=3)):
-        state, m = step(state, batch, 300 + i)
-        report.append((float(m["loss"]), float(m["aux_loss"])))
-    torch.cuda.synchronize()
-    if not all(math.isfinite(a) and math.isfinite(b) and b > 0 for a, b in report):
-        raise AssertionError(f"train: medium_moe loss/aux not finite: {report}")
-    log(f"train: medium_moe d{cfg.d_model}/{cfg.num_layers}L E{cfg.num_experts} "
-        f"top-{cfg.top_k} ({n_params / 1e9:.3f}B params) B={B} T={T}, 3 steps in "
-        f"{time.perf_counter() - t0:.2f}s: (loss, aux) "
-        f"{[(round(a, 4), round(b, 4)) for a, b in report]}")
-    del model, state, step
-    torch.cuda.empty_cache()
-    return counts
 
 
 # --- phase: train_parity ----------------------------------------------------
@@ -3412,6 +3653,11 @@ def run_vision(fns):
         make_vision_eval_step,
         make_vision_train_step,
     )
+    from vats_tpu_torch.train.step_graphs import (
+        accumulation_position,
+        set_accumulation_position,
+        state_tensors,
+    )
     from vats_tpu_torch.train.vision import eval_metrics
 
     k2, k2l, k5a, k5b = (fn.__name__ for fn in fns)
@@ -3468,27 +3714,33 @@ def run_vision(fns):
     ev_batch = {"images": torch.randn((B, 3, 384, 384), generator=gen, device="cuda"),
                 "labels": batches[0]["labels"]}
     t0 = time.perf_counter()
-    for i in range(VIT2D_ACCUM):  # warm-up round: one update
+    for i in range(VIT2D_ACCUM):  # first round: each position's warm-up and capture
         state, m = step(state, batches[i], i)
     torch.cuda.synchronize()
     log(f"vision: vit2d_medium training, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
         f"params (fp32, bf16 compute), dropout {cfg.dropout}, remat, accum {VIT2D_ACCUM} x "
-        f"B={B}; warm-up round {time.perf_counter() - t0:.2f}s")
+        f"B={B}; first round (each micro-step's warm-up and capture) "
+        f"{time.perf_counter() - t0:.2f}s, capture_s={step.graphs.capture_s:.3f}")
+    train_want = {k2l: 2 * L, k5a: L, k5b: L, k2: 0}
+    require(sorted(key[-1] for key in step.graphs) == list(range(VIT2D_ACCUM)),
+            f"vision: train graphs {list(step.graphs)}, want one a micro-step position")
+    for key, graph in step.graphs.items():
+        tally_gate(f"vit2d train graph at position {key[-1]}", graph, train_want, "vision")
     ev0 = float(eval_step(state.params, ev_batch)["loss"])  # warm-up and capture
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero(fns)
-    metrics = []
-    t0 = time.perf_counter()
-    for i in range(VIT2D_ACCUM):
-        state, m = step(state, batches[VIT2D_ACCUM + i], 100 + i)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    got = _vision_gate("vit2d training round", fns,
-                       {k2l: 2 * L * VIT2D_ACCUM, k5a: L * VIT2D_ACCUM,
-                        k5b: L * VIT2D_ACCUM, k2: 0})
+    last = {}
+
+    def run(k):
+        ms = last["metrics"] = [step(state, batches[VIT2D_ACCUM + i], 100 + i)[1]
+                                for i in range(k)]
+        return [x[key] for x in ms for key in sorted(x)]
+
+    nums, got = train_turns(
+        "vision: vit2d training round", [step.graphs],
+        state_tensors(state, list(model.buffers())), run, fns, train_want, VIT2D_ACCUM, B,
+        host=(lambda: accumulation_position(state),
+              lambda pos: set_accumulation_position(state, pos)))
+    metrics = last["metrics"]
     _zero(fns)
     ev1 = eval_step(state.params, ev_batch)  # a replay, on the updated params
     ev1_loss = float(ev1["loss"])
@@ -3510,13 +3762,18 @@ def run_vision(fns):
         f"{got[k2l] // VIT2D_ACCUM} ({L} forward + {L} recomputed), K5a "
         f"{got[k5a] // VIT2D_ACCUM}, K5b {got[k5b] // VIT2D_ACCUM}; eval step K2 {L} a graph replay "
         f"(equal to eager bit for bit; capture_s={eval_step.graphs.capture_s:.3f})")
-    log(f"vision: vit2d training: ms_per_micro_step={wall / VIT2D_ACCUM * 1e3:.1f} "
-        f"images_per_s={VIT2D_ACCUM * B / wall:.1f} peak_mem_gb={peak:.2f}; losses "
-        f"{[round(v, 4) for v in losses]} lam {lams} grad norm (boundary) {norm:.4f}; eval "
-        f"loss before the round's update {ev0:.5f} after {ev1_loss:.5f} acc "
-        f"{float(ev1['acc']):.4f}")
-    profile_breakdown("vit2d training micro-step", lambda: step(state, batches[0], 200),
-                      top=10, also=("flash",))
+    busy = {}
+    for path, use_graph in (("graph", True), ("eager", False)):
+        step.graphs.use_graph = use_graph
+        busy[path] = profile_breakdown(f"vit2d training micro-step [{path}]",
+                                       lambda: step(state, batches[0], 200), top=10,
+                                       also=("flash",))
+    step.graphs.use_graph = True
+    report_turns("vision: vit2d training (a micro-step)", nums, busy, "images_per_s",
+                 step.graphs.capture_s)
+    log(f"vision: vit2d training: losses {[round(v, 4) for v in losses]} lam {lams} grad "
+        f"norm (boundary) {norm:.4f}; eval loss before the round's update {ev0:.5f} after "
+        f"{ev1_loss:.5f} acc {float(ev1['acc']):.4f}")
     del model, state, step, eval_step, batches, ev_batch, metrics
     torch.cuda.empty_cache()
 
@@ -3699,6 +3956,7 @@ def run_image_gen(fns):
     from vats_tpu_torch.models import AutoregressiveImageTransformer
     from vats_tpu_torch.scripts.image_gen import train as image_gen_script
     from vats_tpu_torch.train import ImageGenTrainer, ImageGenTrainingArgs
+    from vats_tpu_torch.train.step_graphs import state_tensors
 
     (dense_t, paged_t, k1, k2, k2l, k5a, k5b, dense_p, paged_p, append) = (
         fn.__name__ for fn in fns)
@@ -3822,38 +4080,54 @@ def run_image_gen(fns):
     step_want = dict(none)
     step_want.update({k2l: 2 * L, k5a: L, k5b: L})
     _zero(fns)
-    first = trainer.train_step(batch())  # warm-up (cuBLAS, allocator)
+    first = trainer.train_step(batch())  # the warm-up step and the capture
     _image_gate("first train step", fns, step_want)
+    graph = trainer.graphs[next(iter(trainer.graphs))]
+    tally_gate("image_gen train graph", graph, step_want, "image_gen")
+    del graph  # train_turns captures again
     batches = [batch() for _ in range(IMG_TRAIN_STEPS)]
-    _zero(fns)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    metrics = [trainer.train_step(bt) for bt in batches]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    got = _image_gate(f"{IMG_TRAIN_STEPS} train steps", fns,
-                      {k: v * IMG_TRAIN_STEPS for k, v in step_want.items()})
-    require(all(np.isfinite(m["loss"]) for m in metrics), f"image_gen: train loss {metrics}")
-    busy = profile_breakdown("image_gen train step", lambda: trainer.train_step(batches[0]),
-                             top=8, also=("flash",))
+    last = {}
+
+    def run(k):
+        ms = last["metrics"] = [trainer.train_step(bt) for bt in batches[:k]]
+        return [m[key] for m in ms for key in sorted(m)]
+
+    nums, got = train_turns(
+        "image_gen: trainer", [trainer.graphs],
+        state_tensors(trainer.state, list(trainer.model.buffers())), run, fns, step_want,
+        IMG_TRAIN_STEPS, IMG_TRAIN_B,
+        host=(trainer._seeds.get_state, trainer._seeds.set_state), exact=cudnn_deterministic)
+    metrics = last["metrics"]
+    busy = {}
+    for path, use_graph in (("graph", True), ("eager", False)):
+        trainer.graphs.use_graph = use_graph
+        busy[path] = profile_breakdown(f"image_gen train step [{path}]",
+                                       lambda: trainer.train_step(batches[0]), top=8,
+                                       also=("flash",))
+    trainer.graphs.use_graph = True
     ev_want = dict(none)
     ev_want[k2] = L
-    _zero(fns)
-    ev = trainer.evaluate(iter([batches[0]]), max_batches=1)
-    torch.cuda.synchronize()
-    _image_gate("evaluate", fns, ev_want)
+    with cudnn_deterministic():  # graph and eager bit for bit
+        _zero(fns)
+        ev = trainer.evaluate(iter([batches[0]]), max_batches=1)  # warm-up and capture
+        torch.cuda.synchronize()
+        _image_gate("evaluate", fns, ev_want)
+        _zero(fns)
+        ev_graph = trainer.evaluate(iter([batches[0]]), max_batches=1)  # a replay
+        _image_gate("evaluate (a graph replay)", fns, ev_want)
+        trainer.eval_graphs.use_graph = False
+        ev_eager = trainer.evaluate(iter([batches[0]]), max_batches=1)
+        trainer.eval_graphs.use_graph = True
+    require(ev_graph == ev_eager == ev and trainer.eval_graphs.replays == 1,
+            f"image_gen: evaluate from its graph {ev_graph}, eagerly {ev_eager}, first {ev}")
     require(np.isfinite(ev["loss"]), f"image_gen: eval loss {ev}")
-    ms = wall / IMG_TRAIN_STEPS * 1e3
-    log(f"image_gen: trainer image_gen_xsmall 256px B={IMG_TRAIN_B} (remat, dropout 0.2): "
-        f"ms_per_step={ms:.1f} steps_per_s={1e3 / ms:.3f} images_per_s="
-        f"{IMG_TRAIN_B * 1e3 / ms:.2f} peak_mem_gb={peak:.3f} device_busy_s (one profiled "
-        f"step)={_fmt(busy, 4)} idle share "
-        + (f"{1 - busy / (ms / 1e3):.3f}" if busy else "not measured")
-        + f"; launches {json.dumps(got)}; loss first {first['loss']:.4f} then "
-        + ", ".join(f"{m['loss']:.4f}" for m in metrics) + f"; evaluate {json.dumps(ev)}")
-    result["train_ms_per_step"] = ms
+    report_turns(f"image_gen: trainer image_gen_xsmall 256px B={IMG_TRAIN_B} (remat, "
+                 f"dropout 0.2)", nums, busy, "images_per_s", trainer.graphs.capture_s)
+    log(f"image_gen: trainer launches over a graph turn {json.dumps(got)}; loss first "
+        f"{first['loss']:.4f} then " + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+        + f"; evaluate {json.dumps(ev)} (from its graph, equal to eager; K2 {L} a replay)")
+    result["train_ms_per_step"] = nums["graph"]["ms"]
+    result["train_ms_per_step_eager"] = nums["eager"]["ms"]
     del trainer, batches
     torch.cuda.empty_cache()
 
@@ -3975,6 +4249,10 @@ def run_image_gen_parity():
     tcfg = image_gen_xsmall(num_layers=2, dropout=0.0, target_size=64, dtype="float32")
     targs = ImageGenTrainingArgs(seed=3)
     tg = ImageGenTrainer(tcfg, targs, num_training_steps=10, device="cuda")
+    # eager on the card: the quantizer hooks below read the step's tensors on
+    # the host, which no capture allows (the image_gen phase holds the
+    # trainer's graph to its eager step bit for bit)
+    tg.graphs.use_graph = False
     tc = ImageGenTrainer(tcfg, targs, num_training_steps=10,
                          variables={k: v.cpu() for k, v in tg.model.state_dict().items()},
                          device="cpu")
@@ -4382,6 +4660,7 @@ def run_video_gen(fns):
     from vats_tpu_torch.models import AutoregressiveVideoTransformer
     from vats_tpu_torch.ops.cache_append import append_token_inplace
     from vats_tpu_torch.train import VideoGenTrainingArgs, VideoTokenTrainer, VQVAE3DTrainer
+    from vats_tpu_torch.train.step_graphs import state_tensors
 
     none = {name: 0 for name in _counts(fns)}
     append = append_token_inplace.__name__
@@ -4497,28 +4776,33 @@ def run_video_gen(fns):
                                                device="cuda").to(torch.bfloat16)}
 
     _zero(fns)
-    first = trainer.train_step(batch())  # warm-up (cuBLAS, allocator)
+    first = trainer.train_step(batch())  # the warm-up step and the capture
     batches = [batch() for _ in range(VID_TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [trainer.train_step(bt) for bt in batches]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    got = _video_gate(f"{VID_TRAIN_STEPS + 1} token-trainer steps", fns, none)
-    require(all(np.isfinite(x) for x in [first] + losses), f"video_gen: train loss {losses}")
-    busy = profile_breakdown("video_gen token-trainer step", lambda: trainer.train_step(batches[0]),
-                             top=8)
-    ms = wall / VID_TRAIN_STEPS * 1e3
-    log(f"video_gen: VideoTokenTrainer video_gen_large B=1, {lat_t} latent frames "
-        f"({lat_t * hw} tokens; remat, dropout 0.2): ms_per_step={ms:.1f} tokens_per_s="
-        f"{lat_t * hw * 1e3 / ms:.1f} peak_mem_gb={peak:.3f} device_busy_s (one profiled "
-        f"step)={_fmt(busy, 4)} idle share "
-        + (f"{1 - busy / (ms / 1e3):.3f}" if busy else "not measured")
-        + f"; losses {first:.4f} then " + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; launches {json.dumps(got)}")
-    result["token_train_ms_per_step"] = ms
+    graph = trainer.graphs[next(iter(trainer.graphs))]
+    tally_gate("token trainer graph", graph, none, "video_gen")
+    del graph  # train_turns captures again
+
+    def run(k):
+        return [trainer.train_step(bt) for bt in batches[:k]]
+
+    nums, got = train_turns(
+        "video_gen: VideoTokenTrainer", [trainer.graphs],
+        state_tensors(trainer.state, list(trainer.model.buffers())), run, fns, none,
+        VID_TRAIN_STEPS, lat_t * hw, host=(trainer._seeds.get_state, trainer._seeds.set_state),
+        exact=cudnn_deterministic)
+    busy = {}
+    for path, use_graph in (("graph", True), ("eager", False)):
+        trainer.graphs.use_graph = use_graph
+        busy[path] = profile_breakdown(f"video_gen token-trainer step [{path}]",
+                                       lambda: trainer.train_step(batches[0]), top=8)
+    trainer.graphs.use_graph = True
+    report_turns(f"video_gen: VideoTokenTrainer video_gen_large B=1, {lat_t} latent frames "
+                 f"({lat_t * hw} tokens; remat, dropout 0.2)", nums, busy, "tokens_per_s",
+                 trainer.graphs.capture_s)
+    log(f"video_gen: VideoTokenTrainer first loss {first:.4f}; launches over a graph turn "
+        f"{json.dumps(got)}")
+    result["token_train_ms_per_step"] = nums["graph"]["ms"]
+    result["token_train_ms_per_step_eager"] = nums["eager"]["ms"]
     del trainer, batches
     torch.cuda.empty_cache()
 
@@ -4528,22 +4812,18 @@ def run_video_gen(fns):
     clips = [torch.rand((1, 3, tcfg.max_frames, px, px), generator=gen, device="cuda")
              for _ in range(VQ_TRAIN_STEPS + 1)]
     _zero(fns)
-    first = vq.train_step(clips[0])  # warm-up (cuDNN)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [vq.train_step(c) for c in clips[1:]]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = _video_gate("VQ-VAE trainer steps", fns, none)
-    require(all(np.isfinite(x) for x in [first] + losses), f"video_gen: VQ-VAE loss {losses}")
+    first = vq.train_step(clips[0])  # the warm-up step and the capture
+    nums, got = train_turns(
+        "video_gen: VQVAE3DTrainer", [vq.graphs],
+        state_tensors(vq.state, list(vq.model.buffers())),
+        lambda k: [vq.train_step(c) for c in clips[1:1 + k]], fns, none, VQ_TRAIN_STEPS, 1,
+        host=(vq._seeds.get_state, vq._seeds.set_state), exact=cudnn_deterministic)
     log(f"video_gen: VQVAE3DTrainer video_gen_large (d{tcfg.d_model} 3x3x3 convolutions over "
         f"a {lat_t}x{tcfg.latent_height}x{tcfg.latent_width} latent grid; clip "
-        f"1x3x{tcfg.max_frames}x{px}x{px}): ms_per_step="
-        f"{wall / VQ_TRAIN_STEPS * 1e3:.1f} peak_mem_gb="
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}; losses {first:.4f} then "
-        + ", ".join(f"{x:.4f}" for x in losses) + f"; launches {json.dumps(got)}")
-    result["vq_train_ms_per_step"] = wall / VQ_TRAIN_STEPS * 1e3
+        f"1x3x{tcfg.max_frames}x{px}x{px}): first loss {first:.4f}; launches {json.dumps(got)}")
+    report_turns("video_gen: VQVAE3DTrainer", nums, {}, "clips_per_s", vq.graphs.capture_s)
+    result["vq_train_ms_per_step"] = nums["graph"]["ms"]
+    result["vq_train_ms_per_step_eager"] = nums["eager"]["ms"]
     del vq, clips
     torch.cuda.empty_cache()
     log("video_gen: " + json.dumps(result))
@@ -4937,6 +5217,7 @@ def run_multimodal_parity():
 # --- phase: context_parallel ------------------------------------------------
 
 CP_RANKS, CP_B, CP_T = 2, 2, 4096  # nlp_medium's max_seq_len: tl = 2048 a rank
+CP_LAYERS = 10  # of medium_dense's 20: depth cut to keep the whole run in its time
 CP_WINDOWS = (-1, 384)  # no window; nlp_medium's own left_window
 # Ring against single-process flash over the whole sequence, both bf16 on the
 # card: the ring rounds each hop's output to bf16 before the fp32 merge and
@@ -5063,12 +5344,13 @@ def _cp_rank(rank, init_file, t_spawn):
         del shards, full, o, ref
     del q, k, v, do
 
-    # the sequence-parallel train step at medium_dense's full width and depth
+    # the sequence-parallel train step at medium_dense's full width, CP_LAYERS deep
     targs = train_args()
     batch = _cp_batch(train_cfg("medium_dense").vocab_size)
     keep = {}
     for mode in ("ring", "ulysses"):
-        cfg = train_cfg("medium_dense", max_seq_len=CP_T, dropout=0.0, context_parallel=mode)
+        cfg = train_cfg("medium_dense", max_seq_len=CP_T, dropout=0.0, context_parallel=mode,
+                        num_layers=CP_LAYERS)
         model = TextLM(cfg, device="cuda", seed=0)
         init, step, _ = make_sharded_train(model, targs, mesh, batch, num_training_steps=20)
         state = init()
@@ -5088,7 +5370,7 @@ def _cp_rank(rank, init_file, t_spawn):
         torch.cuda.empty_cache()
 
     if rank == 0:  # the single-process step on the whole batch, same weights
-        cfg = train_cfg("medium_dense", max_seq_len=CP_T, dropout=0.0)
+        cfg = train_cfg("medium_dense", max_seq_len=CP_T, dropout=0.0, num_layers=CP_LAYERS)
         model = TextLM(cfg, device="cuda", seed=0)
         state = create_train_state(model, create_optimizer(targs, 20))
         step = make_train_step(model, targs)
@@ -5227,6 +5509,7 @@ def run_context_parallel():
 
 SH_RANKS, SH_B, SH_T = 4, 4, 512
 SH_STEPS = 10  # the schedule's length: no warmup step, so step 0 moves the weights
+SH_LAYERS = 4  # of medium_moe's 12: depth cut to keep the whole run in its time
 # The step in fp32 first, then in bf16 (the config's own compute dtype).  Each
 # is held to its single-process step's loss and grad norm and dropped
 # assignments; the fp32 step also leaf by leaf (train_parity's limits): in
@@ -5342,7 +5625,8 @@ def _sh_rank(rank, init_file, t_spawn):
     fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
     out = {"start_s": time.perf_counter() - t_spawn, "single": {}, "meshes": {}}
     targs = train_args()
-    cfgs = {dt: train_cfg("medium_moe", dropout=0.0, dtype=dt) for dt in SH_DTYPES}
+    cfgs = {dt: train_cfg("medium_moe", dropout=0.0, dtype=dt, num_layers=SH_LAYERS)
+            for dt in SH_DTYPES}
     batch = _sh_batch(cfgs["bfloat16"].vocab_size)
 
     def routed(model):
@@ -5359,7 +5643,11 @@ def _sh_rank(rank, init_file, t_spawn):
             state = create_train_state(model, create_optimizer(targs, SH_STEPS))
             start = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
             torch.cuda.reset_peak_memory_stats()
-            state, m, counts, wall = _cp_step(make_train_step(model, targs), state,
+            step = make_train_step(model, targs)
+            # eagerly: the routers keep their routing as Python attributes,
+            # which a replay cannot update, so the graph refuses them
+            step.graphs.use_graph = False
+            state, m, counts, wall = _cp_step(step, state,
                                               {k: v.cuda() for k, v in batch.items()}, fns,
                                               f"sharded: single-process step {dt}")
             if dt == SH_LEAF_DTYPE:
@@ -5375,7 +5663,7 @@ def _sh_rank(rank, init_file, t_spawn):
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 resident=tensor_bytes(state.params) + tensor_bytes(state.opt_state),
                 params=sum(p.numel() for p in model.parameters()))
-            del model, state, layers
+            del model, state, layers, step
             torch.cuda.empty_cache()
     dist.barrier()
 
@@ -5478,7 +5766,7 @@ def run_sharded():
             f"{[p.exitcode for p in procs]}, reports from {sorted(results)}): "
             + "\n".join(f"rank {r}:\n{e}" for r, e in errors.items()))
 
-    cfg = train_cfg("medium_moe")
+    cfg = train_cfg("medium_moe", num_layers=SH_LAYERS)
     L = cfg.num_layers
     want = {"flash_attention": 0, "flash_attention_lse": 2 * L, "flash_bwd_dkv": L,
             "flash_bwd_dq": L}
@@ -5547,6 +5835,7 @@ def run_sharded():
 # --- phase: pipeline --------------------------------------------------------
 
 PP_RANKS, PP_B, PP_T = 4, 8, 512
+PP_LAYERS = 8  # of medium_dense's 20, two blocks a stage: depth cut to keep the run in its time
 PP_MICRO = (4, 8)  # M: microbatches of 2 and of 1 row
 PP_PARITY_M = 4
 PP_TIMED_STEPS = 3
@@ -5654,7 +5943,8 @@ def _pp_rank(rank, init_file, t_spawn):
     fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq)
     out = {"start_s": time.perf_counter() - t_spawn, "timed": {}, "single": {}}
     targs = train_args()
-    cfgs = {dt: train_cfg("medium_dense", dropout=0.0, gradient_checkpointing=False, dtype=dt)
+    cfgs = {dt: train_cfg("medium_dense", dropout=0.0, gradient_checkpointing=False, dtype=dt,
+                          num_layers=PP_LAYERS)
             for dt in ("float32", "bfloat16")}
     batch = {k: v.cuda() for k, v in _pp_batch(cfgs["float32"].vocab_size).items()}
     ids, mask, labels = batch["input_ids"], batch["padding_mask"], batch["labels"]
@@ -5857,7 +6147,8 @@ def run_pipeline():
 
     from vats_tpu_torch.models import TextLM
 
-    cfg = train_cfg("medium_dense", dropout=0.0, gradient_checkpointing=False)
+    cfg = train_cfg("medium_dense", dropout=0.0, gradient_checkpointing=False,
+                    num_layers=PP_LAYERS)
     L, per = cfg.num_layers, cfg.num_layers // PP_RANKS
 
     def want(blocks):

@@ -1,6 +1,9 @@
 """Steps replayed from CUDA graphs against the same steps run eagerly, on
-the card (``inference/graphs.py``): decode, the serving engine's prefills
-and its speculative verify forward, and the vision eval step.
+the card (``inference/graphs.py``, ``train/step_graphs.py``): decode, the
+serving engine's prefills and its speculative verify forward, the vision
+eval step, and the training programs (the LM train and eval steps, the
+ViT-2D train step, the image-gen trainer's step and eval, both video
+trainers).
 
 These need an NVIDIA GPU and ``nvcc``; without them every test here skips.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -15,7 +18,12 @@ stream, and an eager K1 call on another stream during replays, keep their own
 K1 counters; a capture that meets a host sync raises.  The engine's graphs
 leave its page pool bit-equal to the eager engine's; an eval graph reads
 the parameters in place (an optimizer update shows at the next replay) and
-captures again for other tensors.
+captures again for other tensors.  A train graph holds the forward, the
+backward and the in-place update: params, moments, counters, BatchNorm
+statistics and metrics bit-equal to the eager step's after every step, a
+load in place seen at the next replay, a new state captured again, one
+gradient buffer a parameter for every key, and a model that keeps a routing
+record refused before its capture.
 """
 
 import pytest
@@ -486,3 +494,315 @@ def test_eval_step_graphs_equal_eager(gen, kind):
     copies = {n: p.detach().clone() * 0.5 for n, p in state.params.items()}
     halved = check(copies, x, y)[0]
     assert not torch.equal(halved, after) and len(step.graphs) == 1
+
+
+# --- the train programs (the JAX package's training jit sites) -------------
+
+
+def same_bits(x, y):
+    """Bit for bit (a NaN equals the same NaN)."""
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.contiguous().reshape(-1).view(torch.uint8), y.contiguous().reshape(-1).view(torch.uint8))
+
+
+def same_tensors(a, b):
+    """Every tensor of two train states (params, moments, counters) and two
+    models' buffers, bit for bit."""
+    from vats_tpu_torch.train.step_graphs import state_tensors
+
+    ta, tb = state_tensors(*a), state_tensors(*b)
+    assert len(ta) == len(tb)
+    return all(same_bits(x, y) for x, y in zip(ta, tb))
+
+
+def flash_counts():
+    from vats_tpu_torch.ops import flash_attention as fa
+
+    return {f.__name__: f.launches for f in (fa.flash_attention, fa.flash_attention_lse,
+                                             fa.flash_bwd_dkv, fa.flash_bwd_dq)}
+
+
+def diff_counts(before):
+    return {k: v - before[k] for k, v in flash_counts().items()}
+
+
+def train_model(experts=1, seed=3):
+    from vats_tpu_torch.configs import ModelArgs
+    from vats_tpu_torch.models import TextLM
+
+    return TextLM(ModelArgs(
+        d_model=128, num_heads=4, query_groups=2, d_ffn=256, num_layers=2, dropout=0.1,
+        vocab_size=256, max_seq_len=256, left_window=-1, num_experts=experts,
+        top_k=min(2, experts), capacity_factor=1.25, dtype="bfloat16", use_mqa=False,
+        gradient_checkpointing=True, remat_policy="dots"), device="cuda", seed=seed)
+
+
+def lm_batches(gen, n, b=2, t=256):
+    from vats_tpu_torch.data import synthetic_lm_batches
+
+    return list(synthetic_lm_batches(gen, vocab_size=256, batch_size=b, seq_len=t,
+                                     num_batches=n, pad_fraction=0.2))
+
+
+def lm_pair(accum=1, experts=1):
+    """Two models and states from one seed, each with its own step; the
+    second step runs eagerly."""
+    from vats_tpu_torch.configs import TrainingArgs
+    from vats_tpu_torch.train import create_optimizer, create_train_state, make_train_step
+
+    targs = TrainingArgs(grad_accum_steps=accum, fused_ce_chunk=64, adam_mu_dtype="bfloat16")
+    out = []
+    for use_graph in (True, False):
+        model = train_model(experts)
+        state = create_train_state(model, create_optimizer(targs, 20))
+        step = make_train_step(model, targs)
+        step.graphs.use_graph = use_graph
+        out.append((model, state, step))
+    return out, targs
+
+
+@pytest.mark.parametrize("accum,experts", [(1, 1), (4, 1), (1, 4)],
+                         ids=["dense", "accum4", "moe"])
+def test_lm_train_step_graph_equals_eager(gen, accum, experts):
+    """Dropout 0.1, remat 'dots', fused CE: params, moments, counters and
+    metrics bit-equal after each step; one graph a window position; a
+    replay launches K2' 2 x layers, K5a and K5b once a layer, K2 never;
+    ``state.step`` counts every call."""
+    (g, e), _ = lm_pair(accum, experts)
+    batches = lm_batches(gen, 2 * accum + 2)
+    L = g[0].cfg.num_layers
+    grad_ptrs = None
+    for i, batch in enumerate(batches):
+        n0 = flash_counts()
+        _, mg = g[2](g[1], batch, 100 + i)
+        torch.cuda.synchronize()
+        got = diff_counts(n0)
+        _, me = e[2](e[1], batch, 100 + i)
+        assert all(torch.equal(mg[k], me[k]) for k in mg), i
+        assert same_tensors((g[1], list(g[0].buffers())), (e[1], list(e[0].buffers()))), i
+        assert got == {"flash_attention": 0, "flash_attention_lse": 2 * L,
+                       "flash_bwd_dkv": L, "flash_bwd_dq": L}, (i, got)
+        assert int(g[1].step) == i + 1
+        ptrs = [p.grad.data_ptr() for p in g[0].parameters()]
+        grad_ptrs = grad_ptrs or ptrs
+        assert ptrs == grad_ptrs, i  # one gradient buffer a parameter for every key
+    assert len(g[2].graphs) == accum and g[2].graphs.replays == len(batches) - accum
+    for (_, p), (_, q) in zip(g[0].named_parameters(), e[0].named_parameters()):
+        assert torch.equal(p.grad, q.grad)  # the graph's gradient buffers
+
+
+def test_routing_record_refuses_the_capture(gen):
+    """``record_routing`` on the MoE layers: the step raises on the card
+    before its warm-up (state untouched, no graph), since a replay could not
+    update the record; eagerly it records the step's routing; with the
+    record off the step captures."""
+    from vats_tpu_torch.nn.moe import MoELayer
+
+    (g, e), _ = lm_pair(experts=4)
+    layers = [m for m in g[0].modules() if isinstance(m, MoELayer)]
+    for m in layers:
+        m.record_routing = True
+    batch, later = lm_batches(gen, 2)
+    with pytest.raises(RuntimeError, match="record_routing"):
+        g[2](g[1], batch, 1)
+    assert int(g[1].step) == 0 and len(g[2].graphs) == 0
+    g[2].graphs.use_graph = False
+    g[2](g[1], batch, 1)
+    e[2](e[1], batch, 1)
+    assert same_tensors((g[1],), (e[1],))
+    n = batch["input_ids"].numel()
+    for m in layers:
+        assert m.routing["experts"].shape == (n, 2) and m.routing["keep"].any()
+    for m in layers:
+        m.record_routing = False
+    g[2].graphs.use_graph = True
+    g[2](g[1], later, 2)
+    torch.cuda.synchronize()
+    assert len(g[2].graphs) == 1 and int(g[1].step) == 2
+
+
+def test_non_finite_step_is_skipped_alike(gen):
+    """A NaN written into a weight in place after the capture: the replay
+    skips the step as the eager step does (params and moments untouched,
+    ``skipped_steps`` 1), bit for bit."""
+    (g, e), _ = lm_pair()
+    batches = lm_batches(gen, 3)
+    for side in (g, e):
+        side[2](side[1], batches[0], 1)
+        with torch.no_grad():
+            side[0].norm.weight[0] = float("nan")  # every position's hidden state
+        side[2](side[1], batches[1], 2)
+    torch.cuda.synchronize()
+    assert int(g[1].skipped_steps) == int(e[1].skipped_steps) == 1
+    assert same_tensors((g[1],), (e[1],))
+    assert g[2].graphs.replays == 1
+
+
+def test_lm_eval_step_graph_equals_eager(gen):
+    """T = 512: the deterministic forward through K2, one launch a layer a
+    replay; metrics bit-equal to ``eval_metrics`` run eagerly."""
+    from vats_tpu_torch.train import make_eval_step
+    from vats_tpu_torch.train.loop import eval_metrics
+
+    (g, _), targs = lm_pair()
+    step = make_eval_step(g[0], targs)
+    for batch in lm_batches(gen, 3, t=512)[:1] * 2 + lm_batches(gen, 1, b=3, t=512):
+        want = eval_metrics(g[0], g[1].params, batch, targs)
+        n0 = flash_counts()
+        got = step(g[1].params, batch)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        assert diff_counts(n0)["flash_attention"] == g[0].cfg.num_layers
+    assert len(step.graphs) == 2 and step.graphs.replays == 1
+
+
+def test_load_in_place_is_seen_and_new_state_captures_again(gen, tmp_path):
+    """``load_checkpoint(target=state)`` restores in place: the next replay
+    steps from the loaded values (its metrics equal the step that followed
+    the save); a new state of other tensors captures again."""
+    from vats_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from vats_tpu_torch.train import create_optimizer, create_train_state
+
+    (g, _), targs = lm_pair()
+    batches = lm_batches(gen, 3)
+    g[2](g[1], batches[0], 1)
+    path = save_checkpoint(str(tmp_path), g[1])
+    _, m1 = g[2](g[1], batches[1], 2)
+    graph = g[2].graphs[next(iter(g[2].graphs))]
+    load_checkpoint(path, target=g[1])
+    _, m2 = g[2](g[1], batches[1], 2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    assert g[2].graphs[next(iter(g[2].graphs))] is graph and graph.replays == 2
+    fresh = create_train_state(g[0], create_optimizer(targs, 20))
+    g[2](fresh, batches[2], 3)
+    assert g[2].graphs[next(iter(g[2].graphs))] is not graph and int(fresh.step) == 1
+
+
+def test_host_sync_in_a_train_body_raises(gen):
+    """No fallback: a train body that reads its loss on the host cannot be
+    captured; the capture raises."""
+    from vats_tpu_torch.train.step_graphs import TrainGraphs
+
+    w = torch.nn.Parameter(torch.ones(4, device="cuda"))
+    graphs = TrainGraphs("cuda")
+
+    def build():
+        x = torch.ones(4, device="cuda")
+
+        def body():
+            w.grad = None
+            loss = (w * x).sum()
+            loss.backward()
+            if float(loss) > 0:
+                w.data.add_(-0.1 * w.grad)
+
+        return {"x": x}, body, x
+
+    with pytest.raises(RuntimeError):
+        graphs("k", build, {"x": torch.ones(4)}, params=[w], state=[w])
+    torch.cuda.synchronize()
+    end_failed_capture()
+
+
+def test_vit2d_train_micro_steps_graph_equal_eager(gen):
+    """ViT-2D at 256 patches (K2'/K5a/K5b), dropout 0.1, remat, the pixel
+    battery and mixup / cutmix on, 2 micro-steps a window: one graph a
+    position, bit-equal to eager after every micro-step, the same kernel
+    launches a replay as an eager micro-step."""
+    from vats_tpu_torch.configs import vit2d_xsmall
+    from vats_tpu_torch.models import ImageEncoder
+    from vats_tpu_torch.train import (
+        VisionTrainingArgs,
+        create_train_state,
+        create_vision_optimizer,
+        make_vision_train_step,
+    )
+
+    args = VisionTrainingArgs(grad_accum_steps=2, pixel_augs_on_device=True, epochs=4,
+                              warmup_epochs=1)
+    sides = []
+    for use_graph in (True, False):
+        model = ImageEncoder(vit2d_xsmall(target_size=256, patch_size=16, num_classes=10,
+                                          dropout=0.1, use_checkpointing=True),
+                             device="cuda", seed=1)
+        state = create_train_state(model, create_vision_optimizer(args, 1))
+        step = make_vision_train_step(model, args, 10)
+        step.graphs.use_graph = use_graph
+        sides.append((model, state, step))
+    counts = []
+    for i in range(5):
+        batch = {"images": torch.rand((3, 3, 256, 256), generator=gen, device="cuda"),
+                 "labels": torch.randint(0, 10, (3,), generator=gen, device="cuda")}
+        ms = []
+        for model, state, step in sides:
+            n0 = flash_counts()
+            ms.append(step(state, batch, 50 + i)[1])
+            torch.cuda.synchronize()
+            counts.append(diff_counts(n0))
+        assert all(torch.equal(ms[0][k], ms[1][k]) for k in ms[0]), i
+        assert same_tensors((sides[0][1],), (sides[1][1],)), i
+        assert counts[-2] == counts[-1] and counts[-1]["flash_bwd_dq"] > 0, counts[-2:]
+    assert len(sides[0][2].graphs) == 2 and sides[0][2].graphs.replays == 3
+
+
+def test_image_gen_trainer_step_and_eval_graph_equal_eager(gen):
+    """Three trainer steps and an evaluate: metrics, params, moments and the
+    BatchNorm statistics bit-equal to eager.  cuDNN's deterministic
+    algorithms for the convolutions (its default backward may add with
+    atomics, which no two runs share)."""
+    from vats_tpu_torch.configs import image_gen_tiny_test
+    from vats_tpu_torch.train import ImageGenTrainer, ImageGenTrainingArgs
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = image_gen_tiny_test(dropout=0.1)
+        sides = []
+        for use_graph in (True, False):
+            tr = ImageGenTrainer(cfg, ImageGenTrainingArgs(), num_training_steps=10,
+                                 device="cuda")
+            tr.graphs.use_graph = tr.eval_graphs.use_graph = use_graph
+            sides.append(tr)
+        s = cfg.target_size
+        for i in range(3):
+            batch = {"images": torch.rand((2, 3, s, s), generator=gen, device="cuda"),
+                     "text_embeddings": torch.randn((2, 6, cfg.d_model), generator=gen,
+                                                    device="cuda")}
+            mg, me = (tr.train_step(batch) for tr in sides)
+            assert mg == me, i
+            assert same_tensors(*((tr.state, list(tr.model.buffers())) for tr in sides)), i
+        eg, ee = (tr.evaluate(iter([batch]), max_batches=1) for tr in sides)
+        assert eg == ee and len(sides[0].graphs) == 1 and len(sides[0].eval_graphs) == 1
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_video_trainers_graph_equal_eager(gen):
+    """Both video trainers, three steps each: losses, params, moments and
+    the 3-D VQ-VAE's BatchNorm statistics bit-equal to eager."""
+    import vats_tpu_torch.configs.video_gen as vcfg
+    from vats_tpu_torch.train import VideoGenTrainingArgs, VideoTokenTrainer, VQVAE3DTrainer
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = vcfg.video_gen_tiny_test(dropout=0.1)
+        for cls in (VQVAE3DTrainer, VideoTokenTrainer):
+            sides = []
+            for use_graph in (True, False):
+                tr = cls(cfg, VideoGenTrainingArgs(), num_training_steps=10, device="cuda")
+                tr.graphs.use_graph = use_graph
+                sides.append(tr)
+            for i in range(3):
+                if cls is VQVAE3DTrainer:  # clips [B, C, T, H, W] in [0, 1]
+                    batch = torch.rand((2, 3, 4, 16, 16), generator=gen, device="cuda")
+                else:  # latent indices [B, T, H, W] of the 4x4 latent grid
+                    batch = {"indices": torch.randint(0, cfg.num_embeddings, (2, 2, 4, 4),
+                                                      generator=gen, device="cuda"),
+                             "text_embeddings": torch.randn((2, 5, cfg.d_model),
+                                                            generator=gen, device="cuda")}
+                lg, le = (tr.train_step(batch) for tr in sides)
+                assert lg == le, (cls.__name__, i)
+                assert same_tensors(*((tr.state, list(tr.model.buffers())) for tr in sides))
+            assert len(sides[0].graphs) == 1 and sides[0].graphs.replays == 2
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -67,8 +67,8 @@ def test_cutmix_core_matches_jax_with_its_draws(seed):
     index = np.asarray(jax.random.permutation(rng_perm, x.shape[0]))
     cx = int(jax.random.randint(rng_cx, (), 0, 10))
     cy = int(jax.random.randint(rng_cy, (), 0, 12))
-    box = TA.cutmix_box(12, 10, lam0, cx, cy)
-    m, ta, tb, tlam = TA.cutmix_paste(t(x), t(y), t(index), box)
+    m, ta, tb, tlam = TA.cutmix_given(t(x), t(y), torch.tensor(lam0, dtype=torch.float32),
+                                      t(index), torch.tensor(cx), torch.tensor(cy))
     np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
     assert float(tlam) == float(jlam)

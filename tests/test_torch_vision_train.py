@@ -197,8 +197,8 @@ def test_train_step_with_mixup_matches_jax_given_its_draws(monkeypatch):
     _, _, jtb, jlam = j_mixup(rng_aug, jnp.asarray(b["images"]), jnp.asarray(b["labels"]), 0.8)
     np.testing.assert_array_equal(np.asarray(jtb), b["labels"][index])
     assert float(jlam) == lam
-    monkeypatch.setattr(tv, "random_augmentation",
-                        lambda gen, x, y, *a, **k: mixup_blend(x, y, lam, t(index)))
+    monkeypatch.setattr(tv, "augment_given",
+                        lambda x, y, draws: mixup_blend(x, y, lam, t(index)))
     jstate, jmet = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()}, key)
     state, met = step(state, b, 0)
     assert float(met["lam"]) == pytest.approx(float(jmet["lam"]))

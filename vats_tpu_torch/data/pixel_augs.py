@@ -12,7 +12,11 @@ Every op is a function of (images [B, C, H, W], magnitude): the magnitude
 is a scalar or one value per image ([B]).  The random wrappers draw from an
 explicit ``torch.Generator`` on the images' device and hand their draws to
 a deterministic core (:func:`autoaugment_apply`, :func:`rotate`,
-:func:`erase_boxes`) that the tests call with given draws.  AutoAugment
+:func:`erase_boxes`) that the tests call with given draws; the
+``*_from_uniforms`` functions take the draws as uniforms (the train step's
+battery makes them from its device seed, so it replays from a CUDA graph).
+Constants reach the device once (:func:`device_constant`) and Python numbers
+by fills: nothing copies from the host inside a step.  AutoAugment
 applies, for each of a sub-policy's two stages, every op the policy has at
 that stage to the whole batch and keeps each image's own (the JAX
 package's ``vmap`` of ``lax.switch`` computes every branch too); no
@@ -22,7 +26,7 @@ Python loop runs over images.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -30,9 +34,28 @@ import torch.nn.functional as F
 
 
 def _per_image(m, images: torch.Tensor) -> torch.Tensor:
-    """A magnitude as an fp32 [B] tensor on the images' device."""
-    m = torch.as_tensor(m, dtype=torch.float32, device=images.device)
+    """A magnitude as an fp32 [B] tensor on the images' device (a Python
+    number by a fill, never a host-to-device copy, which a CUDA graph
+    capture refuses)."""
+    if not isinstance(m, torch.Tensor):
+        return torch.full((images.shape[0],), float(m), dtype=torch.float32,
+                          device=images.device)
+    m = m.to(device=images.device, dtype=torch.float32)
     return m.expand(images.shape[0]) if m.dim() == 0 else m
+
+
+_CONSTANTS: Dict[Tuple[str, torch.device, torch.dtype], torch.Tensor] = {}
+
+
+def device_constant(name: str, value, device, dtype=None) -> torch.Tensor:
+    """``value`` (an array) on ``device``, made once per (name, device,
+    dtype) and kept: the first call (eager, a graph's warm-up) copies it
+    from the host, so a capture only reads it."""
+    key = (name, torch.device(device), dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(np.asarray(value), device=device, dtype=dtype)
+    return t
 
 
 # --- geometric warps ----------------------------------------------------------
@@ -127,8 +150,9 @@ def sharpness(images, factor):
     """Blend with PIL's SMOOTH filter (3x3, centre 5, /13, zero padded);
     the border pixels keep their values, as torchvision's do."""
     b, c, h, w = images.shape
-    kern = torch.tensor([[1.0, 1.0, 1.0], [1.0, 5.0, 1.0], [1.0, 1.0, 1.0]],
-                        device=images.device, dtype=images.dtype) / 13.0
+    kern = device_constant("smooth", np.array([[1.0, 1.0, 1.0], [1.0, 5.0, 1.0],
+                                               [1.0, 1.0, 1.0]]) / 13.0,
+                           images.device, images.dtype)
     smoothed = F.conv2d(images.reshape(b * c, 1, h, w), kern[None, None],
                         padding=1).reshape(b, c, h, w)
     rows = torch.arange(h, device=images.device)[:, None]
@@ -265,14 +289,16 @@ def autoaugment_apply(images: torch.Tensor, sub_policy: torch.Tensor, uniforms: 
     dev = images.device
     sp = sub_policy.to(dev).long()
     img = images.float()
+    table = {name: device_constant(name, arr, dev) for name, arr in (
+        ("policy_op", _P_OP), ("policy_mag", _P_MAG), ("policy_signed", _P_SIGNED),
+        ("policy_enhancer", _P_ENHANCER), ("policy_prob", _P_PROB))}
     for stage in range(2):
-        op_id = torch.as_tensor(_P_OP[:, stage], device=dev)[sp]
-        m = torch.as_tensor(_P_MAG[:, stage], device=dev)[sp]
-        sign = torch.where(torch.as_tensor(_P_SIGNED[:, stage], device=dev)[sp],
+        op_id = table["policy_op"][:, stage][sp]
+        m = table["policy_mag"][:, stage][sp]
+        sign = torch.where(table["policy_signed"][:, stage][sp],
                            signs[:, stage].to(dev).float(), 1.0)
-        m = torch.where(torch.as_tensor(_P_ENHANCER[:, stage], device=dev)[sp],
-                        1.0 + sign * m, sign * m)
-        prob = torch.as_tensor(_P_PROB[:, stage], device=dev)[sp]
+        m = torch.where(table["policy_enhancer"][:, stage][sp], 1.0 + sign * m, sign * m)
+        prob = table["policy_prob"][:, stage][sp]
         applied = img
         for op in sorted(set(_P_OP[:, stage].tolist())):
             chosen = (op_id == op)[:, None, None, None]
@@ -287,10 +313,15 @@ def autoaugment_imagenet(gen: torch.Generator, images: torch.Tensor) -> torch.Te
     sub-policy, per stage an apply draw and a random sign (torchvision's
     ``AutoAugment.forward``); draws from ``gen`` on the images' device."""
     b, dev = images.shape[0], images.device
-    sp = torch.randint(0, len(IMAGENET_POLICY), (b,), generator=gen, device=dev)
-    us = torch.rand((b, 2), generator=gen, device=dev)
-    signs = torch.where(torch.rand((b, 2), generator=gen, device=dev) < 0.5, 1.0, -1.0)
-    return autoaugment_apply(images, sp, us, signs)
+    return autoaugment_from_uniforms(images, torch.rand((5, b), generator=gen, device=dev))
+
+
+def autoaugment_from_uniforms(images: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """AutoAugment given [5, B] uniforms in [0, 1): the sub-policy, the two
+    stages' apply draws and their signs."""
+    sp = torch.clamp((u[0] * len(IMAGENET_POLICY)).long(), max=len(IMAGENET_POLICY) - 1)
+    signs = torch.where(u[3:5].T < 0.5, 1.0, -1.0)
+    return autoaugment_apply(images, sp, u[1:3].T, signs)
 
 
 # --- RandomRotation / RandomErasing -------------------------------------------
@@ -301,6 +332,12 @@ def random_rotation(gen: torch.Generator, images: torch.Tensor,
     """Rotate each image by U(-degrees, degrees) about its center
     (torchvision's RandomRotation: nearest, zero fill)."""
     u = torch.rand((images.shape[0],), generator=gen, device=images.device)
+    return rotation_from_uniforms(images, u, degrees)
+
+
+def rotation_from_uniforms(images: torch.Tensor, u: torch.Tensor,
+                           degrees: float = 15.0) -> torch.Tensor:
+    """RandomRotation given one uniform in [0, 1) per image."""
     angles = -degrees + u * (2.0 * degrees)
     return rotate(images.float(), angles).to(images.dtype)
 
@@ -323,8 +360,7 @@ def erase_boxes(images: torch.Tensor, apply: torch.Tensor, area_frac: torch.Tens
     box = ((ys >= y0[:, None, None]) & (ys < (y0 + eh)[:, None, None])
            & (xs >= x0[:, None, None]) & (xs < (x0 + ew)[:, None, None]))
     box = box & apply.bool()[:, None, None]
-    return torch.where(box[:, None], torch.tensor(value, dtype=images.dtype,
-                                                  device=images.device), images)
+    return torch.where(box[:, None], value, images)
 
 
 def random_erasing(gen: torch.Generator, images: torch.Tensor, p: float = 0.4,
@@ -335,8 +371,16 @@ def random_erasing(gen: torch.Generator, images: torch.Tensor, p: float = 0.4,
     of the area at aspect exp(U(log ratio)).  Static shapes: the box is
     drawn once and clamped where torchvision would retry (only extreme
     ratios differ)."""
-    b, dev = images.shape[0], images.device
-    u = torch.rand((5, b), generator=gen, device=dev)
+    u = torch.rand((5, images.shape[0]), generator=gen, device=images.device)
+    return erasing_from_uniforms(images, u, p, scale, ratio, value)
+
+
+def erasing_from_uniforms(images: torch.Tensor, u: torch.Tensor, p: float = 0.4,
+                          scale: Tuple[float, float] = (0.02, 0.33),
+                          ratio: Tuple[float, float] = (0.3, 3.3),
+                          value: float = 0.0) -> torch.Tensor:
+    """RandomErasing given [5, B] uniforms in [0, 1): apply, area, log
+    ratio, and the box's place."""
     apply = u[0] < p
     area = scale[0] + u[1] * (scale[1] - scale[0])
     lo, hi = math.log(ratio[0]), math.log(ratio[1])

@@ -43,6 +43,7 @@ On the CPU there are no graphs: the entry points run the same step eagerly.
 
 from __future__ import annotations
 
+import gc
 import time
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Hashable, Iterator, Optional, Tuple
@@ -109,9 +110,18 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        with kernels.launch_tally() as tally:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                self.body()
+        # no garbage collection while capturing: garbage that holds another
+        # CUDA graph would destroy it there, which CUDA refuses during
+        # a capture, and the capture is then invalid
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.launch_tally() as tally:
+                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                    self.body()
+        finally:
+            if collecting:
+                gc.enable()
         self._counters = take_counters(self.stream)
         self.graph, self.tally = graph, dict(tally)
         self.capture_s = time.perf_counter() - t0

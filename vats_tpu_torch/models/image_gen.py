@@ -45,9 +45,9 @@ from torch.utils.checkpoint import checkpoint
 from vats_tpu_torch.configs.image_gen import ImageGenArgs
 from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.nn.activations import FFNBlock
-from vats_tpu_torch.nn.attention import AttentionBlock, dense
+from vats_tpu_torch.nn.attention import AttentionBlock, dense, embed_rows
 from vats_tpu_torch.nn.cross_attention import CrossAttentionBlock
-from vats_tpu_torch.nn.dropout import SITE_EMBED, dropout
+from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
 from vats_tpu_torch.nn.initializers import embed_init_, head_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm
@@ -55,7 +55,7 @@ from vats_tpu_torch.nn.rope import rope_2d_ntk_cos_sin
 from vats_tpu_torch.ops.decode_attention import PagedKVCache
 
 
-def _step_seed(deterministic: bool, rate: float, seed: Optional[int]) -> Optional[int]:
+def _step_seed(deterministic: bool, rate: float, seed: Optional[Seed]) -> Optional[Seed]:
     """The forward's dropout seed: drawn from the default CPU generator when
     dropout is on and none is given."""
     if not deterministic and rate > 0 and seed is None:
@@ -111,12 +111,12 @@ class TransformerTextEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[Seed] = None) -> torch.Tensor:
         """input_ids [B, T] -> [B, T, d] in the compute dtype; padding_mask
         [B, T] bool, True = valid."""
         cfg = self.cfg
         seed = _step_seed(deterministic, cfg.dropout, dropout_seed)
-        x = F.embedding(input_ids.long(), self.token_embed.weight).to(self.dtype)
+        x = embed_rows(self.token_embed.weight, input_ids).to(self.dtype)
         x = dropout(x, cfg.dropout, deterministic=deterministic, seed=seed, layer=-1,
                     site=SITE_EMBED)
         for i, (a, f) in enumerate(zip(self.attn_blocks, self.ffn_blocks)):
@@ -160,7 +160,7 @@ class ARImageTransformerBlock(nn.Module):
 
     def forward(self, x, text_embeddings, causal_padding_mask, cross_padding_mask, cache,
                 grid_w: int, layer_idx: int, deterministic: bool = True, paged_cache=None,
-                rope_angles=None, dropout_seed: Optional[int] = None):
+                rope_angles=None, dropout_seed: Optional[Seed] = None):
         cfg = self.cfg
         x, new_cache = self.causal_attention_block(
             x, causal=cfg.use_causal,
@@ -227,7 +227,7 @@ class AutoregressiveImageTransformer(nn.Module):
         grid_w: Optional[int] = None,
         return_logits: bool = False,
         deterministic: bool = True,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
     ):
         """encoding_indices [B, H, W] (full forward) or [B, T] raster tokens
         (with ``grid_w``; cached decode); text_embeddings [B, T_txt, d].
@@ -249,7 +249,7 @@ class AutoregressiveImageTransformer(nn.Module):
             flat = encoding_indices
         t = flat.shape[1]
         seed = _step_seed(deterministic, cfg.dropout, dropout_seed)
-        x = F.embedding(flat.long(), self.embedding_proj.weight).to(self.dtype)
+        x = embed_rows(self.embedding_proj.weight, flat).to(self.dtype)
         x = dropout(x, cfg.dropout, deterministic=deterministic, seed=seed, layer=-1,
                     site=SITE_EMBED)
 
@@ -483,7 +483,7 @@ class VectorQuantizer(nn.Module):
             prod = zf @ cb.T
         d2 = zf.square().sum(dim=1, keepdim=True) - 2.0 * prod + cb.square().sum(dim=1)[None, :]
         indices = torch.argmin(d2, dim=-1)
-        z_q = cb[indices].reshape(shape)
+        z_q = embed_rows(cb, indices).reshape(shape)
         z32 = z.float()
         codebook_loss = (z_q.detach() - z32).square().mean()
         commit_loss = (z_q - z32.detach()).square().mean()
@@ -522,7 +522,7 @@ class VQVAE(nn.Module):
     def forward(self, images: torch.Tensor, text_embeddings: torch.Tensor,
                 image_attention_mask: Optional[torch.Tensor] = None,
                 text_attention_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True, dropout_seed: Optional[int] = None):
+                deterministic: bool = True, dropout_seed: Optional[Seed] = None):
         z = self.encoder(images, deterministic=deterministic)
         z_q, vq_loss, indices = self.quantizer(z)
         causal_mask = None

@@ -30,8 +30,8 @@ from vats_tpu_torch.configs.multimodal import MultimodalStreamArgs
 from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.models.image_gen import _step_seed
 from vats_tpu_torch.nn.activations import FFNBlock
-from vats_tpu_torch.nn.attention import AttentionBlock, dense
-from vats_tpu_torch.nn.dropout import SITE_EMBED, dropout
+from vats_tpu_torch.nn.attention import AttentionBlock, dense, embed_rows
+from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
 from vats_tpu_torch.nn.initializers import embed_init_, head_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm
@@ -124,7 +124,7 @@ class MultimodalLM(nn.Module):
         paged_cache: Optional[PagedKVCache] = None,
         deterministic: bool = True,
         readout_positions: Optional[torch.Tensor] = None,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
     ):
         """token_ids [B, T] fused-vocabulary ids; modality, local_pos
         [B, T].  Returns (fp32 logits [B, T, vocab], the cache or None);
@@ -133,7 +133,7 @@ class MultimodalLM(nn.Module):
         count (ragged prefill), a dense one by T."""
         cfg = self.cfg
         seed = _step_seed(deterministic, cfg.dropout, dropout_seed)
-        x = F.embedding(token_ids.long(), self.token_embed.weight).to(self.dtype)
+        x = embed_rows(self.token_embed.weight, token_ids).to(self.dtype)
         x = dropout(x, cfg.dropout, deterministic=deterministic, seed=seed, layer=-1,
                     site=SITE_EMBED)
         rope_angles = multimodal_rope_angles(cfg, modality, local_pos)

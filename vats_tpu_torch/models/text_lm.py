@@ -35,8 +35,8 @@ from torch.utils.checkpoint import (
 
 from vats_tpu_torch.configs.nlp import ModelArgs
 from vats_tpu_torch.device import resolve_device, resolve_dtype
-from vats_tpu_torch.nn.attention import AttentionBlock, dense
-from vats_tpu_torch.nn.dropout import SITE_EMBED, dropout
+from vats_tpu_torch.nn.attention import AttentionBlock, dense, embed_rows
+from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
 from vats_tpu_torch.nn.initializers import embed_init_, head_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.moe import MoEBlock
@@ -99,7 +99,7 @@ class TransformerBlock(nn.Module):
         paged_cache=None,
         layer_idx: int = 0,
         deterministic: bool = True,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
     ):
         cfg = self.cfg
         x, new_cache = self.attn_block(
@@ -198,7 +198,7 @@ class TextLM(nn.Module):
         deterministic: bool = True,
         readout_positions: Optional[torch.Tensor] = None,
         return_hidden: bool = False,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
     ):
         """input_ids [B, T] -> (logits [B, T, V] fp32, cache, aux_loss).
 
@@ -208,8 +208,9 @@ class TextLM(nn.Module):
         readout_positions [B]: logits only at these positions ([B, 1, V]).
         return_hidden: return the post-norm hidden states instead of logits.
         dropout_seed: the step's dropout seed (the JAX ``rngs={'dropout':
-        key}``); drawn from the default CPU generator when dropout is on and
-        none is given.
+        key}``), an int or an int64 device tensor (a graph's static seed);
+        drawn from the default CPU generator when dropout is on and none is
+        given.
         """
         cfg = self.cfg
         if not deterministic and cfg.dropout > 0 and dropout_seed is None:
@@ -270,7 +271,7 @@ class TextLM(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """The token embedding of ``input_ids``, in the compute dtype."""
-        return F.embedding(input_ids.long(), gathered(self.token_embed.weight)).to(self.dtype)
+        return embed_rows(gathered(self.token_embed.weight), input_ids).to(self.dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits of post-norm hidden states: the tied embedding's

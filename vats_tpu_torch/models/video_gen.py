@@ -62,8 +62,8 @@ from vats_tpu_torch.models.image_gen import (
     _step_seed,
 )
 from vats_tpu_torch.nn.activations import FFNBlock
-from vats_tpu_torch.nn.attention import dense
-from vats_tpu_torch.nn.dropout import SITE_ATTN, SITE_CROSS, SITE_EMBED, dropout
+from vats_tpu_torch.nn.attention import dense, embed_rows
+from vats_tpu_torch.nn.dropout import SITE_ATTN, SITE_CROSS, SITE_EMBED, Seed, dropout
 from vats_tpu_torch.nn.initializers import (
     embed_init_,
     head_init_,
@@ -258,7 +258,7 @@ class VideoGenTransformerBlock(nn.Module):
 
     def forward(self, x, text_embeddings, text_mask, cache, spatial_valid, layer_idx: int,
                 cache_mode: str = "append", deterministic: bool = True,
-                dropout_seed: Optional[int] = None, rope: Optional[RopeTables] = None):
+                dropout_seed: Optional[Seed] = None, rope: Optional[RopeTables] = None):
         rate = self.cfg.dropout
         h, new_cache = self.attention(self.norm1(x), cache=cache, layer_idx=layer_idx,
                                       cache_mode=cache_mode, spatial_valid=spatial_valid,
@@ -316,7 +316,7 @@ class AutoregressiveVideoTransformer(nn.Module):
         cache_mode: str = "append",
         return_logits: bool = False,
         deterministic: bool = True,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
     ):
         """encoding_indices [B, T, H, W]; text_embeddings [B, T_txt, d];
         text_mask [B, T_txt] bool or None.
@@ -331,8 +331,7 @@ class AutoregressiveVideoTransformer(nn.Module):
         b, t, h_grid, w_grid = encoding_indices.shape
         hw = h_grid * w_grid
         seed = _step_seed(deterministic, cfg.dropout, dropout_seed)
-        x = F.embedding(encoding_indices.reshape(b, t, hw).long(),
-                        self.embedding.weight).to(self.dtype)
+        x = embed_rows(self.embedding.weight, encoding_indices.reshape(b, t, hw)).to(self.dtype)
         x = dropout(x, cfg.dropout, deterministic=deterministic, seed=seed, layer=-1,
                     site=SITE_EMBED)
         t_pos = torch.arange(t, device=x.device)

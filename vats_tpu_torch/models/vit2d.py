@@ -36,7 +36,7 @@ from vats_tpu_torch.configs.vit2d import ViT2DArgs
 from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.nn.activations import FFNBlock
 from vats_tpu_torch.nn.attention import AttentionBlock, dense
-from vats_tpu_torch.nn.dropout import SITE_EMBED, dropout
+from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
 from vats_tpu_torch.nn.initializers import normal_
 from vats_tpu_torch.nn.norms import RMSNorm
 from vats_tpu_torch.parallel.layout import gathered
@@ -127,7 +127,7 @@ class SpatialTransformerBlock(nn.Module):
         self.ffn_block.reset_parameters(generator)
 
     def forward(self, x, grid_shape: Tuple[int, int], layer_idx: int = 0,
-                deterministic: bool = True, dropout_seed: Optional[int] = None):
+                deterministic: bool = True, dropout_seed: Optional[Seed] = None):
         cfg = self.cfg
         left = cfg.left_window if cfg.use_windowed_attn else -1
         right = cfg.right_window if cfg.use_windowed_attn else -1
@@ -185,11 +185,12 @@ class ImageEncoder(nn.Module):
                 self.classifier.bias.zero_()
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[Seed] = None) -> torch.Tensor:
         """[B, C, H, W] -> [B, num_patches, d_model] features, or
         [B, num_classes] fp32 logits when cfg.num_classes is set.
-        dropout_seed: the step's dropout seed (drawn from the default CPU
-        generator when dropout is on and none is given)."""
+        dropout_seed: the step's dropout seed, an int or an int64 device
+        tensor (drawn from the default CPU generator when dropout is on and
+        none is given)."""
         cfg = self.cfg
         if not deterministic and cfg.dropout > 0 and dropout_seed is None:
             dropout_seed = int(torch.randint(0, 1 << 62, (1,)))

@@ -35,7 +35,7 @@ from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.models.vit2d import resize_bilinear
 from vats_tpu_torch.nn.activations import FFNBlock
 from vats_tpu_torch.nn.attention import dense
-from vats_tpu_torch.nn.dropout import SITE_ATTN, dropout
+from vats_tpu_torch.nn.dropout import SITE_ATTN, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, normal_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
 from vats_tpu_torch.nn.rope import apply_rope_3d_axial
@@ -163,7 +163,7 @@ class SpatioTemporalAttentionBlock(nn.Module):
         self.attention.reset_parameters(generator)
 
     def forward(self, x, grid_shape, patch_mask, layer_idx: int = 0,
-                deterministic: bool = True, dropout_seed: Optional[int] = None):
+                deterministic: bool = True, dropout_seed: Optional[Seed] = None):
         h = self.attention(self.norm(x), grid_shape, patch_mask)
         h = dropout(h, self.cfg.dropout, deterministic=deterministic, seed=dropout_seed,
                     layer=layer_idx, site=SITE_ATTN)
@@ -185,7 +185,7 @@ class VideoTransformerBlock(nn.Module):
         self.ffn_block.reset_parameters(generator)
 
     def forward(self, x, grid_shape, patch_mask, layer_idx: int = 0,
-                deterministic: bool = True, dropout_seed: Optional[int] = None):
+                deterministic: bool = True, dropout_seed: Optional[Seed] = None):
         x = self.attention_block(x, grid_shape, patch_mask, layer_idx, deterministic,
                                  dropout_seed)
         b, gt, hw, d = x.shape
@@ -234,7 +234,7 @@ class VideoTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 use_padding: bool = True, deterministic: bool = True,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[Seed] = None) -> torch.Tensor:
         """[B, C, T, H, W] -> [B, gT*gH*gW, d_model] features, or
         [B, num_classes] fp32 logits when cfg.use_classifier_head."""
         cfg = self.cfg

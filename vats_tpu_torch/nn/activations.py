@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vats_tpu_torch.nn.attention import dense
-from vats_tpu_torch.nn.dropout import SITE_FFN_BLOCK, SITE_SWIGLU, dropout
+from vats_tpu_torch.nn.dropout import SITE_FFN_BLOCK, SITE_SWIGLU, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
 
@@ -56,7 +56,7 @@ class SwiGLU(nn.Module):
                 "w_down.weight": ("embed", "mlp")}
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
-                dropout_seed: Optional[int] = None, layer_idx: int = 0) -> torch.Tensor:
+                dropout_seed: Optional[Seed] = None, layer_idx: int = 0) -> torch.Tensor:
         """Under tensor parallelism (``mlp`` over ``tensor``) w_gate and w_up
         are column-parallel and w_down row-parallel (``attention.dense``)."""
         dt = self.dtype
@@ -92,7 +92,7 @@ class FFNBlock(nn.Module):
         self.swiglu.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
-                dropout_seed: Optional[int] = None, layer_idx: int = 0) -> torch.Tensor:
+                dropout_seed: Optional[Seed] = None, layer_idx: int = 0) -> torch.Tensor:
         h = self.swiglu(self.norm(x), deterministic=deterministic,
                         dropout_seed=dropout_seed, layer_idx=layer_idx)
         h = dropout(h, self.dropout, deterministic=deterministic, seed=dropout_seed,

@@ -69,7 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vats_tpu_torch.nn.dropout import SITE_ATTN, dropout
+from vats_tpu_torch.nn.dropout import SITE_ATTN, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
 from vats_tpu_torch.nn.norms import RMSNorm, l2_normalize
@@ -143,6 +143,16 @@ def _tensor_block(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
     rank holds alike (its gradient summed over the ranks)."""
     size = x.shape[dim] // mesh.shape["tensor"]
     return copy_to(x, mesh, ("tensor",)).narrow(dim, mesh.axis_index("tensor") * size, size)
+
+
+def embed_rows(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows of ``weight`` at ``ids`` ([*ids.shape, d]): flax's
+    ``Embed`` lookup, by indexing rather than ``F.embedding``.  The two
+    agree in the forward; on the card, indexing's backward sums each row's
+    gradients in a fixed order, while ``F.embedding``'s (past 3072 ids)
+    does not, and a train step replayed from a CUDA graph is held bit for
+    bit to its eager step."""
+    return weight[ids.reshape(-1).long()].reshape(*ids.shape, weight.shape[-1])
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -717,7 +727,7 @@ class AttentionBlock(nn.Module):
         self.attn.reset_parameters(generator)
 
     def forward(self, x, *, deterministic: bool = True,
-                dropout_seed: Optional[int] = None, **kw) -> Tuple:
+                dropout_seed: Optional[Seed] = None, **kw) -> Tuple:
         out, new_cache = self.attn(self.norm(x), **kw)
         out = dropout(out, self.dropout, deterministic=deterministic,
                       seed=dropout_seed, layer=kw.get("layer_idx", 0),

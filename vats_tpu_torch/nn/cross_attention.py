@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from vats_tpu_torch.nn.attention import dense
-from vats_tpu_torch.nn.dropout import SITE_CROSS, dropout
+from vats_tpu_torch.nn.dropout import SITE_CROSS, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
 from vats_tpu_torch.ops.attention_ref import dot_product_attention
@@ -101,7 +101,7 @@ class CrossAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 context_mask: Optional[torch.Tensor] = None, *,
-                deterministic: bool = True, dropout_seed: Optional[int] = None,
+                deterministic: bool = True, dropout_seed: Optional[Seed] = None,
                 layer_idx: int = 0) -> torch.Tensor:
         out = self.attn(self.norm(x), context, context_mask)
         out = dropout(out, self.dropout, deterministic=deterministic, seed=dropout_seed,

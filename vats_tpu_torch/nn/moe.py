@@ -38,7 +38,9 @@ layer computes what the JAX layer computes over the global batch:
 
 ``record_routing = True`` keeps, after each forward, the global expert ids,
 the keep mask and the router's probabilities (``routing``), for tests and
-the card's checks.
+the card's checks.  The record is a Python attribute, which a CUDA graph's
+replay cannot update: a train step captured from such a model refuses
+(``train/step_graphs.TrainGraphs``) unless it runs eagerly.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, dropout
+from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
 from vats_tpu_torch.parallel.collectives import (
@@ -280,7 +282,7 @@ class MoELayer(nn.Module):
         self.routing = None
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                dropout_seed: Optional[int] = None, layer_idx: int = 0):
+                dropout_seed: Optional[Seed] = None, layer_idx: int = 0):
         b, t, d = x.shape
         if self.norm is not None:
             x = self.norm(x)
@@ -499,7 +501,7 @@ class MoEBlock(nn.Module):
         self.moe.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                dropout_seed: Optional[int] = None, layer_idx: int = 0) -> Tuple:
+                dropout_seed: Optional[Seed] = None, layer_idx: int = 0) -> Tuple:
         out, aux = self.moe(self.norm(x), deterministic=deterministic,
                             dropout_seed=dropout_seed, layer_idx=layer_idx)
         out = dropout(out, self.dropout, deterministic=deterministic,

@@ -130,6 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from vats_tpu_torch.train import (
         create_optimizer,
         create_train_state,
+        make_eval_step,
         make_train_step,
         train,
         validate,
@@ -219,6 +220,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             logger.info("resumed state: tokens_seen=%d", int(state.tokens_seen))
         ckpt = CheckpointManager(args.ckpt_dir, model_args=model_args,
                                  training_args=training_args)
+        # one eval step for the run: its graphs (one a batch shape) replay
+        # in every round's validation
+        eval_fn = make_eval_step(model, training_args)
 
         # one dropout seed per round, as the JAX script splits its key
         round_seeds = torch.Generator().manual_seed(args.seed + 2)
@@ -234,7 +238,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             )
             t0 = time.perf_counter()
             metrics = validate(model, state, val_iter(), training_args,
-                               max_batches=20)
+                               eval_step_fn=eval_fn, max_batches=20)
             validate_s = time.perf_counter() - t0
             logger.info(
                 "tokens=%d train_loss=%.4f val_loss=%.4f val_ppl=%.2f",

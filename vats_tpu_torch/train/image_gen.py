@@ -19,6 +19,12 @@ transformer's blocks recomputed in the backward when
 statistics): VQ and reconstruction losses.  The step's dropout seed comes
 from a generator seeded by ``args.seed + 1`` (not JAX's bits; the packages
 agree at dropout 0).  Metrics come back as Python floats, as in JAX.
+
+Both the train step and the eval step replay a CUDA graph per batch shape
+on the card, as the JAX trainer jits them with the params, the BatchNorm
+statistics and the optimizer state donated (``train/step_graphs.py``): the
+batch and the seed are copied into static buffers, every update is in
+place.  On the CPU the same bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -31,10 +37,20 @@ import torch
 from vats_tpu_torch.configs.image_gen import ImageGenArgs
 from vats_tpu_torch.device import resolve_device
 from vats_tpu_torch.models.image_gen import VQVAE
+from vats_tpu_torch.nn.dropout import Seed
 from vats_tpu_torch.train.optimizer import AdamW, ClipByGlobalNorm, cosine_with_warmup_schedule
 from vats_tpu_torch.train.state import create_train_state
+from vats_tpu_torch.train.step_graphs import (
+    TrainGraphs,
+    capturable,
+    state_tensors,
+    static_like,
+    zero_grads,
+)
 
 Batch = Dict[str, torch.Tensor]
+#: the batch entries a step reads (the masks optional)
+_INPUTS = ("images", "text_embeddings", "image_attention_mask", "text_attention_mask")
 
 
 @dataclass
@@ -92,6 +108,10 @@ class ImageGenTrainer:
             weight_decay=args.weight_decay))
         self.state = create_train_state(self.model, self.tx)
         self._seeds = torch.Generator().manual_seed(args.seed + 1)
+        #: the train and eval steps' graphs (``graphs.use_graph = False``
+        #: runs the same bodies eagerly on the card)
+        self.graphs = TrainGraphs(dev, self.model)
+        self.eval_graphs = TrainGraphs(dev, self.model)
 
     @property
     def device(self) -> torch.device:
@@ -100,10 +120,9 @@ class ImageGenTrainer:
     def _inputs(self, batch: Batch):
         dev = self.device
         get = lambda k: None if batch.get(k) is None else torch.as_tensor(batch[k]).to(dev)  # noqa: E731
-        return (get("images"), get("text_embeddings"), get("image_attention_mask"),
-                get("text_attention_mask"))
+        return tuple(get(k) for k in _INPUTS)
 
-    def loss(self, batch: Batch, dropout_seed: Optional[int]):
+    def loss(self, batch: Batch, dropout_seed: Optional[Seed]):
         """(loss, metrics) of the training forward on ``batch``."""
         args = self.args
         images, text, img_mask, txt_mask = self._inputs(batch)
@@ -123,25 +142,60 @@ class ImageGenTrainer:
         metrics["loss"] = loss
         return loss, metrics
 
-    def train_step(self, batch: Batch) -> Dict[str, float]:
-        seed = int(torch.randint(0, 1 << 62, (1,), generator=self._seeds))
-        for p in self.state.params.values():
-            p.grad = None
+    def _train_body(self, batch: Batch, seed: Seed) -> torch.Tensor:
+        """One step on ``batch``: its metrics stacked (fp32)."""
+        zero_grads(self.state.params.values())
         loss, metrics = self.loss(batch, seed)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.state.params.items()}
         self.state.apply_gradients(grads)
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        return torch.stack([v.detach().float() for v in metrics.values()])
 
-    @torch.no_grad()
-    def eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """The deterministic forward's VQ, reconstruction and total loss."""
+    def _metric_names(self):
+        return (("vq_loss",) + (("recon_loss",) if self.args.use_recon_loss else ())
+                + (("token_ce",) if self.args.use_token_ce else ()) + ("loss",))
+
+    def _run(self, graphs: TrainGraphs, batch: Batch, body, n_out: int, extra=None,
+             params=()) -> torch.Tensor:
+        """``body(buffers) -> [n_out] fp32`` from ``graphs``: one graph per
+        batch shape, over the params, the BatchNorm statistics and the
+        optimizer state in place."""
+        dev = self.device
+        inputs = {k: torch.as_tensor(batch[k]) for k in _INPUTS if batch.get(k) is not None}
+        inputs.update(extra or {})
+
+        def build():
+            bufs = {k: static_like(torch.as_tensor(v), dev) for k, v in inputs.items()}
+            out = torch.zeros((n_out,), dtype=torch.float32, device=dev)
+            return bufs, lambda: out.copy_(body(bufs)), out
+
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()
+                    if isinstance(v, torch.Tensor))
+        return graphs(key, build, inputs, params=params,
+                      state=state_tensors(self.state, list(self.model.buffers())),
+                      use_graph=capturable(self.state.params))
+
+    def train_step(self, batch: Batch) -> Dict[str, float]:
+        seed = int(torch.randint(0, 1 << 62, (1,), generator=self._seeds))
+        names = self._metric_names()
+        out = self._run(self.graphs, batch, lambda bufs: self._train_body(bufs, bufs["seed"]),
+                        len(names), {"seed": torch.tensor(seed, dtype=torch.int64)},
+                        params=self.state.params.values())
+        return dict(zip(names, out.tolist()))
+
+    def _eval_body(self, batch: Batch) -> torch.Tensor:
         images, text, img_mask, txt_mask = self._inputs(batch)
         recon, vq_loss, _, _ = self.model(images, text, img_mask, txt_mask,
                                           deterministic=True)
         recon_loss = (recon.float() - images.float()).square().mean()
-        return {"vq_loss": vq_loss, "recon_loss": recon_loss, "loss": vq_loss + recon_loss}
+        return torch.stack([vq_loss.float(), recon_loss, (vq_loss + recon_loss).float()])
+
+    @torch.no_grad()
+    def eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """The deterministic forward's VQ, reconstruction and total loss."""
+        out = self._run(self.eval_graphs, batch, self._eval_body, 3).clone()
+        return {"vq_loss": out[0], "recon_loss": out[1], "loss": out[2]}
 
     def evaluate(self, data_iter: Iterable[Batch],
                  max_batches: int = 10**9) -> Dict[str, float]:

@@ -1,10 +1,17 @@
 """Train and eval steps and the token-budget training loop.
 
 Counterpart of ``vats_tpu/train/loop.py``.  One train step is forward,
-backward and the (accumulated) optimizer update, run eagerly: PyTorch has no
-``jit`` to wrap it in.  The step's ``rng`` is an int seed for the dropout
-masks (the JAX step's dropout key).  The gradients stay in each parameter's
-``.grad`` after the step; the next step frees them before its forward.
+backward and the (accumulated) optimizer update.  Where the JAX package
+jits the step and the eval step, the port replays each from a CUDA graph on
+the card, one per key (the batch's shapes and dtypes and the position in
+the accumulation window; ``train/step_graphs.py``), and runs the same body
+eagerly on the CPU.  The step's ``rng`` is an int seed for the dropout
+masks (the JAX step's dropout key), copied into the graph's static seed.
+The gradients stay in each parameter's ``.grad`` after the step: one
+buffer a parameter, which the next step zeroes before its backward adds
+into it.  Under a mesh, or with sharded params,
+the steps run eagerly: the ranks exchange over gloo through the host, which
+a graph cannot hold.
 
 With ``grad_accum_steps <= 1`` the step owns clip and skip, as the JAX step
 does: one fp32 global norm, a scale of min(1, clip / norm), and on a
@@ -38,6 +45,19 @@ from vats_tpu_torch.train.metrics import (
 )
 from vats_tpu_torch.train.optimizer import clip_scale, find_grad_norm, global_norm
 from vats_tpu_torch.train.state import TrainState
+from vats_tpu_torch.train.step_graphs import (
+    TrainGraphs,
+    accumulation_position,
+    advance_accumulation,
+    capturable,
+    clone_outputs,
+    scalar_outputs,
+    set_accumulation_position,
+    state_tensors,
+    static_like,
+    write_outputs,
+    zero_grads,
+)
 
 logger = logging.getLogger("vats_tpu_torch.train")
 
@@ -96,8 +116,7 @@ def make_train_step_fn(
 
     def step(state: TrainState, batch: Batch, rng: int):
         params = state.params
-        for p in params.values():
-            p.grad = None
+        zero_grads(params.values())
         objective, total, lm, aux = _forward_loss(model, batch, training_args, rng)
         objective.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -128,28 +147,108 @@ def make_train_step_fn(
     return step
 
 
+_TRAIN_METRICS = ("loss", "lm_loss", "aux_loss", "tokens", "grad_norm")
+
+
+def _batch_key(batch: Batch) -> Tuple:
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+
+
+def _tensors(batch) -> Batch:
+    return {k: torch.as_tensor(v) for k, v in batch.items() if v is not None}
+
+
 def make_train_step(model, training_args: TrainingArgs):
-    """The training step (eager; the JAX version jits the same function)."""
-    return make_train_step_fn(model, training_args)
+    """``step(state, batch, rng) -> (state, metrics)``, the body of
+    :func:`make_train_step_fn` replayed from a CUDA graph per key on the
+    card, as the JAX package jits it: the batch and ``rng`` are copied into
+    the key's static buffers, the metrics are copies of its static outputs.
+    ``state.step`` counts every call, the first (the warm-up, a real step)
+    included.  ``step.graphs``: its :class:`TrainGraphs`
+    (``step.graphs.use_graph = False`` runs the same body eagerly; a model
+    whose MoE layers keep ``record_routing`` needs it, and its capture
+    raises)."""
+    raw = make_train_step_fn(model, training_args)
+    graphs = TrainGraphs(model.device, model)
+    current = {}
+
+    def step(state: TrainState, batch: Batch, rng):
+        if not capturable(state.params):
+            return raw(state, batch, rng)
+        batch = _tensors(batch)
+        current["state"] = state
+        pos = accumulation_position(state)
+        dev = model.device
+        inputs = {**batch, "seed": torch.as_tensor(rng, dtype=torch.int64)}
+
+        def build():
+            bufs = {k: static_like(v, dev) for k, v in inputs.items()}
+            outputs = scalar_outputs(_TRAIN_METRICS, dev, {"tokens": torch.int32})
+
+            def body():
+                st = current["state"]
+                set_accumulation_position(st, pos)
+                _, metrics = raw(st, {k: bufs[k] for k in batch}, bufs["seed"])
+                write_outputs(outputs, metrics)
+
+            return bufs, body, outputs
+
+        out = graphs((_batch_key(batch), pos), build, inputs,
+                     params=state.params.values(),
+                     state=state_tensors(state, list(model.buffers())))
+        advance_accumulation(state, pos)
+        return state, clone_outputs(out)
+
+    step.graphs = graphs
+    return step
+
+
+def eval_metrics(model, params, batch: Batch, training_args: TrainingArgs) -> Batch:
+    """The eval step's body, eagerly: a deterministic forward of ``model``
+    with ``params`` and its losses and token count."""
+    with torch.no_grad():
+        logits, _, aux = functional_call(
+            model, dict(params), (batch["input_ids"],),
+            dict(padding_mask=batch.get("padding_mask"),
+                 segment_ids=batch.get("segment_ids"), deterministic=True),
+        )
+        total, lm, aux = compute_loss(logits, batch["labels"], aux,
+                                      training_args.aux_loss_weight)
+        tokens = (batch["labels"] != IGNORE_INDEX).sum().to(torch.int32)
+    return {"loss": total, "lm_loss": lm, "aux_loss": aux, "tokens": tokens}
 
 
 def make_eval_step(model, training_args: TrainingArgs):
-    """``step(params, batch) -> metrics``: a deterministic forward of
-    ``model`` with ``params`` (a name -> tensor mapping, e.g.
-    ``state.params``)."""
+    """``step(params, batch) -> metrics``: :func:`eval_metrics` of ``model``
+    with ``params`` (a name -> tensor mapping, e.g. ``state.params``),
+    replayed from a CUDA graph per batch shape on the card (the JAX package
+    jits it).  The graph reads the params in place: an update in place shows
+    at the next replay, other tensors capture again.  ``step.graphs``: its
+    :class:`TrainGraphs`."""
+    graphs = TrainGraphs(model.device, model)
+    current = {}
 
     def step(params, batch: Batch):
-        with torch.no_grad():
-            logits, _, aux = functional_call(
-                model, dict(params), (batch["input_ids"],),
-                dict(padding_mask=batch.get("padding_mask"),
-                     segment_ids=batch.get("segment_ids"), deterministic=True),
-            )
-            total, lm, aux = compute_loss(logits, batch["labels"], aux,
-                                          training_args.aux_loss_weight)
-            tokens = (batch["labels"] != IGNORE_INDEX).sum().to(torch.int32)
-        return {"loss": total, "lm_loss": lm, "aux_loss": aux, "tokens": tokens}
+        if not capturable(params):
+            return eval_metrics(model, params, batch, training_args)
+        batch = _tensors(batch)
+        current["params"] = params
+        dev = model.device
 
+        def build():
+            bufs = {k: static_like(v, dev) for k, v in batch.items()}
+            outputs = scalar_outputs(_TRAIN_METRICS[:4], dev, {"tokens": torch.int32})
+
+            def body():
+                write_outputs(outputs, eval_metrics(model, current["params"], bufs,
+                                                    training_args))
+
+            return bufs, body, outputs
+
+        out = graphs(_batch_key(batch), build, batch, state=list(params.values()))
+        return clone_outputs(out)
+
+    step.graphs = graphs
     return step
 
 

@@ -133,7 +133,10 @@ def fused_linear_cross_entropy(
     for c0 in range(0, t + pad, chunk):
         h_c, y_c = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, h_c, y_c, w, w_lp, use_reentrant=False)
+            # the chunk draws nothing: no RNG state to save, which a CUDA
+            # graph capture could not read
+            total = total + checkpoint(_chunk_nll, h_c, y_c, w, w_lp, use_reentrant=False,
+                                       preserve_rng_state=False)
         else:
             total = total + _chunk_nll(h_c, y_c, w, w_lp)
     if denominator is None:

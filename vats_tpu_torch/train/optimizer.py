@@ -21,7 +21,13 @@ rate of 0), so the host never waits for the norm.
 
 Transformations share one interface: ``init(params) -> state`` and
 ``update_(params, grads, state) -> state``, which applies the update to
-``params`` in place.  Call it under ``torch.no_grad()``.
+``params`` and to every tensor of ``state`` in place and returns ``state``
+itself.  In place matters beyond the copy it saves: a train step replayed
+from a CUDA graph writes to the addresses it was captured with, so a counter
+or norm returned as a new tensor would stop advancing after the capture.
+The one host field, ``MultiStepsState.mini_step``, picks the branch, and a
+replayed step is keyed on it (``train/step_graphs.py``).  Call it under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -172,11 +178,10 @@ class ClipAndSkipNonFinite:
     def update_(self, params: Params, grads: Params, state: ClipSkipState) -> ClipSkipState:
         gnorm = global_norm(grads, params)
         finite, scale = clip_scale(gnorm, self.max_norm)
-        inner = self.inner.update_(params, grads, state.inner_state, scale=scale,
-                                   finite=finite)
-        count = torch.where(finite, torch.zeros_like(state.notfinite_count),
-                            state.notfinite_count + 1)
-        return ClipSkipState(inner, count, gnorm)
+        self.inner.update_(params, grads, state.inner_state, scale=scale, finite=finite)
+        state.notfinite_count.copy_(torch.where(finite, 0, state.notfinite_count + 1))
+        state.last_grad_norm.copy_(gnorm)
+        return state
 
 
 @dataclass
@@ -203,8 +208,9 @@ class ClipByGlobalNorm:
     def update_(self, params: Params, grads: Params, state: ClipState) -> ClipState:
         gnorm = global_norm(grads, params)
         scale = torch.where(gnorm < self.max_norm, 1.0, self.max_norm / gnorm)
-        inner = self.inner.update_(params, grads, state.inner_state, scale=scale)
-        return ClipState(inner, gnorm)
+        self.inner.update_(params, grads, state.inner_state, scale=scale)
+        state.last_grad_norm.copy_(gnorm)
+        return state
 
 
 @dataclass
@@ -234,15 +240,13 @@ class MultiSteps:
         n_acc = state.mini_step
         for name, acc in state.acc_grads.items():
             acc.add_((grads[name].to(acc.dtype) - acc) / (n_acc + 1))
-        inner = state.inner_opt_state
-        gradient_step = state.gradient_step
         if n_acc == self.k - 1:
-            inner = self.inner.update_(params, state.acc_grads, inner)
-            gradient_step = gradient_step + 1
+            self.inner.update_(params, state.acc_grads, state.inner_opt_state)
+            state.gradient_step.add_(1)
             for acc in state.acc_grads.values():
                 acc.mul_(0)  # optax's (1 - emit) * acc
-        return MultiStepsState((n_acc + 1) % self.k, gradient_step, inner,
-                               state.acc_grads)
+        state.mini_step = (n_acc + 1) % self.k
+        return state
 
 
 def find_grad_norm(opt_state) -> Optional[torch.Tensor]:

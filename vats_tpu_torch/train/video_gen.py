@@ -17,7 +17,10 @@ Both step with optax's chain, written out: ``clip_by_global_norm`` ->
 ``adamw`` on the cosine schedule with linear warmup (``train/optimizer.py``).
 A step's dropout seed comes from a generator seeded by ``args.seed + 1``
 (not JAX's bits; the packages agree at dropout 0).  ``train_step`` returns
-the loss as a Python float, as in JAX.
+the loss as a Python float, as in JAX.  Both trainers' steps replay a CUDA
+graph per batch shape on the card, as the JAX trainers jit them
+(``train/step_graphs.py``): the batch and the seed are copied into static
+buffers, every update is in place.  On the CPU the same body runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,8 +33,16 @@ import torch
 from vats_tpu_torch.configs.video_gen import VideoGenArgs
 from vats_tpu_torch.device import resolve_device
 from vats_tpu_torch.models.video_gen import VQVAE3D, AutoregressiveVideoTransformer
+from vats_tpu_torch.nn.dropout import Seed
 from vats_tpu_torch.train.optimizer import AdamW, ClipByGlobalNorm, cosine_with_warmup_schedule
 from vats_tpu_torch.train.state import create_train_state
+from vats_tpu_torch.train.step_graphs import (
+    TrainGraphs,
+    capturable,
+    state_tensors,
+    static_like,
+    zero_grads,
+)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -68,7 +79,9 @@ def _build(module_cls, cfg, seed: int, state: Optional[Mapping[str, torch.Tensor
 
 
 class _Trainer:
-    """The optimizer state and one step of a scalar loss."""
+    """The optimizer state and one step of a scalar loss, from a graph per
+    batch shape on the card (``graphs.use_graph = False`` runs the same body
+    eagerly)."""
 
     def __init__(self, model: torch.nn.Module, args: VideoGenTrainingArgs,
                  num_training_steps: int):
@@ -77,21 +90,39 @@ class _Trainer:
         self.tx = _make_tx(args, num_training_steps)
         self.state = create_train_state(model, self.tx)
         self._seeds = torch.Generator().manual_seed(args.seed + 1)
+        self.graphs = TrainGraphs(model.device, model)
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
-    def _step(self, loss_fn) -> float:
+    def _step(self, inputs: Dict[str, torch.Tensor], loss_fn) -> float:
+        """One update of ``loss_fn(buffers)``, the loss of the batch in
+        ``inputs`` (and the step's seed, ``buffers['seed']``)."""
+        dev = self.device
         seed = int(torch.randint(0, 1 << 62, (1,), generator=self._seeds))
-        for p in self.state.params.values():
-            p.grad = None
-        loss = loss_fn(seed)
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in self.state.params.items()}
-        self.state.apply_gradients(grads)
-        return float(loss.detach())
+        inputs = {**inputs, "seed": torch.tensor(seed, dtype=torch.int64)}
+
+        def build():
+            bufs = {k: static_like(v, dev) for k, v in inputs.items()}
+            out = torch.zeros((), dtype=torch.float32, device=dev)
+
+            def body():
+                zero_grads(self.state.params.values())
+                loss = loss_fn(bufs)
+                loss.backward()
+                grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                         for n, p in self.state.params.items()}
+                self.state.apply_gradients(grads)
+                out.copy_(loss.detach())
+
+            return bufs, body, out
+
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items())
+        out = self.graphs(key, build, inputs, params=self.state.params.values(),
+                          state=state_tensors(self.state, list(self.model.buffers())),
+                          use_graph=capturable(self.state.params))
+        return float(out)
 
 
 class VQVAE3DTrainer(_Trainer):
@@ -114,7 +145,8 @@ class VQVAE3DTrainer(_Trainer):
         return loss
 
     def train_step(self, videos: torch.Tensor) -> float:
-        return self._step(lambda seed: self.loss(videos))
+        return self._step({"videos": torch.as_tensor(videos)},
+                          lambda bufs: self.loss(bufs["videos"]))
 
 
 class VideoTokenTrainer(_Trainer):
@@ -131,7 +163,7 @@ class VideoTokenTrainer(_Trainer):
         super().__init__(_build(AutoregressiveVideoTransformer, cfg, args.seed, params,
                                 resolve_device(device)), args, num_training_steps)
 
-    def loss(self, batch: Batch, dropout_seed: Optional[int]) -> torch.Tensor:
+    def loss(self, batch: Batch, dropout_seed: Optional[Seed]) -> torch.Tensor:
         """Mean CE of ``batch`` ({"indices" [B, T, H, W], "text_embeddings"
         [B, T_txt, d], optional "text_mask" [B, T_txt]})."""
         dev = self.device
@@ -149,4 +181,7 @@ class VideoTokenTrainer(_Trainer):
         return -torch.gather(logp, -1, flat[..., None])[..., 0].mean()
 
     def train_step(self, batch: Batch) -> float:
-        return self._step(lambda seed: self.loss(batch, seed))
+        inputs = {k: torch.as_tensor(batch[k]) for k in ("indices", "text_embeddings",
+                                                         "text_mask")
+                  if batch.get(k) is not None}
+        return self._step(inputs, lambda bufs: self.loss(bufs, bufs["seed"]))

@@ -6,11 +6,16 @@ augmentation where the images are (mixup / cutmix, and with
 ``pixel_augs_on_device`` the rotation, AutoAugment, normalization and
 erasing battery on raw [0, 1] images), the forward with dropout, the
 mixed-label smoothed cross-entropy, the backward and the (accumulated)
-optimizer update, eagerly.  The step's ``rng`` is an int seed: the
-augmentation, the pixel battery and the dropout masks each draw from a
-generator seeded from it (not JAX's bits; the packages agree given the
-same draws, and with dropout 0).  The eval step replays a CUDA graph per
-batch shape on the card (:func:`make_vision_eval_step`).
+optimizer update.  Both steps replay a CUDA graph per key on the card, as
+the JAX package jits them (the train step one per batch shape and position
+in the accumulation window, :func:`make_vision_train_step`; the eval step
+one per batch shape, :func:`make_vision_eval_step`), and run the same body
+eagerly on the CPU.  The step's ``rng`` is an int seed, copied into the
+graph's static seed: the dropout masks and the pixel battery's uniforms are
+functions of it on the device (``nn/dropout.py``), and the mixup / cutmix
+draws come from a host generator seeded from it and enter as static inputs
+(not JAX's bits; the packages agree given the same draws, and with dropout
+0).
 
 The optimizer is optax's chain, written out: ``clip_by_global_norm`` (the
 plain clip: no skip on a non-finite norm) -> ``adamw`` on the epoch
@@ -25,15 +30,13 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from vats_tpu_torch.data.augmentations import random_augmentation
+from vats_tpu_torch.data.augmentations import augment_given, draw_augmentation
 from vats_tpu_torch.data.vision_data import IMAGENET_MEAN, IMAGENET_STD
-from vats_tpu_torch.inference.graphs import GraphSet
-from vats_tpu_torch.nn.dropout import mask_seed
+from vats_tpu_torch.nn.dropout import Seed, host_seed, uniform
 from vats_tpu_torch.train.optimizer import (
     AdamW,
     ClipByGlobalNorm,
@@ -42,11 +45,25 @@ from vats_tpu_torch.train.optimizer import (
     global_norm,
 )
 from vats_tpu_torch.train.state import TrainState
+from vats_tpu_torch.train.step_graphs import (
+    TrainGraphs,
+    accumulation_position,
+    advance_accumulation,
+    capturable,
+    clone_outputs,
+    scalar_outputs,
+    set_accumulation_position,
+    state_tensors,
+    static_like,
+    write_outputs,
+    zero_grads,
+)
 
 Batch = Dict[str, torch.Tensor]
-#: generator streams a step seeds from its rng (the dropout masks use the
-#: rng itself, through nn/dropout.py)
-_STREAM_MIX, _STREAM_PIXELS = 1, 2
+#: (layer, site) streams of a step's seed beside the dropout masks' (which
+#: use layers >= -1): the mixup / cutmix draws (a host generator) and the
+#: pixel battery's uniforms (on the device)
+_STREAM_LAYER, _STREAM_MIX, _STREAM_PIXELS = -2, 1, 2
 
 
 @dataclass
@@ -122,66 +139,107 @@ def smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, label_smoothing: fl
     return -(soft * logp).sum(dim=-1).mean()
 
 
-def _to_device(x, device) -> torch.Tensor:
-    """A batch entry (numpy or tensor) on ``device``."""
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                           device=device)
-
-
-def pixel_battery(gen: torch.Generator, images: torch.Tensor,
-                  args: VisionTrainingArgs) -> torch.Tensor:
+def pixel_battery(seed: Seed, images: torch.Tensor, args: VisionTrainingArgs) -> torch.Tensor:
     """Rotation -> AutoAugment -> ImageNet normalization -> erasing on raw
-    [0, 1] images, drawn from ``gen`` (on the images' device)."""
+    [0, 1] images, from 11 uniforms an image made from ``seed`` on the
+    images' device."""
     from vats_tpu_torch.data.pixel_augs import (
-        autoaugment_imagenet,
-        random_erasing,
-        random_rotation,
+        autoaugment_from_uniforms,
+        device_constant,
+        erasing_from_uniforms,
+        rotation_from_uniforms,
     )
 
-    images = random_rotation(gen, images, args.random_rotation_degrees)
+    u = uniform(seed, (11, images.shape[0]), layer=_STREAM_LAYER, site=_STREAM_PIXELS,
+                device=images.device)
+    images = rotation_from_uniforms(images, u[0], args.random_rotation_degrees)
     if args.auto_augment:
-        images = autoaugment_imagenet(gen, images)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)[None, :, None, None]
-    std = torch.as_tensor(IMAGENET_STD, device=images.device)[None, :, None, None]
+        images = autoaugment_from_uniforms(images, u[1:6])
+    mean = device_constant("imagenet_mean", IMAGENET_MEAN, images.device)[None, :, None, None]
+    std = device_constant("imagenet_std", IMAGENET_STD, images.device)[None, :, None, None]
     images = (images - mean) / std
-    return random_erasing(gen, images, p=args.random_erasing_prob)
+    return erasing_from_uniforms(images, u[6:11], p=args.random_erasing_prob)
+
+
+def _train_body(model, args: VisionTrainingArgs, num_classes: int, state: TrainState,
+                images: torch.Tensor, targets: torch.Tensor, seed: Seed, draws):
+    """One step on batches on the model's device: (state, metrics)."""
+    if args.pixel_augs_on_device:
+        images = pixel_battery(seed, images.float(), args)
+    if args.use_augmentation:
+        images, t_a, t_b, lam = augment_given(images, targets, draws)
+    else:
+        t_a = t_b = targets
+        lam = torch.ones((), dtype=torch.float32, device=images.device)
+    zero_grads(state.params.values())
+    logits = model(images, deterministic=False, dropout_seed=seed)
+    loss = (lam * smoothed_ce(logits, t_a, args.label_smoothing, num_classes)
+            + (1 - lam) * smoothed_ce(logits, t_b, args.label_smoothing, num_classes))
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in state.params.items()}
+    state.apply_gradients(grads)
+    with torch.no_grad():
+        gn = find_grad_norm(state.opt_state)
+        acc = (logits.argmax(dim=-1) == t_a).float().mean()
+    return state, {"loss": loss.detach(), "acc": acc, "lam": lam,
+                   "grad_norm": gn if gn is not None else global_norm(grads, state.params)}
 
 
 def make_vision_train_step(model, args: VisionTrainingArgs, num_classes: int) -> Callable:
     """``step(state, batch, rng) -> (state, metrics)``: augmentation, the
     training forward, mixed-label smoothed CE and the update; ``state`` is
     updated in place and returned, metrics are device tensors (loss, acc
-    against targets_a, lam, grad_norm)."""
+    against targets_a, lam, grad_norm).
+
+    On the card the step replays a CUDA graph per (batch shapes and dtypes,
+    position in the accumulation window): the batch (numpy or tensors), the
+    seed and the mixup / cutmix draws are copied into the key's static
+    buffers, the metrics are copies of its static outputs, and each
+    ``.grad`` holds the gradient of the call (one buffer a parameter,
+    ``train/step_graphs.py``).  Under a mesh it runs eagerly; on the CPU
+    the same body runs eagerly over the same buffers.  ``step.graphs``: its
+    :class:`TrainGraphs`."""
+    graphs = TrainGraphs(model.device, model)
+    current = {}
 
     def step(state: TrainState, batch: Batch, rng: int):
         dev = model.device
-        images = _to_device(batch["images"], dev)
-        targets = _to_device(batch["labels"], dev)
-        if args.pixel_augs_on_device:
-            pix = torch.Generator(device=dev).manual_seed(mask_seed(rng, -2, _STREAM_PIXELS))
-            images = pixel_battery(pix, images.float(), args)
+        images, targets = torch.as_tensor(batch["images"]), torch.as_tensor(batch["labels"])
+        draws = {}
         if args.use_augmentation:
-            mix = torch.Generator().manual_seed(mask_seed(rng, -2, _STREAM_MIX))
-            images, t_a, t_b, lam = random_augmentation(
-                mix, images, targets, args.mixup_alpha, cutmix_alpha=args.cutmix_alpha)
-        else:
-            t_a = t_b = targets
-            lam = torch.ones((), dtype=torch.float32, device=dev)
-        for p in state.params.values():
-            p.grad = None
-        logits = model(images, deterministic=False, dropout_seed=rng)
-        loss = (lam * smoothed_ce(logits, t_a, args.label_smoothing, num_classes)
-                + (1 - lam) * smoothed_ce(logits, t_b, args.label_smoothing, num_classes))
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in state.params.items()}
-        state.apply_gradients(grads)
-        with torch.no_grad():
-            gn = find_grad_norm(state.opt_state)
-            acc = (logits.argmax(dim=-1) == t_a).float().mean()
-        return state, {"loss": loss.detach(), "acc": acc, "lam": lam,
-                       "grad_norm": gn if gn is not None else global_norm(grads, state.params)}
+            b, _, h, w = images.shape
+            mix = torch.Generator().manual_seed(host_seed(int(rng), _STREAM_LAYER, _STREAM_MIX))
+            draws = draw_augmentation(mix, b, h, w, args.mixup_alpha, args.cutmix_alpha)
+        if not capturable(state.params):
+            return _train_body(model, args, num_classes, state, images.to(dev),
+                               targets.to(dev), int(rng),
+                               {k: v.to(dev) for k, v in draws.items()})
+        current["state"] = state
+        pos = accumulation_position(state)
+        inputs = {"images": images, "labels": targets, "seed": rng, **draws}
 
+        def build():
+            bufs = {k: static_like(torch.as_tensor(v), dev) for k, v in inputs.items()}
+            outputs = scalar_outputs(("loss", "acc", "lam", "grad_norm"), dev)
+
+            def body():
+                st = current["state"]
+                set_accumulation_position(st, pos)
+                _, metrics = _train_body(model, args, num_classes, st, bufs["images"],
+                                         bufs["labels"], bufs["seed"],
+                                         {k: bufs[k] for k in draws})
+                write_outputs(outputs, metrics)
+
+            return bufs, body, outputs
+
+        key = (tuple(images.shape), images.dtype, tuple(targets.shape), targets.dtype, pos)
+        out = graphs(key, build, inputs, params=state.params.values(),
+                     state=state_tensors(state, list(model.buffers())))
+        advance_accumulation(state, pos)
+        return state, clone_outputs(out)
+
+    step.graphs = graphs
     return step
 
 
@@ -209,32 +267,30 @@ def make_vision_eval_step(model, num_classes: int) -> Callable:
     place: an update in place (``TrainState.apply_gradients``) shows at the
     next replay, and a call whose params are other tensors drops the graphs
     and captures again.  On the CPU the same body runs eagerly.  The
-    step's ``graphs`` is its :class:`GraphSet`."""
-    graphs = GraphSet(model.device)
-    captured = {}  # name -> data_ptr of the params the graphs read
+    step's ``graphs`` is its :class:`TrainGraphs`."""
+    graphs = TrainGraphs(model.device, model)
+    current = {}
 
     def step(params, batch: Batch):
         dev = model.device
         images, labels = torch.as_tensor(batch["images"]), torch.as_tensor(batch["labels"])
-        ptrs = {name: p.data_ptr() for name, p in params.items()}
-        if ptrs != captured:
-            graphs.clear()
-            captured.clear()
-            captured.update(ptrs)
+        current["params"] = params
 
         def build():
-            bufs = {name: torch.empty(x.shape, dtype=x.dtype, device=dev)
-                    for name, x in (("images", images), ("labels", labels))}
+            bufs = {name: static_like(x, dev) for name, x in (("images", images),
+                                                              ("labels", labels))}
             out = torch.empty((2,), dtype=torch.float32, device=dev)
 
             def body():
-                out.copy_(eval_metrics(model, params, bufs["images"], bufs["labels"],
-                                       num_classes))
+                out.copy_(eval_metrics(model, current["params"], bufs["images"],
+                                       bufs["labels"], num_classes))
 
             return bufs, body, out
 
         key = (tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype)
-        out = graphs(key, build, dict(images=images, labels=labels)).clone()
+        out = graphs(key, build, dict(images=images, labels=labels),
+                     state=list(params.values()),
+                     use_graph=capturable(params)).clone()
         return {"loss": out[0], "acc": out[1]}
 
     step.graphs = graphs
