@@ -57,7 +57,13 @@ Phases:
            loop in turns (graph, eager, eager, graph; equal tokens), each
            profiled; kernels per decode forward by name (``decode_census``);
            K3's dense prologue in replayed dense graphs at B 1, 16, 32 beside
-           an empty kernel of its grid and the chain it replaced.
+           an empty kernel of its grid and the chain it replaced.  Sampled
+           ``generate_paged`` (temperature 0.8, top-k 50, top-p 0.9) with
+           ``approx_top_k`` on and off from one seed, each with the counters
+           zeroed before and read after: equal tokens, equal launches (K1
+           and K3's paged prologue 20 a step); ``exact_top_k`` on bf16
+           logits at the vocabulary, card against CPU (values and indices
+           equal, ties in index order), timed beside ``torch.topk``.
   parity   full width, 2 layers: ``generate_paged`` and ``generate`` on the
            card (kernels, decode replayed from graphs) against the CPU (plain
            versions), same weights; at most one (row, step) whose MoE router
@@ -119,6 +125,11 @@ Phases:
            Ulysses.  Step walls, bytes sent, the seconds in collectives
            (waiting for queued device work, host copies, exchange) and
            peak memory per rank, beside the card's name and power limit.
+           The blockwise ring (``impl="xla"``, 512 x 512 tiles, no kernel)
+           at the ring's shape and windows: out, dq, dk, dv within
+           CP_REL_L2 of the flash ring and of single-process flash, no
+           K2' / K5a / K5b launch; a rank's forward and forward + backward
+           ms, collectives' split and peak memory beside the flash ring's.
   sharded  SH_RANKS = 4 ranks spawned on cuda:0 over gloo, host-staged (the
            compute mode printed first; an exclusive mode fails the phase):
            one medium_moe step at full width, SH_LAYERS = 4 of its 12
@@ -173,6 +184,9 @@ Phases:
   vision   the vision encoders at full depth: ViT-2D medium forward (384 px /
            p16, d1152, 16 layers, bf16 params, B=16) on 384x384 and on 448x531
            (resize and crop on the card), K2 exactly 16 launches a forward;
+           the 448x531 resize (``jax.image.resize``'s computation, bf16)
+           card against CPU within one bf16 ulp, and ViT-3D large's per-frame
+           resize of 240x320 frames the same way;
            at 384x384 also from a CUDA graph (a ``GraphSet``, as the eval
            step's), K2 16 a replay and the features bit-equal to eager's,
            graph and eager in turns: images/s, device-busy time, idle
@@ -2225,6 +2239,8 @@ def run_main(counters):
         raise AssertionError(f"TokenGenerator returned {n_new} tokens, not {steps}")
     log(f"main: launches {json.dumps(counts)} (expected {json.dumps(want)}); "
         f"{replays.n} graph replays")
+    approx_sampling(model, ids, mask, counters, steps)
+    top_k_on_card(cfg.vocab_size)
 
     # prefill alone, then the whole call: graph and eager in turns, each
     # drawing from the same generator state (their tokens must be equal)
@@ -2310,6 +2326,85 @@ def run_main(counters):
     del model, tg
     torch.cuda.empty_cache()
     return counts
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps: the distance between the two values along the
+    ordered bf16 numbers (both bf16 tensors)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def approx_sampling(model, ids, mask, counters, steps):
+    """``generate_paged`` at the main path's shape, sampled (temperature 0.8,
+    top-k 50, top-p 0.9) with ``approx_top_k`` on and then off, each from a
+    generator of one seed with the counters zeroed just before and read
+    just after: equal tokens and lengths, and K1 and K3 (every counter)
+    launched as often by both.  ``approx_top_k`` is JAX's
+    ``lax.approx_max_k``, exact off the TPU, and selects the exact top-k."""
+    import torch
+
+    from vats_tpu_torch.inference import generate_paged
+
+    kw = dict(max_new_tokens=steps, temperature=0.8, top_k=50, top_p=0.9, do_sample=True,
+              pad_token_id=0, page_size=128)
+    runs = {}
+    for approx in (True, False):
+        g = torch.Generator(device="cuda").manual_seed(4321)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, ln = generate_paged(model, ids, mask, g, approx_top_k=approx, **kw)
+        torch.cuda.synchronize()
+        runs[approx] = (tok, ln, {c.__name__: c.launches for c in counters},
+                        time.perf_counter() - t0)
+    (tok_a, len_a, cnt_a, wall_a), (tok_e, len_e, cnt_e, wall_e) = runs[True], runs[False]
+    require(torch.equal(tok_a, tok_e) and torch.equal(len_a, len_e),
+            "main: approx_top_k sampled other tokens than the exact top-k")
+    L, B = model.cfg.num_layers, ids.shape[0]
+    for name in ("paged_decode_attention_commit", "paged_decode_prologue"):
+        require(cnt_a[name] == cnt_e[name] == L * steps,
+                f"main: {name} launched {cnt_a[name]} (approx_top_k) / {cnt_e[name]} "
+                f"(exact), expected {L * steps} each")
+    require(cnt_a == cnt_e, f"main: launches differ with approx_top_k: {cnt_a} / {cnt_e}")
+    new = tok_a[:, -steps:]
+    log(f"main: generate_paged B={B} sampled (temperature 0.8, top-k 50, top-p 0.9) with "
+        f"approx_top_k on / off from one seed: equal tokens ({new.numel()} new, "
+        f"{int(new.unique().numel())} distinct), launches {json.dumps(cnt_a)} both; wall "
+        f"{wall_a:.3f} / {wall_e:.3f} s (each call captures its decode graph)")
+
+
+def top_k_on_card(vocab):
+    """``exact_top_k`` (a stable sort: ties in index order, ``lax.top_k``'s
+    order) on the card against the CPU on bf16 logits upcast to fp32 at
+    the LM's vocabulary, values and indices equal; timed beside
+    ``torch.topk``, whose order among ties is unspecified."""
+    import torch
+
+    from vats_tpu_torch.inference.sampling import exact_top_k
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    logits = (torch.randn((16, vocab), generator=g, device="cuda") * 3).bfloat16().float()
+    for k in (50, 64):
+        vals, idx = exact_top_k(logits, k)
+        cv, ci = exact_top_k(logits.cpu(), k)
+        tied = int((vals[:, 1:] == vals[:, :-1]).sum())
+        require(torch.equal(vals.cpu(), cv) and torch.equal(idx.cpu(), ci),
+                f"main: exact_top_k (k={k}) differs between the card and the CPU")
+        tv, ti = torch.topk(logits, k, dim=-1)
+        same = torch.equal(ti, idx)
+        ms = cuda_ms(lambda: exact_top_k(logits, k))
+        topk_ms = cuda_ms(lambda: torch.topk(logits, k, dim=-1))
+        log(f"main: exact_top_k [16, {vocab}] k={k} on bf16 logits: card equal to the CPU "
+            f"(values and indices; {tied} adjacent equal values among the top k); "
+            f"{ms:.4f} ms (stable sort) beside torch.topk {topk_ms:.4f} ms, whose indices "
+            f"{'equal' if same else 'differ from'} the stable order on the card")
 
 
 def prologue_in_graph(model, L, gen, steps):
@@ -3630,6 +3725,29 @@ def vision_forward(label, model, x, fns, want, per_call, unit, iters):
     return out, nums
 
 
+def resize_on_card(x, size, label):
+    """``resize_bilinear`` (``jax.image.resize``'s weights and contractions,
+    each rounded to bf16) on the card against the CPU on the same bf16
+    input: at most one bf16 ulp apart (fp32 sums in another order move a
+    rounding now and then); timed on the card."""
+    import torch
+
+    from vats_tpu_torch.models.vit2d import resize_bilinear
+
+    got = resize_bilinear(x, size)
+    want = resize_bilinear(x.cpu(), size)
+    require(got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape,
+            f"vision: {label}: {got.dtype} {tuple(got.shape)} / {want.dtype} "
+            f"{tuple(want.shape)}")
+    ulps = bf16_ulps(got.cpu(), want)
+    worst = int(ulps.max())
+    require(worst <= 1, f"vision: {label} on the card {worst} bf16 ulps from the CPU")
+    ms = cuda_ms(lambda: resize_bilinear(x, size), iters=10)
+    log(f"vision: {label} -> {tuple(size)} bf16, card against CPU: "
+        f"{int((ulps > 0).sum())} of {ulps.numel()} elements differ, at most {worst} bf16 "
+        f"ulp (limit 1); {ms:.4f} ms on the card")
+
+
 def run_vision(fns):
     """ViT-2D medium forward (K2 only, 16 launches a forward) at B=16 on
     384x384, eagerly and from a CUDA graph in turns, and on a non-square
@@ -3689,6 +3807,7 @@ def run_vision(fns):
             "vision: vit2d forward at 448x531 (resize 384x455, crop)")
     log(f"vision: vit2d_medium 448x531 (resized to 384x455 and cropped on the card): "
         f"{L} K2 launches, features {tuple(out.shape)} finite")
+    resize_on_card(xr, (384, 455), f"vit2d_medium's resize [{VIT2D_FWD_B}, 3, 448, 531]")
     del model, feats, out, x, xr
     torch.cuda.empty_cache()
 
@@ -3794,6 +3913,11 @@ def run_vision(fns):
                         device="cuda").to(torch.bfloat16)
         out, _ = vision_forward(name, model, x, fns, zero_flash, VIT3D_B * cfg.max_frames,
                                 "frames_per_s", iters=5)
+        if name == "vit3d_large":  # its frames at the target already: 4:3 frames too
+            clip = torch.randn((VIT3D_B, 3, cfg.max_frames, 240, 320), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            resize_on_card(clip, (th, tw), f"vit3d_large's per-frame resize "
+                           f"[{VIT3D_B}, 3, {cfg.max_frames}, 240, 320]")
         require(tuple(out.shape) == (VIT3D_B, gt * gh * gw, cfg.d_model),
                 f"vision: {name} features {tuple(out.shape)}")
         del model, out, x
@@ -5315,33 +5439,52 @@ def _cp_rank(rank, init_file, t_spawn):
     tl = CP_T // CP_RANKS
     sl = slice(rank * tl, (rank + 1) * tl)
 
-    # ring attention at nlp_medium's attention shape against single-process flash
+    # ring attention at nlp_medium's attention shape against single-process
+    # flash: the flash ring (K2' / K5a / K5b a live hop), then the blockwise
+    # ring (impl="xla", no kernel) against both
     gen = torch.Generator(device="cuda").manual_seed(21)
     q, k, v, do = _train_attention_inputs(gen, CP_B, CP_T, TRAIN_HQ, TRAIN_G, TRAIN_HD)
     scale = 1.0 / TRAIN_HD**0.5
+    out["ring_xla"] = {}
+    for impl in ("flash", "xla"):  # a warm-up of each, so the first window's times are warm
+        shards = [x[:, sl].clone().requires_grad_() for x in (q, k, v)]
+        ring_attention(*shards, mesh=mesh, impl=impl, scale=scale).backward(do[:, sl])
+    del shards
     for lw in CP_WINDOWS:
         kw = dict(scale=scale, causal=True, left_window=lw)
-        shards = [x[:, sl].clone().requires_grad_() for x in (q, k, v)]
-        for fn in fns:
-            fn.launches = 0
-        collectives.reset_traffic()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        o = ring_attention(*shards, mesh=mesh, **kw)
-        o.backward(do[:, sl])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in fns}
-        traffic = dict(collectives.traffic)
         full = [x.clone().requires_grad_() for x in (q, k, v)]
         ref = fa.flash_attention(*full, **kw)
         ref.backward(do)
-        errs = {"out": _rel_l2(o, ref[:, sl])}
-        for name, a, b in zip(("dq", "dk", "dv"), shards, full):
-            errs[name] = _rel_l2(a.grad, b.grad[:, sl])
-        out["ring"][lw] = dict(errs=errs, counts=counts, wall=wall, traffic=traffic,
-                               hops=_cp_live_hops(rank, lw))
-        del shards, full, o, ref
+        flash = [ref[:, sl]] + [x.grad[:, sl] for x in full]
+        del full, ref
+        got = {}
+        for impl in ("flash", "xla"):
+            shards = [x[:, sl].clone().requires_grad_() for x in (q, k, v)]
+            for fn in fns:
+                fn.launches = 0
+            collectives.reset_traffic()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            o = ring_attention(*shards, mesh=mesh, impl=impl, **kw)
+            torch.cuda.synchronize()
+            fwd = time.perf_counter() - t0
+            o.backward(do[:, sl])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res = [o.detach()] + [x.grad for x in shards]
+            names = ("out", "dq", "dk", "dv")
+            errs = {n: _rel_l2(a, b) for n, a, b in zip(names, res, flash)}
+            entry = dict(errs=errs, counts={fn.__name__: fn.launches for fn in fns},
+                         fwd=fwd, wall=wall, traffic=dict(collectives.traffic),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         hops=_cp_live_hops(rank, lw))
+            if impl == "xla":  # against the flash ring too
+                entry["errs_ring"] = {n: _rel_l2(a, b) for n, a, b in zip(names, res, got)}
+            got = res
+            out["ring" if impl == "flash" else "ring_xla"][lw] = entry
+            del shards, o
+        del flash, got, res
     del q, k, v, do
 
     # the sequence-parallel train step at medium_dense's full width, CP_LAYERS deep
@@ -5468,6 +5611,27 @@ def run_context_parallel():
                 + f" (limit {CP_REL_L2}); forward + backward {ring['wall'] * 1e3:.1f} ms, "
                 f"{ring['traffic']['bytes'] / 1e6:.1f} MB sent in {ring['traffic']['calls']} "
                 f"collectives, {_cp_times(ring['traffic'])}; {card}")
+            bw = res["ring_xla"][lw]
+            require(all(n == 0 for n in bw["counts"].values()), f"context_parallel: the "
+                    f"blockwise ring (left_window {lw}) rank {r} launched {bw['counts']}")
+            bad = {f"{k} against {against}": e
+                   for against, errs in (("flash", bw["errs"]), ("the flash ring",
+                                                                 bw["errs_ring"]))
+                   for k, e in errs.items() if not e <= CP_REL_L2}
+            require(not bad, f"context_parallel: blockwise ring (left_window {lw}) rank {r} "
+                    f"beyond {CP_REL_L2} relative L2: {bad}")
+            log(f"context_parallel: blockwise ring (impl='xla', tiles 512 x 512, no kernel) "
+                f"at the same shape, left_window {lw}, rank {r}: launches {bw['counts']}; "
+                f"relative L2 against single-process flash "
+                + ", ".join(f"{k} {e:.2e}" for k, e in bw["errs"].items())
+                + ", against the flash ring " + ", ".join(
+                    f"{k} {e:.2e}" for k, e in bw["errs_ring"].items())
+                + f" (limit {CP_REL_L2}); forward {bw['fwd'] * 1e3:.1f} ms, forward + "
+                f"backward {bw['wall'] * 1e3:.1f} ms, {bw['traffic']['bytes'] / 1e6:.1f} MB "
+                f"sent in {bw['traffic']['calls']} collectives, {_cp_times(bw['traffic'])}; "
+                f"peak memory {bw['peak_gb']:.2f} GB; the flash ring: forward "
+                f"{ring['fwd'] * 1e3:.1f} ms, forward + backward {ring['wall'] * 1e3:.1f} ms, "
+                f"peak memory {ring['peak_gb']:.2f} GB; {card}")
         for mode, tr in res["train"].items():
             h = _cp_live_hops(r, -1) if mode == "ring" else 0
             L = tr["layers"]

@@ -1299,3 +1299,61 @@ def test_two_rank_ring_on_one_card_matches_flash(tmp_path):
         assert float((got - w).norm() / w.norm()) <= 1e-2, name
     # rank 0 runs its own shard, rank 1 the past shard too
     assert [r["launches"] for r in ranks] == [(1, 1, 1), (2, 2, 2)]
+
+
+def test_exact_top_k_ties_on_the_card_equal_the_cpu(gen):
+    """``exact_top_k`` on bf16 logits upcast to fp32 (ties by the dozen at a
+    vocabulary of 65536): values and indices, ties in index order, equal
+    to the CPU's (``lax.top_k``'s order, which the CPU tests hold)."""
+    from vats_tpu_torch.inference.sampling import exact_top_k
+
+    logits = (rand(gen, 16, 65536) * 3).bfloat16().float()
+    for k in (1, 50, 64, 1000):
+        vals, idx = exact_top_k(logits, k)
+        cv, ci = exact_top_k(logits.cpu(), k)
+        assert torch.equal(vals.cpu(), cv) and torch.equal(idx.cpu(), ci), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,size", [((16, 3, 448, 531), (384, 455)),
+                                        ((2, 3, 37, 53), (64, 92)),
+                                        ((4, 3, 8, 240, 320), (224, 224))])
+def test_resize_on_the_card_matches_the_cpu(gen, dtype, shape, size):
+    """``resize_bilinear`` (``jax.image.resize``'s computation) on the card
+    against the CPU: bf16 within one ulp (fp32 sums in another order move a
+    rounding now and then), fp32 within 1e-5 (full fp32 products, no TF32)."""
+    from vats_tpu_torch.models.vit2d import resize_bilinear
+
+    x = rand(gen, *shape, dtype=dtype)
+    got = resize_bilinear(x, size).cpu()
+    want = resize_bilinear(x.cpu(), size)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=2.0**-126))) - 7)
+        assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_blockwise_ring_on_one_rank_on_the_card_matches_the_cpu(tmp_path, dtype):
+    """The blockwise ring (``impl="xla"``: 256 x 256 tiles over T = 1024,
+    causal, left window 300, ragged key validity) on one gloo rank, on
+    cuda:0 against the CPU, forward and backward: bf16 within 2e-2 absolute
+    plus 2e-2 relative (one bf16 ulp of outputs and gradients up to ~4 where
+    fp32 sums in another order move a rounding), fp32 within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's hand-written kernels)")
+    from torch_parallel_ranks import spawn
+
+    b, t, hq, g, hd = 2, 1024, 6, 2, 60
+    rng = torch.Generator().manual_seed(6)
+    q, do = (torch.randn((b, t, hq, hd), generator=rng) for _ in range(2))
+    k, v = (torch.randn((b, t, g, hd), generator=rng) for _ in range(2))
+    valid = torch.arange(t)[None, :] < torch.tensor([[t], [700]])
+    kw = dict(scale=hd**-0.5, causal=True, left_window=300, q_chunk=256, k_chunk=256)
+    (got,) = spawn("card_blockwise_ring", 1, tmp_path,
+                   dict(q=q, k=k, v=v, do=do, valid=valid, kw=kw, dtype=dtype))
+    tol = dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+    for name, a, b_ in zip(("out", "dq", "dk", "dv"), got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b_, msg=name, **tol)

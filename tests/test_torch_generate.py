@@ -187,3 +187,33 @@ def test_sampling_statistics_match_the_filtered_distribution():
     freq2 = np.bincount(draws2.numpy(), minlength=40) / n
     target2 = np.asarray(jax.nn.softmax(j_top_p(jnp.asarray(logits[:1]) / temp, p)))
     np.testing.assert_allclose(freq2, target2[0], atol=0.015)
+
+
+def test_entry_points_sample_with_approx_top_k_as_with_the_exact_top_k():
+    """``approx_top_k=True`` (``jax.lax.approx_max_k`` in JAX, exact off the
+    TPU) runs through ``generate``, ``generate_paged`` and the
+    ``ServingEngine`` and draws the exact top-k path's tokens from one seed;
+    JAX's ``generate_paged`` takes the same flag on the same weights."""
+    from vats_tpu_torch.inference import ServingEngine
+
+    jm, params, tm = both_models(num_experts=1, top_k=1)
+    ids, mask = prompts([8, 5, 7], 8, seed=15)
+    kw = dict(max_new_tokens=6, temperature=0.8, top_k=20, top_p=0.9, do_sample=True,
+              pad_token_id=0, total_len=16)
+    for fn, extra in ((generate, {}), (generate_paged, dict(page_size=128))):
+        runs = [fn(tm, torch.from_numpy(ids), torch.from_numpy(mask),
+                   torch.Generator().manual_seed(3), approx_top_k=a, **kw, **extra)
+                for a in (True, False)]
+        for got, want in zip(*runs):
+            assert torch.equal(got, want)
+    jt, jl = j_generate_paged(jm, params, jnp.asarray(ids), jnp.asarray(mask),
+                              jax.random.PRNGKey(0), approx_top_k=True, page_size=128, **kw)
+    np.testing.assert_array_equal(np.asarray(jl), runs[0][1].numpy())
+    outs = []
+    for a in (True, False):
+        eng = ServingEngine(tm, max_batch=2, max_context=64, do_sample=True,
+                            temperature=0.8, top_k=20, top_p=0.9, approx_top_k=a, seed=5)
+        rids = [eng.submit(list(range(1, 9 + i)), max_new_tokens=5) for i in range(3)]
+        done = eng.run()
+        outs.append([done[r] for r in rids])
+    assert outs[0] == outs[1] and all(len(o) == 5 for o in outs[0])

@@ -186,6 +186,28 @@ def test_moe_layer_matches_jax_with_capacity(dispatch, n_tok, cf):
         assert layer._capacity(n_tok) < n_tok * k / e
 
 
+@pytest.mark.parametrize("dispatch", ["scatter", "sort"])
+def test_moe_router_ties_choose_the_experts_jax_chooses(dispatch):
+    """Every third token a zero row: its router logits all equal the (zero)
+    bias, a tie over every expert.  ``lax.top_k`` takes experts 0 and 1;
+    so must the port, or those tokens fill other experts' capacity and
+    other real tokens are dropped (``torch.topk`` took 2 and 3 here)."""
+    d, f, e, k = 16, 32, 4, 2
+    kw = dict(d_model=d, d_ffn=f, num_experts=e, top_k=k, capacity_factor=0.5,
+              dispatch=dispatch)
+    x = np.random.RandomState(7).randn(1, 40, d).astype(np.float32)
+    x[0, ::3] = 0.0
+    jl = JMoELayer(**kw)
+    params = jl.init(jax.random.PRNGKey(8), jnp.asarray(x))
+    ref, _ = jl.apply(params, jnp.asarray(x))
+    layer = _port_moe_from_jax(params, **kw)
+    with torch.no_grad():
+        out, _ = layer(t(x))
+        _, idx, _ = layer.router(t(x[0]))
+    assert (idx[::3] == torch.tensor([0, 1])).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
 def test_moe_auto_mode_selection_mirrors_jax_rule():
     layer = MoELayer(d_model=8, d_ffn=8, num_experts=8, top_k=2,
                      capacity_factor=1.25)

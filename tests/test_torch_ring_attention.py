@@ -19,7 +19,19 @@ composed cases meet it, fp32 at 2 ranks and bf16 at 4, between them every
 feature (GQA, windows, the wrapped hops' negative offsets, ragged key
 validity, segment ids).  Each feature alone is held against the oracle at
 both ring sizes, with gradients.  Plus the pure logic: ``_ring_steps`` and ``_merge`` against
-JAX's."""
+JAX's.
+
+The blockwise ring (``impl="xla"``, the cases named ``blockwise_*``) at
+both ring sizes: fp32 outputs against JAX's ``impl="xla"`` ring and the
+oracle, gradients against ``jax.grad`` of the oracle (the tolerances
+above); several tiles a shard (the q_chunk / k_chunk pairs of
+``tests/test_ring_attention.py``'s chunking test, at its T = 64), windows
+that bound the hops taken, ragged key validity; bf16 against JAX's bf16
+blockwise ring, output at the bf16 tolerance above and gradients against
+``jax.grad`` of it within 6e-2 absolute plus 2e-2 relative (JAX rounds each
+tile's dq / dk / dv to bf16 and sums them in bf16, the port sums in fp32
+and rounds once: a few bf16 ulps of gradients up to |g| ~ 4); the
+refusal of segment ids and of an unknown impl before any collective."""
 
 import functools
 import importlib
@@ -44,6 +56,7 @@ torch.set_num_threads(1)
 F32 = dict(rtol=2e-4, atol=2e-5)
 F32_GRAD = dict(rtol=5e-4, atol=5e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+BF16_GRAD = dict(rtol=2e-2, atol=6e-2)
 B, T, D = 2, 32, 16
 
 
@@ -88,7 +101,34 @@ CASES = {
                             dict(causal=False, right_window=6), VALID, None, "ring_xla"),
     "ulysses": ("ulysses", "float32", (8, 4), dict(causal=True, left_window=10), VALID,
                 None, "ulysses"),
+    # the port's blockwise ring ('ring_xla'), tiles of q_chunk x k_chunk
+    "blockwise_chunks_4x8": ("ring_xla", "float32", (4, 2),
+                             dict(causal=True, left_window=20, q_chunk=4, k_chunk=8), None,
+                             None, "ring_xla"),
+    "blockwise_chunks_8x4": ("ring_xla", "float32", (4, 2),
+                             dict(causal=True, left_window=20, q_chunk=8, k_chunk=4), None,
+                             None, "ring_xla"),
+    "blockwise_chunks_16x16": ("ring_xla", "float32", (4, 2),
+                               dict(causal=True, left_window=20, q_chunk=16, k_chunk=16),
+                               None, None, "ring_xla"),
+    "blockwise_window_hops": ("ring_xla", "float32", (4, 2),
+                              dict(causal=True, left_window=5, q_chunk=4, k_chunk=4), None,
+                              None, "ring_xla"),
+    "blockwise_ragged_valid": ("ring_xla", "float32", (4, 2),
+                               dict(causal=True, q_chunk=4, k_chunk=4), VALID, None,
+                               "ring_xla"),
+    "blockwise_noncausal_valid": ("ring_xla", "float32", (4, 2),
+                                  dict(causal=False, right_window=6, q_chunk=8, k_chunk=4),
+                                  VALID, None, "ring_xla"),
+    "blockwise_noncausal_windows": ("ring_xla", "float32", (4, 4),
+                                    dict(causal=False, left_window=10, right_window=6), None,
+                                    None, "ring_xla"),
+    "blockwise_bf16": ("ring_xla", "bfloat16", (4, 2),
+                       dict(causal=True, left_window=11, q_chunk=4, k_chunk=8), VALID, None,
+                       "ring_xla_grad"),
 }
+# the chunking cases' sequence length (tests/test_ring_attention.py's T = 64)
+CASE_T = {f"blockwise_chunks_{c}": 64 for c in ("4x8", "8x4", "16x16")}
 # composed cases held against the JAX ring-flash (seconds a call in interpret
 # mode), one per ring size: fp32 at 2 ranks, bf16 at 4
 JAX_RING_CASES = {
@@ -111,13 +151,19 @@ def _cases(n):
 def _payload(n):
     out = []
     for name, (impl, dtype, (hq, g), kw, valid, seg, ref) in sorted(_cases(n).items()):
-        x = _inputs(zlib.crc32(name.encode()), hq, g)  # a case's inputs at every n
+        # a case's inputs at every n
+        x = _inputs(zlib.crc32(name.encode()), hq, g, CASE_T.get(name, T))
         out.append(dict(name=name, impl=impl, dtype=dtype, q=x["q"], k=x["k"], v=x["v"],
                         do=x["do"] if ref != "ring" else None, valid=valid, seg=seg,
-                        kw=_kw(kw, JAX_ONLY)))
+                        kw=_kw(kw, JAX_ONLY if impl != "ring_xla" else ())))
     out.append(dict(name="ulysses_indivisible_heads", impl="ulysses", dtype="float32",
                     expect_error=True, kw=dict(scale=0.25),
                     **{k: v for k, v in _inputs(99, 2, 1).items() if k != "do"}))
+    x = {k: v for k, v in _inputs(98, 4, 2).items() if k != "do"}
+    out.append(dict(name="blockwise_segment_ids", impl="ring_xla", dtype="float32",
+                    expect_error=True, seg=SEG, kw=dict(scale=0.25), **x))
+    out.append(dict(name="ring_unknown_impl", impl="ring", dtype="float32",
+                    expect_error=True, kw=dict(scale=0.25, impl="blocked"), **x))
     return out
 
 
@@ -156,9 +202,18 @@ def _jax_reference(n, case, kw, valid, seg, ref):
                          devices=jax.devices()[:n])
     if ref == "ulysses":
         return np.asarray(j_ulysses(q, k, v, mesh=mesh, **kw, **masks)), None
-    impl = "xla" if ref == "ring_xla" else "flash"
-    out = j_ring_mod.ring_attention(q, k, v, mesh=mesh, impl=impl, **kw, **masks)
-    return np.asarray(out, np.float32), None
+    impl = "xla" if ref.startswith("ring_xla") else "flash"
+
+    def ring(a, b, c):
+        return j_ring_mod.ring_attention(a, b, c, mesh=mesh, impl=impl, **kw, **masks)
+
+    out = np.asarray(ring(q, k, v), np.float32)
+    if ref != "ring_xla_grad":
+        return out, None
+    w = jnp.asarray(case["do"], dt)
+    grads = jax.grad(lambda a, b, c: jnp.sum((ring(a, b, c) * w).astype(jnp.float32)),
+                     argnums=(0, 1, 2))(q, k, v)
+    return out, [np.asarray(x, np.float32) for x in grads]
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,7 +222,7 @@ def _oracle(name):
     at every ring size)."""
     case = next(c for c in _payload(2) if c["name"] == name)
     _, _, _, _, valid, seg, _ = CASES[name]
-    kw = dict(case["kw"])
+    kw = {k: v for k, v in case["kw"].items() if k not in JAX_ONLY}  # no tiles there
     if valid is not None:
         kw["kv_valid"] = jnp.asarray(valid)
     if seg is not None:
@@ -190,14 +245,17 @@ def _references(n, case):
 
 def _check(ranks, name):
     n, cases, got, refs = ranks
-    dtype = _cases(n)[name][1]
+    impl, dtype = _cases(n)[name][:2]
     want, grads = refs[name]
-    tol = BF16 if dtype == "bfloat16" else F32
-    np.testing.assert_allclose(_joined(got, name, "out"), want, err_msg=name, **tol)
+    bf16 = dtype == "bfloat16"
+    out = _joined(got, name, "out")
+    np.testing.assert_allclose(out, want, err_msg=name, **(BF16 if bf16 else F32))
+    if impl == "ring_xla" and not bf16:  # the blockwise ring: the oracle too
+        np.testing.assert_allclose(out, _oracle(name)[0], err_msg=f"{name} oracle", **F32)
     if grads is not None:
         for key, g in zip(("dq", "dk", "dv"), grads):
             np.testing.assert_allclose(_joined(got, name, key), g, err_msg=f"{name} {key}",
-                                       **F32_GRAD)
+                                       **(BF16_GRAD if bf16 else F32_GRAD))
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -215,6 +273,30 @@ def test_ulysses_rejects_indivisible_heads_before_any_collective(ranks):
         res = r["ulysses_indivisible_heads"]
         assert res["error"] is not None and "divisible" in res["error"]
         assert res["calls"] == 0
+
+
+def test_blockwise_ring_refuses_segment_ids_and_unknown_impls(ranks):
+    """As JAX's ``ring_attention``: segment ids need the flash ring
+    (NotImplementedError), an unknown impl is a ValueError; no collective
+    runs first."""
+    for r in ranks[2]:
+        seg, unknown = r["blockwise_segment_ids"], r["ring_unknown_impl"]
+        assert seg["type"] == "NotImplementedError" and "segment ids" in seg["error"]
+        assert unknown["type"] == "ValueError" and "blocked" in unknown["error"]
+        assert seg["calls"] == unknown["calls"] == 0
+
+
+def test_blockwise_ring_takes_only_the_window_bounded_hops(ranks):
+    """Causal with left_window 5: JAX's trip count 1 + (5 + tl - 1) // tl
+    hops (2 of 4 at tl = 8), each rank shifting K/V after every hop but the
+    last, and the backward shifting their gradients back as often."""
+    n, _, got, _ = ranks
+    tl = T // n
+    hops = min(n, 1 + (5 + tl - 1) // tl)
+    assert hops == 2
+    for name in ("blockwise_window_hops", "blockwise_ragged_valid"):
+        want = 2 * ((hops if name == "blockwise_window_hops" else n) - 1)
+        assert [r[name]["calls"] for r in got] == [want] * n, name
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])

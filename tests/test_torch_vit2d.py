@@ -8,12 +8,13 @@ with ``params_from_jax``; both packages run on the CPU.  Tolerances:
   * fp32 elementwise math (RoPE, resize): atol 1e-5 (the same operations in
     another library);
   * fp32 model outputs: atol 2e-5, rtol 1e-5 (fp32 sums in another order);
-  * bf16 resize: one bf16 ulp of the input's largest magnitude (2^-7 for
-    inputs in [-1, 2)): JAX resizes in bf16, the port in fp32 and rounds
-    once;
+  * bf16 resize: equal bit for bit (the port computes ``jax.image.resize``'s
+    weight matrices and its contractions in ``jnp.einsum``'s order, each
+    rounded to bf16 as JAX rounds it), at shapes that take each order and
+    a tie;
   * bf16 model outputs: atol 0.1, rtol 0.02 — the packages round bf16 at
-    other places (the resize, each product's sum), a few bf16 ulps (2^-8
-    relative) over two layers at magnitudes up to ~5;
+    other places (each product's sum), a few bf16 ulps (2^-8 relative)
+    over two layers at magnitudes up to ~5;
   * gradients (fp32): atol 2e-5, rtol 1e-4 against ``jax.grad``.
 
 The flash path: the JAX model runs its Pallas kernel in interpret mode
@@ -38,6 +39,7 @@ from vats_tpu.nn.rope import apply_rope_2d_axial as j_rope_2d
 from vats_tpu.nn.rope import grid_positions_2d as j_grid
 from vats_tpu_torch.configs import vit2d_xsmall
 from vats_tpu_torch.models import ImageEncoder, resize_and_center_crop
+from vats_tpu_torch.models.vit2d import _resize_order, resize_bilinear
 from vats_tpu_torch.nn import Attention, FFNBlock, SwiGLU
 from vats_tpu_torch.nn.rope import apply_rope_2d_axial, grid_positions_2d
 from vats_tpu_torch.nn.kv_cache import KVCache
@@ -130,8 +132,49 @@ def test_resize_and_center_crop_matches_jax(dtype, shape, target):
     want = f32(j_resize(jnp.asarray(x).astype(JDT[dtype]), target))
     assert tuple(got.shape) == want.shape == shape[:2] + (target, target)
     assert got.dtype == TDT[dtype]
-    tol = dict(atol=1e-5) if dtype == "float32" else dict(atol=2**-7 * 1.01)
-    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# (H, W) -> (h, w) at B*C = 6, and the contraction jnp.einsum takes first
+RESIZE_SHAPES = [((37, 53), (64, 92), "W"), ((500, 20), (280, 11), "W"),
+                 ((300, 120), (560, 224), "H"), ((256, 320), (224, 280), "H"),
+                 ((64, 64), (224, 224), "H"),  # equal cost: H, the earlier
+                 ((480, 640), (224, 299), "H"),  # vit2d_medium's crop of a 480 x 640 photo
+                 ((1, 1), (4, 4), "outer")]  # the weight matrices' product first
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw,size,first", RESIZE_SHAPES)
+def test_resize_bilinear_matches_jax_image_resize(dtype, hw, size, first):
+    """Both contraction orders, a tie and the outer product: bit for bit in
+    bf16, within 1e-5 in fp32."""
+    x = np.random.RandomState(sum(hw)).randn(2, 3, *hw).astype(np.float32)
+    assert _resize_order(6, hw, size) == first
+    got = resize_bilinear(t(x).to(TDT[dtype]), size)
+    want = f32(jax.image.resize(jnp.asarray(x).astype(JDT[dtype]), (2, 3) + size,
+                                method="bilinear"))
+    assert got.dtype == TDT[dtype] and tuple(got.shape) == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_resize_order_is_jnp_einsums_path():
+    """The port's rule against the path ``jnp.einsum`` asks opt_einsum for
+    (operands x, the H weights, the W weights), over sizes and batch
+    products where each order wins and where costs tie."""
+    names = {(0, 1): "H", (0, 2): "W", (1, 2): "outer"}
+    for bc in (1, 6, 48):
+        for hw in ((1, 1), (2, 3), (37, 53), (64, 64), (480, 640)):
+            for size in ((4, 4), (11, 280), (64, 92), (224, 224), (224, 299)):
+                path, _ = jnp.einsum_path("bhw,hk,wl->bkl", np.empty((bc,) + hw),
+                                          np.empty((hw[0], size[0])),
+                                          np.empty((hw[1], size[1])), optimize="auto")
+                assert _resize_order(bc, hw, size) == names[path[0]], (bc, hw, size)
 
 
 def test_resize_keeps_a_matching_size_exactly():

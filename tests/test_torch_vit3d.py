@@ -7,7 +7,10 @@ Inputs are made from a seed with numpy; the JAX params are carried across
 with ``params_from_jax``; both packages run on the CPU.  Tolerances: fp32
 RoPE atol 1e-5; fp32 model outputs atol 2e-5, rtol 1e-5 (fp32 sums in
 another order); bf16 model outputs atol 0.02, rtol 0.02 (bf16 rounded at
-other places, a few ulps of outputs below ~1); masks exactly.
+other places, a few ulps of outputs below ~1); masks exactly.  The
+per-frame resize: bit for bit in bf16 (``jax.image.resize``'s weights and
+its contractions in ``jnp.einsum``'s order, each rounded to bf16), within
+1e-5 in fp32.
 
 A temporal mask reshaped without its transpose (the original repository's
 fault) would mask other tokens than JAX's in the padded row, so the
@@ -27,6 +30,7 @@ from vats_tpu.models.vit3d import VideoTransformer as JVideo
 from vats_tpu.nn.rope import apply_rope_3d_axial as j_rope_3d
 from vats_tpu_torch.configs import vit3d_tiny_test
 from vats_tpu_torch.models import PatchEmbeddings3D, VideoTransformer
+from vats_tpu_torch.models.vit2d import _resize_order, resize_bilinear
 from vats_tpu_torch.nn.rope import apply_rope_3d_axial
 from vats_tpu_torch.utils.convert import params_from_jax
 
@@ -103,6 +107,25 @@ def test_patch_embeddings_3d_pad_truncate_mask_match_jax(frames, mask_row1):
     with torch.no_grad():
         _, none_mask, _ = pe(t(x), use_padding=False)
     assert none_mask is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw,size,first", [((40, 36), (32, 32), "H"),  # vit3d_tiny_test
+                                           ((120, 160), (224, 224), "W"),
+                                           ((100, 30), (64, 64), "H")])
+def test_per_frame_resize_matches_jax(dtype, hw, size, first):
+    """[B, C, T, H, W] -> [B, C, T, h, w], as ``PatchEmbeddings3D`` resizes
+    (the frame axis stays, and counts in the batch of jnp.einsum's cost)."""
+    x = np.random.RandomState(sum(hw)).randn(2, 3, 5, *hw).astype(np.float32)
+    assert _resize_order(30, hw, size) == first
+    got = resize_bilinear(t(x).to(TDT[dtype]), size)
+    want = f32(jax.image.resize(jnp.asarray(x).astype(JDT[dtype]), (2, 3, 5) + size,
+                                method="bilinear"))
+    assert got.dtype == TDT[dtype] and tuple(got.shape) == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def jax_and_port(dtype, x, **kw):

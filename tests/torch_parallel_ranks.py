@@ -98,9 +98,10 @@ def _np(x):
 
 
 def attention_cases(rank, world, cases):
-    """Each case: ring or Ulysses attention over this rank's
-    shard of seeded whole inputs; returns {name: {out, dq, dk, dv}} of the
-    rank's shard (gradients where the case asks, from ``do``)."""
+    """Each case: ring (flash or, impl 'ring_xla', blockwise) or Ulysses
+    attention over this rank's shard of seeded whole inputs; returns {name:
+    {out, dq, dk, dv, calls}} of the rank's shard (gradients where the case
+    asks, from ``do``; calls: the collectives the case ran)."""
     from vats_tpu_torch.ops.ring_attention import ring_attention
     from vats_tpu_torch.ops.ulysses import ulysses_attention
     from vats_tpu_torch.parallel import collectives
@@ -117,12 +118,15 @@ def attention_cases(rank, world, cases):
         if c.get("seg") is not None:
             kw["q_segment_ids"] = kw["kv_segment_ids"] = _shard(c["seg"], r, world)
         fn = ulysses_attention if c["impl"] == "ulysses" else ring_attention
+        if c["impl"] == "ring_xla":
+            kw["impl"] = "xla"
+        n0 = collectives.traffic["calls"]
         if c.get("expect_error"):
-            n0 = collectives.traffic["calls"]
             try:
                 fn(q, k, v, **kw)
-            except ValueError as e:
-                out[c["name"]] = dict(error=str(e), calls=collectives.traffic["calls"] - n0)
+            except (ValueError, NotImplementedError) as e:
+                out[c["name"]] = dict(error=str(e), type=type(e).__name__,
+                                      calls=collectives.traffic["calls"] - n0)
             else:
                 out[c["name"]] = dict(error=None)
             continue
@@ -134,7 +138,7 @@ def attention_cases(rank, world, cases):
         if grad:
             o.backward(_shard(c["do"], r, world).to(dt))
             res.update(dq=_np(q.grad), dk=_np(k.grad), dv=_np(v.grad))
-        out[c["name"]] = res
+        out[c["name"]] = dict(res, calls=collectives.traffic["calls"] - n0)
     return out
 
 
@@ -230,6 +234,29 @@ def card_ring(rank, world, payload):
     return dict(out=o.detach().float().cpu(), dq=q.grad.float().cpu(),
                 dk=k.grad.float().cpu(), dv=v.grad.float().cpu(),
                 launches=tuple(fn.launches for fn in fns))
+
+
+def card_blockwise_ring(rank, world, payload):
+    """The blockwise ring (``impl="xla"``) forward and backward on this
+    rank's shard, once on cuda:0 and once on the CPU, from the same inputs
+    in ``payload["dtype"]``; returns {device: (out, dq, dk, dv)} in fp32 on
+    the CPU."""
+    from vats_tpu_torch.ops.ring_attention import ring_attention
+
+    torch.cuda.set_device(0)
+    mesh = _seq_mesh(world)
+    r = mesh.axis_index("seq")
+    dt = getattr(torch, payload["dtype"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v, do = (_shard(payload[x], r, world).to(dev, dt) for x in ("q", "k", "v", "do"))
+        for x in (q, k, v):
+            x.requires_grad_()
+        valid = _shard(payload["valid"], r, world).to(dev)
+        o = ring_attention(q, k, v, mesh=mesh, impl="xla", kv_valid=valid, **payload["kw"])
+        o.backward(do)
+        out[dev] = tuple(x.detach().float().cpu() for x in (o, q.grad, k.grad, v.grad))
+    return out
 
 
 # --- FSDP, tensor and expert sharding -----------------------------------------

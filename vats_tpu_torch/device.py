@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 def resolve_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 products in full fp32 on the card inside the block, whatever the
+    process-wide TF32 setting (restored on the way out)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

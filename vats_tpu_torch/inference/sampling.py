@@ -1,7 +1,8 @@
 """Logit processors and sampling on [B, V] logits.
 
 Counterpart of ``vats_tpu/inference/sampling.py``: repetition penalty,
-temperature (0 = greedy), exact top-k, top-p with the keep-first shift, and
+temperature (0 = greedy), exact top-k (equal logits in index order, as
+``lax.top_k`` orders them), top-p with the keep-first shift, and
 categorical draws, vectorized over the batch.  Draws come from an explicit
 ``torch.Generator``; they are not JAX's bits, so sampled outputs agree with
 the JAX package in distribution only (greedy decoding agrees exactly).
@@ -40,8 +41,13 @@ def apply_repetition_penalty(
 
 
 def exact_top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over the last axis, sorted descending."""
-    return torch.topk(logits, k, dim=-1, sorted=True)
+    """Exact top-k over the last axis, sorted descending, equal values in
+    index order: ``lax.top_k``'s (values, indices) bit for bit.  A stable
+    sort, because ``torch.topk`` leaves unspecified both the order of equal
+    values and which of them make the k (on the CPU it differs from
+    ``lax.top_k`` on bf16 logits upcast to fp32)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -95,12 +101,14 @@ def sample_logits(
 
     With top-k active, temperature / top-p / the draw run in the k-wide
     top-k subspace (exactly equivalent: everything below the k-th logit is
-    -inf either way)."""
-    if approx_top_k:
-        raise NotImplementedError(
-            "approx_top_k is a TPU-only approximate top-k (jax.lax.approx_max_k)"
-            "; the port samples with the exact top-k"
-        )
+    -inf either way).
+
+    ``approx_top_k`` is JAX's ``lax.approx_max_k`` followed by a stable sort
+    of the values.  Off the TPU (on the CPU and the GPU) XLA computes
+    ``approx_max_k`` exactly, as ``lax.top_k``, so the function JAX computes
+    there is the exact top-k, and the re-sort of a top-k that is sorted
+    already, ties in index order, changes nothing: the flag selects the same
+    :func:`exact_top_k`.  Nothing approximate is left to fall back from."""
     logits = logits.float()
     if repetition_penalty is not None and repetition_penalty != 1.0:
         if repetition_penalty <= 0:

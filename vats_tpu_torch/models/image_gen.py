@@ -33,7 +33,6 @@ Dropout masks come from ``nn/dropout.py`` (rate 0 in every parity test).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -43,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vats_tpu_torch.configs.image_gen import ImageGenArgs
-from vats_tpu_torch.device import resolve_device, resolve_dtype
+from vats_tpu_torch.device import no_tf32, resolve_device, resolve_dtype
 from vats_tpu_torch.nn.activations import FFNBlock
 from vats_tpu_torch.nn.attention import AttentionBlock, dense, embed_rows
 from vats_tpu_torch.nn.cross_attention import CrossAttentionBlock
@@ -444,18 +443,6 @@ class VQVAEDecoder(nn.Module):
         return torch.sigmoid(x)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """fp32 products in full fp32 on the card (the quantizer's distances
-    decide an argmin), whatever the process-wide TF32 setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 class VectorQuantizer(nn.Module):
     """L2-nearest codebook row with the straight-through estimator; the
     loss is ``mse(sg(z_q), z) + beta * mse(z_q, sg(z))`` (the JAX package's
@@ -479,7 +466,7 @@ class VectorQuantizer(nn.Module):
         shape = z.shape
         zf = z.reshape(-1, shape[-1]).float()
         cb = self.embedding.float()
-        with _no_tf32():
+        with no_tf32():  # the distances decide an argmin
             prod = zf @ cb.T
         d2 = zf.square().sum(dim=1, keepdim=True) - 2.0 * prod + cb.square().sum(dim=1)[None, :]
         indices = torch.argmin(d2, dim=-1)

@@ -15,15 +15,16 @@ Training with ``use_checkpointing`` wraps each block in
 ``torch.utils.checkpoint`` (the JAX ``nn.remat``): its forward, attention
 included, runs again in the backward.
 
-The resize antialiases when it shrinks, as ``jax.image.resize`` does
-(``F.interpolate(antialias=True)``); it runs in fp32 and rounds to the
-compute dtype once (the CPU has no bf16 antialiased resize, and the card
-does the same so the two agree).  Patches flatten row-major over (gH, gW),
-the order the RoPE positions assume.
+The resize is ``jax.image.resize``'s computation (:func:`resize_bilinear`):
+a weight matrix per resized axis, in x's dtype, and one contraction an
+axis, each rounded to x's dtype, in the order ``jnp.einsum`` picks.  In
+bf16 it is bit-equal to JAX's on the CPU.  Patches flatten row-major over
+(gH, gW), the order the RoPE positions assume.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -33,7 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vats_tpu_torch.configs.vit2d import ViT2DArgs
-from vats_tpu_torch.device import resolve_device, resolve_dtype
+from vats_tpu_torch.device import no_tf32, resolve_device, resolve_dtype
 from vats_tpu_torch.nn.activations import FFNBlock
 from vats_tpu_torch.nn.attention import AttentionBlock, dense
 from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
@@ -42,17 +43,72 @@ from vats_tpu_torch.nn.norms import RMSNorm
 from vats_tpu_torch.parallel.layout import gathered
 
 
+@functools.lru_cache(maxsize=64)
+def _weight_mat(m: int, n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[m, n]: ``jax.image``'s ``compute_weight_mat`` for a resize of an axis
+    from m to n samples (scale n / m, no translation) with the linear
+    (triangle) kernel, widened by 1 / scale when it shrinks (the antialias),
+    each column normalised to sum 1, in ``dtype``.
+
+    Computed in fp32 on the CPU, as XLA computes it: the sample positions
+    (i + 0.5) / scale - 0.5 round once, as the fused multiply-add of XLA's
+    vectorised loop does (rounding the product first moves a position by an
+    fp32 ulp, which moves weights by far more than their own rounding when
+    the positions are large).  Cached per device, so a CUDA graph replays
+    with the matrices made in its warm-up."""
+    f32 = torch.float32
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=f32)
+    inv32 = float(torch.tensor(inv_scale, dtype=f32))
+    sample = ((torch.arange(n, dtype=f32) + 0.5).double() * inv32 - 0.5).to(f32)
+    x = (sample[None, :] - torch.arange(m, dtype=f32)[:, None]).abs() / kernel_scale
+    w = torch.clamp(1.0 - x.abs(), min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(f32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    # no weight where the sample lies wholly outside the input
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0).to(dtype).to(device)
+
+
+def _resize_order(bc: int, hw: Tuple[int, int], size: Tuple[int, int]) -> str:
+    """The pairwise order ``jnp.einsum`` (opt_einsum's 'optimal' path for
+    three operands) takes for x [bc, H, W] and the two weight matrices: the
+    cheapest of H first, W first and the matrices' outer product first in
+    its flop count, the earlier of equals."""
+    (h_in, w_in), (h, w) = hw, size
+    flops = {"H": 2 * bc * w_in * h * (h_in + w),
+             "W": 2 * bc * h_in * w * (w_in + h),
+             "outer": h_in * w_in * h * w * (1 + 2 * bc)}
+    return min(flops, key=flops.get)  # min keeps the first of equal costs
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """[..., H, W] -> [..., h, w]: ``jax.image.resize(method='bilinear')``
-    (antialiased when shrinking; an axis whose size stays is left as it
-    is), computed in fp32 and returned in x's dtype."""
-    if tuple(x.shape[-2:]) == tuple(size):
+    with its rounding.  Each resized axis has a weight matrix in x's dtype
+    (:func:`_weight_mat`; an axis whose size stays is left out); x is
+    contracted with them one at a time, each product summed in full fp32
+    (no TF32 on the card) and rounded to x's dtype, in
+    :func:`_resize_order`'s order.  With no axis resized, x is returned."""
+    (h_in, w_in), (h, w) = x.shape[-2:], tuple(size)
+    dt, dev = x.dtype, x.device
+    wh = _weight_mat(h_in, h, dt, dev).float() if h != h_in else None
+    ww = _weight_mat(w_in, w, dt, dev).float() if w != w_in else None
+    if wh is None and ww is None:
         return x
-    lead = x.shape[:-2]
-    x4 = x.float().reshape(-1, 1, *x.shape[-2:])
-    out = F.interpolate(x4, size=size, mode="bilinear", align_corners=False,
-                        antialias=True)
-    return out.reshape(*lead, *size).to(x.dtype)
+    first = "H" if ww is None else "W" if wh is None else _resize_order(
+        x.numel() // (h_in * w_in), (h_in, w_in), (h, w))
+    with no_tf32():
+        if first == "outer":
+            kron = (wh[:, None, :, None] * ww[None, :, None, :]).to(dt).float()
+            y = x.float().flatten(-2) @ kron.reshape(h_in * w_in, h * w)
+            return y.to(dt).reshape(*x.shape[:-2], h, w)
+        for axis in ("H", "W") if first == "H" else ("W", "H"):
+            if axis == "H" and wh is not None:
+                x = (wh.T @ x.float()).to(dt)
+            elif axis == "W" and ww is not None:
+                x = (x.float() @ ww).to(dt)
+    return x
 
 
 def resize_and_center_crop(x: torch.Tensor, target_size: int) -> torch.Tensor:

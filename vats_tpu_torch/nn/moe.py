@@ -136,7 +136,10 @@ class TopKRouter(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         if self.record:
             self.last_probs = probs.detach()
-        top_vals, top_idx = torch.topk(probs, self.top_k, dim=-1)
+        # lax.top_k's choice and order: of equal probabilities the lower
+        # expert first (torch.topk's among ties is unspecified, and differs)
+        top_vals, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top_vals, top_idx = top_vals[:, :self.top_k], top_idx[:, :self.top_k]
         weights = top_vals / top_vals.sum(dim=-1, keepdim=True)
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.use_aux_loss and not deterministic and self.num_experts > 1:

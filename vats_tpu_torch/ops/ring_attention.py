@@ -30,9 +30,21 @@ It is the JAX package's ring-flash path (``impl="flash"``, its default):
 
 On CUDA tensors the hops run the kernels; on CPU tensors the wrappers run
 their plain versions, so the same ring is its own plain counterpart there.
-The JAX package's blockwise ring (``impl="xla"``) computes the same
-function and has no counterpart here: the model's context parallelism takes
-the flash ring, in both packages.
+
+``impl="xla"`` is the JAX package's blockwise ring (``_ring_attention_xla``),
+which computes the same function in XLA, outside any Pallas kernel, and so
+here in PyTorch, outside any kernel of the port (:func:`_ring_blockwise`):
+online-softmax tiles of ``q_chunk`` x ``k_chunk`` (the largest divisors of
+tl no larger), fp32 scores of q and k in their storage dtype, p and p·v in
+fp32, full fp32 products (no TF32).  It takes the hops of
+:func:`_ring_steps`: a hop whose shard lies wholly outside the causal mask
+or the windows for every local query computes nothing (the JAX
+``lax.cond``, a Python branch here), and the trailing dead hops (under
+causal + ``left_window``, those past the window) are not taken.  K, V and
+their validity rotate in their storage dtype through the differentiable
+``parallel.collectives.ppermute``, so autograd gives the backward, as
+``jax.grad`` does through the JAX scan.  The model's context parallelism
+takes the flash ring, in both packages.
 """
 
 from __future__ import annotations
@@ -43,13 +55,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from vats_tpu_torch.device import no_tf32
+from vats_tpu_torch.ops.attention_ref import DEFAULT_MASK_VALUE
 from vats_tpu_torch.ops.flash_attention import (
     LSE_EMPTY_ROW,
     _kernel_head_dim,
     flash_attention_bwd,
     flash_attention_lse,
 )
-from vats_tpu_torch.parallel.collectives import shift
+from vats_tpu_torch.parallel.collectives import _TieFn, ppermute, shift
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +206,87 @@ class RingFlashFn(torch.autograd.Function):
         return (dq.to(q.dtype), dk_t.to(k.dtype), dv_t.to(v.dtype)) + (None,) * 5
 
 
+def _pick_chunk(t_local: int, target: int) -> int:
+    """The largest divisor of t_local that is at most ``target``."""
+    c = min(t_local, target)
+    while t_local % c:
+        c -= 1
+    return c
+
+
+def _tile_update(q_c, k_c, v_c, valid_c, q_pos, k_pos, cfg: _RingCfg, m, l, o):
+    """One online-softmax update of a q chunk's stats from one K/V chunk
+    (the JAX ``_tile_update``).  q_c [B, G, N, qc, hd] and k_c / v_c
+    [B, G, 1, kc, hd] fp32 (values of their storage dtype); valid_c [B, kc]
+    bool; m / l [B, G, N, qc, 1] and o [B, G, N, qc, hd] fp32, o
+    unnormalised.  Only the [B, G, N, qc, kc] tile is live."""
+    s = (q_c @ k_c.transpose(-1, -2)) * cfg.scale
+    qp, kp = q_pos[:, None], k_pos[None, :]
+    mask = torch.ones((qp.shape[0], kp.shape[1]), dtype=torch.bool, device=s.device)
+    if cfg.causal:
+        mask &= kp <= qp
+    elif cfg.right_window >= 0:
+        mask &= (kp - qp) <= cfg.right_window
+    if cfg.left_window >= 0:
+        mask &= (qp - kp) <= cfg.left_window
+    mask = mask & valid_c[:, None, None, None, :]
+    s = torch.where(mask, s, DEFAULT_MASK_VALUE)
+    # the running max carries no gradient: the normalised output does not
+    # depend on it (JAX differentiates through it to the same value)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True)).detach()
+    alpha = torch.exp(m - m_new)
+    p = torch.where(mask, torch.exp(s - m_new), 0.0)
+    return m_new, alpha * l + p.sum(dim=-1, keepdim=True), o * alpha + p @ v_c
+
+
+def _ring_blockwise(q, k, v, valid, cfg: _RingCfg, mesh, q_chunk: int, k_chunk: int):
+    """The blockwise ring on this rank's shards (the JAX
+    ``_ring_attention_xla``): q [B, tl, Hq, hd], k / v [B, tl, G, hd] in
+    their storage dtypes, valid [B, tl] bool.  Returns [B, tl, Hq, hd] in
+    q.dtype, 0 on a row with no key."""
+    n, idx, tl = cfg.n_seq, mesh.axis_index(cfg.axis_name), cfg.t_local
+    b, _, hq, hd = q.shape
+    g = k.shape[2]
+    qc, kc = _pick_chunk(tl, q_chunk), _pick_chunk(tl, k_chunk)
+    # the flash ring's plan: a hop computes where its shard meets the mask
+    # or the windows for some local query (JAX's lax.cond on the same
+    # condition); under causal + a left window it has JAX's trip count,
+    # 1 + (left_window + tl - 1) // tl hops
+    plan = _ring_steps(cfg)
+    dev = q.device
+    qg = q.reshape(b, tl, g, hq // g, hd).permute(0, 2, 3, 1, 4).float()
+    q_pos = idx * tl + torch.arange(tl, device=dev)
+    stats = [(torch.full((b, g, hq // g, qc, 1), -torch.inf, device=dev),
+              torch.zeros((b, g, hq // g, qc, 1), device=dev),
+              torch.zeros((b, g, hq // g, qc, hd), device=dev)) for _ in range(tl // qc)]
+    blk, token = [k, v, valid], None
+    with no_tf32():
+        for i, alive in enumerate(plan):
+            if _hop_offset(cfg, idx, i, *alive) is not None:
+                src = (idx - i) % n
+                k_i, v_i, valid_i = blk
+                kg = k_i.permute(0, 2, 1, 3)[:, :, None].float()  # [B, G, 1, tl, hd]
+                vg = v_i.permute(0, 2, 1, 3)[:, :, None].float()
+                for a in range(tl // qc):
+                    qa = slice(a * qc, (a + 1) * qc)
+                    m, l, o = stats[a]
+                    for j in range(tl // kc):
+                        kj = slice(j * kc, (j + 1) * kc)
+                        m, l, o = _tile_update(
+                            qg[:, :, :, qa], kg[..., kj, :], vg[..., kj, :], valid_i[:, kj],
+                            q_pos[qa], src * tl + torch.arange(j * kc, (j + 1) * kc, device=dev),
+                            cfg, m, l, o)
+                    stats[a] = (m, l, o)
+            if i < len(plan) - 1:
+                blk, token = ppermute(blk, mesh, cfg.axis_name, 1, token=token)
+    out = torch.cat([o / torch.clamp(l, min=1e-30) for _, l, o in stats], dim=3)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, tl, hq, hd).to(q.dtype)
+    if token is not None and out.requires_grad:
+        # the backward reaches every shift on every rank, latest first
+        _, out = _TieFn.apply(token, out)
+    return out
+
+
 def ring_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -206,16 +301,28 @@ def ring_attention(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     axis_name: str = "seq",
+    q_chunk: int = 512,
+    k_chunk: int = 512,
+    impl: str = "flash",
 ) -> torch.Tensor:
     """Context-parallel attention over this rank's shards (see the module
     docstring): q [B, tl, Hq, hd], k/v [B, tl, G, hd]; kv_valid [B, tl]
     bool (True = real token) and segment ids [B, tl] int, sharded like k.
-    Returns this rank's [B, tl, Hq, hd] in q.dtype.  Every live hop runs
-    K2' (K5a/K5b in the backward)."""
+    Returns this rank's [B, tl, Hq, hd] in q.dtype.
+
+    ``impl="flash"``: every live hop runs K2' (K5a/K5b in the backward).
+    ``impl="xla"``: the blockwise ring in tiles of ``q_chunk`` x
+    ``k_chunk`` (the flash ring ignores both), no kernel; it takes no
+    segment ids, as in JAX."""
     b, tl, hq, hd = q.shape
     if hq % k.shape[2] != 0:
         raise ValueError(f"num q heads ({hq}) % kv groups ({k.shape[2]}) != 0")
     use_segids = q_segment_ids is not None or kv_segment_ids is not None
+    if impl not in ("flash", "xla"):
+        raise ValueError(f"unknown ring impl: {impl!r}")
+    if impl == "xla" and use_segids:
+        raise NotImplementedError(
+            "segment ids need impl='flash' (masks rotate with KV shards)")
     dev = q.device
 
     def ids(x):
@@ -228,6 +335,8 @@ def ring_attention(
     cfg = _RingCfg(axis_name=axis_name, n_seq=mesh.shape[axis_name], t_local=tl,
                    scale=float(scale), causal=bool(causal), left_window=int(left_window),
                    right_window=int(right_window), use_segids=use_segids)
+    if impl == "xla":
+        return _ring_blockwise(q, k, v, valid.bool(), cfg, mesh, q_chunk, k_chunk)
     # the kernels' head dim, padded once outside the ring (exact)
     dp = _kernel_head_dim(hd)
     pad = (lambda x: F.pad(x, (0, dp - hd)).contiguous()) if dp != hd else (

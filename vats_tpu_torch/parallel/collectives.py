@@ -166,6 +166,22 @@ class _ShiftFn(torch.autograd.Function):
                 *[next(back) if f else None for f in ctx.floating])
 
 
+class _TieFn(torch.autograd.Function):
+    """Identity on a token and tensors: the backward reaches all of them
+    once it reaches any (integer tensors carry no gradient)."""
+
+    @staticmethod
+    def forward(ctx, token, *tensors):
+        ctx.floating = [x.is_floating_point() for x in tensors]
+        out = [x.view_as(x) for x in tensors]
+        ctx.mark_non_differentiable(*[y for y, f in zip(out, ctx.floating) if not f])
+        return (token.view_as(token), *out)
+
+    @staticmethod
+    def backward(ctx, g_token, *grads):
+        return (g_token, *[g if f else None for g, f in zip(grads, ctx.floating)])
+
+
 def ppermute(tensors: Sequence[torch.Tensor], mesh, axis: str, distance: int = 1,
              token: Optional[torch.Tensor] = None
              ) -> Tuple[List[torch.Tensor], torch.Tensor]:

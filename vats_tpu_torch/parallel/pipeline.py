@@ -37,24 +37,9 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
-from vats_tpu_torch.parallel.collectives import _block, copy_to, global_sum, ppermute
+from vats_tpu_torch.parallel.collectives import (
+    _block, _TieFn, copy_to, global_sum, ppermute)
 from vats_tpu_torch.parallel.mesh import Mesh
-
-
-class _TieFn(torch.autograd.Function):
-    """Identity on a token and tensors: the backward reaches all of them
-    once it reaches any (integer tensors carry no gradient)."""
-
-    @staticmethod
-    def forward(ctx, token, *tensors):
-        ctx.floating = [x.is_floating_point() for x in tensors]
-        out = [x.view_as(x) for x in tensors]
-        ctx.mark_non_differentiable(*[y for y, f in zip(out, ctx.floating) if not f])
-        return (token.view_as(token), *out)
-
-    @staticmethod
-    def backward(ctx, g_token, *grads):
-        return (g_token, *[g if f else None for g, f in zip(grads, ctx.floating)])
 
 
 def _microbatch_rows(leaves, m: int) -> int:
