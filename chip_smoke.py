@@ -2942,7 +2942,7 @@ def run_serve(kernel_fns):
 
         def engine(use_graphs):
             eng = ServingEngine(model, kv_quant=kv_quant, **engine_kw)
-            eng._use_graphs = use_graphs
+            eng.graphs.use_graph = use_graphs
             return eng
 
         # an untimed drive of the whole stream warms this configuration up
@@ -3119,7 +3119,7 @@ def serve_spec(model, stream, plain_outs, engine_kw, kernel_fns, L):
 
     def engine(use_graphs):
         eng = ServingEngine(model, **kw)
-        eng._use_graphs = use_graphs
+        eng.graphs.use_graph = use_graphs
         return eng
 
     def timed(use_graphs, primed=False):
@@ -3239,7 +3239,7 @@ def run_serve_parity():
         handle = None if use_graphs else model.register_forward_hook(
             lambda m, a, out: logits.append(out[0][:, -1].float().cpu()))
         engine = ServingEngine(model, **engine_kw)
-        engine._use_graphs = use_graphs
+        engine.graphs.use_graph = use_graphs
         rids = [engine.submit(p, max_new_tokens=n) for p, n in stream]
         out = engine.run()
         if handle is not None:

@@ -174,7 +174,7 @@ def test_engine_graph_equals_eager(gen, mode, overlap):
         eng = ServingEngine(model, max_batch=2, max_context=512, prefix_caching=True,
                             total_pages=1 + 4, kv_quant=kv_quant, decode_block_steps=4,
                             per_request_sampling=True, overlap_scheduling=overlap)
-        eng._use_graphs = use_graphs
+        eng.graphs.use_graph = use_graphs
         n0, p0 = counted.launches, ca.paged_decode_prologue.launches
         rids = [eng.submit(p, max_new_tokens=n, sampling=SamplingParams(
             temperature=0.7, top_k=10, seed=i) if i % 2 else None)
@@ -224,7 +224,7 @@ def engine_pair(model, stream, **kw):
     got = []
     for use_graphs in (True, False):
         eng = ServingEngine(model, **kw)
-        eng._use_graphs = use_graphs
+        eng.graphs.use_graph = use_graphs
         rids = [eng.submit(p, max_new_tokens=n) for p, n in stream]
         out = eng.run()
         torch.cuda.synchronize()

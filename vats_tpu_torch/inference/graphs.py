@@ -53,6 +53,7 @@ import torch
 
 from vats_tpu_torch.ops import kernels
 from vats_tpu_torch.ops.decode_attention import take_counters
+from vats_tpu_torch.utils.profiling import annotate
 
 #: decode steps between two host checks of whether any row is unfinished
 #: (when an EOS is set; each check is a host sync).  A step after every row
@@ -179,11 +180,20 @@ class GraphSet(Mapping):
 
     As a mapping: captured key -> its :class:`StepGraph`.  ``entries`` holds
     every key's buffers, also on the CPU and on the eager path, where the
-    same body runs with no graph."""
+    same body runs with no graph.
+
+    ``use_graph``: replay on the card (the default there; the CPU always
+    runs eagerly); False runs every body eagerly over the same buffers.
+
+    Spans (``utils/profiling.annotate``): ``graph.inputs`` over the input
+    copies; ``graph.run`` over the body's run, a replay or an eager call
+    alike; ``graph.capture`` over a key's warm-up and capture.  Each carries
+    the key."""
 
     def __init__(self, device, *, generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
         self.generator = generator
+        self.use_graph = self.device.type == "cuda"
         self.entries: Dict[Hashable, _Entry] = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
@@ -192,14 +202,19 @@ class GraphSet(Mapping):
                  *, use_graph: bool = True) -> Any:
         """Run ``key``'s body on ``inputs`` ({buffer name: host array or
         tensor}); ``build`` makes the key's entry the first time.  On the
-        card with ``use_graph``, from its graph; else eagerly."""
+        card with ``use_graph`` and :attr:`use_graph`, from its graph; else
+        eagerly."""
         entry = self.entries.get(key)
         if entry is None:
             entry = self.entries[key] = _Entry(*build())
-        for name, src in (inputs or {}).items():
-            copy_to_static(entry.buffers[name], src)
-        if not (use_graph and self.device.type == "cuda"):
-            entry.body()
+        if inputs:
+            with annotate("graph.inputs"):
+                for name, src in inputs.items():
+                    copy_to_static(entry.buffers[name], src)
+        named = lambda: {"key": str(key)}  # noqa: E731
+        if not (use_graph and self.use_graph and self.device.type == "cuda"):
+            with annotate("graph.run", named):
+                entry.body()
             return entry.outputs
         if entry.graph is None:
             if self._pool is None:
@@ -207,7 +222,8 @@ class GraphSet(Mapping):
                 self._pool = torch.cuda.graph_pool_handle()
             entry.graph = StepGraph(entry.body, self.device, generator=self.generator,
                                     stream=self._stream, pool=self._pool)
-        entry.graph.run()
+        with annotate("graph.run" if entry.graph.graph is not None else "graph.capture", named):
+            entry.graph.run()
         return entry.outputs
 
     def clear(self) -> None:

@@ -41,6 +41,15 @@ What replaces the JAX machinery:
     waits for the one in flight; they are queued behind it, so they never
     change what it reads.
 
+Spans (``utils/profiling.annotate``, on only while a profiler runs) mark
+what a step does on the host: ``serve.admit`` (lookups, pages, groups),
+inside it ``serve.prefill`` (one grouped prefill, with its request ids) and
+``serve.prefill.wait`` (the wait for its first tokens); ``serve.dispatch``
+(pages, the copies into the static buffers, the block's launch);
+``serve.block_wait`` and ``serve.commit`` (reading a block's tokens, and
+committing them to the rows); ``serve.retire``; ``serve.verify`` (a
+speculative step).
+
 The engine runs on the device of the model it is given (a ``TextLM`` or a
 ``QuantizedModel``) and never moves it.  Greedy by default; a request
 reproduces the greedy tokens ``generate_paged`` gives it alone, whatever
@@ -60,6 +69,7 @@ from vats_tpu_torch.device import resolve_dtype
 from vats_tpu_torch.inference.graphs import GraphSet, copy_to_static
 from vats_tpu_torch.inference.sampling import sample_logits, sample_logits_per_row
 from vats_tpu_torch.ops.decode_attention import PagedKVCache
+from vats_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -366,9 +376,9 @@ class ServingEngine:
         #: ('prefill', bucket, rpad), ('decode', k) and ('verify',) -> the
         #: graph of that program (every key's buffers in ``graphs.entries``);
         #: the graphs share one side stream and pool
+        #: (``graphs.use_graph = False`` runs every program eagerly)
         self.graphs = GraphSet(
             self.device, generator=None if per_request_sampling else self._generator)
-        self._use_graphs = self.device.type == "cuda"
 
     # ---------------- public API ----------------
 
@@ -421,12 +431,14 @@ class ServingEngine:
         previous block's last column) BEFORE reading the previous block's
         tokens, so the host's scheduling and the round trip hide behind the
         device's work."""
-        self._admit()
+        with annotate("serve.admit"):
+            self._admit()
         if self.spec_k or not self.overlap_scheduling:
             if not any(r is not None for r in self.row_request):
                 return []
             if self.spec_k:
-                self._spec_step()
+                with annotate("serve.verify"):
+                    self._spec_step()
             else:
                 self._decode_step()
             return self._retire()
@@ -556,7 +568,10 @@ class ServingEngine:
                               []).append(item)
         for bucket, items in groups.items():
             for i in range(0, len(items), self.MAX_PREFILL_GROUP):
-                self._prefill_group(bucket, items[i:i + self.MAX_PREFILL_GROUP])
+                group = items[i:i + self.MAX_PREFILL_GROUP]
+                rids = lambda: {"rids": ",".join(str(it[1].rid) for it in group)}  # noqa: E731
+                with annotate("serve.prefill", rids):
+                    self._prefill_group(bucket, group)
 
     def _prefill_group(
         self,
@@ -602,9 +617,9 @@ class ServingEngine:
         self.prefill_shapes.add((bucket, rpad))
         self.forwards["prefill"] += 1
         toks = self.graphs(("prefill", bucket, rpad),
-                           lambda: self._prefill_entry(bucket, rpad), inputs,
-                           use_graph=self._use_graphs)
-        toks = self._wait(self._fetch(toks))
+                           lambda: self._prefill_entry(bucket, rpad), inputs)
+        with annotate("serve.prefill.wait"):
+            toks = self._wait(self._fetch(toks))
         for g, (row, req, cached_len, keys) in enumerate(items):
             plen = len(req.prompt_ids)
             tok = int(toks[g])
@@ -749,7 +764,7 @@ class ServingEngine:
             out = self._zeros(torch.int32, self.max_batch, k)
             return {}, lambda: engine._decode_body(k, out), out
 
-        out = self.graphs(("decode", k), build, use_graph=self._use_graphs)
+        out = self.graphs(("decode", k), build)
         self.forwards["decode"] += k
         return out
 
@@ -760,73 +775,76 @@ class ServingEngine:
         its k for the rows it decodes, and their input tokens are its last
         column, on the device.  Returns None (the pipeline drains) when a
         chained block cannot run safely (context margin thinner than k)."""
-        k = self.decode_block_steps
-        lengths = self.lengths.copy()
-        chain_mask = np.zeros((self.max_batch,), bool)
-        if chained is not None:
-            for row, req in chained["rows"]:
-                if self.row_request[row] is req:
-                    lengths[row] += chained["k"]
-                    chain_mask[row] = True
-        margin = min(
-            (self.max_context - 1 - int(lengths[row])
-             for row, req in enumerate(self.row_request)
-             if req is not None and not req.done),
-            default=k,
-        )
-        if margin < k:
+        with annotate("serve.dispatch"):
+            k = self.decode_block_steps
+            lengths = self.lengths.copy()
+            chain_mask = np.zeros((self.max_batch,), bool)
             if chained is not None:
-                return None  # drain first; the sequential fallback handles it
-            k = 1
-        self._ensure_pages(lookahead=k, lengths=lengths)
-        # Every copy below and the block itself run in the order of one
-        # stream.  The block in flight (``chained``) was queued before them
-        # with the copy of its output to the host right behind it: that
-        # copy, and the read of its last column here, both come before this
-        # block overwrites the output (a block of the same length replays
-        # into the same static buffer), and the copies into the inputs come
-        # after the block in flight has read them.
-        dev = self._dev
-        copy_to_static(dev["tables"], self.tables)
-        copy_to_static(dev["lengths"], lengths)
-        copy_to_static(dev["tokens"], self.last_tokens)
-        if chained is not None:
-            copy_to_static(dev["chain"], chain_mask)
-            dev["tokens"].copy_(torch.where(dev["chain"], chained["out"][:, -1],
-                                            dev["tokens"]))
-        if self.per_request_sampling:
-            for name, arr in (("temp", self.row_temp), ("topk", self.row_topk),
-                              ("topp", self.row_topp), ("seed", self.row_seed)):
-                copy_to_static(dev[name], arr)
-        out = self._decode_block(k)
-        return {
-            "out": out,
-            "host": self._fetch(out),
-            "k": k,
-            "rows": [
-                (row, req) for row, req in enumerate(self.row_request)
-                if req is not None and not req.done
-            ],
-        }
+                for row, req in chained["rows"]:
+                    if self.row_request[row] is req:
+                        lengths[row] += chained["k"]
+                        chain_mask[row] = True
+            margin = min(
+                (self.max_context - 1 - int(lengths[row])
+                 for row, req in enumerate(self.row_request)
+                 if req is not None and not req.done),
+                default=k,
+            )
+            if margin < k:
+                if chained is not None:
+                    return None  # drain first; the sequential fallback handles it
+                k = 1
+            self._ensure_pages(lookahead=k, lengths=lengths)
+            # Every copy below and the block itself run in the order of one
+            # stream.  The block in flight (``chained``) was queued before them
+            # with the copy of its output to the host right behind it: that
+            # copy, and the read of its last column here, both come before this
+            # block overwrites the output (a block of the same length replays
+            # into the same static buffer), and the copies into the inputs come
+            # after the block in flight has read them.
+            dev = self._dev
+            copy_to_static(dev["tables"], self.tables)
+            copy_to_static(dev["lengths"], lengths)
+            copy_to_static(dev["tokens"], self.last_tokens)
+            if chained is not None:
+                copy_to_static(dev["chain"], chain_mask)
+                dev["tokens"].copy_(torch.where(dev["chain"], chained["out"][:, -1],
+                                                dev["tokens"]))
+            if self.per_request_sampling:
+                for name, arr in (("temp", self.row_temp), ("topk", self.row_topk),
+                                  ("topp", self.row_topp), ("seed", self.row_seed)):
+                    copy_to_static(dev[name], arr)
+            out = self._decode_block(k)
+            return {
+                "out": out,
+                "host": self._fetch(out),
+                "k": k,
+                "rows": [
+                    (row, req) for row, req in enumerate(self.row_request)
+                    if req is not None and not req.done
+                ],
+            }
 
     def _process_block(self, block) -> None:
         """Read a block's tokens and commit them to the rows it decoded,
         keyed on request identity: a row retired, preempted or re-admitted
         since the block was queued drops its lane."""
-        out = self._wait(block["host"])  # [B, k]
-        for row, req in block["rows"]:
-            if self.row_request[row] is not req or req.done:
-                continue
-            for j in range(block["k"]):
-                # tokens past EOS/budget stay uncounted (never attended, and
-                # overwritten by this row's next real commits)
-                self.lengths[row] += 1
-                tok = int(out[row, j])
-                self.last_tokens[row] = tok
-                req.output_ids.append(tok)
-                self._maybe_finish(row, req, tok)
-                if req.done:
-                    break
+        with annotate("serve.block_wait"):
+            out = self._wait(block["host"])  # [B, k]
+        with annotate("serve.commit"):
+            for row, req in block["rows"]:
+                if self.row_request[row] is not req or req.done:
+                    continue
+                for j in range(block["k"]):
+                    # tokens past EOS/budget stay uncounted (never attended,
+                    # and overwritten by this row's next real commits)
+                    self.lengths[row] += 1
+                    tok = int(out[row, j])
+                    self.last_tokens[row] = tok
+                    req.output_ids.append(tok)
+                    self._maybe_finish(row, req, tok)
+                    if req.done:
+                        break
 
     def _decode_step(self) -> None:
         self._process_block(self._dispatch_block())
@@ -870,8 +888,7 @@ class ServingEngine:
         # they come into range
         self.forwards["verify"] += 1
         nxt = self.graphs(("verify",), self._verify_entry,
-                          dict(tables=self.tables, lengths=self.lengths, drafts=drafts),
-                          use_graph=self._use_graphs)
+                          dict(tables=self.tables, lengths=self.lengths, drafts=drafts))
         nxt = self._wait(self._fetch(nxt))
         for row, req in enumerate(self.row_request):
             if req is None or req.done:
@@ -922,11 +939,12 @@ class ServingEngine:
 
     def _retire(self) -> List[Request]:
         out = []
-        for row, req in enumerate(self.row_request):
-            if req is not None and req.done:
-                if req.carried:
-                    req.output_ids = req.carried + req.output_ids
-                    req.carried = []
-                out.append(req)
-                self._free_row(row)
+        with annotate("serve.retire"):
+            for row, req in enumerate(self.row_request):
+                if req is not None and req.done:
+                    if req.carried:
+                        req.output_ids = req.carried + req.output_ids
+                        req.carried = []
+                    out.append(req)
+                    self._free_row(row)
         return out

@@ -36,6 +36,13 @@ layer computes what the JAX layer computes over the global batch:
   * ``expert_mlp`` over ``tensor`` makes the experts column-parallel in and
     row-parallel out, and ``embed`` over ``fsdp`` is gathered on use.
 
+Spans (``utils/profiling.annotate``) of the single-rank paths:
+``moe.route`` (the router), and in either dispatch ``moe.dispatch``
+(positions, the one-hots or the sort, the gather into the experts'
+buffers), ``moe.experts`` and ``moe.combine`` (the weighted combine and the
+sum over slots).  Autograd launches the backward outside them; a remat
+recompute opens them again inside it.
+
 ``record_routing = True`` keeps, after each forward, the global expert ids,
 the keep mask and the router's probabilities (``routing``), for tests and
 the card's checks.  The record is a Python attribute, which a CUDA graph's
@@ -65,6 +72,7 @@ from vats_tpu_torch.parallel.collectives import (
 )
 from vats_tpu_torch.parallel.layout import TENSOR_LOCAL, gathered, split_over
 from vats_tpu_torch.parallel.mesh import MESH_AXES, TOKEN_AXES, sharded_token_mesh
+from vats_tpu_torch.utils.profiling import annotate
 
 
 def _mesh_order(axes):
@@ -301,7 +309,8 @@ class MoELayer(nn.Module):
             out, aux_loss = self._dense(flat, deterministic, emesh, ep)
         elif ep == 1 and (tok is None or lossless):
             # every kept assignment is decided by this rank's tokens alone
-            weights, indices, aux_loss = self.router(flat, deterministic=deterministic)
+            with annotate("moe.route"):
+                weights, indices, aux_loss = self.router(flat, deterministic=deterministic)
             dispatch = self._sort_dispatch if mode == "sort" else self._scatter_dispatch
             out, keep = dispatch(flat, weights, indices, self._capacity(n), self.experts)
             if self.record_routing:
@@ -418,25 +427,28 @@ class MoELayer(nn.Module):
         e, k = self.num_experts, self.top_k
         nk = n * k
         dev = flat.device
-        expert_ids = indices.transpose(0, 1).reshape(nk)  # slot-major
-        if keep is not None:  # dropped assignments sort last, as expert e
-            expert_ids = torch.where(keep.transpose(0, 1).reshape(nk), expert_ids, e)
-        w_flat = weights.transpose(0, 1).reshape(nk).to(self.dtype)
-        token_ids = torch.arange(n, device=dev).repeat(k)
-        sort_idx, sorted_experts, pos = _sorted_positions(expert_ids, e + 1)
-        kept = (pos < capacity) & (sorted_experts < e)
-        dest = torch.where(kept, sorted_experts * capacity + pos, e * capacity)
-        gathered_in = flat[token_ids[sort_idx]].to(self.dtype)
-        buf = torch.zeros(e * capacity + 1, d, dtype=self.dtype, device=dev)
-        buf[dest] = gathered_in  # overflow rows all land in the trash row
-        expert_out = experts(buf[: e * capacity].reshape(e, capacity, d))
-        flat_out = torch.cat(
-            [expert_out.reshape(e * capacity, d),
-             torch.zeros(1, d, dtype=expert_out.dtype, device=dev)]
-        )
-        out_sorted = flat_out[dest] * w_flat[sort_idx][:, None]
-        out = torch.zeros(n, d, dtype=self.dtype, device=dev)
-        out = out.index_add_(0, token_ids[sort_idx], out_sorted.to(self.dtype))
+        with annotate("moe.dispatch"):
+            expert_ids = indices.transpose(0, 1).reshape(nk)  # slot-major
+            if keep is not None:  # dropped assignments sort last, as expert e
+                expert_ids = torch.where(keep.transpose(0, 1).reshape(nk), expert_ids, e)
+            token_ids = torch.arange(n, device=dev).repeat(k)
+            sort_idx, sorted_experts, pos = _sorted_positions(expert_ids, e + 1)
+            kept = (pos < capacity) & (sorted_experts < e)
+            dest = torch.where(kept, sorted_experts * capacity + pos, e * capacity)
+            gathered_in = flat[token_ids[sort_idx]].to(self.dtype)
+            buf = torch.zeros(e * capacity + 1, d, dtype=self.dtype, device=dev)
+            buf[dest] = gathered_in  # overflow rows all land in the trash row
+        with annotate("moe.experts"):
+            expert_out = experts(buf[: e * capacity].reshape(e, capacity, d))
+        with annotate("moe.combine"):
+            w_flat = weights.transpose(0, 1).reshape(nk).to(self.dtype)
+            flat_out = torch.cat(
+                [expert_out.reshape(e * capacity, d),
+                 torch.zeros(1, d, dtype=expert_out.dtype, device=dev)]
+            )
+            out_sorted = flat_out[dest] * w_flat[sort_idx][:, None]
+            out = torch.zeros(n, d, dtype=self.dtype, device=dev)
+            out = out.index_add_(0, token_ids[sort_idx], out_sorted.to(self.dtype))
         if not self.record_routing:
             return out, None
         return out, torch.zeros_like(kept).scatter_(0, sort_idx, kept)
@@ -446,27 +458,30 @@ class MoELayer(nn.Module):
         (``keep`` and the result as in :meth:`_sort_dispatch`)."""
         n, d = flat.shape
         e, k = self.num_experts, self.top_k
-        assign = F.one_hot(indices, e)  # [N, k, E] int64
-        flat_assign = assign.transpose(0, 1).reshape(n * k, e)  # slot-major
-        if keep is not None:
-            kept_in = keep.transpose(0, 1).reshape(n * k)
-            flat_assign = flat_assign * kept_in[:, None]
-        pos_in_expert = torch.cumsum(flat_assign, 0) - flat_assign
-        pos = (pos_in_expert * flat_assign).sum(dim=-1)  # [N*k]
-        kept = pos < capacity
-        if keep is not None:
-            kept = kept & kept_in
-        pos_oh = F.one_hot(torch.clamp(pos, max=capacity - 1), capacity)
-        dispatch = (
-            flat_assign[:, :, None] * pos_oh[:, None, :] * kept[:, None, None]
-        ).to(self.dtype)  # [N*k, E, C]
-        w_flat = weights.transpose(0, 1).reshape(n * k)
-        combine = dispatch * w_flat[:, None, None].to(self.dtype)
-        x_rep = flat.repeat(k, 1).to(self.dtype)
-        expert_in = torch.einsum("sec,sd->ecd", dispatch, x_rep)
-        expert_out = experts(expert_in)
-        out = torch.einsum("sec,ecd->sd", combine, expert_out.to(self.dtype))
-        return out.reshape(k, n, d).sum(dim=0), kept
+        with annotate("moe.dispatch"):
+            assign = F.one_hot(indices, e)  # [N, k, E] int64
+            flat_assign = assign.transpose(0, 1).reshape(n * k, e)  # slot-major
+            if keep is not None:
+                kept_in = keep.transpose(0, 1).reshape(n * k)
+                flat_assign = flat_assign * kept_in[:, None]
+            pos_in_expert = torch.cumsum(flat_assign, 0) - flat_assign
+            pos = (pos_in_expert * flat_assign).sum(dim=-1)  # [N*k]
+            kept = pos < capacity
+            if keep is not None:
+                kept = kept & kept_in
+            pos_oh = F.one_hot(torch.clamp(pos, max=capacity - 1), capacity)
+            dispatch = (
+                flat_assign[:, :, None] * pos_oh[:, None, :] * kept[:, None, None]
+            ).to(self.dtype)  # [N*k, E, C]
+            x_rep = flat.repeat(k, 1).to(self.dtype)
+            expert_in = torch.einsum("sec,sd->ecd", dispatch, x_rep)
+        with annotate("moe.experts"):
+            expert_out = experts(expert_in)
+        with annotate("moe.combine"):
+            w_flat = weights.transpose(0, 1).reshape(n * k)
+            combine = dispatch * w_flat[:, None, None].to(self.dtype)
+            out = torch.einsum("sec,ecd->sd", combine, expert_out.to(self.dtype))
+            return out.reshape(k, n, d).sum(dim=0), kept
 
 
 class MoEBlock(nn.Module):

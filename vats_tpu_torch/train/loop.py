@@ -21,6 +21,11 @@ waits for the device.  With accumulation the clip and skip live in the
 optimizer (``MultiSteps``).  The JAX loop's semantics are kept as they are,
 including what ``ADVICE.md`` records: ``max_skipped_steps`` is not enforced,
 and an accumulated run reports the norm of the last boundary.
+
+The step's spans (``utils/profiling.annotate``): ``train.forward``,
+``train.backward`` and ``train.optimizer`` (the reduce, norm, clip and
+update).  They run where Python runs the step's body: an eager step, or a
+capture while a profiler runs; a replay shows one ``graph.run``.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from vats_tpu_torch.train.step_graphs import (
     write_outputs,
     zero_grads,
 )
+from vats_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger("vats_tpu_torch.train")
 
@@ -117,12 +123,14 @@ def make_train_step_fn(
     def step(state: TrainState, batch: Batch, rng: int):
         params = state.params
         zero_grads(params.values())
-        objective, total, lm, aux = _forward_loss(model, batch, training_args, rng)
-        objective.backward()
+        with annotate("train.forward"):
+            objective, total, lm, aux = _forward_loss(model, batch, training_args, rng)
+        with annotate("train.backward"):
+            objective.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         mesh = sharded_mesh()
-        with torch.no_grad():
+        with torch.no_grad(), annotate("train.optimizer"):
             if mesh is not None:
                 reduce_gradients(params, grads, mesh)
             if accum_in_step:

@@ -139,12 +139,10 @@ class TrainGraphs(GraphSet):
     body reads or updates in place (:func:`state_tensors` of the train state
     and the model's buffers).  ``model``: where given, a capture of it is
     refused while one of its modules keeps a host record
-    (``record_routing``).  ``use_graph``: replay on the card (the default);
-    False runs the body eagerly over the same buffers, as on the CPU."""
+    (``record_routing``).  ``use_graph``: as for ``GraphSet``."""
 
     def __init__(self, device, model: Optional[torch.nn.Module] = None):
         super().__init__(device)
-        self.use_graph = True
         self._ptrs: Optional[tuple] = None
         self._grads: List[torch.Tensor] = []
         self._recorders = [m for m in (model.modules() if model is not None else ())

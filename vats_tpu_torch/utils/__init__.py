@@ -1,19 +1,26 @@
-from vats_tpu_torch.utils.convert import (
-    params_from_jax,
-    train_state_from_jax,
-    unstack_scan_params,
-)
-from vats_tpu_torch.utils.logging_utils import setup_logger
-from vats_tpu_torch.utils.profiling import StepTimer, annotate, trace
-from vats_tpu_torch.utils.visualization import plot_metrics
+"""Conversion from the JAX package's trees, logging, plots and profiling.
 
-__all__ = [
-    "StepTimer",
-    "annotate",
-    "params_from_jax",
-    "plot_metrics",
-    "setup_logger",
-    "trace",
-    "train_state_from_jax",
-    "unstack_scan_params",
-]
+Each name is loaded from its module at first use: the layers import
+``utils.profiling`` for their spans, and ``utils.convert`` imports the
+training package, which imports those layers.
+"""
+
+import importlib
+
+_MODULE_OF = {
+    "annotate": "profiling",
+    "params_from_jax": "convert",
+    "plot_metrics": "visualization",
+    "setup_logger": "logging_utils",
+    "trace": "profiling",
+    "train_state_from_jax": "convert",
+    "unstack_scan_params": "convert",
+}
+
+__all__ = sorted(_MODULE_OF)
+
+
+def __getattr__(name):
+    if name not in _MODULE_OF:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_MODULE_OF[name]}"), name)

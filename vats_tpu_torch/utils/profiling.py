@@ -6,28 +6,57 @@ Counterpart of ``vats_tpu/utils/profiling.py`` over ``torch.profiler``:
     (host activity, and the card's kernels where there is a card) that
     writes a Chrome trace (``chrome://tracing`` or Perfetto) into
     ``log_dir``;
-  * :class:`StepTimer` -- wall-clock step timing with tokens/s, safe under
-    asynchronous launches (it waits for the device of the result it is
-    given);
-  * :func:`annotate` -- a named region (``torch.profiler.record_function``)
-    so train-loop phases show up in the trace timeline.
+  * :func:`annotate` -- the program's one span: a named region of the
+    profiler's timeline (``vats.<name>``) while a profiler runs, and a
+    shared no-op otherwise.
+
+Spans exist exactly when someone profiles (:func:`trace`, or any other
+``torch.profiler.profile``), on the profiler's own clock, so they line up
+with the device's operations in its timeline; a kernel's launch event, at
+the time it was queued, falls inside the spans open on the host then.
+They keep no record of their own.  With no profiler running a span costs
+one read of the profiler's flag and an empty ``with``.
+
+A span is an operator event of the profiler (``RecordFunctionFast``), not a
+user annotation: the profiler draws no echo of it on the device's
+timeline, so a reduction of the device's operations sees only the device's
+work.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import time
-from typing import Any, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+#: the prefix of every span's name in a profiler's timeline
+PREFIX = "vats."
+
+
+class _Off:
+    """The shared no-op span."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_OFF = _Off()
+_span = torch._C._profiler._RecordFunctionFast
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "profiles") -> Iterator[str]:
-    """Profile the enclosed block; its Chrome trace is written to
-    ``log_dir/trace_<pid>_<ns>.json`` on exit."""
+    """Profile the enclosed block; its Chrome trace, the program's spans
+    included, is written to ``log_dir/trace_<pid>_<ns>.json`` on exit."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -38,63 +67,13 @@ def trace(log_dir: str = "profiles") -> Iterator[str]:
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """Named region that appears in profiler timelines (nests)."""
-    return torch.profiler.record_function(name)
-
-
-def _devices(result: Any, found: set) -> set:
-    if isinstance(result, torch.Tensor):
-        found.add(result.device)
-    elif isinstance(result, dict):
-        for v in result.values():
-            _devices(v, found)
-    elif isinstance(result, (list, tuple)):
-        for v in result:
-            _devices(v, found)
-    elif dataclasses.is_dataclass(result) and not isinstance(result, type):
-        for f in dataclasses.fields(result):
-            _devices(getattr(result, f.name), found)
-    return found
-
-
-class StepTimer:
-    """Rolling step timing; call ``tick(result, tokens=...)`` once per step."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._durations = []
-        self._tokens = []
-        self._last = None
-
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def tick(self, result: Any = None, tokens: int = 0) -> float:
-        """Returns the step duration.  Every card that holds a tensor of
-        ``result`` (a tensor, or dicts, lists, tuples and dataclasses of
-        them) is synchronized first, so queued launches don't fake instant
-        steps."""
-        if result is not None:
-            for dev in _devices(result, set()):
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        dt = now - (self._last if self._last is not None else now)
-        self._last = now
-        self._durations.append(dt)
-        self._tokens.append(tokens)
-        if len(self._durations) > self.window:
-            self._durations.pop(0)
-            self._tokens.pop(0)
-        return dt
-
-    def summary(self) -> Dict[str, float]:
-        if not self._durations:
-            return {}
-        total = sum(self._durations)
-        return {
-            "mean_step_s": total / len(self._durations),
-            "steps_per_s": len(self._durations) / total if total else 0.0,
-            "tokens_per_s": sum(self._tokens) / total if total else 0.0,
-        }
+def annotate(name: str, args: Optional[Callable[[], Dict[str, str]]] = None):
+    """The span ``vats.<name>`` (spans nest) while a profiler runs; else the
+    shared no-op.  ``args``: a function that makes ``{key: text}`` for the
+    span, called only while a profiler runs; the profiler keeps it where it
+    records operators' inputs (``record_shapes=True``)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    if args is None:
+        return _span(PREFIX + name)
+    return _span(PREFIX + name, (), args())  # a dict: anything else aborts
