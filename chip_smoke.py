@@ -8,8 +8,8 @@ Phases:
   build    build every CUDA kernel from ``vats_tpu_torch/csrc`` (one nvcc per
            source, all at once); print the card's name and power limit and
            ptxas's registers, shared memory and spills; fail unless every
-           bf16 flash forward and backward kernel holds tensor-core
-           instructions (HGMMA).
+           bf16 flash forward and backward kernel, and K6 at both widths,
+           holds tensor-core instructions (HGMMA).
   kernels  hold each kernel against its plain PyTorch version on the card at
            the shapes of the main path, and time kernel, plain version,
            bound and (K2, K2', K5) the library call
@@ -46,6 +46,11 @@ Phases:
            wrapped future shard at offset -tl (non-causal, right window),
            the backward fed a merged lse and di from outside with rows at
            1e30 (dq exactly 0 there); timed at the past hop beside SDPA.
+           K6 (paged tail-prefill attention) at decode_heavy's grouped
+           prefills (B=1 and 2 at bucket 512, B=1 at 128, tails starting at
+           0; B=1 at 512 after a 1024-token prefix hit) against the plain
+           gather path, a second launch bit-equal, timed beside its bound,
+           the plain version and SDPA over the window's keys.
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -53,7 +58,8 @@ Phases:
            replayed from a CUDA graph.  Launch counters are zeroed just
            before and read just after; each must equal 20 layers x calls
            (K3's fused prologue once a layer a decode forward, its
-           append-only mode never).  Then the graph and the eager decode
+           append-only mode never; K6 never, every prefill here being
+           fresh).  Then the graph and the eager decode
            loop in turns (graph, eager, eager, graph; equal tokens), each
            profiled; kernels per decode forward by name (``decode_census``);
            K3's dense prologue in replayed dense graphs at B 1, 16, 32 beside
@@ -71,7 +77,7 @@ Phases:
            bound, and reported.
   serve    the continuous-batching ``ServingEngine`` at full width
            (nlp_medium, 8 experts, top-2, bf16; depth cut to SERVE_LAYERS =
-           5 of 20 to keep the run under half its limit): 64 requests (32 sharing a
+           2 of 20 to keep the whole run under 900 s): 64 requests (32 sharing a
            256-token prefix) through 32 rows, a 129-page pool (requests queue
            and rows are preempted), prefix caching, 4-step decode blocks,
            greedy; three configurations: bf16 KV (K1), int8 KV (K4), int8
@@ -85,11 +91,14 @@ Phases:
            latency, capture seconds and replays (prefill graphs apart), peak
            memory, device-busy time and idle share; pages, preemptions,
            prefix hits; launch counts of K1, K4 and K3's paged prologue
-           against the decode forwards a hook counts; kernels per decode
+           against the decode forwards a hook counts, and of K6 against the
+           prefill forwards (once a layer each with bf16 KV, never with
+           int8); kernels per decode
            forward of each configuration.  The bf16-KV stream once more with
            speculative decoding (spec_k = SPEC_K = 4, greedy): the verify
            forward from one graph, the same three paths in turns; equal
-           tokens and forwards on every path, exact launch gates; the
+           tokens and forwards on every path, exact launch gates (K6 once
+           a layer a prefill or verify forward); the
            drafts' acceptance and the share of tokens equal to the plain
            drive's.
   serve_parity  2 layers at full width: one int8-KV stream of 8 requests
@@ -118,7 +127,7 @@ Phases:
            bf16), causal without and with left_window 384, forward and
            backward against single-process flash on the card (CP_REL_L2);
            one sequence-parallel medium_dense step at full width, CP_LAYERS =
-           10 of its 20 layers (T = 4096, dropout 0) with 'ring' and with 'ulysses' against the
+           5 of its 20 layers (T = 4096, dropout 0) with 'ring' and with 'ulysses' against the
            single-process step (train_parity's limits, leaf by leaf).  Exact
            launch gates a rank: K2', K5a, K5b = live hops of ``_ring_steps``
            (x layers, K2' x 2 under remat in the step), none under
@@ -132,7 +141,7 @@ Phases:
            ms, collectives' split and peak memory beside the flash ring's.
   sharded  SH_RANKS = 4 ranks spawned on cuda:0 over gloo, host-staged (the
            compute mode printed first; an exclusive mode fails the phase):
-           one medium_moe step at full width, SH_LAYERS = 4 of its 12
+           one medium_moe step at full width, SH_LAYERS = 2 of its 12
            layers (d768, vocab 65536, E8 top-2, sort dispatch, capacity
            1.25, remat 'dots', dropout 0, bf16 AdamW mu, B=4, T=512) on
            fsdp=2 x expert=2 and on
@@ -175,7 +184,8 @@ Phases:
            saved one; ``--resume`` for one more round (tokens_seen goes on);
            the serve script on the trained ``best_model`` with bf16 and int8
            KV (K1 or K4 and K3's paged prologue once a layer a decode
-           forward); the interactive script on ``best_model`` at temperature
+           forward, K6 once a layer a prefill forward with bf16 KV); the
+           interactive script on ``best_model`` at temperature
            0, dense and ``--paged`` (K3's dense prologue, or K1 and the
            paged prologue, once a layer a decode forward); a TokenShard
            packed into 8 rows of 512 with segment ids, one medium_dense
@@ -209,7 +219,7 @@ Phases:
            the CPU; ViT-3D xsmall at its full config, B=1, the last 6 frames
            padded: features card against CPU.
   image_gen  text->image generation at image_gen_xsmall's full width (d768,
-           32/4 heads of 24; the generation runs at IMG_GEN_LAYERS = 6 of 12
+           32/4 heads of 24; the generation runs at IMG_GEN_LAYERS = 3 of 12
            layers, the trainer and the script at 12): ``generate_image_tokens``
            and ``generate_image_tokens_paged`` at tools/bench_gen.py's shape
            (B=4, 16x16, temperature 0.9, top-k 64), graph and eager in turns
@@ -227,8 +237,10 @@ Phases:
            32 teacher-forced cached decode steps' logits; one fp32 trainer
            step at 64 px: loss, quantizer indices, per-leaf gradients and
            change, BatchNorm statistics.
-  video_gen  text->video generation at video_gen_large's full width and depth
-           (d1728, 20 layers, 12/4 heads of 144, 16x16 latent grid): the
+  video_gen  text->video generation at video_gen_large's full width (d1728,
+           12/4 heads of 144, 16x16 latent grid; the generation and the
+           pipeline at VID_GEN_LAYERS = 3 of its 20 layers, the trainer at
+           all 20): the
            inner raster step of ``generate_video_tokens`` (a read-mode
            forward of the whole frame) replayed from a CUDA graph over 2
            latent frames, in turns with the eager loop over the first
@@ -247,14 +259,15 @@ Phases:
            fp32 ``VideoTokenTrainer`` step: loss, per-leaf gradients and
            change.
   multimodal  the fused text+image+video stream at multimodal_small's full
-           width and depth (d768, 12 layers, 8/4 heads of 96):
+           width (d768, 8/4 heads of 96; MM_GEN_LAYERS = 2 of its 12 layers):
            ``generate_multimodal`` at the JAX bench's shape (B=4, t_text 64,
            2304 tokens a row, 2303 decode forwards), graph and eager in
            turns (equal codes); ragged prompts at t_text 256 (the prefill
            through K2); 64 decode steps through the dense and the paged
            cache fed the same tokens.  Exact gates: K1 and K3's paged table
-           mode 12 a decode forward, K2 12 a prefill at t_text 256 and none
-           at 64, K3's dense table mode 12 a dense decode forward; tokens/s,
+           mode once a layer a decode forward, K2 once a layer a prefill at
+           t_text 256 and never at 64, K3's dense table mode once a layer a
+           dense decode forward; tokens/s,
            kernels and device ms a step, idle share, peak memory.
   multimodal_parity  multimodal_small's width at 2 layers and 2 video
            frames, ragged prompts at t_text 256, card against CPU: greedy
@@ -393,8 +406,8 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 # bf16 wgmma kernel instantiations per library: 3 head dims x (K2, K2') in
-# the forward, 3 x (K5a, K5b) in the backward.
-WGMMA_KERNELS = {"flash_attention": 6, "flash_backward": 6}
+# the forward, 3 x (K5a, K5b) in the backward, K6 at widths 64 and 128.
+WGMMA_KERNELS = {"flash_attention": 6, "flash_backward": 6, "paged_prefill_attention": 2}
 
 
 def tensor_core_instructions(kernels, name):
@@ -419,7 +432,8 @@ def tensor_core_instructions(kernels, name):
     for line in text.splitlines():
         m = re.search(head, line)
         if m:
-            k = re.search(r"(flash_\w+?)_wgmma_kernelILi(\d+)E(?:Lb(\d))?", m.group(1))
+            k = re.search(r"(flash_\w+?|paged_prefill)_wgmma_kernelILi(\d+)E(?:Lb(\d))?",
+                          m.group(1))
             fn = (f"{k.group(1)} D={k.group(2)}{' LSE' if k.group(3) == '1' else ''}"
                   if k else None)
             if fn:
@@ -807,6 +821,90 @@ def flash_vs_sdpa(label, kern, q, k, v, scale, b_ms, flops, causal=True):
         f"{ms / lib_ms:.2f}x SDPA; {flops / ms / 1e9:.1f} TFLOP/s (SDPA "
         f"{flops / lib_ms / 1e9:.1f}), {b_ms / ms:.3f} of the bound; {own}")
     return ms, lib_ms, (alone or None)
+
+
+# K6 shapes: decode_heavy's grouped prefills (nlp_medium's attention: Hq 24,
+# G 8, hd 60 -> 64; 32 pages of 128 a row; its prompts are distinct, so
+# every tail starts at 0), and one row behind a 1024-token prefix hit:
+# (label, bucket, starts, valid tail lengths)
+K6_SHAPES = (("B=1 bucket 512", 512, (0,), (300,)),
+             ("B=2 bucket 512", 512, (0, 0), (300, 480)),
+             ("B=1 bucket 128", 128, (0,), (100,)),
+             ("B=1 bucket 512 after a 1024-token prefix hit", 512, (1024,), (300,)))
+
+
+def check_k6(gen):
+    """K6 at decode_heavy's prefill shapes against the plain version (the
+    path it replaced: every page gathered, fp32 scores and softmax) at every
+    query, within the bf16 tolerance plus 2^-9 max|v| (K6 rounds each p to
+    bf16 before P V, which moves the output by at most 2^-9 max|v|); a
+    second launch bit-equal.  Timed beside its bound (bytes: q, out and the
+    K/V of each row's keys up to its last valid one, at hd 60; operations:
+    the causal pairs of every query), the plain version and, where the tail
+    starts at 0, SDPA over the window's keys gathered dense (causal, no page
+    table, no key mask: a library's cost of the same attention).  The
+    kernels line keeps the first shape."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import PagedKVCache
+    from vats_tpu_torch.ops.paged_prefill_attention import (
+        paged_prefill_attention,
+        paged_prefill_attention_ref,
+    )
+
+    g, n, hd, hdp, ps, pps = DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP, DECODE_PS, 32
+    hq, layer, scale = g * n, 1, 1.0 / DECODE_HD**0.5
+    result = None
+    for label, t, starts, tails in K6_SHAPES:
+        b = len(starts)
+        pool = torch.randn((2, 1 + b * pps, 2, g, ps, hdp), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        pool[..., hd:] = 0
+        table = (1 + torch.randperm(b * pps, generator=gen, device="cuda")).to(
+            torch.int32).reshape(b, pps)
+        lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        mask = torch.arange(t, device="cuda")[None, :] < torch.tensor(tails, device="cuda")[:, None]
+        q = torch.randn((b, t, hq, hdp), generator=gen, device="cuda").to(torch.bfloat16)
+        q[..., hd:] = 0
+        kw = dict(scale=scale, window_mask=mask)
+        kern = lambda: paged_prefill_attention(q, pool, layer, table, lengths, **kw)  # noqa: E731
+        plain = lambda: paged_prefill_attention_ref(q, pool, layer, table, lengths, **kw)  # noqa: E731
+        n0 = paged_prefill_attention.launches
+        out, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        require(paged_prefill_attention.launches == n0 + 2, "K6 did not launch")
+        require(torch.equal(out, again), f"K6 {label}: two launches differ")
+        vmax = float(pool[layer, :, 1].float().abs().max())
+        err = expect_close(f"K6 {label}", out, want, BF16_ATOL + 2.0**-9 * vmax, BF16_RTOL)
+        keys = sum(s_ + n_ for s_, n_ in zip(starts, tails))
+        pairs = sum(s_ * t + sum(min(i + 1, n_) for i in range(t))
+                    for s_, n_ in zip(starts, tails))
+        nbytes = 2 * b * t * hq * hd * 2 + keys * 2 * g * hd * 2
+        flops = 4 * hq * hd * pairs
+        b_ms, by = bound(nbytes, flops)
+        (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+        alone = kernel_alone_ms(kern, "paged_prefill")
+        lib_ms = None
+        if not any(starts):
+            k_t, v_t = PagedKVCache(pool, table, lengths).gather_dense_t(layer)
+            kt, vt = (x[..., :hd, :t].transpose(2, 3).contiguous() for x in (k_t, v_t))
+            qt = q[..., :hd].transpose(1, 2).contiguous()
+            lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, scale))
+        log(f"K6 paged tail prefill {label} (tails {tails}; Hq={hq} G={g} hd={hd}->{hdp}, "
+            f"{pps} pages of {ps} a row): max_abs_err={err:.3e} (within {BF16_ATOL} + "
+            f"2^-9*{vmax:.2f} + {BF16_RTOL}*|ref|), repeat bit-equal; kernel_ms={ms:.4f} "
+            f"(kernel alone {_fmt(alone)}; bound share {b_ms / (alone or ms):.3f}) "
+            f"plain_ms={plain_ms:.4f} ({plain_ms / ms:.1f}x) library_ms={_fmt(lib_ms)} "
+            f"(SDPA causal over the window, dense) bound_ms={b_ms:.5f} ({by}; {pairs} "
+            f"pairs, {keys} keys); per call with host overhead: kernel {call_ms:.4f} plain "
+            f"{plain_call_ms:.4f}")
+        if result is None:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=by, library_ms=lib_ms)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        del pool
+        torch.cuda.empty_cache()
+    return result
 
 
 def check_k3(gen):
@@ -2215,9 +2313,12 @@ def run_main(counters):
 
     L = cfg.num_layers
     # every decode forward: one fused prologue a layer (K3's paged mode before
-    # K1, its dense mode on the dense cache), and no append-only K3
+    # K1, its dense mode on the dense cache), and no append-only K3; every
+    # prefill here writes a fresh cache (the row chunks too: each starts
+    # fresh), so K2 attends it and K6 never runs
     want = {
         "flash_attention": L * (1 + B // rc),
+        "paged_prefill_attention": 0,
         "paged_decode_attention_commit": L * steps * 2,
         "paged_decode_prologue": L * steps * 2,
         "dense_decode_prologue": L * steps,
@@ -2898,11 +2999,11 @@ def drive(engine, stream):
     return outs, done_s, time.perf_counter() - t0
 
 
-# The serve phase's depth: nlp_medium's 20 layers cut to 5 (10 until the
-# video and multimodal phases came) so the whole script stays under half
-# its time limit; its eager drives are host-bound, and their time goes with
+# The serve phase's depth: nlp_medium's 20 layers cut to 2 (10 until the
+# video and multimodal phases came, 5 until K6) so the whole script stays
+# under 900 s; its eager drives are host-bound, and their time goes with
 # the launches, with the depth.
-SERVE_LAYERS = 5
+SERVE_LAYERS = 2
 
 
 def run_serve(kernel_fns):
@@ -3103,7 +3204,8 @@ def serve_spec(model, stream, plain_outs, engine_kw, kernel_fns, L):
     and eagerly, in turns.  Gates: every drive's tokens equal, the forwards
     of each kind, the drafts and the preemptions equal on every path, the
     verify graph run once a verify forward, one prefill graph a key, K1 and
-    K3's paged prologue once a layer a decode forward, every request whole
+    K3's paged prologue once a layer a decode forward, K6 once a layer a
+    prefill or verify forward, every request whole
     and every page back.  Reports tokens/s,
     the drafts' acceptance and the share of positions whose token equals
     the plain greedy drive's (``plain_outs``; the verify forward's plain
@@ -3113,6 +3215,7 @@ def serve_spec(model, stream, plain_outs, engine_kw, kernel_fns, L):
     from vats_tpu_torch.inference import ServingEngine
 
     k1, k3 = kernel_fns["paged_decode_attention_commit"], kernel_fns["paged_decode_prologue"]
+    k6 = kernel_fns["paged_prefill_attention"]
     kw = dict(engine_kw, decode_block_steps=1, spec_k=SPEC_K)
     n_new = sum(n for _, n in stream)
     seen = {}
@@ -3138,6 +3241,9 @@ def serve_spec(model, stream, plain_outs, engine_kw, kernel_fns, L):
             dec = eng.forwards["decode"]
             require(k1.launches == k3.launches == L * dec, f"{label}: K1 {k1.launches}, "
                     f"K3 paged {k3.launches} launches for {dec} decode forwards of {L} layers")
+            windows = eng.forwards["prefill"] + eng.forwards["verify"]
+            require(k6.launches == L * windows, f"{label}: K6 {k6.launches} launches for "
+                    f"{windows} prefill and verify forwards of {L} layers")
             if use_graphs:
                 check_graph_runs(label, eng, before)
             state = (dict(eng.forwards), eng.spec_proposed, eng.spec_accepted,
@@ -3196,6 +3302,11 @@ def check_serve(name, engine, outs, stream, cfg, got, decode_fw, kv_quant, L, k1
     engine.allocator.free(engine.prefix_cache.reclaim(engine.allocator.capacity))
     require(engine.allocator.num_used == 0, f"serve {name}: pages leaked")
     want_k1, want_k4 = (L * decode_fw, 0) if kv_quant is None else (0, L * decode_fw)
+    # every engine prefill has a cache with history (a bf16 pool: K6)
+    want_k6 = L * engine.forwards["prefill"] if kv_quant is None else 0
+    require(engine.forwards["prefill"] > 0 and got["paged_prefill_attention"] == want_k6,
+            f"serve {name}: K6 {got['paged_prefill_attention']} launches (want {want_k6} "
+            f"for {engine.forwards['prefill']} prefill forwards)")
     require(decode_fw == engine.forwards["decode"] and decode_fw > 0,
             f"serve {name}: {decode_fw} decode forwards counted, engine says "
             f"{engine.forwards['decode']}")
@@ -3483,6 +3594,7 @@ def run_scripts(kernel_fns):
                     f"{[len(v) for v in got['outputs'].values()]} tokens")
             want = {k1.__name__: L * fw if not extra else 0,
                     k4.__name__: L * fw if extra else 0,
+                    "paged_prefill_attention": L * got["forwards"]["prefill"] if not extra else 0,
                     "paged_decode_prologue": L * fw, "dense_decode_prologue": 0,
                     "append_token_inplace": 0, "flash_attention_lse": 0,
                     "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
@@ -4045,10 +4157,10 @@ def run_vision_parity():
 # temperature 0.9 and top-k 64.
 IMG_GEN_B, IMG_GEN_GRID, IMG_TEXT_T = 4, 16, 16
 # the generation runs' depth: image_gen_xsmall's 12 layers cut to 6 when the
-# video and multimodal phases came, to keep the script under half its
-# limit (the eager loops are host-bound: their time goes with the depth);
-# the trainer and the script keep all 12
-IMG_GEN_LAYERS = 6
+# video and multimodal phases came, to 3 with K6, to keep the whole script
+# under 900 s (the eager loops are host-bound: their time goes with the
+# depth); the trainer and the script keep all 12
+IMG_GEN_LAYERS = 3
 IMG_PIPE_GRID = 64  # the config's own 256 px target: a 64 x 64 latent grid
 IMG_TRAIN_B, IMG_TRAIN_STEPS = 2, 3
 
@@ -4061,7 +4173,7 @@ def _image_gate(label, fns, want):
 
 def run_image_gen(fns):
     """Image generation at image_gen_xsmall's full width (the generation
-    runs at IMG_GEN_LAYERS = 6 of its 12 layers, the trainer at all 12):
+    runs at IMG_GEN_LAYERS = 3 of its 12 layers, the trainer at all 12):
     ``generate_image_tokens`` (dense cache) and ``generate_image_tokens_paged``
     at the JAX bench's shape, each with its decode replayed from a CUDA graph
     and eagerly, in turns (graph, eager, graph; equal tokens), each profiled
@@ -4464,6 +4576,10 @@ VID_L, VID_ROWS, VID_G, VID_HD, VID_S = 20, 256, 4, 144, 15
 MM_HQ, MM_G, MM_HD, MM_L, MM_B, MM_T_TEXT = 8, 4, 96, 12, 4, 64
 MM_SLOTS = MM_T_TEXT + 256 + 2048
 MM_RAGGED = (256, 200, 131, 17)  # prompt lengths of the K2 prefill (t_text 256)
+# the multimodal phase's depth: multimodal_small's 12 layers cut to 2 with K6,
+# to keep the whole script under 900 s (its eager loop of 2303 decode
+# forwards is host-bound: its time goes with the depth)
+MM_GEN_LAYERS = 2
 
 
 def check_k3_video(gen):
@@ -4712,6 +4828,10 @@ def check_k2_multimodal(gen):
 # --- phase: video_gen ---------------------------------------------------------
 
 VID_TEXT_T, VID_FRAMES = 8, 2  # tools/bench_gen.py's 8 text tokens; 2 latent frames
+# the generation runs' depth: video_gen_large's 20 layers cut to 3 with K6,
+# to keep the whole script under 900 s (the eager loop is host-bound: its
+# time goes with the depth); the trainer keeps all 20
+VID_GEN_LAYERS = 3
 VID_BENCH_B, VID_BENCH_FRAMES = 2, 5  # tools/bench_gen.py:84-116 (video_gen_xsmall)
 VID_TRAIN_STEPS, VQ_TRAIN_STEPS = 3, 2
 
@@ -4764,7 +4884,9 @@ def video_step_census(model, label, b, n=4, top=8):
 
 
 def run_video_gen(fns):
-    """Text->video generation at video_gen_large's full width and depth:
+    """Text->video generation at video_gen_large's full width (the
+    generation and the pipeline at VID_GEN_LAYERS of its 20 layers, the
+    trainer at all 20):
     ``generate_video_tokens`` at B=1 over 2 latent frames (512 raster steps,
     each a 256-token full-frame forward) with the inner step replayed from a
     CUDA graph, in turns with the eager loop over the first frame (graph,
@@ -4849,14 +4971,15 @@ def run_video_gen(fns):
         del model
         torch.cuda.empty_cache()
 
-    generation("video_gen_large", video_gen_large(dropout=0.0), 1, VID_FRAMES, 1)
+    generation("video_gen_large", video_gen_large(dropout=0.0, num_layers=VID_GEN_LAYERS), 1,
+               VID_FRAMES, 1)
     generation("video_gen_xsmall (the JAX bench's shape)",
                video_gen_xsmall(dropout=0.0, use_checkpointing=False), VID_BENCH_B,
                VID_BENCH_FRAMES, VID_BENCH_FRAMES)
 
     # the pipeline at large: the text encoder, 2 latent frames replayed from
     # a graph, the codebook, the 3-D decoder -> 4 frames of 128 x 128
-    cfg = video_gen_large(dropout=0.0)
+    cfg = video_gen_large(dropout=0.0, num_layers=VID_GEN_LAYERS)
     L, hw = cfg.num_layers, cfg.latent_height * cfg.latent_width
     pipe = VideoGenerationPipeline(cfg, seed=1, device="cuda")
     ids = torch.randint(1, cfg.vocab_size, (1, VID_TEXT_T), generator=gen, device="cuda")
@@ -5097,8 +5220,8 @@ def mm_step_census(model, label, b, length, n=4, top=8):
 
 
 def run_multimodal(fns):
-    """The fused stream at multimodal_small's full width and depth (d768, 12
-    layers, 8/4 heads of 96, vocabulary 4864): ``generate_multimodal`` at
+    """The fused stream at multimodal_small's full width (d768, 8/4 heads of
+    96, vocabulary 4864) at MM_GEN_LAYERS of its 12 layers: ``generate_multimodal`` at
     the JAX bench's shape (B=4, t_text=64, 256 image + 2048 video tokens a
     row: 2303 decode forwards; temperature 0.9, top-k 64), every step after
     the first replayed from a CUDA graph, in turns with the eager loop
@@ -5106,8 +5229,8 @@ def run_multimodal(fns):
     (prompts 256/200/131/17) whose prefill takes K2; 64 decode steps through
     the dense cache and the paged cache fed the same tokens (K3's dense and
     paged table modes; logits within LOGIT_ATOL).  Exact gates: K1 and K3's
-    paged table mode 12 a decode forward, K2 12 a prefill at t_text >= 256
-    and none at 64.  Tokens/s, kernels and device ms a step
+    paged table mode once a layer a decode forward, K2 once a layer a
+    prefill at t_text >= 256 and never at 64.  Tokens/s, kernels and device ms a step
     (``mm_step_census`` at a mid-stream length), idle share (census busy x
     steps over the wall, and a profiled graph run on a sample: one video
     frame), peak memory."""
@@ -5125,7 +5248,7 @@ def run_multimodal(fns):
     k1, k2 = paged_decode_attention_commit.__name__, fa.flash_attention.__name__
     ptab, dtab = ca.paged_decode_prologue.table.__name__, ca.dense_decode_prologue.table.__name__
     pp, dp = ca.paged_decode_prologue.__name__, ca.dense_decode_prologue.__name__
-    cfg = multimodal_small()
+    cfg = multimodal_small(num_layers=MM_GEN_LAYERS)
     L = cfg.num_layers
     n_total = cfg.image_tokens + cfg.video_tokens
     model = MultimodalLM(cfg, device="cuda", seed=0).eval()
@@ -5176,7 +5299,8 @@ def run_multimodal(fns):
                    f"{1 - step_ms / 1e3 * (n_total - 1) / nums['wall_s']:.3f}")
     peak = max(nums["peak_mem_gb"] for m in runs for nums, _ in runs[m])
     # a profiled graph run on a sample: one video frame (256 + 256 steps)
-    one = MultimodalLM(multimodal_small(video_grid_t=1), device="meta")
+    one = MultimodalLM(multimodal_small(video_grid_t=1, num_layers=MM_GEN_LAYERS),
+                       device="meta")
     one.load_state_dict(model.state_dict(), assign=True)
     one = one.eval()
     sample_want = dict(none)
@@ -5193,7 +5317,7 @@ def run_multimodal(fns):
     main_counts = {k_: v for k_, v in runs["graph"][0][1][2].items() if v}
     del one
 
-    # ragged prompts at t_text 256: the prefill takes K2 (12 launches)
+    # ragged prompts at t_text 256: the prefill takes K2 (L launches)
     t_long = MM_RAGGED[0]
     ids_long = torch.randint(1, cfg.text_vocab_size, (b, t_long), generator=gen, device="cuda")
     mask = torch.arange(t_long, device="cuda")[None, :] < torch.tensor(MM_RAGGED,
@@ -5341,7 +5465,7 @@ def run_multimodal_parity():
 # --- phase: context_parallel ------------------------------------------------
 
 CP_RANKS, CP_B, CP_T = 2, 2, 4096  # nlp_medium's max_seq_len: tl = 2048 a rank
-CP_LAYERS = 10  # of medium_dense's 20: depth cut to keep the whole run in its time
+CP_LAYERS = 5  # of medium_dense's 20 (10 until K6): depth cut to keep the whole run in its time
 CP_WINDOWS = (-1, 384)  # no window; nlp_medium's own left_window
 # Ring against single-process flash over the whole sequence, both bf16 on the
 # card: the ring rounds each hop's output to bf16 before the fp32 merge and
@@ -5673,7 +5797,7 @@ def run_context_parallel():
 
 SH_RANKS, SH_B, SH_T = 4, 4, 512
 SH_STEPS = 10  # the schedule's length: no warmup step, so step 0 moves the weights
-SH_LAYERS = 4  # of medium_moe's 12: depth cut to keep the whole run in its time
+SH_LAYERS = 2  # of medium_moe's 12 (4 until K6): depth cut to keep the whole run in its time
 # The step in fp32 first, then in bf16 (the config's own compute dtype).  Each
 # is held to its single-process step's loss and grad norm and dropped
 # assignments; the fp32 step also leaf by leaf (train_parity's limits): in
@@ -5875,7 +5999,7 @@ def _sh_rank(rank, init_file, t_spawn):
 
 def run_sharded():
     """SH_RANKS ranks spawned on cuda:0 over gloo (host-staged): one
-    medium_moe step at full width and depth on each mesh of SH_MESHES
+    medium_moe step at full width, SH_LAYERS of its 12 layers, on each mesh of SH_MESHES
     against the single-process step from the same weights and batch;
     exact per-rank K2', K5a, K5b gates; resident bytes a rank against the
     specs."""
@@ -6429,6 +6553,7 @@ def main(argv=None) -> int:
         paged_decode_attention_commit,
         paged_decode_attention_commit_int8,
     )
+    from vats_tpu_torch.ops.paged_prefill_attention import paged_prefill_attention
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -6469,6 +6594,13 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/flash_attention.cu",
              replaces="vats_tpu/ops/flash_attention.py:67", fn=fa.flash_attention,
              path="main"),
+        # K6: the JAX package attends a prefill into a cache with history
+        # with XLA over the gathered pages; no TPU kernel to port.  Every
+        # serving prefill runs it; the main phase's prefills are all fresh
+        dict(name="paged_prefill_attention", route="cuda",
+             source="vats_tpu_torch/csrc/paged_prefill_attention.cu",
+             replaces="none (vats_tpu/nn/attention.py, paged prefill with history, XLA)",
+             fn=paged_prefill_attention, path="serve"),
         # K3's append mode: off the LM's decode since K3 became the fused
         # prologue (the main phase gates it at 0 launches); video generation's
         # temporal cache writes every cached forward through it
@@ -6531,18 +6663,20 @@ def main(argv=None) -> int:
         check_k1_multimodal(gen(13))
         check_k2_multimodal(gen(14))
         check_ring_hop(gen(15))
+        results["paged_prefill_attention"] = check_k6(gen(16))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
               "multimodal": {}, "pipeline": {}, "vision": {}}
     every_kernel = [append_token_inplace, dense_decode_prologue, paged_decode_prologue,
                     dense_decode_prologue.table, paged_decode_prologue.table,
                     paged_decode_attention_commit, paged_decode_attention_commit_int8,
+                    paged_prefill_attention,
                     fa.flash_attention, fa.flash_attention_lse, fa.flash_bwd_dkv,
                     fa.flash_bwd_dq]
     runners = {
         # the main phase gates K3's append mode at 0 besides the main path's rows
         "main": lambda: run_main([r["fn"] for r in kernel_rows if r["path"] == "main"]
-                                 + [append_token_inplace]),
+                                 + [append_token_inplace, paged_prefill_attention]),
         "parity": run_parity,
         "serve": lambda: run_serve({r["name"]: r["fn"] for r in kernel_rows}),
         "serve_parity": run_serve_parity,

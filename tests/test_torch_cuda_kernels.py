@@ -1357,3 +1357,166 @@ def test_blockwise_ring_on_one_rank_on_the_card_matches_the_cpu(tmp_path, dtype)
     tol = dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
     for name, a, b_ in zip(("out", "dq", "dk", "dv"), got["cuda"], got["cpu"]):
         torch.testing.assert_close(a, b_, msg=name, **tol)
+
+
+# K6 (paged tail-prefill attention) cases: (rows, bucket, starts, tails, g, n,
+# hd, left_window).  Starts are page-aligned prefix hits (0 for a fresh
+# row); a tail is the window's valid length (the mask ends there); a start
+# of None is a scratch row (table all page 0, one valid token at 0), as the
+# serving engine pads a group to a power of two.  pps 32 pages of 128:
+# 4096 tokens, so a start of 3968 puts the bucket's pad queries past the
+# table's capacity.
+K6_CASES = {
+    "bucket32_one_row": dict(bucket=32, starts=[0], tails=[20]),
+    "bucket128_group8_scratch": dict(bucket=128, starts=[0, 128, 1024, 3968, 0, None, None,
+                                                          None], tails=[128, 77, 100, 50, 1]),
+    "bucket512_group16_scratch": dict(
+        bucket=512, starts=[0, 0, 0, 128, 256, 512, 1024, 1536, 2048, 2560, 3072, 3584, 3968,
+                            None, None, None],
+        tails=[512, 129, 300, 512, 401, 200, 317, 500, 256, 130, 499, 64, 127]),
+    "bucket2048": dict(bucket=2048, starts=[0, 1024], tails=[2048, 1500]),
+    "hd96_two_heads_a_group": dict(bucket=128, starts=[0, 256], tails=[128, 60], g=4, n=2,
+                                   hd=96),
+    "hd32_one_head_a_group": dict(bucket=128, starts=[0, 384, None, None], tails=[100, 128],
+                                  g=4, n=1, hd=32),
+    "hd128_eight_heads_a_group": dict(bucket=128, starts=[0, 640], tails=[128, 90], g=1,
+                                      n=8, hd=128),
+    "left_window": dict(bucket=512, starts=[0, 640, 1280, None], tails=[512, 400, 33],
+                        left_window=300),
+}
+
+
+def _k6_inputs(gen, c, nl=2, ps=128, pps=32):
+    """A bf16 pool of random pages (pad columns 0; page 0 is the scratch
+    page), each row's table a run of its own random pages, the starts as
+    ``lengths``, the window masks, and roped-looking q padded to the pool's
+    head dim."""
+    starts = c["starts"]
+    b = len(starts)
+    g, n, hd, t = c.get("g", 8), c.get("n", 3), c.get("hd", 60), c["bucket"]
+    hdp = -(-hd // 8) * 8
+    pages = 1 + b * pps
+    pool = rand(gen, nl, pages, 2, g, ps, hdp, dtype=torch.bfloat16)
+    pool[..., hd:] = 0
+    perm = 1 + torch.randperm(pages - 1, generator=gen, device="cuda").to(torch.int32)
+    table = perm.reshape(b, pps)
+    mask = torch.zeros((b, t), dtype=torch.bool, device="cuda")
+    lengths = torch.zeros(b, dtype=torch.int32, device="cuda")
+    for r, start in enumerate(starts):
+        if start is None:  # a scratch row
+            table[r] = 0
+            mask[r, 0] = True
+        else:
+            lengths[r] = start
+            mask[r, :c["tails"][r]] = True
+    q = rand(gen, b, t, g * n, hdp, dtype=torch.bfloat16)
+    q[..., hd:] = 0
+    return q, pool, table, lengths, mask, hd
+
+
+def _k6_flash_ref(q, pool, layer, table, lengths, mask, scale, left_window):
+    """K6's arithmetic a row at a time: the row's pages gathered, the plain
+    flash forward (p rounded to bf16 before P V, a query with no key 0) at
+    the row's offset.  Returns (out, a [B, Hq, T] bool: the query attends
+    some key)."""
+    t = q.shape[1]
+    k_t, v_t = da.PagedKVCache(pool, table, lengths).gather_dense_t(layer)
+    k, v = k_t.permute(0, 3, 1, 2), v_t.permute(0, 3, 1, 2)  # [B, S, G, hdp]
+    s = k.shape[1]
+    pos = torch.arange(s, device="cuda")
+    outs, attends = [], []
+    for r in range(q.shape[0]):
+        start = int(lengths[r])
+        rel = torch.clamp(pos - start, 0, t - 1)
+        valid = (pos < start) | ((pos < start + t) & mask[r][rel])
+        out, lse = fa.flash_attention_lse_ref(
+            q[r:r + 1], k[r:r + 1], v[r:r + 1], scale=scale, causal=True,
+            left_window=left_window, kv_valid=valid[None], q_pos_offset=start)
+        outs.append(out)
+        attends.append(lse < fa.LSE_EMPTY_ROW)
+    return torch.cat(outs), torch.cat(attends)
+
+
+@pytest.mark.parametrize("name", sorted(K6_CASES))
+def test_paged_prefill_matches_plain(gen, name):
+    """K6 against its arithmetic (the plain flash forward over the row's
+    gathered pages: p rounded to bf16, as K6 rounds it) within one bf16 ulp
+    of the output (TOL; a sum in another order flips a rounding of p now
+    and then, as for K2), and against the plain version (fp32 p, the
+    attention's CPU path) at every query that attends a key: rounding each
+    p_j to bf16 moves it by at most 2^-9 of itself, the output by at most
+    2^-9 max|v|, so that tolerance adds 2^-9 max|v| to TOL's.  Every query
+    is finite, a query that attends nothing writes 0; a second launch gives
+    equal bits."""
+    from vats_tpu_torch.ops import paged_prefill_attention as pp
+
+    c = K6_CASES[name]
+    q, pool, table, lengths, mask, hd = _k6_inputs(gen, c)
+    layer, scale, lw = 1, hd**-0.5, c.get("left_window", -1)
+    kw = dict(scale=scale, window_mask=mask, left_window=lw)
+    n0 = pp.paged_prefill_attention.launches
+    out = pp.paged_prefill_attention(q, pool, layer, table, lengths, **kw)
+    again = pp.paged_prefill_attention(q, pool, layer, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert pp.paged_prefill_attention.launches == n0 + 2
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool((out[..., hd:] == 0).all())
+    want, attends = _k6_flash_ref(q, pool, layer, table, lengths, mask, scale, lw)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    some = attends.transpose(1, 2)[..., None]  # [B, T, Hq, 1]
+    assert bool((out.masked_fill(some, 0) == 0).all())
+    plain = pp.paged_prefill_attention_ref(q, pool, layer, table, lengths, **kw)
+    vmax = float(pool[layer, :, 1].float().abs().max())
+    torch.testing.assert_close(
+        torch.where(some, out.float(), 0), torch.where(some, plain.float(), 0),
+        atol=TOL[torch.bfloat16]["atol"] + 2.0**-9 * vmax, rtol=TOL[torch.bfloat16]["rtol"])
+
+
+def test_paged_prefill_replays_from_a_graph(gen):
+    """A capture of K6 records one launch; its replay equals the eager call
+    bit for bit, and reads the inputs' buffers anew (new starts, same
+    shapes)."""
+    from vats_tpu_torch.ops import kernels
+    from vats_tpu_torch.ops import paged_prefill_attention as pp
+
+    q, pool, table, lengths, mask, hd = _k6_inputs(gen, K6_CASES["bucket128_group8_scratch"])
+    kw = dict(scale=hd**-0.5, window_mask=mask)
+    call = lambda: pp.paged_prefill_attention(q, pool, 0, table, lengths, **kw)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with kernels.launch_tally() as tally:
+        with torch.cuda.graph(graph):
+            out = call()
+    assert tally == {pp.paged_prefill_attention: 1}
+    for starts in ([0, 128, 1024, 3968, 0, 0, 0, 0], [256, 0, 512, 128, 3840, 0, 0, 0]):
+        lengths.copy_(torch.tensor(starts, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+
+
+def test_paged_prefill_rejects_bad_inputs(gen):
+    """No fallback on the card: int8 pools, a stored head dim K6 has no tile
+    for, a non-contiguous or fp32 q, an int64 table raise."""
+    from vats_tpu_torch.ops import paged_prefill_attention as pp
+
+    q, pool, table, lengths, mask, _ = _k6_inputs(gen, K6_CASES["bucket32_one_row"])
+    kw = dict(scale=0.125, window_mask=mask)
+    with pytest.raises(ValueError, match="bf16 pools"):
+        pp.paged_prefill_attention(q, pool.to(torch.int8), 0, table, lengths, **kw)
+    with pytest.raises(ValueError, match="bf16 pools"):
+        pp.paged_prefill_attention(q[..., :24].contiguous(), pool[..., :24].contiguous(), 0,
+                                   table, lengths, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        pp.paged_prefill_attention(q.transpose(2, 1).contiguous().transpose(2, 1), pool, 0,
+                                   table, lengths, **kw)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pp.paged_prefill_attention(q.float(), pool, 0, table, lengths, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        pp.paged_prefill_attention(q, pool, 0, table.long(), lengths, **kw)

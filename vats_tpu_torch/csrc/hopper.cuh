@@ -55,6 +55,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA), before the barrier that publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Synchronise the 128 threads of one warpgroup on named barrier ``id``
+// (1..15; 0 is __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
 // --- TMA --------------------------------------------------------------------
 
 // One box of a 3-D tensor map into shared memory; completion (the box's bytes)

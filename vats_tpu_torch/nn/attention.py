@@ -20,9 +20,11 @@ Attention runs by one of these paths:
     int8 pool, with its scales), which attends and commits the token in one
     launch; a fresh-cache prefill through K2 or the plain
     attention, then a whole-page append (quantized for an int8 pool); a
-    prefill into a non-fresh cache through ``append_tokens`` +
-    ``gather_dense_t`` (int8 pages dequantized into bf16) +
-    ``cached_decode_attention``.
+    prefill into a non-fresh cache through ``append_tokens``, then K6
+    (``ops/paged_prefill_attention.py``), which reads the pages through the
+    table, for a bf16 pool whose stored head dim it has a tile for, else
+    the plain version (``gather_dense_t``, int8 pages dequantized into
+    bf16, + ``cached_decode_attention``).
 
 RoPE: '1d', '2d_ntk' (the image-generation stack's raster-order 2-D
 rotation over a grid of width ``grid_shape[-1]``, positions scaled by
@@ -83,6 +85,7 @@ from vats_tpu_torch.nn.rope import (
     rope_inv_freq,
 )
 from vats_tpu_torch.ops import cache_append
+from vats_tpu_torch.ops import paged_prefill_attention as paged_prefill
 from vats_tpu_torch.ops.attention_ref import (
     cached_decode_attention,
     dot_product_attention,
@@ -651,24 +654,21 @@ class Attention(nn.Module):
             )
             return out, paged_cache.append_window_pages(layer_idx, k, v)
 
-        # prefill into a cache with history: append the window, gather the
-        # pages and attend the whole buffer with masks
+        # prefill into a cache with history: append the window, then attend
+        # the pages through the table with masks (K6 where it reads the pool)
         new_cache = paged_cache.append_tokens(layer_idx, k, v)
-        k_buf, v_buf = new_cache.gather_dense_t(layer_idx)
-        s = k_buf.shape[-1]
-        buf_pos = torch.arange(s, device=q.device)[None, :]
-        kv_valid = buf_pos < (lengths + t)[:, None]
-        if padding_mask is not None:
-            in_window = (buf_pos >= lengths[:, None]) & kv_valid
-            rel = torch.clamp(buf_pos - lengths[:, None], 0, t - 1)
-            window_valid = torch.gather(padding_mask.bool(), 1, rel)
-            kv_valid = kv_valid & torch.where(in_window, window_valid, True)
-        out = self._attend_buffer(
-            q, k_buf, v_buf, scale=scale, causal=True, left_window=left_window,
-            q_positions=positions, kv_positions=torch.arange(s, device=q.device),
-            kv_valid=kv_valid,
-        )
-        return out, new_cache
+        pool = new_cache.kv_pages
+        q = F.pad(q, (0, pool.shape[-1] - q.shape[-1]))
+        mask = None if padding_mask is None else padding_mask.bool()
+        kw = dict(scale=scale, window_mask=mask, left_window=left_window)
+        if paged_prefill.kernel_fits(pool):
+            out = paged_prefill.paged_prefill_attention(
+                q.contiguous(), pool, layer_idx, new_cache.page_table, lengths, **kw)
+        else:
+            out = paged_prefill.paged_prefill_attention_ref(
+                q, pool, layer_idx, new_cache.page_table, lengths,
+                kv_scales=new_cache.kv_scales, **kw)
+        return out[..., :self.head_dim], new_cache
 
     @staticmethod
     def _merge_padding(padding_mask, start, b, max_s):
