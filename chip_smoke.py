@@ -543,17 +543,18 @@ DECODE_SHAPES = (("B=32 lengths<=576", 32, 5, (0, 1, 127, 128, 576, 640), 577),
 DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP, DECODE_PS, DECODE_L = 8, 3, 60, 64, 128, 20
 
 
-def _decode_inputs(gen, B, pps, fixed, hi, int8):
+def _decode_inputs(gen, B, pps, fixed, hi, int8, heads=None, lo=1):
     """A pool of every slot written (int8 pools with their scales), ragged
-    lengths (the fixed ones first), a random page table, bf16 q and current
-    token, at nlp_medium's decode shapes."""
+    lengths in [lo, hi) (the fixed ones first), a random page table, bf16 q
+    and current token, at nlp_medium's decode shapes or at ``heads`` (L, G,
+    N, hd, hd_pad)."""
     import torch
 
     from vats_tpu_torch.ops.decode_attention import quantize_kv
 
     dev = "cuda"
-    L, G, N, hd, hdp, ps = (DECODE_L, DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP,
-                            DECODE_PS)
+    L, G, N, hd, hdp = heads or (DECODE_L, DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP)
+    ps = DECODE_PS
     P = B * pps
     sc = None
     if int8:  # every slot holds a quantized token
@@ -566,19 +567,21 @@ def _decode_inputs(gen, B, pps, fixed, hi, int8):
     else:
         pool = torch.randn((L, P, 2, G, ps, hdp), generator=gen, device=dev).to(torch.bfloat16)
         pool[..., hd:] = 0  # stored pad rows are zero
-    lens = torch.randint(1, hi, (B,), generator=gen, device=dev)
+    lens = torch.randint(lo, hi, (B,), generator=gen, device=dev)
     lens[:len(fixed)] = torch.tensor(fixed, device=dev)
     table = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, pps)
     mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
     return pool, sc, table, lens.to(torch.int32), mk(B, G * N, hd), mk(B, G, hd), mk(B, G, hd)
 
 
-def _decode_bytes(lengths, B, cap, int8, commit):
+def _decode_bytes(lengths, B, cap, int8, commit, heads=None, left_window=-1):
     """Bytes a call must move: q in and out, the current K/V in (bf16), the
-    settled history read once (int8 with its fp32 scales), the committed
-    K/V out, the page table and lengths."""
-    G, N, hd, hdp = DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP
-    tokens = int(lengths.clamp(max=cap).sum())
+    settled history read once (int8 with its fp32 scales; within
+    ``left_window`` of the row's length when >= 0), the committed K/V out,
+    the page table and lengths.  ``heads``: (G, N, hd, hd_pad)."""
+    G, N, hd, hdp = heads or (DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP)
+    lengths = lengths.clamp(max=cap)
+    tokens = int((lengths if left_window < 0 else lengths.clamp(max=left_window)).sum())
     per_tok = 2 * G * (hdp + 4) if int8 else 2 * G * hdp * 2
     return (2 * B * G * N * hd * 2 + 2 * B * G * hd * 2 + tokens * per_tok
             + (B * per_tok if commit else 0) + B * (cap // DECODE_PS) * 4 + B * 4), tokens
@@ -667,6 +670,70 @@ def check_k1(gen):
         del pool_k, pool_p
         torch.cuda.empty_cache()
     return result
+
+
+# code_chat_8k's decode attention (Mellum2: Hq 32, G 4, hd 128) at its
+# batch: 64 rows of 1k-8k tokens in pages of 128, a window of 1,024 tokens
+# (left_window 1023) on 21 of its 28 layers; the rows at the window's and
+# the tiles' edges first, then one at capacity
+WINDOW_HEADS, WINDOW_B, WINDOW_PPS, WINDOW_LW = (2, 4, 8, 128, 128), 64, 64, 1023
+WINDOW_FIXED = (1023, 1024, 1025, 1151, 1152, 1153, 2047, 4096, 8191)
+
+
+def check_k1_window(gen):
+    """K1 with code_chat_8k's window at its decode shape against the plain
+    version with the same window: output within the bf16 tolerance, the
+    committed pool bit-equal, one launch a call.  Timed (the call and the
+    kernel alone) beside the plain version and the bound (<= 1,023 settled
+    keys a row), and beside K1 without the window at the same rows (a full
+    layer's call: its bound reads every settled key)."""
+    import torch
+
+    from vats_tpu_torch.ops.decode_attention import (
+        PagedKVCache,
+        paged_decode_attention_commit,
+        paged_decode_attention_ref,
+    )
+
+    L, g, n, hd, hdp = WINDOW_HEADS
+    b, pps, lw, layer, scale = WINDOW_B, WINDOW_PPS, WINDOW_LW, 1, 1.0 / hd**0.5
+    cap = pps * DECODE_PS
+    pool, _, table, lengths, q, k_cur, v_cur = _decode_inputs(
+        gen, b, pps, WINDOW_FIXED, cap, int8=False, heads=WINDOW_HEADS, lo=1024)
+    pool_k, pool_p = pool, pool.clone()
+    rows = {}
+    for name, window in (("window", lw), ("full", -1)):
+        kw = dict(scale=scale, k_cur=k_cur, v_cur=v_cur, left_window=window)
+        n0 = paged_decode_attention_commit.launches
+        out = paged_decode_attention_commit(q, pool_k, layer, table, lengths, **kw)
+        want = paged_decode_attention_ref(q, pool_p[layer], table, lengths, **kw)
+        PagedKVCache(pool_p, table, lengths).append_token(layer, k_cur, v_cur)
+        torch.cuda.synchronize()
+        require(paged_decode_attention_commit.launches == n0 + 1,
+                f"K1 {name}: not one launch")
+        err = expect_close(f"K1 {name} hd {hd}", out, want, BF16_ATOL, BF16_RTOL)
+        require(torch.equal(pool_k, pool_p),
+                f"K1 {name}: committed pool differs from the plain append")
+        kern = lambda: paged_decode_attention_commit(  # noqa: E731
+            q, pool_k, layer, table, lengths, **kw)
+        plain = lambda: paged_decode_attention_ref(  # noqa: E731
+            q, pool_p[layer], table, lengths, **kw)
+        (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+        alone = kernel_alone_ms(kern, "paged_decode")
+        nbytes, tokens = _decode_bytes(lengths, b, cap, int8=False, commit=True,
+                                       heads=WINDOW_HEADS[1:], left_window=window)
+        b_ms, by = bound(nbytes, 4 * g * n * hd * (tokens + b))
+        log(f"K1 paged decode+commit, {name} (left_window {window}) B={b} Hq={g * n} G={g} "
+            f"hd={hd} ps={DECODE_PS}, lengths {int(lengths.min())}-{int(lengths.max())}, "
+            f"{tokens} settled keys attended: max_abs_err={err:.3e} pool bit-equal; "
+            f"kernel_ms={ms:.4f} (kernel alone {_fmt(alone)}; bound share "
+            f"{b_ms / (alone or ms):.3f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({by}); "
+            f"per call with host overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+        rows[name] = dict(max_abs_err=err, ms=ms, kernel_alone_ms=alone, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=by)
+    del pool_k, pool_p, pool
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_k4(gen):
@@ -833,17 +900,42 @@ K6_SHAPES = (("B=1 bucket 512", 512, (0,), (300,)),
              ("B=1 bucket 512 after a 1024-token prefix hit", 512, (1024,), (300,)))
 
 
-def check_k6(gen):
-    """K6 at decode_heavy's prefill shapes against the plain version (the
-    path it replaced: every page gathered, fp32 scores and softmax) at every
-    query, within the bf16 tolerance plus 2^-9 max|v| (K6 rounds each p to
-    bf16 before P V, which moves the output by at most 2^-9 max|v|); a
-    second launch bit-equal.  Timed beside its bound (bytes: q, out and the
-    K/V of each row's keys up to its last valid one, at hd 60; operations:
-    the causal pairs of every query), the plain version and, where the tail
-    starts at 0, SDPA over the window's keys gathered dense (causal, no page
-    table, no key mask: a library's cost of the same attention).  The
-    kernels line keeps the first shape."""
+# code_chat_8k's prefills (Mellum2's heads, hd 128; rows of 8,192 tokens):
+# the 8,192-token budget as 4 prompts at the 2,048 bucket and one at 6,144,
+# each with the window of its 21 sliding layers (1023) and without (the
+# full layers)
+K6_HYBRID_SHAPES = (("B=4 bucket 2048", 2048, (0, 0, 0, 0), (2048, 1700, 1100, 1025)),
+                    ("B=1 bucket 6144", 6144, (0,), (5000,)))
+
+
+def _k6_work(starts, tails, t, left_window):
+    """(keys, pairs) of a K6 call: the keys each row must read (from its
+    first query's first key, to its last valid one) and the (query, key)
+    pairs its queries attend, causal and within ``left_window`` when >= 0."""
+    keys = pairs = 0
+    for s_, n_ in zip(starts, tails):
+        first = s_ if left_window < 0 else min(s_, left_window)
+        keys += first + n_
+        for i in range(t):
+            lo = 0 if left_window < 0 else max(0, s_ + i - left_window)
+            pairs += max(0, min(s_ + i, s_ + n_ - 1) - lo + 1)
+    return keys, pairs
+
+
+def check_k6(gen, shapes=K6_SHAPES, heads=None, pps=32, left_windows=(-1,)):
+    """K6 at decode_heavy's prefill shapes (or ``shapes`` at ``heads`` (G, N,
+    hd, hd_pad), each at every one of ``left_windows``) against the plain
+    version (the path it replaced: every page gathered, fp32 scores and
+    softmax) at every query that attends a key (those that attend none
+    are 0), within the bf16 tolerance plus 2^-9 max|v| (K6
+    rounds each p to bf16 before P V, which moves the output by at most
+    2^-9 max|v|); a second launch bit-equal.  Timed beside its bound (bytes:
+    q, out and the K/V of each row's keys from its first query's first key
+    to its last valid one, at hd; operations: the pairs its queries
+    attend), the plain version and, where the tail starts at 0 and nothing
+    is windowed, SDPA over the window's keys gathered dense (causal, no
+    page table, no key mask: a library's cost of the same attention).
+    Returns the first shape's row."""
     import torch
 
     from vats_tpu_torch.ops.decode_attention import PagedKVCache
@@ -852,10 +944,10 @@ def check_k6(gen):
         paged_prefill_attention_ref,
     )
 
-    g, n, hd, hdp, ps, pps = DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP, DECODE_PS, 32
-    hq, layer, scale = g * n, 1, 1.0 / DECODE_HD**0.5
+    g, n, hd, hdp = heads or (DECODE_G, DECODE_N, DECODE_HD, DECODE_HDP)
+    ps, hq, layer, scale = DECODE_PS, g * n, 1, 1.0 / hd**0.5
     result = None
-    for label, t, starts, tails in K6_SHAPES:
+    for label, t, starts, tails in shapes:
         b = len(starts)
         pool = torch.randn((2, 1 + b * pps, 2, g, ps, hdp), generator=gen,
                            device="cuda").to(torch.bfloat16)
@@ -866,42 +958,54 @@ def check_k6(gen):
         mask = torch.arange(t, device="cuda")[None, :] < torch.tensor(tails, device="cuda")[:, None]
         q = torch.randn((b, t, hq, hdp), generator=gen, device="cuda").to(torch.bfloat16)
         q[..., hd:] = 0
-        kw = dict(scale=scale, window_mask=mask)
-        kern = lambda: paged_prefill_attention(q, pool, layer, table, lengths, **kw)  # noqa: E731
-        plain = lambda: paged_prefill_attention_ref(q, pool, layer, table, lengths, **kw)  # noqa: E731
-        n0 = paged_prefill_attention.launches
-        out, again, want = kern(), kern(), plain()
-        torch.cuda.synchronize()
-        require(paged_prefill_attention.launches == n0 + 2, "K6 did not launch")
-        require(torch.equal(out, again), f"K6 {label}: two launches differ")
         vmax = float(pool[layer, :, 1].float().abs().max())
-        err = expect_close(f"K6 {label}", out, want, BF16_ATOL + 2.0**-9 * vmax, BF16_RTOL)
-        keys = sum(s_ + n_ for s_, n_ in zip(starts, tails))
-        pairs = sum(s_ * t + sum(min(i + 1, n_) for i in range(t))
-                    for s_, n_ in zip(starts, tails))
-        nbytes = 2 * b * t * hq * hd * 2 + keys * 2 * g * hd * 2
-        flops = 4 * hq * hd * pairs
-        b_ms, by = bound(nbytes, flops)
-        (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
-        alone = kernel_alone_ms(kern, "paged_prefill")
-        lib_ms = None
-        if not any(starts):
-            k_t, v_t = PagedKVCache(pool, table, lengths).gather_dense_t(layer)
-            kt, vt = (x[..., :hd, :t].transpose(2, 3).contiguous() for x in (k_t, v_t))
-            qt = q[..., :hd].transpose(1, 2).contiguous()
-            lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, scale))
-        log(f"K6 paged tail prefill {label} (tails {tails}; Hq={hq} G={g} hd={hd}->{hdp}, "
-            f"{pps} pages of {ps} a row): max_abs_err={err:.3e} (within {BF16_ATOL} + "
-            f"2^-9*{vmax:.2f} + {BF16_RTOL}*|ref|), repeat bit-equal; kernel_ms={ms:.4f} "
-            f"(kernel alone {_fmt(alone)}; bound share {b_ms / (alone or ms):.3f}) "
-            f"plain_ms={plain_ms:.4f} ({plain_ms / ms:.1f}x) library_ms={_fmt(lib_ms)} "
-            f"(SDPA causal over the window, dense) bound_ms={b_ms:.5f} ({by}; {pairs} "
-            f"pairs, {keys} keys); per call with host overhead: kernel {call_ms:.4f} plain "
-            f"{plain_call_ms:.4f}")
-        if result is None:
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=by, library_ms=lib_ms)
-        result["max_abs_err"] = max(result["max_abs_err"], err)
+        for lw in left_windows:
+            kw = dict(scale=scale, window_mask=mask, left_window=lw)
+            kern = lambda: paged_prefill_attention(  # noqa: E731
+                q, pool, layer, table, lengths, **kw)
+            plain = lambda: paged_prefill_attention_ref(  # noqa: E731
+                q, pool, layer, table, lengths, **kw)
+            n0 = paged_prefill_attention.launches
+            out, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            require(paged_prefill_attention.launches == n0 + 2, "K6 did not launch")
+            require(torch.equal(out, again), f"K6 {label}: two launches differ")
+            # a query whose window holds no valid key (a padding query past
+            # the tail, further than left_window beyond the last valid key):
+            # K6 writes 0, the plain version the mean of every slot's v (its
+            # finite mask value); the engine reads neither
+            i = torch.arange(t, device="cuda")[None, :]
+            last = lengths[:, None] + torch.tensor(tails, device="cuda")[:, None] - 1
+            first = (lengths[:, None] + i - lw).clamp(min=0) if lw >= 0 else 0
+            attends = torch.minimum(lengths[:, None] + i, last) >= first
+            require(not bool(out[~attends].any()), f"K6 {label}: a query with no key is not 0")
+            err = expect_close(f"K6 {label} left_window {lw}", out[attends], want[attends],
+                               BF16_ATOL + 2.0**-9 * vmax, BF16_RTOL)
+            del out, again, want
+            keys, pairs = _k6_work(starts, tails, t, lw)
+            nbytes = 2 * b * t * hq * hd * 2 + keys * 2 * g * hd * 2
+            b_ms, by = bound(nbytes, 4 * hq * hd * pairs)
+            (ms, call_ms), (plain_ms, plain_call_ms) = timed(kern), timed(plain)
+            alone = kernel_alone_ms(kern, "paged_prefill")
+            lib_ms = None
+            if not any(starts) and lw < 0:
+                k_t, v_t = PagedKVCache(pool, table, lengths).gather_dense_t(layer)
+                kt, vt = (x[..., :hd, :t].transpose(2, 3).contiguous() for x in (k_t, v_t))
+                qt = q[..., :hd].transpose(1, 2).contiguous()
+                lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, scale))
+                del k_t, v_t, kt, vt, qt
+            log(f"K6 paged tail prefill {label} (tails {tails}; Hq={hq} G={g} hd={hd}->{hdp}, "
+                f"{pps} pages of {ps} a row, left_window {lw}): max_abs_err={err:.3e} (within "
+                f"{BF16_ATOL} + 2^-9*{vmax:.2f} + {BF16_RTOL}*|ref|), repeat bit-equal; "
+                f"kernel_ms={ms:.4f} (kernel alone {_fmt(alone)}; bound share "
+                f"{b_ms / (alone or ms):.3f}) plain_ms={plain_ms:.4f} ({plain_ms / ms:.1f}x) "
+                f"library_ms={_fmt(lib_ms)} (SDPA causal over the window, dense) "
+                f"bound_ms={b_ms:.5f} ({by}; {pairs} pairs, {keys} keys); per call with host "
+                f"overhead: kernel {call_ms:.4f} plain {plain_call_ms:.4f}")
+            if result is None:
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=by, library_ms=lib_ms)
+            result["max_abs_err"] = max(result["max_abs_err"], err)
         del pool
         torch.cuda.empty_cache()
     return result
@@ -1240,6 +1344,58 @@ def check_k3_table(gen):
         rows[key] = dict(max_abs_err=worst[key][0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=by, library_ms=None)
     return rows["dense"], rows["paged"]
+
+
+def check_k3_yarn(gen):
+    """K3's paged table mode as code_chat_8k's 7 full layers run it: the
+    YaRN table of Mellum2 (``mellum2_12b``'s published values, the attention
+    factor in cos and sin) at its heads (Hq 32, G 4, hd 128), 64 rows of
+    1k-8k tokens, bf16, no QK-norm, against the plain version given the same
+    table: q and k within PROLOGUE_ULPS, v exact, one launch a call; timed
+    beside the chain (the plain version) and the bound."""
+    import torch
+
+    from vats_tpu_torch.configs import mellum2_12b
+    from vats_tpu_torch.nn.rope import rope_table_cos_sin, yarn_inv_freq
+    from vats_tpu_torch.ops import cache_append as ca
+
+    cfg = mellum2_12b()
+    hq, g, hd, b = cfg.num_heads, cfg.query_groups, cfg.head_dim, WINDOW_B
+    inv_freq = yarn_inv_freq(hd, cfg.rope_base, cfg.yarn_factor, cfg.yarn_original_max_position,
+                             cfg.yarn_beta_fast, cfg.yarn_beta_slow, device="cuda")
+    lens = torch.randint(1024, WINDOW_PPS * DECODE_PS, (b,), generator=gen, device="cuda")
+    lens[:len(WINDOW_FIXED)] = torch.tensor(WINDOW_FIXED, device="cuda")
+    lens = lens.to(torch.int32)
+    cs = rope_table_cos_sin(lens[:, None], inv_freq, cfg.yarn_attention_factor)
+    row = torch.randn((b, 1, (hq + 2 * g) * hd), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (x.reshape(b, 1, -1, hd) for x in torch.split(row, [hq * hd, g * hd, g * hd], -1))
+    kw = dict(theta=cfg.rope_base, qk_norm=False, cos_sin=cs)
+    kern = lambda: ca.paged_decode_prologue(q, k, v, lens, None, **kw)  # noqa: E731
+    plain = lambda: ca.paged_decode_prologue_ref(q, k, v, lens, **kw)  # noqa: E731
+    n0 = ca.paged_decode_prologue.table.launches
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    require(ca.paged_decode_prologue.table.launches == n0 + 1,
+            "K3 YaRN: the wrapper did not launch its kernel in table mode")
+    require(torch.equal(got[2], want[2]), "K3 YaRN: v differs")
+    tol, worst = PROLOGUE_ULPS[("bfloat16", False)], [0.0, 0.0]
+    for x, y in zip(got[:2], want[:2]):
+        ulps = float(rotated_ulps(x, y).max())
+        require(ulps <= tol and bool(torch.isfinite(x.float()).all()),
+                f"K3 YaRN: {ulps:.2f} ulps beyond {tol}")
+        worst = [max(worst[0], float((x.float() - y.float()).abs().max())), max(worst[1], ulps)]
+    ms, call_ms = timed(kern)
+    plain_ms, plain_call_ms = timed(plain)
+    nbytes, ops = _table_cost(b, hq, g, hd, True)
+    b_ms, by = bound(nbytes, ops, PEAK_FP32_FLOPS)
+    log(f"K3 table paged, YaRN (factor {cfg.yarn_factor} over "
+        f"{cfg.yarn_original_max_position}, attention factor {cfg.yarn_attention_factor}) "
+        f"B={b} Hq={hq} G={g} hd={hd} bf16, lengths {int(lens.min())}-{int(lens.max())}: "
+        f"{worst[1]:.2f} ulps ({worst[0]:.3e}) of the chain given the table, v exact; "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.7f} ({by}: {nbytes} "
+        f"bytes, {ops} fp32 ops); per call with host overhead: kernel {call_ms:.4f} plain "
+        f"{plain_call_ms:.4f}")
+    return dict(max_abs_err=worst[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
 
 
 def check_k1_image_gen(gen):
@@ -6664,6 +6820,12 @@ def main(argv=None) -> int:
         check_k2_multimodal(gen(14))
         check_ring_hop(gen(15))
         results["paged_prefill_attention"] = check_k6(gen(16))
+        # code_chat_8k's shapes (Mellum2, hd 128): K1 with and without its
+        # window, K6's prefills under the budget, K3's YaRN table
+        results["paged_decode_attention_commit"]["code_chat_8k"] = check_k1_window(gen(17))
+        results["paged_prefill_attention"]["code_chat_8k"] = check_k6(
+            gen(18), K6_HYBRID_SHAPES, WINDOW_HEADS[1:], WINDOW_PPS, (WINDOW_LW, -1))
+        results["paged_decode_prologue_table"]["code_chat_8k"] = check_k3_yarn(gen(19))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
               "multimodal": {}, "pipeline": {}, "vision": {}}

@@ -1520,3 +1520,101 @@ def test_paged_prefill_rejects_bad_inputs(gen):
         pp.paged_prefill_attention(q.float(), pool, 0, table, lengths, **kw)
     with pytest.raises(ValueError, match="int32"):
         pp.paged_prefill_attention(q, pool, 0, table.long(), lengths, **kw)
+
+
+# K1's window (a windowed layer of a HybridModelArgs model): rows inside,
+# at and past the window, windows that end mid-tile and on a tile's edge,
+# one shorter than a tile, and a row at capacity
+K1_WINDOW_CASES = {
+    "mellum_heads": (8, 4, 128, 128, 1023, [0, 1, 1023, 1024, 1025, 1500, 2047, 3000]),
+    "tile_edge": (8, 3, 60, 128, 255, [255, 256, 384, 640, 1000]),
+    "short_window": (2, 8, 128, 256, 7, [3, 8, 9, 300, 511, 512]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K1_WINDOW_CASES))
+def test_windowed_paged_decode_matches_plain(gen, name):
+    """K1 with a left window against the plain version with it (output
+    within TOL, the committed pool bit-equal); the window changes the
+    output of every row well past it."""
+    g, n, hd, ps, lw, lengths = K1_WINDOW_CASES[name]
+    b = len(lengths)
+    pps = -(-(max(lengths) + 1) // ps)
+    pool = rand(gen, 2, b * pps, 2, g, ps, -(-hd // 8) * 8, dtype=torch.bfloat16)
+    pool[..., hd:] = 0
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32).reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, g * n, hd, dtype=torch.bfloat16)
+    kc, vc = rand(gen, b, g, hd, dtype=torch.bfloat16), rand(gen, b, g, hd, dtype=torch.bfloat16)
+    kw = dict(scale=hd**-0.5, k_cur=kc, v_cur=vc)
+    pk, pp = pool.clone(), pool.clone()
+    out = da.paged_decode_attention_commit(q, pk, 1, table, lens, left_window=lw, **kw)
+    ref = da.paged_decode_attention_ref(q, pp[1], table, lens, left_window=lw, **kw)
+    full = da.paged_decode_attention_ref(q, pp[1], table, lens, **kw)
+    da.PagedKVCache(pp, table, lens).append_token(1, kc, vc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    assert torch.equal(pk, pp)
+    past = lens >= lw + 128  # a tenth of the keys or more left out
+    assert bool(((out.float() - full.float()).abs().amax(dim=(1, 2)) > 0.01)[past].all())
+
+
+def test_paged_decode_without_window_is_unchanged_by_a_window_past_every_row(gen):
+    """left_window = -1 (the default) is today's call; a window that reaches
+    back past every row's start attends the same keys by the same path, so
+    it gives equal bits; both equal the plain version within TOL."""
+    g, n, hd, ps, lengths = 8, 3, 60, 128, [0, 1, 127, 128, 129, 2047, 4000]
+    b, pps = len(lengths), 32
+    pool = rand(gen, 2, b * pps, 2, g, ps, 64, dtype=torch.bfloat16)
+    pool[..., hd:] = 0
+    table = torch.randperm(b * pps, generator=gen, device="cuda").to(torch.int32).reshape(b, pps)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, g * n, hd, dtype=torch.bfloat16)
+    kc, vc = rand(gen, b, g, hd, dtype=torch.bfloat16), rand(gen, b, g, hd, dtype=torch.bfloat16)
+    kw = dict(scale=0.2, k_cur=kc, v_cur=vc)
+    today = da.paged_decode_attention(q, pool, 0, table, lens, **kw)
+    none = da.paged_decode_attention(q, pool, 0, table, lens, left_window=-1, **kw)
+    wide = da.paged_decode_attention(q, pool, 0, table, lens, left_window=4096, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(today, none) and torch.equal(today, wide)
+    ref = da.paged_decode_attention_ref(q, pool[0], table, lens, **kw)
+    torch.testing.assert_close(today.float(), ref.float(), **TOL[torch.bfloat16])
+    with pytest.raises(NotImplementedError, match="no sliding window"):
+        da.paged_decode_attention_commit(
+            q, pool.to(torch.int8), 0, table, lens, left_window=10,
+            kv_scales=torch.ones(pool.shape[:-1], device="cuda"), **kw)
+
+
+def test_hybrid_engine_on_the_card_matches_the_cpu(gen):
+    """A HybridModelArgs model (a window of 8 tokens on three of its four
+    layers, YaRN over an original 32 on the fourth, head dim 32 over
+    d_model 64) served in fp32 through the ServingEngine: the card (graph
+    replays, K3's table mode on the full layer, K1 with the window on the
+    sliding ones) against the CPU's plain versions, token for token, past
+    the window and past YaRN's original length."""
+    from vats_tpu_torch.configs import mellum2_12b
+    from vats_tpu_torch.inference import ServingEngine
+    from vats_tpu_torch.models import TextLM
+
+    cfg = mellum2_12b(d_model=64, num_heads=4, query_groups=2, head_dim=32, d_ffn=64,
+                      num_layers=4, num_experts=8, top_k=4, left_window=7,
+                      layer_types=("sliding_attention",) * 3 + ("full_attention",),
+                      yarn_original_max_position=32, vocab_size=97, max_seq_len=512,
+                      dtype="float32", param_dtype="float32")
+    gpu = TextLM(cfg, device="cuda", seed=3).eval()
+    cpu = TextLM(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, 97, (n,), generator=g).tolist() for n in (5, 30, 60, 100)]
+    outs, n0 = [], (da.paged_decode_attention_commit.launches,
+                    ca.paged_decode_prologue.table.launches)
+    for model in (cpu, gpu):
+        eng = ServingEngine(model, max_batch=4, max_context=256, decode_block_steps=4,
+                            prompt_buckets=(32, 64, 128), max_prefill_tokens=128)
+        rids = [eng.submit(p, 40) for p in prompts]
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+    assert outs[0] == outs[1]
+    forwards = eng.forwards["decode"]
+    assert da.paged_decode_attention_commit.launches == n0[0] + 4 * forwards
+    assert ca.paged_decode_prologue.table.launches == n0[1] + forwards

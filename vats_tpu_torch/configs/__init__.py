@@ -11,8 +11,11 @@ from vats_tpu_torch.configs.multimodal import (
 from vats_tpu_torch.configs.nlp import (
     NLP_TIERS,
     GenerationArgs,
+    HybridModelArgs,
     ModelArgs,
     TrainingArgs,
+    layer_attention,
+    mellum2_12b,
     nlp_large,
     nlp_medium,
     nlp_small,
@@ -42,6 +45,7 @@ from vats_tpu_torch.configs.vit3d import (
 __all__ = [
     "NLP_TIERS",
     "GenerationArgs",
+    "HybridModelArgs",
     "ImageGenArgs",
     "ModelArgs",
     "MultimodalStreamArgs",
@@ -51,6 +55,8 @@ __all__ = [
     "ViT3DArgs",
     "image_gen_tiny_test",
     "image_gen_xsmall",
+    "layer_attention",
+    "mellum2_12b",
     "multimodal_small",
     "multimodal_xsmall",
     "nlp_large",

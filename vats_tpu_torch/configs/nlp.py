@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import asdict, dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 
 @dataclass(unsafe_hash=True)
@@ -99,6 +99,81 @@ def validate_model_args(args: ModelArgs) -> None:
         )
     if args.left_window == 0:
         raise ValueError("left_window must be nonzero (use -1 for unbounded)")
+
+
+# --- per-layer attention kinds (a port-only extension) -----------------------
+
+#: the two attention kinds of :class:`HybridModelArgs` layers (HF's names)
+SLIDING, FULL = "sliding_attention", "full_attention"
+
+
+@dataclass(unsafe_hash=True)
+class HybridModelArgs(ModelArgs):
+    """A ``ModelArgs`` whose layers attend by kinds of their own: the port's
+    extension for published models with mixed sliding-window and full
+    attention (Mellum2), which the JAX package has no counterpart of.
+
+    ``layer_types`` gives each layer's kind: ``SLIDING`` layers attend a
+    window (``left_window``: query q sees key k iff 0 <= q - k <=
+    left_window, on every path, the paged decode's K1 included) and rotate
+    by plain 1-D RoPE at ``rope_base``; ``FULL`` layers attend the whole
+    causal context and rotate by YaRN (``nn/rope.yarn_inv_freq``) when
+    ``yarn_factor`` > 1, else by plain RoPE.  ``head_dim`` is the heads'
+    width, decoupled from ``d_model // num_heads``; the default softmax
+    scale is ``head_dim ** -0.5``."""
+
+    head_dim: int = 0  # 0: d_model // num_heads
+    layer_types: Tuple[str, ...] = ()
+    yarn_factor: float = 1.0
+    yarn_original_max_position: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: Optional[float] = None
+
+    def __post_init__(self):
+        if not self.head_dim:
+            self.head_dim = self.d_model // self.num_heads
+        self.layer_types = tuple(self.layer_types)
+        if self.softmax_scale is None:
+            self.softmax_scale = 1.0 / math.sqrt(self.head_dim)
+        if len(self.layer_types) != self.num_layers:
+            raise ValueError(f"layer_types has {len(self.layer_types)} entries for "
+                             f"{self.num_layers} layers")
+        bad = sorted(set(self.layer_types) - {SLIDING, FULL})
+        if bad:
+            raise ValueError(f"unknown layer types {bad}")
+        if SLIDING in self.layer_types and self.left_window < 0:
+            raise ValueError("sliding layers need a left_window >= 1")
+        if self.head_dim % 2:
+            raise ValueError(f"head_dim ({self.head_dim}) must be even for RoPE")
+        if self.yarn_factor > 1 and self.yarn_original_max_position <= 0:
+            raise ValueError("YaRN needs yarn_original_max_position")
+        super().__post_init__()
+
+
+class LayerAttention(NamedTuple):
+    """How one layer attends: ``left_window`` on every path but the paged
+    decode, ``decode_window`` in the paged decode (K1), its RoPE
+    (``'1d'`` or ``'yarn'``) and the span its attention runs under."""
+
+    left_window: int
+    decode_window: int
+    rope: str
+    span: str
+
+
+def layer_attention(cfg: ModelArgs, i: int) -> LayerAttention:
+    """Layer ``i``'s attention.  A plain ``ModelArgs`` gives every layer
+    ``left_window`` (when ``apply_window_in_xla``) everywhere but in the
+    paged decode, which attends every settled token, as the JAX package's
+    does; a :class:`HybridModelArgs` layer applies its kind's window on
+    every path."""
+    if isinstance(cfg, HybridModelArgs):
+        if cfg.layer_types[i] == SLIDING:
+            return LayerAttention(cfg.left_window, cfg.left_window, "1d", "attn.window")
+        return LayerAttention(-1, -1, "yarn" if cfg.yarn_factor > 1 else "1d", "attn.full")
+    lw = cfg.left_window if cfg.apply_window_in_xla and cfg.left_window is not None else -1
+    return LayerAttention(lw, -1, "1d", "attn.window" if lw >= 0 else "attn.full")
 
 
 # --- size tiers ------------------------------------------------------------
@@ -216,6 +291,50 @@ def nlp_xlarge(**overrides) -> ModelArgs:
     )
     base.update(overrides)
     return ModelArgs(**base)
+
+
+def mellum2_12b(**overrides) -> HybridModelArgs:
+    """Mellum2-12B-A2.5B-Instruct at its published values
+    (huggingface.co/JetBrains/Mellum2-12B-A2.5B-Instruct, config.json): 28
+    layers of hidden 2304, 32 query and 4 KV heads of 128, three sliding
+    layers (window 1024: ``left_window`` 1023) then one full, every layer
+    64 experts of 896 top-8 renormalised, RoPE theta 500000 with YaRN
+    (factor 16 over 8192, beta 32 / 1, attention factor 1.27726) on the full
+    layers, eps 1e-6, vocabulary 98304, untied head, no attention bias, no
+    QK-norm and one pre-norm to the experts.  Serving settings: no dropout,
+    bf16."""
+    base = dict(
+        d_model=2304,
+        num_heads=32,
+        query_groups=4,
+        head_dim=128,
+        d_ffn=896,
+        num_layers=28,
+        num_experts=64,
+        top_k=8,
+        layer_types=(SLIDING, SLIDING, SLIDING, FULL) * 7,
+        left_window=1023,
+        rope_base=500000.0,
+        yarn_factor=16.0,
+        yarn_original_max_position=8192,
+        yarn_beta_fast=32.0,
+        yarn_beta_slow=1.0,
+        yarn_attention_factor=1.2772588722239782,
+        rms_norm_eps=1e-6,
+        vocab_size=98304,
+        max_seq_len=131072,
+        tie_weights=False,
+        use_qk_norm=False,
+        moe_double_norm=False,
+        use_mqa=False,
+        dropout=0.0,
+        gradient_checkpointing=False,
+        capacity_factor=-1.0,
+        dtype="bfloat16",
+        param_dtype="bfloat16",
+    )
+    base.update(overrides)
+    return HybridModelArgs(**base)
 
 
 NLP_TIERS = {

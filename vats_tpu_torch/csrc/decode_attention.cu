@@ -40,7 +40,12 @@
 //     q = clip(rint(x / scale), -127, 127) with IEEE divisions and
 //     round-half-even (no fast math), so the committed bytes equal the
 //     plain append's; the scale goes to the scales pool.
-//   * no sliding-window mask (the JAX kernel has none either).
+//   * left_window >= 0 (K1 only; K4 refuses it) keeps the row's keys at
+//     positions >= lo = lengths[b] - left_window: CTAs of tiles wholly below
+//     lo exit at once, and the first live tile masks its tokens below lo and
+//     does not copy them.  left_window = -1 attends every settled token,
+//     the same work and bits as a kernel with no window (the JAX kernel
+//     has none).
 //
 // Layout (the port's own): pool [L, P, 2, G, PS, D], head dim minor and
 // zero-padded to whole 16-byte vectors (D = 8k for bf16/fp32, 16k for
@@ -62,7 +67,7 @@
 // Design: the sequence is split over CTAs.  The grid is (tile, group, row),
 // PPS*PS/128 tiles a row; a CTA whose tile starts at or past the row's
 // history exits at once (tile 0 always runs, so an empty row still has a
-// CTA to finish it).  One thread reads the tile's page id and issues 1-D
+// CTA to finish it; under a window, the tile of lo does).  One thread reads the tile's page id and issues 1-D
 // bulk copies (cp.async.bulk, completion counted on one mbarrier) of the
 // tile's valid K rows, V rows and, for K4, both scale rows, so every tile
 // of every row is in flight at once, bounded by shared memory (~34 KB a CTA
@@ -122,6 +127,7 @@ struct Params {
   int G, N, hd, D, P, PS, PPS, layer, tiles;
   float scale;
   int commit;
+  int left_window;  // -1: none
 };
 
 // Precision in which q and the current token attend: the pool's for K1,
@@ -162,9 +168,14 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
   const int page = tid == 0 ? p.table[(size_t)b * p.PPS + t0 / PS] : 0;
   const int len = max(p.lengths[b], 0);
   const int hist = min(len, cap);
-  if (tile > 0 && t0 >= hist) return;  // no history in this tile
   const int row_tiles = max(1, (hist + TILE - 1) / TILE);
+  // the window's first key and its tile, which always runs (tile 0 without
+  // a window, so an empty row still has a CTA to finish it)
+  const int lo = p.left_window >= 0 ? min(max(len - p.left_window, 0), hist) : 0;
+  const int first_tile = min(lo / TILE, row_tiles - 1);
+  if (tile < first_tile || (tile > first_tile && t0 >= hist)) return;  // nothing to attend
   const int ntok = max(0, min(TILE, hist - t0));
+  const int skip = max(0, min(lo - t0, ntok));  // tokens [skip, ntok) attend
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int tile_bytes = TILE * D * (int)sizeof(T);
@@ -184,21 +195,21 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
   float* sc_l = QUANT ? p.scales + (size_t)p.layer * p.P * 2 * G * PS : nullptr;
   const uint32_t bar_a = sm90::smem_u32(&bar);
 
-  if (ntok > 0) {
+  if (ntok > skip) {
     if (tid == 0) {
       sm90::mbar_init(bar_a, 1);
       sm90::fence_barrier_init();
     }
     __syncthreads();
     if (tid == 0) {
-      const int off = t0 % PS;
+      const int off = t0 % PS + skip;
       const T* src = pool_l + (size_t)page * page_elems + ((size_t)g * PS + off) * D;
-      const uint32_t bytes = (uint32_t)(ntok * D * (int)sizeof(T));
+      const uint32_t bytes = (uint32_t)((ntok - skip) * D * (int)sizeof(T));
       // scale rows rounded up to whole 16 bytes (still inside the page)
       const uint32_t sc_bytes = QUANT ? (uint32_t)(((ntok + 3) & ~3) * 4) : 0u;
       sm90::mbar_arrive_expect_tx(bar_a, 2 * bytes + 2 * sc_bytes);
-      sm90::bulk_load(sm90::smem_u32(k_s), src, bytes, bar_a);
-      sm90::bulk_load(sm90::smem_u32(v_s), src + half, bytes, bar_a);
+      sm90::bulk_load(sm90::smem_u32(k_s + (size_t)skip * D), src, bytes, bar_a);
+      sm90::bulk_load(sm90::smem_u32(v_s + (size_t)skip * D), src + half, bytes, bar_a);
       if constexpr (QUANT) {
         const float* ssrc = sc_l + ((size_t)page * 2 * G + g) * PS + off;
         sm90::bulk_load(sm90::smem_u32(sc_s), ssrc, sc_bytes, bar_a);
@@ -264,13 +275,13 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
     vcr[k] = i < N * hd ? attend<T>(vats::to_f(vc[i % hd])) : 0.f;
   }
 
-  if (ntok > 0) {
+  if (ntok > skip) {
     sm90::mbar_wait(bar_a, 0);
     // q.k: warp w scores tokens [w * TPWARP, (w + 1) * TPWARP), 32 / lpt a step
     const int tpw = 32 / lpt;
     for (int base = warp * TPWARP; base < (warp + 1) * TPWARP; base += tpw) {
       const int tok = base + lane / lpt;
-      const bool mine = tok < ntok;
+      const bool mine = tok >= skip && tok < ntok;
       float acc[NH];
 #pragma unroll
       for (int h = 0; h < NH; ++h) acc[h] = 0.f;
@@ -306,7 +317,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < TILE / 32; ++j) {
       const int tok = lane + 32 * j;
-      sv[j] = tok < ntok ? p_s[h * TILE + tok] : -INFINITY;
+      const bool valid = tok >= skip && tok < ntok;
+      sv[j] = valid ? p_s[h * TILE + tok] : -INFINITY;
       mx = fmaxf(mx, sv[j]);
     }
     mx = vats::warp_max(mx);
@@ -314,12 +326,13 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < TILE / 32; ++j) {
       const int tok = lane + 32 * j;
-      const float pr = tok < ntok ? expf(sv[j] - mx) : 0.f;
+      const bool valid = tok >= skip && tok < ntok;
+      const float pr = valid ? expf(sv[j] - mx) : 0.f;
       sum += pr;
       float pm = pr;
       if constexpr (std::is_same<T, __nv_bfloat16>::value)
         pm = __bfloat162float(__float2bfloat16(pr));  // the bf16 P.V operand
-      if constexpr (QUANT) pm = tok < ntok ? pr * sc_s[TILE + tok] : 0.f;
+      if constexpr (QUANT) pm = valid ? pr * sc_s[TILE + tok] : 0.f;
       p_s[h * TILE + tok] = pm;
     }
     sum = vats::warp_sum(sum);
@@ -337,7 +350,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) o[h][e] = 0.f;
   if (has_ch) {
-    for (int tok = tid / lpt; tok < ntok; tok += THREADS / lpt) {
+    for (int tok = skip + tid / lpt; tok < ntok; tok += THREADS / lpt) {
       float vv[EPL];
       load_row8(v_s + (size_t)tok * D + sub * EPL, vv);
 #pragma unroll
@@ -383,8 +396,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
   const bool later_writer = __syncthreads_or(later) != 0;
   if (tid == 0) {
     const int arrived = atomicAdd(p.counters + (size_t)b * G + g, 1);
-    if (arrived >= row_tiles) __trap();  // the counter is not this call's alone
-    last_s = arrived == row_tiles - 1;
+    const int live = row_tiles - first_tile;
+    if (arrived >= live) __trap();  // the counter is not this call's alone
+    last_s = arrived == live - 1;
   }
   __syncthreads();
   if (!last_s) return;
@@ -402,7 +416,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params p) {
     if (i < N * hd) {
       const int h = i / hd, d = i % hd;
       float mx = scur_s[h], l = 1.f, acc = vcr[k];
-      for (int step = 0; step < row_tiles; step += 8) {
+      for (int step = first_tile; step < row_tiles; step += 8) {
         float mt[8], lt[8], ot[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -505,12 +519,14 @@ int launch(const void* q, const void* k_cur, const void* v_cur, void* pool, void
            const void* table, const void* lengths, void* out, void* work, void* counters,
            int io_bf16, int B, int G, int N, int hd, int D, int P, int PS, int PPS, int layer,
            long long q_sb, long long q_sh, long long k_sb, long long k_sh, long long v_sb,
-           long long v_sh, float scale, int commit, void* stream) {
+           long long v_sh, float scale, int commit, int left_window, void* stream) {
   constexpr int GRANULE = 16 / sizeof(T) > 8 ? 16 / sizeof(T) : 8;
   if (N < 1 || N > 8 || D > DMAX || D % GRANULE != 0 || hd < 1 || hd > D ||
       PS % TILE != 0 || PPS < 1 || B < 1 || B > 65535 || G < 1 || G > 65535)
     return (int)cudaErrorInvalidValue;
   if (vats::is_int8<T>::value && scales == nullptr) return (int)cudaErrorInvalidValue;
+  if (left_window < -1 || (vats::is_int8<T>::value && left_window >= 0))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k_cur = k_cur;
@@ -539,6 +555,7 @@ int launch(const void* q, const void* k_cur, const void* v_cur, void* pool, void
   p.tiles = PPS * PS / TILE;
   p.scale = scale;
   p.commit = commit;
+  p.left_window = left_window;
   const cudaStream_t s = (cudaStream_t)stream;
   return io_bf16 ? launch_heads<T, __nv_bfloat16>(p, B, s) : launch_heads<T, float>(p, B, s);
 }
@@ -552,10 +569,11 @@ int launch(const void* q, const void* k_cur, const void* v_cur, void* pool, void
                       void* work, void* counters, int io_bf16, int B, int G, int N,      \
                       int hd, int D, int P, int PS, int PPS, int layer, long long q_sb,  \
                       long long q_sh, long long k_sb, long long k_sh, long long v_sb,    \
-                      long long v_sh, float scale, int commit, void* stream) {           \
+                      long long v_sh, float scale, int commit, int left_window,          \
+                      void* stream) {                                                    \
     return launch<T>(q, k_cur, v_cur, pool, scales, table, lengths, out, work, counters, \
                      io_bf16, B, G, N, hd, D, P, PS, PPS, layer, q_sb, q_sh, k_sb, k_sh, \
-                     v_sb, v_sh, scale, commit, stream);                                 \
+                     v_sb, v_sh, scale, commit, left_window, stream);                    \
   }
 
 VATS_DECODE_ENTRY(vats_paged_decode_bf16, __nv_bfloat16)

@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from vats_tpu_torch.configs.nlp import GenerationArgs, ModelArgs
+from vats_tpu_torch.configs.nlp import GenerationArgs, ModelArgs, layer_attention
 from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.inference.graphs import StepGraph, run_steps
 from vats_tpu_torch.inference.sampling import sample_logits
@@ -113,9 +113,10 @@ def _generate(model, input_ids, attention_mask, generator, sample, *,
         model, input_ids, attention_mask, pad_token_id, total_len
     )
 
-    lw = cfg.left_window if cfg.left_window is not None else -1
-    if not cfg.apply_window_in_xla:
-        lw = -1  # window not enforced in attention -> a ring would drop keys
+    # a ring holds the widest window, when every layer attends one (a window
+    # not enforced in attention, or a full layer, would lose keys to a ring)
+    windows = [layer_attention(cfg, i).left_window for i in range(cfg.num_layers)]
+    lw = -1 if min(windows) < 0 else max(windows)
     if lw >= 0 and ring_slots_for_window(lw) < total_len:
         cache = model.init_cache(b, ring_slots_for_window(lw), ring=True)
     else:

@@ -9,7 +9,8 @@ JAX engine:
     hash of their tokens, refcounted while mapped, parked in an LRU when
     idle and reclaimed only under memory pressure.
   * :class:`ServingEngine`: admission bucketed by prompt size, batched tail
-    prefills padded to power-of-two groups with scratch rows on page 0,
+    prefills padded to power-of-two groups with scratch rows on page 0
+    (at most ``max_prefill_tokens`` padded tokens a forward, when set),
     head-of-line waiting for pages, preemption of the youngest row,
     ``decode_block_steps``, prompt-lookup speculative decoding
     (``spec_k``, greedy acceptance), per-request sampling and
@@ -50,6 +51,11 @@ inside it ``serve.prefill`` (one grouped prefill, with its request ids) and
 committing them to the rows); ``serve.retire``; ``serve.verify`` (a
 speculative step).
 
+Counters read on the host, with no device sync: ``forwards``,
+``prefill_shapes``, ``preemptions``, the allocator's ``high_water`` and
+:meth:`ServingEngine.kv_window_dead_bytes`, the K/V bytes the pool holds
+for windowed layers at positions their decode no longer attends.
+
 The engine runs on the device of the model it is given (a ``TextLM`` or a
 ``QuantizedModel``) and never moves it.  Greedy by default; a request
 reproduces the greedy tokens ``generate_paged`` gives it alone, whatever
@@ -65,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vats_tpu_torch.configs.nlp import layer_attention
 from vats_tpu_torch.device import resolve_dtype
 from vats_tpu_torch.inference.graphs import GraphSet, copy_to_static
 from vats_tpu_torch.inference.sampling import sample_logits, sample_logits_per_row
@@ -230,7 +237,15 @@ class ServingEngine:
     :class:`SamplingParams`; greedy rows stay exact and seeded rows draw a
     (seed, position)-keyed stream.  Requests queue while every row is busy
     or the page pool is full (``total_pages`` may be well below
-    max_batch * max_context / page_size)."""
+    max_batch * max_context / page_size).
+
+    ``max_prefill_tokens``: the most padded tokens (group rows padded to a
+    power of two, times the bucket) one prefill forward may take; a
+    bucket's group is split to fit, down to one row a forward (a bucket
+    above the budget still prefills one row).  None: groups of up to
+    ``MAX_PREFILL_GROUP`` rows, as in the JAX engine.  Lossless MoE routing
+    sizes every expert's buffer to all the tokens of a forward, so this
+    bounds a forward's transient memory."""
 
     #: rows prefilled per forward (batched admission); group sizes are
     #: padded to powers of two, as in the JAX engine
@@ -261,9 +276,12 @@ class ServingEngine:
         per_request_sampling: bool = False,
         sampling_kmax: int = 64,
         overlap_scheduling: bool = False,
+        max_prefill_tokens: Optional[int] = None,
     ):
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
+        if max_prefill_tokens is not None and max_prefill_tokens < 1:
+            raise ValueError("max_prefill_tokens must be >= 1 (or None)")
         cfg = model.cfg
         self.model = model
         self.cfg = cfg
@@ -309,6 +327,14 @@ class ServingEngine:
         self.pool = proto.kv_pages
         self.scales = proto.kv_scales  # None unless int8
         self.allocator = PageAllocator(n_pages)
+        self.max_prefill_tokens = max_prefill_tokens
+        # K/V bytes a token holds in one layer of the pool (scales included),
+        # and the decode window of every windowed layer
+        _, _, two, g, _, hdp = self.pool.shape
+        self._token_layer_bytes = two * g * (
+            hdp * self.pool.element_size() + (4 if self.scales is not None else 0))
+        self._decode_windows = [w for w in (layer_attention(cfg, i).decode_window
+                                            for i in range(cfg.num_layers)) if w >= 0]
 
         # host-side row state
         self.tables = np.zeros((max_batch, self.pages_per_row), np.int32)
@@ -412,6 +438,33 @@ class ServingEngine:
             Request(rid, list(prompt_ids), max_new_tokens, sampling=sampling)
         )
         return rid
+
+    def max_prefill_rows(self, bucket: int) -> int:
+        """Rows one prefill forward of ``bucket`` takes at most: a power of
+        two up to MAX_PREFILL_GROUP whose padded tokens fit the budget."""
+        rows = self.MAX_PREFILL_GROUP
+        if self.max_prefill_tokens is not None:
+            rows = 1
+            while (rows * 2 <= self.MAX_PREFILL_GROUP
+                   and rows * 2 * bucket <= self.max_prefill_tokens):
+                rows *= 2
+        return rows
+
+    def kv_window_dead_bytes(self) -> int:
+        """K/V bytes the pool holds for windowed layers at positions more
+        than the layer's decode window behind their row's length (what a
+        pool kept per layer kind could free), from the host's lengths."""
+        n = 0
+        for row, req in enumerate(self.row_request):
+            if req is not None:
+                length = int(self.lengths[row])
+                n += sum(max(0, length - w) for w in self._decode_windows)
+        return n * self._token_layer_bytes
+
+    def kv_bytes_in_use(self) -> int:
+        """K/V bytes of the pages the allocator has handed out, every layer."""
+        return (self.allocator.num_used * self.page_size * self.cfg.num_layers
+                * self._token_layer_bytes)
 
     def run(self) -> Dict[int, List[int]]:
         """Drive until every submitted request completes; returns
@@ -567,8 +620,9 @@ class ServingEngine:
             groups.setdefault(self._bucket(len(req.prompt_ids) - cached_len),
                               []).append(item)
         for bucket, items in groups.items():
-            for i in range(0, len(items), self.MAX_PREFILL_GROUP):
-                group = items[i:i + self.MAX_PREFILL_GROUP]
+            per = self.max_prefill_rows(bucket)
+            for i in range(0, len(items), per):
+                group = items[i:i + per]
                 rids = lambda: {"rids": ",".join(str(it[1].rid) for it in group)}  # noqa: E731
                 with annotate("serve.prefill", rids):
                     self._prefill_group(bucket, group)
@@ -578,7 +632,8 @@ class ServingEngine:
         bucket: int,
         items: List[Tuple[int, Request, int, List[int]]],
     ) -> None:
-        """Prefill up to MAX_PREFILL_GROUP admitted rows in ONE forward.
+        """Prefill up to ``max_prefill_rows(bucket)`` admitted rows in ONE
+        forward.
 
         Each row's uncached prompt tail runs at its own offset
         (``cached_len``, page-aligned; 0 without a prefix hit): positions

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from vats_tpu_torch.configs.nlp import ModelArgs
+from vats_tpu_torch.configs.nlp import ModelArgs, layer_attention
 from vats_tpu_torch.device import resolve_device, resolve_dtype
 from vats_tpu_torch.nn.attention import AttentionBlock, dense, embed_rows
 from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
@@ -45,13 +45,20 @@ from vats_tpu_torch.parallel.layout import gathered
 
 
 class TransformerBlock(nn.Module):
-    """Attention block followed by MoE block; threads cache and aux loss."""
+    """Attention block followed by MoE block; threads cache and aux loss.
+    Layer ``layer_idx`` attends by its kind (``configs.nlp.layer_attention``:
+    its windows, its RoPE, its span)."""
 
-    def __init__(self, cfg: ModelArgs, device=None):
+    def __init__(self, cfg: ModelArgs, device=None, layer_idx: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind = layer_attention(cfg, layer_idx)
         dtype = resolve_dtype(cfg.dtype)
         param_dtype = resolve_dtype(cfg.param_dtype)
+        yarn = None
+        if kind.rope == "yarn":
+            yarn = (cfg.yarn_factor, cfg.yarn_original_max_position, cfg.yarn_beta_fast,
+                    cfg.yarn_beta_slow, cfg.yarn_attention_factor or 1.0)
         self.attn_block = AttentionBlock(
             d_model=cfg.d_model,
             num_heads=cfg.num_heads,
@@ -69,6 +76,10 @@ class TransformerBlock(nn.Module):
             dtype=dtype,
             param_dtype=param_dtype,
             device=device,
+            head_dim=cfg.head_dim,
+            rope_type=kind.rope,
+            yarn=yarn,
+            span=kind.span,
         )
         self.moe_block = MoEBlock(
             d_model=cfg.d_model,
@@ -105,7 +116,8 @@ class TransformerBlock(nn.Module):
         x, new_cache = self.attn_block(
             x,
             causal=cfg.use_causal,
-            left_window=cfg.left_window if cfg.apply_window_in_xla else -1,
+            left_window=self.kind.left_window,
+            decode_left_window=self.kind.decode_window,
             right_window=cfg.right_window,
             padding_mask=padding_mask,
             cache=cache,
@@ -156,7 +168,7 @@ class TextLM(nn.Module):
             cfg.vocab_size, cfg.d_model, dtype=param_dtype, device=dev
         )
         self.layers = nn.ModuleList(
-            [TransformerBlock(cfg, device=dev) for _ in range(cfg.num_layers)]
+            [TransformerBlock(cfg, device=dev, layer_idx=i) for i in range(cfg.num_layers)]
         )
         self.norm = RMSNorm(cfg.d_model, cfg.rms_norm_eps, self.dtype, param_dtype,
                             device=dev)

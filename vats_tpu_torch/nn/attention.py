@@ -64,6 +64,7 @@ Ring attention runs on the local heads; Ulysses needs them divisible by
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Optional, Tuple
 
@@ -83,6 +84,8 @@ from vats_tpu_torch.nn.rope import (
     rope_2d_ntk_cos_sin,
     rope_3d_ntk_cos_sin,
     rope_inv_freq,
+    rope_table_cos_sin,
+    yarn_inv_freq,
 )
 from vats_tpu_torch.ops import cache_append
 from vats_tpu_torch.ops import paged_prefill_attention as paged_prefill
@@ -97,6 +100,7 @@ from vats_tpu_torch.ops.ulysses import ulysses_attention
 from vats_tpu_torch.parallel.collectives import all_gather, copy_to, gather, global_sum
 from vats_tpu_torch.parallel.layout import TENSOR_LOCAL, gathered, split_over
 from vats_tpu_torch.parallel.mesh import ambient_mesh, inputs_sharded
+from vats_tpu_torch.utils.profiling import annotate
 
 CONTEXT_PARALLEL_MODES = ("none", "ring", "ulysses")
 
@@ -118,8 +122,8 @@ def _warn_cp_fallback(reason: str) -> None:
 FLASH_MIN_SEQ_LEN = 256
 #: RoPE modes the port runs on the uncached path, and on the cache paths
 ROPE_TYPES = ("1d", "2d_axial", "2d_ntk", "3d_ntk", "3d_spatial", "3d_temporal", "3d_all",
-              "none")
-CACHE_ROPE_TYPES = ("1d", "2d_ntk", "3d_ntk", "none")
+              "none", "yarn")
+CACHE_ROPE_TYPES = ("1d", "2d_ntk", "3d_ntk", "none", "yarn")
 
 
 def select_attention_impl(
@@ -205,9 +209,12 @@ class Attention(nn.Module):
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
         device=None,
+        head_dim: Optional[int] = None,
+        yarn: Optional[Tuple[float, int, float, float, float]] = None,
+        span: Optional[str] = None,
     ):
         super().__init__()
-        if d_model % num_heads != 0:
+        if head_dim is None and d_model % num_heads != 0:
             raise ValueError(
                 f"d_model ({d_model}) must be divisible by num_heads ({num_heads})"
             )
@@ -222,6 +229,11 @@ class Attention(nn.Module):
             )
         if context_parallel not in CONTEXT_PARALLEL_MODES:
             raise ValueError(f"unknown context_parallel mode: {context_parallel}")
+        if (rope_type == "yarn") != (yarn is not None):
+            raise ValueError("rope_type 'yarn' takes, and alone takes, the yarn parameters")
+        self._head_dim = head_dim if head_dim is not None else d_model // num_heads
+        self.yarn = yarn
+        self.span = span
         self.d_model = d_model
         self.num_heads = num_heads
         self.query_groups = query_groups
@@ -248,8 +260,8 @@ class Attention(nn.Module):
         self.w_o = lin(h * hd, d_model)
         # the decode prologue's fp32 tables per device, made at first use on
         # that device: rope_inv_freq (as apply_rope_1d makes it) for '1d',
-        # the identity (cos 1, sin 0) for 'none'; not buffers: a model built
-        # on the meta device could not move them
+        # the identity (cos 1, sin 0) for 'none', yarn_inv_freq for 'yarn';
+        # not buffers: a model built on the meta device could not move them
         self._rope_tables = {}
 
     def _table(self, key: str, device: torch.device, make):
@@ -282,7 +294,7 @@ class Attention(nn.Module):
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.num_heads
+        return self._head_dim
 
     def param_logical_axes(self):
         if self.use_qkv_proj:  # "qkv" has no rule: replicated over tensor
@@ -311,6 +323,12 @@ class Attention(nn.Module):
         None."""
         if rope_angles is not None:
             return rope_angles
+        if self.rope_type == "yarn":
+            factor, original, fast, slow, attn_factor = self.yarn
+            inv_freq = self._table("yarn", positions.device, lambda: yarn_inv_freq(
+                self.head_dim, self.rope_theta, factor, original, fast, slow,
+                device=positions.device))
+            return rope_table_cos_sin(positions, inv_freq, attn_factor)
         if self.rope_type == "2d_ntk":
             return rope_2d_ntk_cos_sin(positions, self.head_dim, grid_shape[-1],
                                        self.rope_theta, self.rope_ntk_scale)
@@ -394,6 +412,7 @@ class Attention(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         grid_shape: Optional[Tuple[int, ...]] = None,
         rope_angles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        decode_left_window: int = -1,
     ):
         """x: [B, T, d_model] -> ([B, T, d_model], updated cache or None).
 
@@ -404,7 +423,13 @@ class Attention(nn.Module):
         for '2d_ntk' its last entry is the raster grid's width, for '3d_ntk'
         its last two the frame's (gh, gw).
         rope_angles: fp32 (cos, sin) per token ([T, hd/2], or [B, T, hd/2]
-        on the paged path) in place of the rope mode."""
+        on the paged path) in place of the rope mode.
+        decode_left_window: the window of a paged decode token (K1; the
+        JAX package's paged decode has none, so its models pass -1).
+
+        The attention between the projections runs under the span
+        ``self.span`` when one is set (``attn.window`` / ``attn.full`` in
+        ``TextLM``)."""
         b, t, _ = x.shape
         if (cache is not None or paged_cache is not None) and self._tensor_parallel()[1] > 1:
             raise NotImplementedError("KV-cached attention with heads split over tensor")
@@ -413,79 +438,81 @@ class Attention(nn.Module):
             raise NotImplementedError(
                 f"KV-cached attention not supported for rope_type={self.rope_type}")
         q, k, v = self.project_qkv(x)
-        # a decode token's QK-norm and RoPE run inside K3's prologue
-        decode = t == 1 and (cache is not None or paged_cache is not None)
-        if self.use_qk_norm and not decode:
-            q = l2_normalize(q)
-            k = l2_normalize(k)
-        scale = (
-            self.softmax_scale
-            if self.softmax_scale is not None
-            else 1.0 / float(self.head_dim) ** 0.5
-        )
-        if causal:
-            right_window = 0
-
-        if paged_cache is not None:
-            out, new_cache = self._paged_attention(
-                q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window,
-                grid_shape, rope_angles,
+        span = annotate(self.span) if self.span else contextlib.nullcontext()
+        with span:
+            # a decode token's QK-norm and RoPE run inside K3's prologue
+            decode = t == 1 and (cache is not None or paged_cache is not None)
+            if self.use_qk_norm and not decode:
+                q = l2_normalize(q)
+                k = l2_normalize(k)
+            scale = (
+                self.softmax_scale
+                if self.softmax_scale is not None
+                else 1.0 / float(self.head_dim) ** 0.5
             )
-        elif cache is None:
-            positions = self._seq_offset(t) + torch.arange(t, device=x.device)
-            cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
-            q = self._apply_rope(q, positions, grid_shape, cos_sin)
-            k = self._apply_rope(k, positions, grid_shape, cos_sin)
-            out = self._maybe_context_parallel(
-                q, k, v, scale, causal, left_window, right_window, padding_mask,
-                segment_ids)
-            if out is None:
-                impl = select_attention_impl(self.impl, seq_len=t, device=q.device)
-                attend = flash_attention if impl == "flash" else dot_product_attention
-                out = attend(
-                    q, k, v, scale=scale, causal=causal, left_window=left_window,
-                    right_window=right_window, kv_valid=padding_mask,
-                    q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            if causal:
+                right_window = 0
+
+            if paged_cache is not None:
+                out, new_cache = self._paged_attention(
+                    q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window,
+                    grid_shape, rope_angles, decode_left_window,
                 )
-            new_cache = None
-        else:
-            start = cache.length
-            positions = start + torch.arange(t, device=x.device)
-            cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
-            if decode:
-                inv_freq, table = self._decode_rotation(cos_sin, x.device)
-                q = cache.decode_token(
-                    layer_idx, q, k, v, inv_freq,
-                    theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=table,
-                )
-                new_cache = cache
-            else:
+            elif cache is None:
+                positions = self._seq_offset(t) + torch.arange(t, device=x.device)
+                cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
                 q = self._apply_rope(q, positions, grid_shape, cos_sin)
                 k = self._apply_rope(k, positions, grid_shape, cos_sin)
-                new_cache = cache.update_layer(layer_idx, k, v)
-            if cache.ring:
-                out = self._ring_cached_attention(
-                    q, k, v, new_cache, positions, padding_mask, scale,
-                    causal, left_window, right_window, b, t, layer_idx,
-                )
+                out = self._maybe_context_parallel(
+                    q, k, v, scale, causal, left_window, right_window, padding_mask,
+                    segment_ids)
+                if out is None:
+                    impl = select_attention_impl(self.impl, seq_len=t, device=q.device)
+                    attend = flash_attention if impl == "flash" else dot_product_attention
+                    out = attend(
+                        q, k, v, scale=scale, causal=causal, left_window=left_window,
+                        right_window=right_window, kv_valid=padding_mask,
+                        q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+                    )
+                new_cache = None
             else:
-                k_buf, v_buf = new_cache.layer_t(layer_idx)
-                s = new_cache.max_seq_len
-                kv_valid = new_cache.valid_mask(b, extra=t)
-                if padding_mask is not None:
-                    if padding_mask.shape[-1] == s:
-                        kv_valid = kv_valid & padding_mask.bool()
-                    else:
-                        kv_valid = kv_valid & self._merge_padding(
-                            padding_mask, start, b, s
-                        )
-                out = self._attend_buffer(
-                    q, k_buf, v_buf, scale=scale, causal=causal,
-                    left_window=left_window, right_window=right_window,
-                    q_positions=positions,
-                    kv_positions=torch.arange(s, device=x.device),
-                    kv_valid=kv_valid,
-                )
+                start = cache.length
+                positions = start + torch.arange(t, device=x.device)
+                cos_sin = self._cos_sin(positions, grid_shape, rope_angles)
+                if decode:
+                    inv_freq, table = self._decode_rotation(cos_sin, x.device)
+                    q = cache.decode_token(
+                        layer_idx, q, k, v, inv_freq,
+                        theta=self.rope_theta, qk_norm=self.use_qk_norm, cos_sin=table,
+                    )
+                    new_cache = cache
+                else:
+                    q = self._apply_rope(q, positions, grid_shape, cos_sin)
+                    k = self._apply_rope(k, positions, grid_shape, cos_sin)
+                    new_cache = cache.update_layer(layer_idx, k, v)
+                if cache.ring:
+                    out = self._ring_cached_attention(
+                        q, k, v, new_cache, positions, padding_mask, scale,
+                        causal, left_window, right_window, b, t, layer_idx,
+                    )
+                else:
+                    k_buf, v_buf = new_cache.layer_t(layer_idx)
+                    s = new_cache.max_seq_len
+                    kv_valid = new_cache.valid_mask(b, extra=t)
+                    if padding_mask is not None:
+                        if padding_mask.shape[-1] == s:
+                            kv_valid = kv_valid & padding_mask.bool()
+                        else:
+                            kv_valid = kv_valid & self._merge_padding(
+                                padding_mask, start, b, s
+                            )
+                    out = self._attend_buffer(
+                        q, k_buf, v_buf, scale=scale, causal=causal,
+                        left_window=left_window, right_window=right_window,
+                        q_positions=positions,
+                        kv_positions=torch.arange(s, device=x.device),
+                        kv_valid=kv_valid,
+                    )
 
         out = out.reshape(b, t, -1)  # this rank's heads under tensor parallelism
         return dense(self.w_o, out, self.dtype), new_cache
@@ -618,10 +645,11 @@ class Attention(nn.Module):
 
     def _paged_attention(
         self, q, k, v, paged_cache, layer_idx, padding_mask, scale, left_window,
-        grid_shape=None, rope_angles=None,
+        grid_shape=None, rope_angles=None, decode_left_window=-1,
     ):
         """Ragged-batch causal attention over a PagedKVCache; each row's
-        positions start at its own ``lengths[b]``."""
+        positions start at its own ``lengths[b]``; a decode token attends
+        ``decode_left_window``'s window."""
         b, t = q.shape[0], q.shape[1]
         lengths = paged_cache.lengths
         positions = lengths[:, None] + torch.arange(t, device=q.device)[None, :]
@@ -635,7 +663,7 @@ class Attention(nn.Module):
             out = paged_decode_attention_commit(
                 q1, paged_cache.kv_pages, layer_idx, paged_cache.page_table,
                 lengths, scale=scale, k_cur=k1, v_cur=v1,
-                kv_scales=paged_cache.kv_scales,
+                kv_scales=paged_cache.kv_scales, left_window=decode_left_window,
             )
             paged_cache.fresh = False
             return out[:, None], paged_cache
@@ -708,6 +736,9 @@ class AttentionBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
         device=None,
+        head_dim: Optional[int] = None,
+        yarn: Optional[Tuple[float, int, float, float, float]] = None,
+        span: Optional[str] = None,
     ):
         super().__init__()
         self.dropout = dropout
@@ -717,8 +748,8 @@ class AttentionBlock(nn.Module):
             softmax_scale=softmax_scale, use_proj_bias=use_proj_bias,
             use_qkv_proj=use_qkv_proj, use_qk_norm=use_qk_norm,
             num_layers=num_layers, impl=impl, rope_type=rope_type,
-            rope_ntk_scale=rope_ntk_scale, context_parallel=context_parallel, dtype=dtype, param_dtype=param_dtype,
-            device=device,
+            rope_ntk_scale=rope_ntk_scale, context_parallel=context_parallel, dtype=dtype,
+            param_dtype=param_dtype, device=device, head_dim=head_dim, yarn=yarn, span=span,
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

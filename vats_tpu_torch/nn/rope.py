@@ -11,12 +11,15 @@ axial 2-D (ViT-2D) and 3-D (ViT-3D, video generation) rotations are here
 too, and the NTK-scaled raster-order 2-D and 3-D rotations of the
 generation stacks, whose per-token tables (:func:`rope_2d_ntk_cos_sin`,
 :func:`rope_3d_ntk_cos_sin`) are also what K3's table mode reads
-(``ops/cache_append.py``).  Angles are fp32 and each result is cast
+(``ops/cache_append.py``), and YaRN's 1-D table (:func:`yarn_inv_freq`,
+:func:`rope_table_cos_sin`), which the full-attention layers of a
+``HybridModelArgs`` model rotate by.  Angles are fp32 and each result is cast
 back to x's dtype, as in JAX.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +42,44 @@ def rope_cos_sin(
     inv_freq = rope_inv_freq(head_dim, theta, device=positions.device)
     freqs = positions.float()[..., None] * inv_freq
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def yarn_inv_freq(head_dim: int, theta: float, factor: float, original_max_position: int,
+                  beta_fast: float = 32.0, beta_slow: float = 1.0,
+                  device=None) -> torch.Tensor:
+    """YaRN's inv_freq [hd/2] (fp32), as HF ``_compute_yarn_parameters``
+    makes it: between the plain frequencies (extrapolation) and those
+    divided by ``factor`` (interpolation) by a ramp over the pair index i,
+    clamp((i - low) / (high - low), 0, 1), with low = floor(d(beta_fast))
+    and high = ceil(d(beta_slow)), d(b) = hd ln(original / (2 pi b)) /
+    (2 ln theta), clipped to [0, hd - 1]: pairs below low keep their
+    frequency, pairs above high take the interpolated one."""
+
+    def corr_dim(rotations):
+        return (head_dim * math.log(original_max_position / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(corr_dim(beta_fast)), 0)
+    high = min(math.ceil(corr_dim(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    extra = rope_inv_freq(head_dim, theta, device=device)
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+                       / (high - low), 0, 1)
+    return extra / factor * ramp + extra * (1 - ramp)
+
+
+def rope_table_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
+                       scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (cos, sin) of shape positions.shape + [hd/2] at ``positions``
+    (any shape) by a 1-D ``inv_freq``, each times ``scale`` (YaRN's
+    attention factor: q.k scales by its square).  Computed on the
+    positions' device with no host sync."""
+    angles = positions.float()[..., None] * inv_freq
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
+    return cos, sin
 
 
 def apply_rope_interleaved(

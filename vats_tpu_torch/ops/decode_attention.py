@@ -25,6 +25,10 @@ Counterpart of ``vats_tpu/ops/decode_attention.py``.
     128-token tiles over CTAs and combines them in the same launch; q, the
     current token and the output stay at their logical head dim and dtype.
     :func:`paged_decode_attention` is the same kernel without the commit.
+    K1 takes a per-call ``left_window``: a row at length L then attends
+    its keys at positions >= L - left_window (and the current token at L),
+    its CTAs starting at that position's tile; -1 attends every settled
+    token, as the JAX kernel does.  K4 has no window and raises on one.
     On CPU tensors every entry runs the plain versions
     (:func:`paged_decode_attention_ref`, :meth:`PagedKVCache.append_token`).
 """
@@ -264,6 +268,7 @@ def paged_decode_attention_ref(
     k_cur: Optional[torch.Tensor] = None,
     v_cur: Optional[torch.Tensor] = None,
     kv_scales: Optional[torch.Tensor] = None,
+    left_window: int = -1,
 ) -> torch.Tensor:
     """Plain version of K1's and K4's attention: what the kernel computes.
 
@@ -273,7 +278,9 @@ def paged_decode_attention_ref(
     column.  bf16/fp32 pools (K1) take q and the current token in pool
     precision.  int8 pools pass ``kv_scales`` [P, 2, G, ps] (K4): the
     history is dequantized (value * scale), and q and the current token
-    stay in their own precision, unquantized.
+    stay in their own precision, unquantized.  ``left_window`` >= 0 keeps
+    only history at positions >= lengths[b] - left_window (the current
+    token sits at lengths[b]).
 
     The history is cut into 128-token tiles.  Each tile takes
     p = exp(s - m_tile), m_tile the max of its valid columns; l sums the
@@ -296,7 +303,10 @@ def paged_decode_attention_ref(
         as_input = kv_pages.dtype
     kv = gathered.permute(2, 0, 3, 1, 4, 5).reshape(2, b, g, nt, TILE, hdp)
     k_t, v_t = kv[0, ..., :hd], kv[1, ..., :hd]  # [B, G, tiles, TILE, hd]
-    valid = torch.arange(pps * ps, device=q.device)[None, :] < lengths[:, None]
+    pos = torch.arange(pps * ps, device=q.device)[None, :]
+    valid = pos < lengths[:, None]
+    if left_window >= 0:
+        valid = valid & (pos >= lengths[:, None] - left_window)
     valid = valid.reshape(b, 1, nt, 1, TILE)
     qf = q.to(as_input).float().reshape(b, g, n, hd)
     s = torch.einsum("bgnd,bgtsd->bgtns", qf, k_t) * scale  # [B, G, tiles, N, TILE]
@@ -335,12 +345,14 @@ def paged_decode_attention(
     k_cur: torch.Tensor,
     v_cur: torch.Tensor,
     kv_scales: Optional[torch.Tensor] = None,
+    left_window: int = -1,
 ) -> torch.Tensor:
-    """K1 without the commit: attend the history plus the current token,
-    write nothing.  kv_pages: the full pool [L, P, 2, G, ps, hd_pad]; int8
-    pools pass the full ``kv_scales`` and go to K4
-    (:func:`paged_decode_attention_int8`)."""
+    """K1 without the commit: attend the history plus the current token
+    (within ``left_window`` when >= 0), write nothing.  kv_pages: the full
+    pool [L, P, 2, G, ps, hd_pad]; int8 pools pass the full ``kv_scales``
+    and go to K4 (:func:`paged_decode_attention_int8`)."""
     if kv_scales is not None:
+        _no_int8_window(left_window)
         return paged_decode_attention_int8(
             q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale=scale,
             k_cur=k_cur, v_cur=v_cur,
@@ -348,10 +360,10 @@ def paged_decode_attention(
     if not q.is_cuda:
         return paged_decode_attention_ref(
             q, kv_pages[layer_idx], page_table, lengths, scale=scale,
-            k_cur=k_cur, v_cur=v_cur,
+            k_cur=k_cur, v_cur=v_cur, left_window=left_window,
         )
     out = _launch(q, kv_pages, None, layer_idx, page_table, lengths, scale, k_cur,
-                  v_cur, commit=False)
+                  v_cur, commit=False, left_window=left_window)
     kernels.count_launch(paged_decode_attention)
     return out
 
@@ -367,9 +379,12 @@ def paged_decode_attention_commit(
     k_cur: torch.Tensor,
     v_cur: torch.Tensor,
     kv_scales: Optional[torch.Tensor] = None,
+    left_window: int = -1,
 ) -> torch.Tensor:
     """Decode hot path: attend the paged history plus the current token AND
     write the token into slot ``min(lengths[b], capacity-1)`` of its page.
+    ``left_window`` >= 0 attends only the history at positions >=
+    lengths[b] - left_window (K1; K4 raises).
 
     q [B, Hq, hd]; kv_pages: the full pool [L, P, 2, G, ps, hd_pad], updated
     in place; k_cur/v_cur [B, G, hd].  Returns the attention [B, Hq, hd].
@@ -378,6 +393,7 @@ def paged_decode_attention_commit(
     pass the full ``kv_scales`` (also updated in place) and go to K4
     (:func:`paged_decode_attention_commit_int8`)."""
     if kv_scales is not None:
+        _no_int8_window(left_window)
         return paged_decode_attention_commit_int8(
             q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale=scale,
             k_cur=k_cur, v_cur=v_cur,
@@ -385,14 +401,14 @@ def paged_decode_attention_commit(
     if not q.is_cuda:
         out = paged_decode_attention_ref(
             q, kv_pages[layer_idx], page_table, lengths, scale=scale,
-            k_cur=k_cur, v_cur=v_cur,
+            k_cur=k_cur, v_cur=v_cur, left_window=left_window,
         )
         PagedKVCache(kv_pages, page_table, lengths).append_token(
             layer_idx, k_cur, v_cur
         )
         return out
     out = _launch(q, kv_pages, None, layer_idx, page_table, lengths, scale, k_cur,
-                  v_cur, commit=True)
+                  v_cur, commit=True, left_window=left_window)
     kernels.count_launch(paged_decode_attention_commit)
     return out
 
@@ -452,6 +468,15 @@ def paged_decode_attention_commit_int8(
     return out
 
 
+def _no_int8_window(left_window: int) -> None:
+    """K4 attends every settled token: a windowed layer over an int8 pool
+    would decode as if it had no window."""
+    if left_window >= 0:
+        raise NotImplementedError(
+            f"int8 paged decode (K4) has no sliding window; left_window={left_window} "
+            "needs a bf16 or fp32 pool")
+
+
 paged_decode_attention.launches = 0
 paged_decode_attention_commit.launches = 0
 paged_decode_attention_int8.launches = 0
@@ -499,7 +524,7 @@ def take_counters(stream: torch.cuda.Stream) -> Optional[torch.Tensor]:
 
 
 def _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale, k_cur,
-            v_cur, *, commit: bool) -> torch.Tensor:
+            v_cur, *, commit: bool, left_window: int = -1) -> torch.Tensor:
     """One launch: checks, the output and the workspace from ``torch.empty``,
     no other kernel."""
     b, hq, hd = q.shape
@@ -519,6 +544,7 @@ def _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale, k_cur
     kernels.require(ps % TILE == 0, f"page_size {ps} is not a multiple of {TILE}")
     kernels.require(b <= 65535, f"batch {b} beyond the grid")
     kernels.require(0 <= layer_idx < l, f"layer {layer_idx} out of range")
+    kernels.require(left_window >= -1, f"left_window {left_window}: -1 (none) or >= 0")
     kernels.check_cuda_tensor(kv_pages, "kv_pages")
     kernels.require(kv_pages.data_ptr() % 16 == 0, "kv_pages must be 16-byte aligned")
     kernels.check_cuda_tensor(page_table, "page_table", dtype=torch.int32,
@@ -544,7 +570,7 @@ def _launch(q, kv_pages, kv_scales, layer_idx, page_table, lengths, scale, k_cur
         int(q.dtype == torch.bfloat16), b, g, n, hd, hdp, p, ps, pps, layer_idx,
         q.stride(0), q.stride(1), k_cur.stride(0), k_cur.stride(1),
         v_cur.stride(0), v_cur.stride(1), ctypes.c_float(scale), int(commit),
-        kernels.stream_ptr(q),
+        int(left_window), kernels.stream_ptr(q),
     )
     kernels.check(lib, rc, "paged_decode_attention")
     return out
@@ -556,7 +582,7 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
