@@ -407,7 +407,8 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 # bf16 wgmma kernel instantiations per library: 3 head dims x (K2, K2') in
 # the forward, 3 x (K5a, K5b) in the backward, K6 at widths 64 and 128.
-WGMMA_KERNELS = {"flash_attention": 6, "flash_backward": 6, "paged_prefill_attention": 2}
+WGMMA_KERNELS = {"flash_attention": 6, "flash_backward": 6, "paged_prefill_attention": 2,
+                 "moe_grouped_gemm": 4}
 
 
 def tensor_core_instructions(kernels, name):
@@ -436,6 +437,10 @@ def tensor_core_instructions(kernels, name):
                           m.group(1))
             fn = (f"{k.group(1)} D={k.group(2)}{' LSE' if k.group(3) == '1' else ''}"
                   if k else None)
+            # K7: one instantiation a (warpgroups, chunks, swiglu) tile shape
+            g = re.search(r"moe_grouped_wgmma_kernelILi(\d+)ELi(\d+)ELb(\d)", m.group(1))
+            if g:
+                fn = f"moe_grouped WG={g.group(1)} NCH={g.group(2)} swiglu={g.group(3)}"
             if fn:
                 counts[fn] = 0
         elif fn and marker in line:
@@ -1007,6 +1012,111 @@ def check_k6(gen, shapes=K6_SHAPES, heads=None, pps=32, left_windows=(-1,)):
                               bound_by=by, library_ms=lib_ms)
             result["max_abs_err"] = max(result["max_abs_err"], err)
         del pool
+        torch.cuda.empty_cache()
+    return result
+
+
+# K7's shapes: (label, n tokens, d, f, E, k), the main path's: decode_heavy
+# (vats_medium_e8) and code_chat_8k (Mellum2), a decode step's 64 rows and a
+# prefill (1,024 tokens; Mellum2's budget of 8,192)
+K7_SHAPES = (("decode_heavy decode", 64, 1440, 5760, 8, 2),
+             ("decode_heavy prefill", 1024, 1440, 5760, 8, 2),
+             ("code_chat_8k decode", 64, 2304, 896, 64, 8),
+             ("code_chat_8k prefill", 8192, 2304, 896, 64, 8))
+
+
+def check_k7(gen):
+    """K7's routed path (plan, gather, K7a, K7b, combine) at the main path's
+    shapes against the plain version: the plan, gather and combine bit for
+    bit, K7a and K7b from the same bf16 operands within the bf16 tolerance
+    (exact products, fp32 sums in another order, one rounding).  Timed: the
+    whole path, K7 alone, the plain version (fp32 products an expert), the
+    bound (decode: the routed experts' weights once over 3.35 TB/s; prefill:
+    6 n k d f over 989 TFLOP/s) and the library yardsticks: today's padded
+    path (the lossless sort dispatch, every token in each expert's buffer,
+    cuBLAS bmm) and ``torch._grouped_mm`` over the routed rows where the
+    card's torch has it.  Returns the first shape's row, each shape's under
+    its label."""
+    import torch
+
+    from vats_tpu_torch.nn.moe import ExpertSwiGLU, MoELayer
+    from vats_tpu_torch.ops import moe_grouped as mg
+
+    result = None
+    for label, n, d, f, e, k in K7_SHAPES:
+        x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+        ws = [(torch.randn(shape, generator=gen, device="cuda") * shape[1] ** -0.5).to(
+            torch.bfloat16) for shape in ((e, d, f), (e, d, f), (e, f, d))]
+        logits = torch.randn((n, e), generator=gen, device="cuda")
+        probs, idx = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True)
+        w = (probs[:, :k] / probs[:, :k].sum(-1, keepdim=True)).to(torch.bfloat16)
+        idx = idx[:, :k]
+        plan = mg.route_plan(idx, w, e)
+        for got, want in zip(plan, mg.route_plan_ref(idx, w, e)):
+            require(torch.equal(got, want), f"K7 {label}: the plan differs from its plain version")
+        rows = mg.gather_rows(x, plan.row_tok)
+        require(torch.equal(rows, x[plan.row_tok.long()]), f"K7 {label}: gather differs")
+        n0 = mg.moe_grouped_gemm.launches
+        h = mg.moe_grouped_gemm(rows, plan.counts, ws[0], w_up=ws[1])
+        y = mg.moe_grouped_gemm(h, plan.counts, ws[2], row_w=plan.row_w)
+        again = mg.moe_grouped_gemm(h, plan.counts, ws[2], row_w=plan.row_w)
+        torch.cuda.synchronize()
+        require(mg.moe_grouped_gemm.launches == n0 + 3, "K7 did not launch")
+        require(torch.equal(y, again), f"K7 {label}: two launches differ")
+        err_a = expect_close(f"K7a {label}", h, mg.moe_grouped_gemm_ref(
+            rows, plan.counts, ws[0], w_up=ws[1]), BF16_ATOL, BF16_RTOL)
+        err_b = expect_close(f"K7b {label}", y, mg.moe_grouped_gemm_ref(
+            h, plan.counts, ws[2], row_w=plan.row_w), BF16_ATOL, BF16_RTOL)
+        out = mg.combine_rows(y, plan.inv, n, k)
+        require(torch.equal(out, mg.combine_rows_ref(y, plan.inv, n, k)),
+                f"K7 {label}: combine differs")
+        del h, y, again, out
+        kern = lambda: mg.routed_experts(x, w, idx, *ws)  # noqa: E731
+        plain = lambda: mg.combine_rows_ref(mg.moe_grouped_gemm_ref(  # noqa: E731
+            mg.moe_grouped_gemm_ref(x[plan.row_tok.long()], plan.counts, ws[0], w_up=ws[1]),
+            plan.counts, ws[2], row_w=plan.row_w), plan.inv, n, k)
+        live = int((plan.counts > 0).sum())
+        nbytes = live * 3 * d * f * 2 + 2 * n * d * 2
+        b_ms, by = bound(nbytes, 6.0 * n * k * d * f)
+        ms, call_ms = timed(kern)
+        alone = kernel_alone_ms(kern, "moe_grouped_wgmma")
+        plain_ms = device_ms(plain, iters=2)
+        experts = ExpertSwiGLU(d, f, e, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                               device="cuda")
+        with torch.no_grad():
+            for p, src in zip((experts.w_gate, experts.w_up, experts.w_down), ws):
+                p.copy_(src)
+        layer = MoELayer(d, f, e, k, dispatch="sort", dtype=torch.bfloat16,
+                         param_dtype=torch.bfloat16, device="meta")
+        with torch.no_grad():
+            padded_ms = device_ms(lambda: layer._sort_dispatch(x, w, idx, n, experts), iters=5)
+        grouped_ms, why = None, "torch._grouped_mm absent"
+        if hasattr(torch, "_grouped_mm"):
+            offs = torch.cumsum(plan.counts, 0).to(torch.int32)
+            try:
+                def lib():
+                    gate = torch._grouped_mm(rows, ws[0], offs=offs)
+                    up = torch._grouped_mm(rows, ws[1], offs=offs)
+                    return torch._grouped_mm(torch.nn.functional.silu(gate) * up, ws[2],
+                                             offs=offs)
+                grouped_ms, why = device_ms(lib, iters=5), "torch._grouped_mm"
+            except (RuntimeError, TypeError, ValueError) as exc:
+                why = f"torch._grouped_mm refused: {str(exc).splitlines()[0][:120]}"
+        log(f"K7 routed experts {label} (n={n}, d={d}, f={f}, E={e}, top-{k}; {live} experts "
+            f"routed, rows an expert {n * k / e:.0f}): K7a max_abs_err={err_a:.3e} K7b "
+            f"max_abs_err={err_b:.3e} (within {BF16_ATOL} + {BF16_RTOL}*|ref|), plan, gather "
+            f"and combine bit-equal; kernel_ms={ms:.4f} (K7 alone {_fmt(alone)}; bound share "
+            f"{b_ms / (alone or ms):.3f}, of the whole path {b_ms / ms:.3f}) plain_ms="
+            f"{plain_ms:.4f} library_ms: padded sort dispatch (bmm over E x n rows) "
+            f"{padded_ms:.4f}, {why} {_fmt(grouped_ms)} bound_ms={b_ms:.5f} ({by}); per call "
+            f"with host overhead {call_ms:.4f}")
+        row = dict(max_abs_err=max(err_a, err_b), ms=ms, kernel_alone_ms=alone,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=padded_ms,
+                   grouped_mm_ms=grouped_ms)
+        if result is None:
+            result = dict(row)
+        result[label] = row
+        del x, ws, rows, experts
         torch.cuda.empty_cache()
     return result
 
@@ -3277,6 +3387,7 @@ def run_serve(kernel_fns):
         runs[name], counts[name] = outs, got
         if name == "bf16 KV":
             serve_spec(model, stream, outs, engine_kw, kernel_fns, L)
+            k7_launches = serve_lossless(model, stream, engine_kw, kernel_fns, L)
     pairs = [(runs["bf16 KV"][r], runs["int8 KV"][r]) for r in runs["bf16 KV"]]
     same = sum(int(x == y) for a, b in pairs for x, y in zip(a, b))
     first_diff = sum(common_prefix(a, b) for a, b in pairs)
@@ -3284,8 +3395,55 @@ def run_serve(kernel_fns):
         f"({same / n_new:.3f}); equal up to the first difference: {first_diff}/{n_new}")
     del model
     torch.cuda.empty_cache()
-    # the kernels line reports the int8 KV run's launches for K4
-    return {**counts["bf16 KV"], k4.__name__: counts["int8 KV"][k4.__name__]}
+    # the kernels line reports the int8 KV run's launches for K4, the
+    # lossless drive's for K7
+    return {**counts["bf16 KV"], k4.__name__: counts["int8 KV"][k4.__name__],
+            "moe_grouped_gemm": k7_launches}
+
+
+def serve_lossless(model, stream, engine_kw, kernel_fns, L):
+    """The bf16-KV stream with every MoE layer lossless (capacity_factor -1,
+    as the benchmark's serving cells route), from graphs and eagerly: the
+    routed path runs every forward.  Gates: the two drives' tokens equal,
+    every request whole, K7 twice a layer a prefill or decode forward (the
+    engine's count), each layer's forwards resolved to 'routed'.  Returns
+    the graph drive's K7 launches."""
+    from vats_tpu_torch.inference import ServingEngine
+    from vats_tpu_torch.nn.moe import MoELayer
+
+    k7 = kernel_fns["moe_grouped_gemm"]
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    old = [m.capacity_factor for m in layers]
+    outs, launches = {}, {}
+    try:
+        for m in layers:
+            m.capacity_factor = -1.0
+            m.mode_calls = {}
+        for path, use_graphs in (("graph", True), ("eager", False)):
+            eng = ServingEngine(model, **engine_kw)
+            eng.graphs.use_graph = use_graphs
+            _zero([k7])
+            outs[path], _, wall = drive(eng, stream)
+            fw = eng.forwards["prefill"] + eng.forwards["decode"]
+            require(len(outs[path]) == len(stream) and all(
+                len(outs[path][r]) == n for r, (_, n) in enumerate(stream)),
+                f"serve lossless [{path}]: requests unfinished or cut")
+            require(k7.launches == 2 * L * fw > 0, f"serve lossless [{path}]: K7 "
+                    f"{k7.launches} launches, want {2 * L * fw} for {fw} forwards")
+            launches[path] = k7.launches
+            log(f"serve lossless [{path}]: {sum(n for _, n in stream) / wall:.1f} tokens/s "
+                f"over {wall:.2f} s, K7 {k7.launches} launches ({fw} forwards); "
+                f"forwards {json.dumps(eng.forwards)}")
+            del eng
+        require(outs["graph"] == outs["eager"],
+                "serve lossless: the graph and eager drives give other tokens")
+        modes = [m.mode_calls for m in layers]
+        require(all(set(c) == {"routed"} for c in modes),
+                f"serve lossless: the layers resolved to {modes}")
+    finally:
+        for m, cf in zip(layers, old):
+            m.capacity_factor = cf
+    return launches["graph"]
 
 
 def prime(engine, stream):
@@ -6709,6 +6867,7 @@ def main(argv=None) -> int:
         paged_decode_attention_commit,
         paged_decode_attention_commit_int8,
     )
+    from vats_tpu_torch.ops.moe_grouped import moe_grouped_gemm
     from vats_tpu_torch.ops.paged_prefill_attention import paged_prefill_attention
 
     t_start = time.perf_counter()
@@ -6757,6 +6916,13 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/paged_prefill_attention.cu",
              replaces="none (vats_tpu/nn/attention.py, paged prefill with history, XLA)",
              fn=paged_prefill_attention, path="serve"),
+        # K7: the JAX package runs lossless experts as XLA batched matmuls
+        # over [E, n, d] buffers; no TPU kernel to port.  The serve phase's
+        # lossless drive runs it (its other drives hold capacity 1.25)
+        dict(name="moe_grouped_gemm", route="cuda",
+             source="vats_tpu_torch/csrc/moe_grouped_gemm.cu",
+             replaces="none (vats_tpu/nn/moe.py, lossless dispatch, XLA bmm)",
+             fn=moe_grouped_gemm, path="serve"),
         # K3's append mode: off the LM's decode since K3 became the fused
         # prologue (the main phase gates it at 0 launches); video generation's
         # temporal cache writes every cached forward through it
@@ -6826,6 +6992,7 @@ def main(argv=None) -> int:
         results["paged_prefill_attention"]["code_chat_8k"] = check_k6(
             gen(18), K6_HYBRID_SHAPES, WINDOW_HEADS[1:], WINDOW_PPS, (WINDOW_LW, -1))
         results["paged_decode_prologue_table"]["code_chat_8k"] = check_k3_yarn(gen(19))
+        results["moe_grouped_gemm"] = check_k7(gen(20))
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
               "multimodal": {}, "pipeline": {}, "vision": {}}

@@ -147,6 +147,30 @@ def test_moe_sort_dispatch_is_captured(gen):
     assert torch.equal(tg, te) and torch.equal(lg, le)
 
 
+def test_moe_routed_decode_is_captured(gen):
+    """A lossless model (capacity_factor -1) routes rows through K7 in its
+    decode step (two launches a layer, no host sync), so the step captures;
+    every replay routes other tokens to other experts, and the graph's
+    tokens equal the eager steps' bit for bit."""
+    from vats_tpu_torch.inference.generate import _generate_paged
+    from vats_tpu_torch.nn.moe import MoELayer
+    from vats_tpu_torch.ops import moe_grouped as mg
+
+    model = tiny_model(capacity_factor=-1.0)
+    ids, mask = ragged(gen, 5, 100, 256)
+    steps = 12
+    (tg, lg, graph, n_g), (te, le, _, n_e) = graph_and_eager(
+        _generate_paged, model, ids, mask, GREEDY, 0, mg.moe_grouped_gemm,
+        max_new_tokens=steps, pad_token_id=0, eos_token_id=None, total_len=None,
+        page_size=128, kv_quant=None, prefill_row_chunk=None)
+    L = model.cfg.num_layers
+    assert graph.replays == steps - 1 and graph.tally[mg.moe_grouped_gemm] == 2 * L
+    assert torch.equal(tg, te) and torch.equal(lg, le)
+    assert n_g == n_e == 2 * L * (steps + 1)  # the prefill and every decode step
+    modes = [m.mode_calls for m in model.modules() if isinstance(m, MoELayer)]
+    assert all(set(c) == {"routed"} for c in modes)
+
+
 def engine_stream():
     system = [(13 * i) % 250 + 1 for i in range(300)]
     return [(system + [3, 1, 4], 12), ([(5 * i) % 250 + 1 for i in range(122)], 14),

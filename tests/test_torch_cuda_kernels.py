@@ -1618,3 +1618,147 @@ def test_hybrid_engine_on_the_card_matches_the_cpu(gen):
     forwards = eng.forwards["decode"]
     assert da.paged_decode_attention_commit.launches == n0[0] + 4 * forwards
     assert ca.paged_decode_prologue.table.launches == n0[1] + forwards
+
+
+# K7 at the main path's shapes: (n tokens, d, f, E, k).  decode_heavy's
+# decode (64 rows) and prefill (1,024 tokens) on vats_medium_e8;
+# code_chat_8k's decode and prefill (the 8,192-token budget) on Mellum2.
+K7_SHAPES = {
+    "medium_e8_decode": (64, 1440, 5760, 8, 2),
+    "medium_e8_prefill": (1024, 1440, 5760, 8, 2),
+    "mellum2_decode": (64, 2304, 896, 64, 8),
+    "mellum2_prefill": (8192, 2304, 896, 64, 8),
+}
+
+
+def _k7_inputs(gen, n, d, f, e, k, skew=False):
+    """bf16 tokens and expert weights (products of unit size), a router's
+    top-k of random logits (``skew``: expert 0 never chosen, expert 1 in
+    every token's first slot) and its renormalised bf16 weights."""
+    x = rand(gen, n, d, dtype=torch.bfloat16)
+    wg, wu = (rand(gen, e, d, f) * d**-0.5 for _ in range(2))
+    wd = rand(gen, e, f, d) * f**-0.5
+    logits = rand(gen, n, e)
+    if skew:
+        logits[:, 0] = -1e9
+        logits[:, 1] = 1e9
+    probs, idx = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True)
+    w = probs[:, :k] / probs[:, :k].sum(-1, keepdim=True)
+    return (x, w.to(torch.bfloat16), idx[:, :k],
+            *(t.to(torch.bfloat16) for t in (wg, wu, wd)))
+
+
+@pytest.mark.parametrize("skew", [False, True], ids=["spread", "skewed"])
+@pytest.mark.parametrize("name", sorted(K7_SHAPES))
+def test_moe_grouped_gemm_matches_plain(gen, name, skew):
+    """K7's plan, gather and combine equal their plain versions bit for bit
+    (integer work; fp32 sums over the slots in the same order).  K7a and
+    K7b (the small tiles at the decode shapes, the large at the prefills;
+    skewed: an expert with no rows, one with a row of every token) against
+    the plain version from the same bf16 operands: both take exact bf16
+    products into fp32 sums, in another order, and round the fp32 epilogue
+    once to bf16, so they may differ by a flipped rounding, one bf16 ulp
+    (TOL's rtol 1e-2 covers 2^-8), plus TOL's 2e-3 floor near zero.  A
+    second launch gives equal bits."""
+    from vats_tpu_torch.ops import moe_grouped as mg
+
+    n, d, f, e, k = K7_SHAPES[name]
+    x, w, idx, wg, wu, wd = _k7_inputs(gen, n, d, f, e, k, skew=skew)
+    plan = mg.route_plan(idx, w, e)
+    want = mg.route_plan_ref(idx, w, e)
+    for got, ref in zip(plan, want):
+        assert torch.equal(got, ref)
+    assert int(plan.counts.sum()) == n * k
+    rows = mg.gather_rows(x, plan.row_tok)
+    assert torch.equal(rows, x[plan.row_tok.long()])
+    n0 = mg.moe_grouped_gemm.launches
+    h = mg.moe_grouped_gemm(rows, plan.counts, wg, w_up=wu)
+    h2 = mg.moe_grouped_gemm(rows, plan.counts, wg, w_up=wu)
+    y = mg.moe_grouped_gemm(h, plan.counts, wd, row_w=plan.row_w)
+    torch.cuda.synchronize()
+    assert mg.moe_grouped_gemm.launches == n0 + 3
+    assert torch.equal(h, h2)
+    torch.testing.assert_close(
+        h.float(), mg.moe_grouped_gemm_ref(rows, plan.counts, wg, w_up=wu).float(),
+        **TOL[torch.bfloat16])
+    torch.testing.assert_close(
+        y.float(), mg.moe_grouped_gemm_ref(h, plan.counts, wd, row_w=plan.row_w).float(),
+        **TOL[torch.bfloat16])
+    out = mg.combine_rows(y, plan.inv, n, k)
+    assert torch.equal(out, mg.combine_rows_ref(y, plan.inv, n, k))
+
+
+def test_moe_routed_layer_on_the_card_matches_the_scatter_oracle(gen):
+    """A lossless bf16 layer without autograd resolves to 'routed' on the
+    card; its output against the scatter dispatch (the oracle, every token
+    in every expert's buffer) at the same weights: the routed path rounds
+    once (fp32 SwiGLU and combine) where the oracle rounds each product and
+    sum to bf16, so they differ by a few bf16 ulps (2^-8 each) of the
+    output's largest entries: within 2^-5 of the largest."""
+    from vats_tpu_torch.nn.moe import MoELayer
+    from vats_tpu_torch.ops import moe_grouped as mg
+
+    layer = MoELayer(256, 512, 8, 2, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                     device="cuda")
+    layer.reset_parameters(torch.Generator(device="cuda").manual_seed(1))
+    x = rand(gen, 2, 40, 256, dtype=torch.bfloat16)
+    n0 = mg.moe_grouped_gemm.launches
+    with torch.no_grad():
+        out, _ = layer(x)
+        layer.dispatch = "scatter"
+        want, _ = layer(x)
+    assert layer.mode_calls == {"routed": 1, "scatter": 1}
+    assert mg.moe_grouped_gemm.launches == n0 + 2
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(out.float(), want.float(), atol=2.0**-5 * scale, rtol=3e-2)
+
+
+def test_moe_routed_experts_replay_under_other_routing(gen):
+    """A capture of the routed path records K7 twice and no host sync; its
+    replays over new tokens, weights and expert ids (other counts, an
+    expert left empty) equal the eager path bit for bit."""
+    from vats_tpu_torch.ops import kernels
+    from vats_tpu_torch.ops import moe_grouped as mg
+
+    n, d, f, e, k = K7_SHAPES["mellum2_decode"]
+    x, w, idx, wg, wu, wd = _k7_inputs(gen, n, d, f, e, k)
+    call = lambda: mg.routed_experts(x, w, idx, wg, wu, wd)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with kernels.launch_tally() as tally:
+        with torch.cuda.graph(graph):
+            out = call()
+    assert tally == {mg.moe_grouped_gemm: 2}
+    for skew in (False, True):
+        x2, w2, idx2 = _k7_inputs(gen, n, d, f, e, k, skew=skew)[:3]
+        x.copy_(x2)
+        w.copy_(w2)
+        idx.copy_(idx2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+
+
+def test_moe_grouped_gemm_rejects_bad_inputs(gen):
+    """No fallback on the card: fp32 operands, widths that are not
+    multiples of 8, int64 counts, both or neither of w_up and row_w raise."""
+    from vats_tpu_torch.ops import moe_grouped as mg
+
+    x, w, idx, wg, wu, wd = _k7_inputs(gen, 64, 64, 96, 4, 2)
+    plan = mg.route_plan(idx, w, 4)
+    rows = mg.gather_rows(x, plan.row_tok)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mg.moe_grouped_gemm(rows.float(), plan.counts, wg, w_up=wu)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.moe_grouped_gemm(rows[:, :60].contiguous(), plan.counts, wg[:, :60].contiguous(),
+                            w_up=wu[:, :60].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        mg.moe_grouped_gemm(rows, plan.counts.long(), wg, w_up=wu)
+    with pytest.raises(ValueError, match="w_up"):
+        mg.moe_grouped_gemm(rows, plan.counts, wg, w_up=wu, row_w=plan.row_w)
+    with pytest.raises(ValueError, match="w_up"):
+        mg.moe_grouped_gemm(rows, plan.counts, wg)

@@ -12,6 +12,18 @@ Counterpart of ``vats_tpu/nn/moe.py``:
     the JAX package's, so the same tokens are dropped; capacity depends on
     the token count of each call, so a row-chunked prefill drops what the
     JAX row-chunked prefill drops.
+  * A fourth mode, 'routed', which 'auto' resolves to for a call that keeps
+    every assignment and needs no gradient: a lossless layer
+    (``capacity_factor <= 0``) on one rank (experts unsharded, tokens not
+    split over ranks) with autograd off, on CPU tensors or where K7 takes
+    the layer (``ops/moe_grouped.kernel_fits``).  The experts then run over
+    the n·k routed rows alone (``ops/moe_grouped.routed_experts``: a stable
+    sort by expert with the counts on the device, K7's grouped products,
+    each token's k rows summed in fp32), not over ``[E, n, d]`` buffers
+    that hold every token for every expert.  Router, kept assignments and
+    weights are the other modes'; the sums run in another order and round
+    once (fp32 SwiGLU and combine).  ``mode_calls`` counts the resolved mode
+    of each eager forward or capture.
   * ``MoEBlock``: pre-RMSNorm -> MoELayer -> dropout -> residual.
 
 Sharded (``parallel/layout.py``, under ``parallel/sharded.py``'s step), the
@@ -37,10 +49,10 @@ layer computes what the JAX layer computes over the global batch:
     row-parallel out, and ``embed`` over ``fsdp`` is gathered on use.
 
 Spans (``utils/profiling.annotate``) of the single-rank paths:
-``moe.route`` (the router), and in either dispatch ``moe.dispatch``
+``moe.route`` (the router), and in every dispatch ``moe.dispatch``
 (positions, the one-hots or the sort, the gather into the experts'
-buffers), ``moe.experts`` and ``moe.combine`` (the weighted combine and the
-sum over slots).  Autograd launches the backward outside them; a remat
+buffers or rows), ``moe.experts`` and ``moe.combine`` (the weighted combine
+and the sum over slots).  Autograd launches the backward outside them; a remat
 recompute opens them again inside it.
 
 ``record_routing = True`` keeps, after each forward, the global expert ids,
@@ -62,6 +74,7 @@ from torch import nn
 from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
+from vats_tpu_torch.ops import moe_grouped
 from vats_tpu_torch.parallel.collectives import (
     all_gather,
     all_to_all,
@@ -258,6 +271,7 @@ class MoELayer(nn.Module):
             param_dtype=param_dtype, device=device,
         )
         self.routing = None  # see record_routing
+        self.mode_calls = {}  # resolved mode -> eager forwards and captures
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         if self.norm is not None:
@@ -283,6 +297,21 @@ class MoELayer(nn.Module):
         onehot_elems = n * self.top_k * self.num_experts * self._capacity(n)
         return "scatter" if onehot_elems <= (1 << 24) else "sort"
 
+    def resolve_mode(self, n: int, x: torch.Tensor, ep: int = 1, tok=None) -> str:
+        """The mode a call over ``n`` (global) tokens ``x`` [n_local, d] runs:
+        'routed' where 'auto' may route rows (lossless, one rank, no
+        autograd, and CPU tensors or a layer K7 takes), else
+        :meth:`dispatch_mode`."""
+        w = self.experts
+        if (self.dispatch == "auto" and self.capacity_factor <= 0 and ep == 1
+                and tok is None and not torch.is_grad_enabled()
+                and all(getattr(p, "shard_info", None) is None
+                        for p in (w.w_gate, w.w_up, w.w_down))
+                and (not x.is_cuda or moe_grouped.kernel_fits(
+                    self.dtype, w.w_gate, w.w_up, w.w_down, x.shape[0] * self.top_k))):
+            return "routed"
+        return self.dispatch_mode(n)
+
     @property
     def record_routing(self) -> bool:
         return self.router.record
@@ -302,10 +331,24 @@ class MoELayer(nn.Module):
         tok = sharded_token_mesh()
         n_global = n * (tok.axis_size(TOKEN_AXES) if tok is not None else 1)
         capacity = self._capacity(n_global)
-        mode = self.dispatch_mode(n_global)
         emesh, ep = split_over(self.experts.w_gate, "expert")
+        mode = self.resolve_mode(n_global, flat, ep, tok)
+        self.mode_calls[mode] = self.mode_calls.get(mode, 0) + 1
         lossless = self.capacity_factor <= 0
-        if mode == "dense":
+        if mode == "routed":
+            with annotate("moe.route"):
+                weights, indices, aux_loss = self.router(flat, deterministic=deterministic)
+            dt = self.dtype
+            out = moe_grouped.routed_experts(
+                flat.to(dt), weights, indices,
+                *(w.to(dt) for w in (self.experts.w_gate, self.experts.w_up,
+                                     self.experts.w_down)))
+            if self.record_routing:
+                self.routing = dict(experts=indices,
+                                    keep=torch.ones((self.top_k, n), dtype=torch.bool,
+                                                    device=flat.device),
+                                    probs=self.router.last_probs)
+        elif mode == "dense":
             out, aux_loss = self._dense(flat, deterministic, emesh, ep)
         elif ep == 1 and (tok is None or lossless):
             # every kept assignment is decided by this rank's tokens alone
