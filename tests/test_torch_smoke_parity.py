@@ -1,10 +1,13 @@
-"""``chip_smoke.py``'s per-leaf parity checks (``leaf_errors`` /
+"""The per-leaf parity checks (``torch_card_parity.leaf_errors`` /
 ``leaf_report``) can fail.
 
-The card-against-CPU train checks hold each parameter's gradient and its
-change in the step, leaf by leaf.  Here both sides run on the CPU: a ViT-2D
-train step through the flash path's plain backward, against the same step
-with one of the backward's outputs made wrong.  Equal runs read 0 on every
+The card tests' train steps against the CPU (medium_dense, ViT-2D and the
+image- and video-gen trainers at full width, in
+``tests/test_torch_cuda_kernels.py``) and ``chip_smoke.py``'s multi-rank
+phases hold each parameter's gradient and its change in the step, leaf by
+leaf.  Here both sides run on the CPU: a ViT-2D train step through the
+flash path's plain backward, against the same step with one of the
+backward's outputs made wrong.  Equal runs read 0 on every
 leaf; a negated dq or dk (whose share of the fused ``w_qkv`` gradient is
 small at init) moves that leaf's change by far more than the change limit;
 dv 10% too large moves the gradients past the gradient limit."""
@@ -12,7 +15,7 @@ dv 10% too large moves the gradients past the gradient limit."""
 import pytest
 import torch
 
-import chip_smoke
+import torch_card_parity as parity
 from vats_tpu_torch.configs import vit2d_xsmall
 from vats_tpu_torch.models import ImageEncoder
 from vats_tpu_torch.ops import flash_attention as fa
@@ -54,10 +57,10 @@ def _reports(monkeypatch, wrong):
     got, _ = _stepped(monkeypatch, wrong)
     change = lambda n, p: p.detach() - start[n]  # noqa: E731
     out = []
-    for of, limit in ((chip_smoke.leaf_grad, chip_smoke.PARITY_LEAF_GRAD_RTOL),
-                      (change, chip_smoke.PARITY_LEAF_CHANGE_RTOL)):
+    for of, limit in ((parity.leaf_grad, parity.PARITY_LEAF_GRAD_RTOL),
+                      (change, parity.PARITY_LEAF_CHANGE_RTOL)):
         try:
-            chip_smoke.leaf_report("leaf", chip_smoke.leaf_errors(got, want, of), limit)
+            parity.leaf_report("leaf", parity.leaf_errors(got, want, of), limit)
             out.append(None)
         except AssertionError as e:
             out.append(str(e))
@@ -67,8 +70,8 @@ def _reports(monkeypatch, wrong):
 def test_leaf_checks_read_zero_on_equal_runs(monkeypatch):
     want, start = _stepped(monkeypatch)
     got, _ = _stepped(monkeypatch)
-    for of in (chip_smoke.leaf_grad, lambda n, p: p.detach() - start[n]):
-        errs = chip_smoke.leaf_errors(got, want, of)
+    for of in (parity.leaf_grad, lambda n, p: p.detach() - start[n]):
+        errs = parity.leaf_errors(got, want, of)
         assert len(errs) == len(list(want.parameters()))
         assert max(errs.values()) == 0.0
 
@@ -90,7 +93,7 @@ def test_leaf_errors_flag_a_leaf_only_the_card_moved():
         b.weight.zero_()
         a.weight.zero_()
         a.weight[0, 0] = 1.0
-    errs = chip_smoke.leaf_errors(a, b, lambda n, p: p if n == "weight" else p * 0)
+    errs = parity.leaf_errors(a, b, lambda n, p: p if n == "weight" else p * 0)
     assert errs == {"weight": float("inf"), "bias": 0.0}
     with pytest.raises(AssertionError, match="beyond it: \\['weight'\\]"):
-        chip_smoke.leaf_report("leaf", errs, 0.5)
+        parity.leaf_report("leaf", errs, 0.5)
