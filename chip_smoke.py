@@ -49,7 +49,10 @@ Phases:
            table mode at the image and multimodal decodes and with
            Mellum2's YaRN table, its append mode at video_gen_large's
            temporal cache; K6 at decode_heavy's and code_chat_8k's prefills;
-           K7 at both cells' decode and prefill.
+           K7 at both cells' decode and prefill; K8 at vats_medium_moe's 122
+           leaves (the update, the accumulation step and the boundary's
+           update with the reset, each bit for bit against the plain
+           per-leaf version; bound: 24, 12 and 28 bytes a parameter).
   main     the main path at full width (nlp_medium, 8 experts, top-2, bf16,
            random weights from a seed): ``generate_paged`` over ragged
            prompts up to 512 tokens (whole-batch and row-chunked prefill) and
@@ -87,10 +90,12 @@ Phases:
            (eager warm-up and capture), then TRAIN_TURN_STEPS steps from the
            CUDA graph and eagerly from one snapshot of the state restored in
            place (``train_turns``): params, moments, counters and metrics
-           bit-equal; K2' 2 x layers, K5a and K5b once a layer and K2 never,
-           a replay's tally and both turns' counts; ``state.step`` one a
-           call.  medium_dense at grad_accum_steps=4 likewise, one graph a
-           window position.
+           bit-equal; K2' 2 x layers, K5a and K5b once a layer, K8's update
+           once and K2 never, a replay's tally and both turns' counts;
+           ``state.step`` one a call; K8's tally every leaf fused, none
+           plain.  medium_dense at grad_accum_steps=4 likewise, one graph a
+           window position, K8's accumulation once a micro-step and its
+           update once a window.
   context_parallel  CP_RANKS = 2 ranks spawned on cuda:0 (the card's
            compute mode printed first: an exclusive mode stops the second
            rank, and the phase fails), over gloo with CUDA tensors staged
@@ -1060,6 +1065,80 @@ def time_k7(gen):
     return headline(rows)
 
 
+def time_k8(gen):
+    """K8 at vats_medium_moe's 122 leaves (0.749B fp32 params, bf16 mu, the
+    training cells' AdamW): the update of train_short_512's step, the
+    accumulation step of train_packed_2k's micro-steps and its boundary's
+    update, which resets the accumulator in the same pass.  Each first
+    against its plain per-leaf version bit for bit
+    (``torch_card_parity.check_adamw`` / ``check_accumulate``), then timed:
+    the wrapper's call, K8 alone, the plain chain and the bound, the bytes
+    the step needs over 3.35 TB/s (counted here: 24 a parameter for an
+    update, p, g, mu and nu read and p, mu and nu written; 28 with the
+    reset; 12 for an accumulation step, g and acc read and acc written).
+    One launch each.  Returns the update's row, every row under its label."""
+    import torch
+
+    from torch_card_parity import check_accumulate, check_adamw
+    from vats_tpu_torch.models import TextLM
+    from vats_tpu_torch.ops import adamw as aw
+    from vats_tpu_torch.train.optimizer import (
+        AdamW,
+        clip_scale,
+        cosine_with_warmup_schedule,
+        global_norm,
+    )
+
+    params = [p.detach() for p in TextLM(train_cfg("medium_moe"), device="cuda",
+                                         seed=0).parameters()]
+    n = sum(p.numel() for p in params)
+    opt = AdamW(cosine_with_warmup_schedule(6e-4, 1000, 20000), b1=0.9, b2=0.95, eps=1e-6,
+                weight_decay=5e-4, mu_dtype=torch.bfloat16)
+    st = opt.init(dict(enumerate(params)))
+    st.count.fill_(100)
+    mus, nus = list(st.mu.values()), list(st.nu.values())
+    for p, mu, nu in zip(params, mus, nus):
+        mu.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 1e-3)
+        nu.copy_(torch.randn(p.shape, generator=gen, device="cuda").square() * 1e-6)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3 for p in params]
+    accs = [g.clone() for g in grads]
+    finite, scale = clip_scale(global_norm(dict(enumerate(grads))), 1.0)
+    k = opt.coefficients(st.count, finite)
+    tables, reset_tables, acc_tables = aw.LeafTables(), aw.LeafTables(), aw.LeafTables()
+    check_adamw("K8 update", opt, st.count, (params, grads, mus, nus), scale, finite,
+                tables=tables)
+    check_accumulate("K8 accumulation", accs, grads, 3, acc_tables)
+    check_adamw("K8 boundary update", opt, st.count, (params, accs, mus, nus), scale, finite,
+                reset_grads=True, tables=reset_tables)
+
+    def update(ref=False, reset=False):
+        g = accs if reset else grads
+        if ref:
+            return lambda: aw.adamw_update_ref(params, g, mus, nus, k, opt.eps,
+                                               opt.weight_decay, scale, finite, reset)
+        return lambda: aw.adamw_update_(params, g, mus, nus, k, opt.eps, opt.weight_decay,
+                                        tables=reset_tables if reset else tables, scale=scale,
+                                        finite=finite, reset_grads=reset)
+
+    ops = 17.0 * n  # fp32 operations an element of the update (3 of accumulation)
+    rows = {}
+    with torch.no_grad():
+        for label, kern, plain, cost, alone in (
+                ("update", update(), update(ref=True), (24.0 * n, ops), "adamw_update_kernel"),
+                ("accumulation", lambda: aw.accumulate_(accs, grads, 3, tables=acc_tables),
+                 lambda: aw.accumulate_ref(accs, grads, 3), (12.0 * n, 3.0 * n),
+                 "accumulate_kernel"),
+                ("boundary update (+ reset)", update(reset=True), update(ref=True, reset=True),
+                 (28.0 * n, ops), "adamw_update_kernel")):
+            rows[label] = timing_row(
+                f"K8 {label} at vats_medium_moe's {len(params)} leaves ({n} params)", kern, cost,
+                plain=plain, alone=alone, fp32=True, iters=5, launches_per_update=1,
+                bit_equal_to_plain=True)
+    del params, grads, accs, st, mus, nus, tables, reset_tables, acc_tables
+    torch.cuda.empty_cache()
+    return headline(rows)
+
+
 # --- phase: train -----------------------------------------------------------
 
 
@@ -1087,6 +1166,15 @@ def train_args(**kw):
 
 
 TRAIN_TURN_STEPS = 3  # steps a turn of train_turns (graph, then eager)
+
+
+def k8_tally_gate(label, txs, leaves):
+    """Every leaf of the last update or accumulation step of each of
+    ``txs`` (an AdamW or a MultiSteps) went through K8, none through the
+    plain per-leaf code."""
+    got = [(type(tx).__name__, tx.leaves_fused, tx.leaves_plain) for tx in txs]
+    require(all(f == leaves and p == 0 for _, f, p in got),
+            f"{label}: K8's tally (leaves fused, plain) {got}, want ({leaves}, 0)")
 
 
 def tally_names(step_graph) -> dict:
@@ -1204,7 +1292,7 @@ def run_train(counters):
                 f"{len(step.graphs)} graphs")
         graph = step.graphs[next(iter(step.graphs))]
         want = {"flash_attention_lse": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
-                "flash_attention": 0}
+                "flash_attention": 0, "adamw_update_": 1, "accumulate_": 0}
         tally_gate(f"{tier} graph", graph, want, "train")
 
         def run(k):
@@ -1216,6 +1304,7 @@ def run_train(counters):
         require(int(state.step) == 1 + n and int(state.skipped_steps) == 0,
                 f"train: {tier}: step {int(state.step)} after 1 + {n} calls, skipped "
                 f"{int(state.skipped_steps)}")
+        k8_tally_gate(f"train: {tier}", [state.tx], len(state.params))
         metrics = step(state, batches[-1], 200)[1]
         aux = float(metrics["aux_loss"])
         require(math.isfinite(aux) and (aux > 0) == (cfg.num_experts > 1),
@@ -1265,16 +1354,18 @@ def run_train_accum(counters, gen):
             f"train: medium_dense accumulation: {len(step.graphs)} graphs, step "
             f"{int(state.step)}, position {accumulation_position(state)} after {k} calls")
     want = {"flash_attention_lse": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
-            "flash_attention": 0}
+            "flash_attention": 0, "accumulate_": 1}
 
     def run(n):
         ms = [step(state, batches[i % k], 310 + i)[1] for i in range(n)]
         return [x[key] for x in ms for key in sorted(x)]
 
-    got = train_turns(f"train: medium_dense grad_accum_steps={k}", [step.graphs],
-                      state_tensors(state, list(model.buffers())), run, counters, want, k,
-                      host=(lambda: accumulation_position(state),
-                            lambda pos: set_accumulation_position(state, pos)))
+    label = f"train: medium_dense grad_accum_steps={k}"
+    got = train_turns(label, [step.graphs], state_tensors(state, list(model.buffers())), run,
+                      counters, want, k, host=(lambda: accumulation_position(state),
+                                               lambda pos: set_accumulation_position(state, pos)))
+    _gate(f"{label}: K8's update a window", got, {"adamw_update_": 1}, phase="train")
+    k8_tally_gate(label, [state.tx, state.tx.inner.inner], len(state.params))
     log(f"train: medium_dense grad_accum_steps={k}: {k} graphs, one a window position; "
         f"launches over a window {json.dumps(got)}; graph and eager bit-equal")
     del model, state, step, batches
@@ -3929,6 +4020,7 @@ def main(argv=None) -> int:
         paged_decode_attention_commit,
         paged_decode_attention_commit_int8,
     )
+    from vats_tpu_torch.ops import adamw as aw
     from vats_tpu_torch.ops.moe_grouped import moe_grouped_gemm
     from vats_tpu_torch.ops.paged_prefill_attention import paged_prefill_attention
 
@@ -4022,6 +4114,15 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/flash_backward.cu",
              replaces="vats_tpu/ops/flash_attention.py:344", fn=fa.flash_bwd_dq,
              path="train"),
+        # K8: the JAX package leaves optax's adamw and MultiSteps to XLA; no
+        # TPU kernel to port.  Every AdamW update on the card runs it, and
+        # every accumulation step of MultiSteps
+        dict(name="adamw_update", route="cuda", source="vats_tpu_torch/csrc/adamw.cu",
+             replaces="none (vats_tpu/train/optimizer.py, optax.adamw, XLA)",
+             fn=aw.adamw_update_, path="train"),
+        dict(name="accumulate_grads", route="cuda", source="vats_tpu_torch/csrc/adamw.cu",
+             replaces="none (vats_tpu/train/optimizer.py, optax.MultiSteps, XLA)",
+             fn=aw.accumulate_, path="train"),
     ]
     results = {}
     if "kernels" in phases:
@@ -4072,6 +4173,9 @@ def main(argv=None) -> int:
             {k: v for k, v in k3.items() if k.startswith("paged")})
         results["paged_prefill_attention"] = time_k6(gen(16))
         results["moe_grouped_gemm"] = time_k7(gen(20))
+        k8 = time_k8(gen(21))
+        results["adamw_update"] = k8
+        results["accumulate_grads"] = k8["accumulation"]
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
     counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
               "multimodal": {}, "pipeline": {}, "vision": {}}

@@ -1880,6 +1880,240 @@ def test_moe_grouped_gemm_rejects_bad_inputs(gen):
         mg.moe_grouped_gemm(rows, plan.counts, wg)
 
 
+# --- K8: the fused AdamW update and gradient accumulation -------------------
+# K8 computes the plain version's operations with its roundings, so every
+# case is bit for bit (NaNs too): params, moments, accumulators.
+
+MEDIUM_MOE_PARAMS = 748_785_504  # vats_medium_moe, the training cells' model
+
+
+def medium_moe_leaves(dtype):
+    """vats_medium_moe's 122 leaves (12 layers, 8 experts top-2, the tied
+    65,536 x 768 embedding down to the 8-element router biases) at their
+    init scale, on the card in ``dtype``."""
+    from vats_tpu_torch.configs import nlp_medium
+    from vats_tpu_torch.models import TextLM
+
+    cfg = nlp_medium(d_model=768, num_heads=12, query_groups=4, d_ffn=3072, num_layers=12,
+                     num_experts=8, top_k=2, left_window=-1, max_seq_len=2048)
+    params = [p.detach().to(dtype) for p in TextLM(cfg, device="cuda", seed=0).parameters()]
+    assert len(params) == 122 and sum(p.numel() for p in params) == MEDIUM_MOE_PARAMS
+    return params
+
+
+# odd leaves: 1 element, tails of 1-3 past a multiple of 4, a chunk (8192)
+# and one past it, and a param 4 bytes off the 16-byte boundary (K8's scalar
+# path for a whole leaf)
+ODD_SHAPES = [(1,), (3,), (5, 7), (8192,), (8193,), (2, 4099), (768,)]
+
+
+def odd_leaves(gen, dtype):
+    params = [rand(gen, *s).to(dtype) for s in ODD_SHAPES]
+    buf = rand(gen, 1 + 4097).to(dtype)
+    return params + [buf[1:]]
+
+
+def grads_like(gen, params, zero_every=5):
+    """A gradient a leaf at a scale of its own (1e-6 to 1e-1); every
+    ``zero_every``-th leaf all zero (the update is weight decay alone)."""
+    out = []
+    for i, p in enumerate(params):
+        s = 10.0 ** -(1 + (i * 7) % 6)
+        g = torch.randn(p.shape, generator=gen, device="cuda") * s
+        out.append((g * 0 if i % zero_every == zero_every - 1 else g).to(p.dtype))
+    return out
+
+
+def card_adamw(mu_dtype):
+    """AdamW as the training cells' trainer makes it (betas 0.9 / 0.95, eps
+    1e-6, weight decay 5e-4, lr 6e-4 after one warm-up update of lr 0)."""
+    from vats_tpu_torch.train.optimizer import AdamW, cosine_with_warmup_schedule
+
+    return AdamW(cosine_with_warmup_schedule(6e-4, 1, 100), b1=0.9, b2=0.95, eps=1e-6,
+                 weight_decay=5e-4, mu_dtype=mu_dtype)
+
+
+@pytest.mark.parametrize("dtype,mu_dtype", [
+    (torch.float32, torch.bfloat16),   # the LM trainer's
+    (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16),  # bf16 params (a vision model's param_dtype)
+    (torch.bfloat16, torch.float32),
+], ids=["fp32-mu_bf16", "fp32-mu_fp32", "bf16-mu_bf16", "bf16-mu_fp32"])
+def test_adamw_k8_equals_plain_at_medium_moe_leaves(gen, dtype, mu_dtype):
+    """K8's update against the plain per-leaf version at every leaf of
+    vats_medium_moe, over five consecutive updates from one state: no clip
+    and no skip (bare AdamW), scale 1 and finite, scale < 1 (the clip),
+    finite False with scale 0 (ClipAndSkipNonFinite's skip), and a scale
+    without a finite flag (ClipByGlobalNorm).  Params, both moments and the
+    gradients bit for bit after each."""
+    from torch_card_parity import check_adamw
+    from vats_tpu_torch.ops import adamw as aw
+
+    opt = card_adamw(mu_dtype)
+    params = medium_moe_leaves(dtype)
+    state = opt.init(dict(enumerate(params)))
+    mus, nus = list(state.mu.values()), list(state.nu.values())
+    one = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device="cuda")  # noqa: E731
+    tables = aw.LeafTables()
+    for i, (scale, finite) in enumerate([(None, None), (one(1.0), one(True, torch.bool)),
+                                         (one(0.3712), one(True, torch.bool)),
+                                         (one(0.0), one(False, torch.bool)),
+                                         (one(0.5), None)]):
+        grads = grads_like(gen, params)
+        check_adamw(f"update {i}", opt, state.count, (params, grads, mus, nus), scale, finite,
+                    tables=tables)
+        state.count += 1 if finite is None else finite.to(torch.int32)
+    assert int(state.count) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_accumulation_k8_equals_plain_over_a_window(gen, dtype):
+    """MultiSteps' window of k = 4 at vats_medium_moe's leaves: the running
+    mean at positions 0..3 (K8's accumulation step against the plain one),
+    then the boundary's update with the clip from the average's norm and
+    the accumulator's reset in the same pass (acc * 0), then position 0 of
+    the next window: bit for bit at each."""
+    from torch_card_parity import check_accumulate, check_adamw
+    from vats_tpu_torch.ops import adamw as aw
+    from vats_tpu_torch.train.optimizer import clip_scale, global_norm
+
+    opt = card_adamw(torch.bfloat16)
+    params = medium_moe_leaves(dtype)
+    state = opt.init(dict(enumerate(params)))
+    accs = [torch.zeros_like(p) for p in params]
+    acc_tables, tables = aw.LeafTables(), aw.LeafTables()
+    for pos in range(4):
+        check_accumulate(f"position {pos}", accs, grads_like(gen, params, zero_every=7),
+                         pos + 1, acc_tables)
+    finite, scale = clip_scale(global_norm(dict(enumerate(accs))), 1.0)
+    assert bool(finite)
+    check_adamw("boundary", opt, state.count, (params, accs, list(state.mu.values()),
+                                               list(state.nu.values())),
+                scale, finite, reset_grads=True, tables=tables)
+    assert not any(bool(a.any()) for a in accs)
+    check_accumulate("next window", accs, grads_like(gen, params), 1, acc_tables)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_k8_skips_a_nan_window_as_the_plain_path(gen, dtype):
+    """MultiSteps(ClipAndSkipNonFinite(AdamW)) on the card over a window
+    whose third gradient holds a NaN and an Inf (odd leaves: 1 element,
+    tails, a misaligned param): the skip leaves params, moments and count
+    untouched bit for bit, and the accumulator is what the plain version
+    leaves, acc * 0: NaN where the average is not finite, 0 elsewhere."""
+    from torch_card_parity import check_bits
+    from vats_tpu_torch.ops import adamw as aw
+    from vats_tpu_torch.train.optimizer import (
+        ClipAndSkipNonFinite,
+        MultiSteps,
+        clip_scale,
+        global_norm,
+    )
+
+    opt = card_adamw(torch.bfloat16)
+    tx = MultiSteps(ClipAndSkipNonFinite(1.0, opt), 4)
+    params = dict(enumerate(odd_leaves(gen, dtype)))
+    n = len(params)
+    st = tx.init(params)
+    inner = st.inner_opt_state.inner_state
+    state = [*params.values(), *inner.mu.values(), *inner.nu.values(), inner.count]
+    before = [t.clone() for t in state]
+    accs = [a.clone() for a in st.acc_grads.values()]  # the plain version's window
+    for pos in range(4):
+        grads = grads_like(gen, list(params.values()))
+        if pos == 2:
+            grads[3].view(-1)[5] = float("nan")
+            grads[6].view(-1)[0] = float("inf")
+        aw.accumulate_ref(accs, grads, pos + 1)
+        tx.update_(params, dict(enumerate(grads)), st)
+        assert (tx.leaves_fused, tx.leaves_plain) == (n, 0)
+    assert (opt.leaves_fused, opt.leaves_plain) == (n, 0)
+    # the plain version's boundary, from the state before the window
+    finite, scale = clip_scale(global_norm(dict(enumerate(accs))), 1.0)
+    assert not bool(finite)
+    plain = [t.clone() for t in before]
+    aw.adamw_update_ref(plain[:n], accs, plain[n:2 * n], plain[2 * n:3 * n],
+                        opt.coefficients(plain[-1], finite), opt.eps, opt.weight_decay,
+                        scale, finite, reset_grads=True)
+    check_bits("skipped update, the plain version", plain, before)
+    check_bits("skipped update", state, before)
+    check_bits("accumulator after the skip", list(st.acc_grads.values()), accs)
+    assert bool(torch.isnan(accs[3]).any()) and bool(torch.isnan(accs[6]).any())
+    assert int(st.inner_opt_state.notfinite_count) == 1 and st.mini_step == 0
+
+
+def test_adamw_k8_replays_a_window_from_graphs_as_eagerly(gen):
+    """MultiSteps(ClipAndSkipNonFinite(AdamW)) on odd leaves, one CUDA graph
+    a window position (each captured after an eager warm-up of its
+    position, which builds K8's tables): a capture records one accumulation
+    launch, and the boundary's one update launch besides; two windows of
+    replays over new gradients equal an eager twin bit for bit."""
+    from torch_card_parity import check_bits
+    from vats_tpu_torch.ops import kernels
+    from vats_tpu_torch.train.optimizer import ClipAndSkipNonFinite, MultiSteps
+    from vats_tpu_torch.train.step_graphs import state_tensors
+
+    def make():
+        tx = MultiSteps(ClipAndSkipNonFinite(1.0, card_adamw(torch.bfloat16)), 4)
+        params = {i: p.clone() for i, p in enumerate(leaves)}
+        return tx, params, tx.init(params), {i: torch.zeros_like(p) for i, p in params.items()}
+
+    leaves = odd_leaves(gen, torch.float32)
+    (tx, params, st, grads), (tx2, params2, st2, grads2) = make(), make()
+
+    def feed(new):  # the same gradients into both sides' buffers
+        for gs in (grads, grads2):
+            for t, x in zip(gs.values(), new):
+                t.copy_(x)
+
+    for pos in range(4):  # each position's eager warm-up, on both sides
+        feed(grads_like(gen, leaves))
+        tx.update_(params, grads, st)
+        tx2.update_(params2, grads2, st2)
+    graphs, tallies = [], []
+    for pos in range(4):
+        g = torch.cuda.CUDAGraph()
+        with kernels.launch_tally() as tally:
+            with torch.cuda.graph(g):
+                st.mini_step = pos
+                tx.update_(params, grads, st)
+        st.mini_step = 0
+        graphs.append(g)
+        tallies.append({f.__name__: n for f, n in tally.items()})
+    assert tallies[:3] == [{"accumulate_": 1}] * 3
+    assert tallies[3] == {"accumulate_": 1, "adamw_update_": 1}
+    for step in range(8):
+        feed(grads_like(gen, leaves))
+        graphs[step % 4].replay()
+        tx2.update_(params2, grads2, st2)
+    torch.cuda.synchronize()
+    check_bits("graph against eager", state_tensors(params, st), state_tensors(params2, st2))
+
+
+def test_adamw_k8_rejects_bad_leaves(gen):
+    """No fallback on the card: a non-contiguous leaf, a grad in another
+    dtype than its param, an int param and coefficients on the CPU raise."""
+    from vats_tpu_torch.ops import adamw as aw
+
+    opt = card_adamw(torch.bfloat16)
+    p = [rand(gen, 8, 6)]
+    st = opt.init(dict(enumerate(p)))
+    k = opt.coefficients(st.count, torch.ones((), dtype=torch.bool, device="cuda"))
+    leaves = lambda q, g: (q, g, list(st.mu.values()), list(st.nu.values()))  # noqa: E731
+    call = lambda q, g, kk=k: aw.adamw_update_(*leaves(q, g), kk, 1e-6, 0.0,  # noqa: E731
+                                               tables=aw.LeafTables())
+    with pytest.raises(ValueError, match="contiguous"):
+        call([p[0].t().contiguous().t()], [torch.zeros_like(p[0])])
+    with pytest.raises(ValueError, match="must be the param's"):
+        call(p, [torch.zeros_like(p[0], dtype=torch.bfloat16)])
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        aw.accumulate_([torch.zeros(4, dtype=torch.int32, device="cuda")],
+                       [torch.zeros(4, dtype=torch.int32, device="cuda")], 1,
+                       tables=aw.LeafTables())
+    with pytest.raises(ValueError, match="one device"):
+        call(p, [torch.zeros_like(p[0])], aw.Coeffs(*(t.cpu() for t in k)))
+
+
 # --- two layers of each model at full width, bf16: the card against the CPU --
 # The tiny fp32 tests above hold these paths to fp32 rounding; these hold
 # them at the models' own widths, where the card and the CPU round bf16 at

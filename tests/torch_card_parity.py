@@ -158,6 +158,65 @@ def check_routed_experts(label, x, w, idx, wg, wu, wd, n_experts):
     return err
 
 
+def check_bits(label, got, want):
+    """Raise unless each tensor of ``got`` equals its ``want`` bit for bit,
+    NaNs too (``torch.equal`` is False on NaN, so the raw bytes are
+    compared)."""
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label}: tensor {i} is {a.dtype} {tuple(a.shape)}, the "
+                                 f"plain version's {b.dtype} {tuple(b.shape)}")
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        diff = a.detach().reshape(-1).view(ints) != b.detach().reshape(-1).view(ints)
+        if bool(diff.any()):
+            j = int(diff.nonzero()[0])
+            raise AssertionError(
+                f"{label}: tensor {i} {tuple(a.shape)} {a.dtype}: {int(diff.sum())} of "
+                f"{a.numel()} elements differ from the plain version, the first at {j}: "
+                f"{float(a.reshape(-1)[j])!r} against {float(b.reshape(-1)[j])!r}")
+
+
+def check_adamw(label, opt, count, leaves, scale=None, finite=None, reset_grads=False,
+                tables=None):
+    """One launch of K8's update (``ops/adamw.adamw_update_``) of ``leaves``
+    = (params, grads, mus, nus), four lists updated in place, against the
+    plain version run on their clones with the same coefficients (the
+    AdamW ``opt``'s at ``count`` applied updates): every tensor bit for bit,
+    NaNs too (K8 computes the plain version's operations with its
+    roundings)."""
+    from vats_tpu_torch.ops import adamw as aw
+
+    flag = finite if finite is not None else torch.ones((), dtype=torch.bool,
+                                                        device=count.device)
+    k = opt.coefficients(count, flag)
+    want = [[t.clone() for t in ts] for ts in leaves]
+    aw.adamw_update_ref(*want, k, opt.eps, opt.weight_decay, scale, finite, reset_grads)
+    n0 = aw.adamw_update_.launches
+    fused = aw.adamw_update_(*leaves, k, opt.eps, opt.weight_decay,
+                             tables=tables or aw.LeafTables(), scale=scale, finite=finite,
+                             reset_grads=reset_grads)
+    if fused != len(leaves[0]) or aw.adamw_update_.launches != n0 + 1:
+        raise AssertionError(f"{label}: K8 took {fused} of {len(leaves[0])} leaves in "
+                             f"{aw.adamw_update_.launches - n0} launches")
+    check_bits(label, [t for ts in leaves for t in ts], [t for ts in want for t in ts])
+
+
+def check_accumulate(label, accs, grads, count, tables=None):
+    """One launch of K8's accumulation step (``ops/adamw.accumulate_``, in
+    place) against the plain version on clones of the accumulators: bit
+    for bit, NaNs too."""
+    from vats_tpu_torch.ops import adamw as aw
+
+    want = [a.clone() for a in accs]
+    aw.accumulate_ref(want, grads, count)
+    n0 = aw.accumulate_.launches
+    fused = aw.accumulate_(accs, grads, count, tables=tables or aw.LeafTables())
+    if fused != len(accs) or aw.accumulate_.launches != n0 + 1:
+        raise AssertionError(f"{label}: K8 took {fused} of {len(accs)} leaves in "
+                             f"{aw.accumulate_.launches - n0} launches")
+    check_bits(label, accs, want)
+
+
 # Train steps, bf16 compute on both sides; the card and the CPU round their
 # matmul sums at other places.  The loss is a mean over ~1000 tokens of
 # ~ln(65536) = 11.1: 0.02 is 0.2%.  The global norm sums those rounding

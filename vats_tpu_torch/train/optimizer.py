@@ -6,7 +6,8 @@ written out, because ``torch.optim.AdamW`` does not reproduce them: optax
 computes the update from an fp32 first moment and stores it rounded to
 ``mu_dtype`` afterwards, and with a bf16 moment it decays the stored value
 by b1 rounded to bf16 (``b1 * mu`` with a weak-typed scalar).  The arithmetic
-below is optax's, operation for operation:
+(``ops/adamw.py``: K8 on the card, the plain per-leaf code on the CPU) is
+optax's, operation for operation:
 
   mu  = b1 * mu + (1 - b1) * g            (fp32; b1 * mu in mu's dtype)
   nu  = b2 * nu + (1 - b2) * g * g        (fp32)
@@ -40,6 +41,7 @@ import torch
 
 from vats_tpu_torch.configs.nlp import TrainingArgs
 from vats_tpu_torch.device import resolve_dtype
+from vats_tpu_torch.ops import adamw as adamw_ops
 from vats_tpu_torch.parallel.layout import is_sharded, sharded_global_norm
 
 Params = Dict[str, torch.Tensor]
@@ -106,6 +108,8 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.mu_dtype = mu_dtype
+        self._tables = adamw_ops.LeafTables()
+        self.leaves_fused = self.leaves_plain = 0
 
     def init(self, params: Params) -> AdamWState:
         dev = next(iter(params.values())).device
@@ -116,40 +120,45 @@ class AdamW:
             nu={n: torch.zeros_like(p) for n, p in params.items()},
         )
 
+    def coefficients(self, count: torch.Tensor, finite: torch.Tensor) -> adamw_ops.Coeffs:
+        """The update's coefficients at ``count`` applied updates, 0-d fp32
+        device tensors made from Python scalars on the device (a host copy
+        would wait for the backward); where ``finite`` is False, decays of
+        1, gains and learning rate of 0."""
+        n = (count + 1).to(torch.float32)
+        return adamw_ops.Coeffs(
+            bc1=1.0 - torch.pow(self.b1, n),
+            bc2=1.0 - torch.pow(self.b2, n),
+            d1=torch.where(finite, self.b1, 1.0),
+            c1=torch.where(finite, 1.0 - self.b1, 0.0),
+            d2=torch.where(finite, self.b2, 1.0),
+            c2=torch.where(finite, 1.0 - self.b2, 0.0),
+            neg_lr=torch.where(finite, -self.schedule(count).to(torch.float32), 0.0),
+        )
+
     def update_(self, params: Params, grads: Params, state: AdamWState, *,
                 scale: Optional[torch.Tensor] = None,
-                finite: Optional[torch.Tensor] = None) -> AdamWState:
+                finite: Optional[torch.Tensor] = None,
+                reset_grads: bool = False) -> AdamWState:
         """One AdamW update of ``params`` in place.  ``scale`` multiplies the
         gradients first (the clip); where ``finite`` is False the step is an
-        exact no-op on params, moments and count."""
-        # every coefficient is made on the device from Python scalars: a
-        # host-to-device copy of a scalar would wait for the backward
-        dev = state.count.device
-        if finite is None:
-            finite = torch.ones((), dtype=torch.bool, device=dev)
-        n = (state.count + 1).to(torch.float32)
-        bc1 = 1.0 - torch.pow(self.b1, n)
-        bc2 = 1.0 - torch.pow(self.b2, n)
-        d1 = torch.where(finite, self.b1, 1.0)
-        c1 = torch.where(finite, 1.0 - self.b1, 0.0)
-        d2 = torch.where(finite, self.b2, 1.0)
-        c2 = torch.where(finite, 1.0 - self.b2, 0.0)
-        neg_lr = torch.where(finite, -self.schedule(state.count).to(torch.float32), 0.0)
-        for name, p in params.items():
-            g = grads[name].to(p.dtype)
-            if scale is not None:
-                g = g * scale.to(g.dtype)
-            g = torch.where(finite, g, torch.zeros((), dtype=g.dtype, device=dev))
-            mu = state.mu[name]
-            mu32 = (mu * d1.to(mu.dtype)).float() + c1 * g
-            nu = state.nu[name]
-            nu.mul_(d2).add_(c2 * (g * g))
-            u = (mu32 / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(u * neg_lr)
-            mu.copy_(mu32)
-        state.count += finite.to(torch.int32)
+        exact no-op on params, moments and count.  ``reset_grads``: leave
+        every gradient as ``g * 0`` after reading it (MultiSteps' reset of
+        its accumulator, in the same pass).  On the card every leaf goes
+        through K8 in one launch (``ops/adamw.py``), on the CPU through the
+        plain per-leaf code; ``leaves_fused`` / ``leaves_plain`` tally the
+        last update traced (run or captured)."""
+        flag = finite if finite is not None else torch.ones(
+            (), dtype=torch.bool, device=state.count.device)
+        coeffs = self.coefficients(state.count, flag)
+        names = list(params)
+        fused = adamw_ops.adamw_update_(
+            [params[k] for k in names], [grads[k] for k in names],
+            [state.mu[k] for k in names], [state.nu[k] for k in names], coeffs,
+            self.eps, self.weight_decay, tables=self._tables, scale=scale, finite=finite,
+            reset_grads=reset_grads)
+        self.leaves_fused, self.leaves_plain = fused, len(names) - fused
+        state.count += flag.to(torch.int32)
         return state
 
 
@@ -175,10 +184,12 @@ class ClipAndSkipNonFinite:
         return ClipSkipState(inner, torch.zeros((), dtype=torch.int32, device=dev),
                              torch.zeros((), dtype=torch.float32, device=dev))
 
-    def update_(self, params: Params, grads: Params, state: ClipSkipState) -> ClipSkipState:
+    def update_(self, params: Params, grads: Params, state: ClipSkipState, *,
+                reset_grads: bool = False) -> ClipSkipState:
         gnorm = global_norm(grads, params)
         finite, scale = clip_scale(gnorm, self.max_norm)
-        self.inner.update_(params, grads, state.inner_state, scale=scale, finite=finite)
+        self.inner.update_(params, grads, state.inner_state, scale=scale, finite=finite,
+                           reset_grads=reset_grads)
         state.notfinite_count.copy_(torch.where(finite, 0, state.notfinite_count + 1))
         state.last_grad_norm.copy_(gnorm)
         return state
@@ -205,10 +216,12 @@ class ClipByGlobalNorm:
         return ClipState(inner, torch.zeros((), dtype=torch.float32,
                                             device=inner.count.device))
 
-    def update_(self, params: Params, grads: Params, state: ClipState) -> ClipState:
+    def update_(self, params: Params, grads: Params, state: ClipState, *,
+                reset_grads: bool = False) -> ClipState:
         gnorm = global_norm(grads, params)
         scale = torch.where(gnorm < self.max_norm, 1.0, self.max_norm / gnorm)
-        self.inner.update_(params, grads, state.inner_state, scale=scale)
+        self.inner.update_(params, grads, state.inner_state, scale=scale,
+                           reset_grads=reset_grads)
         state.last_grad_norm.copy_(gnorm)
         return state
 
@@ -224,11 +237,16 @@ class MultiStepsState:
 class MultiSteps:
     """optax.MultiSteps(inner, every_k_schedule=k): mini-steps average their
     gradients (acc += (g - acc) / (n + 1)) and leave params alone; the k-th
-    applies the inner transformation to the average and resets it."""
+    applies the inner transformation to the average and resets it (the
+    inner's ``reset_grads``: in its own update pass on the card).  The
+    average runs through K8 on the card (``ops/adamw.py``);
+    ``leaves_fused`` / ``leaves_plain`` tally the last one traced."""
 
     def __init__(self, inner, every_k_schedule: int):
         self.inner = inner
         self.k = int(every_k_schedule)
+        self._tables = adamw_ops.LeafTables()
+        self.leaves_fused = self.leaves_plain = 0
 
     def init(self, params: Params) -> MultiStepsState:
         inner = self.inner.init(params)
@@ -238,13 +256,16 @@ class MultiSteps:
 
     def update_(self, params: Params, grads: Params, state: MultiStepsState) -> MultiStepsState:
         n_acc = state.mini_step
-        for name, acc in state.acc_grads.items():
-            acc.add_((grads[name].to(acc.dtype) - acc) / (n_acc + 1))
+        names = list(state.acc_grads)
+        fused = adamw_ops.accumulate_([state.acc_grads[k] for k in names],
+                                      [grads[k] for k in names], n_acc + 1,
+                                      tables=self._tables)
+        self.leaves_fused, self.leaves_plain = fused, len(names) - fused
         if n_acc == self.k - 1:
-            self.inner.update_(params, state.acc_grads, state.inner_opt_state)
+            # optax's (1 - emit) * acc, after the update reads the average
+            self.inner.update_(params, state.acc_grads, state.inner_opt_state,
+                               reset_grads=True)
             state.gradient_step.add_(1)
-            for acc in state.acc_grads.values():
-                acc.mul_(0)  # optax's (1 - emit) * acc
         state.mini_step = (n_acc + 1) % self.k
         return state
 
