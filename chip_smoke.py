@@ -49,7 +49,9 @@ Phases:
            table mode at the image and multimodal decodes and with
            Mellum2's YaRN table, its append mode at video_gen_large's
            temporal cache; K6 at decode_heavy's and code_chat_8k's prefills;
-           K7 at both cells' decode and prefill; K8 at vats_medium_moe's 122
+           K7 at both cells' decode and prefill; K9 at v2lite.reasoning_256's
+           decode (256 rows, lengths about its mean, within TOL plus
+           ``mla_p_allowance``) and one row at 12,288; K8 at vats_medium_moe's 122
            leaves (the update, the accumulation step and the boundary's
            update with the reset, each bit for bit against the plain
            per-leaf version; bound: 24, 12 and 28 bytes a parameter).
@@ -83,6 +85,12 @@ Phases:
            from one graph, the same three drives, equal tokens, forwards and
            drafts, exact gates.  The stream with every MoE layer lossless:
            K7 twice a layer a forward, graph and eager tokens equal.
+  mla      DeepSeek-V2-Lite whole (27 layers, 15.7B params, bf16, the
+           benchmark's seeded weights) through ``ServingEngine``: 8 ragged
+           prompts prefilled into the latent pool, 24 tokens each from
+           4-step decode blocks, from graphs and eagerly (equal tokens).
+           Exact gates: K9 27 launches a decode forward and none in a
+           prefill, its plain version none, K7 52 a forward.
   train    the training step at the JAX bench's ``medium_dense`` tier (d1440,
            20 layers, vocab 65536, B=16, T=512, dropout 0.1, remat 'dots',
            fused CE 128, bf16 AdamW mu) and ``medium_moe`` (d768, 12 layers,
@@ -235,7 +243,7 @@ import numpy as np
 from benchmark import work
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "main", "serve", "train", "context_parallel", "sharded",
+PHASES = ("build", "kernels", "main", "serve", "mla", "train", "context_parallel", "sharded",
           "pipeline", "scripts", "vision", "image_gen", "video_gen", "multimodal")
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (work.py has bf16 only)
 
@@ -1065,6 +1073,67 @@ def time_k7(gen):
     return headline(rows)
 
 
+# K9 at v2lite.reasoning_256's decode: 256 rows, 16 heads over the 576-wide
+# latent (values 512), lengths drawn log-normal about the cell's mean
+# settled length (prompts median 1536 + half an answer of median 2048) in
+# [1, 12288], the tiles' edges first; and one row alone at full context.
+K9_SHAPES = (("v2lite decode B=256", 256, (1, 64, 65, 128, 129, 512, 513, 12288), 2600),
+             ("B=1 at 12288", 1, (12288,), None))
+
+
+def time_k9(gen):
+    """K9 (``ops/mla_decode.py``) at the cell's decode shapes against its
+    plain version (within TOL plus ``torch_card_parity.mla_p_allowance``),
+    a second call bit for bit, then timed: the call, K9 alone, the plain
+    version and the bound (each row's latent vectors once, q in and the
+    latent output out; ``benchmark/work_mla.py``).  No library call pages
+    through a table."""
+    import torch
+
+    from benchmark import work_mla
+    from torch_card_parity import TOL, check_close, mla_p_allowance
+    from vats_tpu_torch.configs import deepseek_v2_lite
+    from vats_tpu_torch.ops import mla_decode as md
+
+    cfg = deepseek_v2_lite()
+    m = dict(num_heads=cfg.num_heads, kv_lora_rank=cfg.kv_lora_rank,
+             qk_rope_head_dim=cfg.qk_rope_head_dim)
+    w, r, ps, pps = cfg.latent_dim, cfg.kv_lora_rank, 128, 96
+    rows = {}
+    for label, b, fixed, median in K9_SHAPES:
+        lens = list(fixed)
+        if median is not None:
+            draw = torch.exp(torch.log(torch.tensor(float(median))) + 0.6 * torch.randn(
+                (b - len(fixed),), generator=gen, device="cuda"))
+            lens += draw.round().clamp(1, ps * pps).long().tolist()
+        lengths = torch.tensor(lens[:b], dtype=torch.int32, device="cuda")
+        pages = torch.randn((2, b * pps + 1, ps, w), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        table = (1 + torch.randperm(b * pps, generator=gen, device="cuda")).to(
+            torch.int32).reshape(b, pps)
+        q = torch.randn((b, cfg.num_heads, w), generator=gen, device="cuda").to(torch.bfloat16)
+        scale = cfg.softmax_scale
+        call = lambda: md.mla_decode_attention(q, pages, 1, table, lengths,  # noqa: E731
+                                               scale=scale, v_dim=r)
+        plain = lambda: md.mla_decode_attention_ref(q, pages[1], table, lengths,  # noqa: E731
+                                                    scale=scale, v_dim=r)
+        limit = dict(TOL[torch.bfloat16],
+                     extra=mla_p_allowance(q, pages[1], table, lengths, scale, r))
+
+        def close(tag, got, want):
+            require(torch.equal(got, call()), f"{tag}: two calls differ")
+            return check_close(tag, got, want, limit)
+
+        with torch.no_grad():
+            rows[label] = timing_row(
+                f"K9 {label} (16 heads, latent {w}, values {r}; {int(lengths.sum())} keys)",
+                call, work_mla.mla_decode_cost(m, lens[:b]), plain=plain,
+                alone="mla_decode_kernel", iters=5, close=close)
+        del pages, q
+        torch.cuda.empty_cache()
+    return headline(rows)
+
+
 def time_k8(gen):
     """K8 at vats_medium_moe's 122 leaves (0.749B fp32 params, bf16 mu, the
     training cells' AdamW): the update of train_short_512's step, the
@@ -1772,6 +1841,66 @@ def run_serve(kernel_fns):
     # lossless drive's for K7
     return {**counts["bf16 KV"], k4.__name__: counts["int8 KV"][k4.__name__],
             "moe_grouped_gemm": k7_launches}
+
+
+# The mla phase: DeepSeek-V2-Lite whole (27 layers: its launch gates count
+# every layer), a few rows of short prompts and answers.
+MLA_ROWS, MLA_NEW = 8, 24
+
+
+def run_mla(kernel_fns):
+    """DeepSeek-V2-Lite at its published widths and depth (15.7B params,
+    bf16, the benchmark's seeded weights) through ``ServingEngine``: ragged
+    prompts (30-900 tokens) prefilled into the latent pool, answers from
+    4-step decode blocks, from graphs and eagerly.  Exact gates: K9 27
+    launches a decode forward (one a layer) and never in a prefill, its
+    plain version never on the card, K7 52 a forward (two a layer of the
+    26 expert layers), decode and prefill alike; the two drives' tokens
+    equal."""
+    import dataclasses as dc
+
+    import torch
+
+    from benchmark.reference.deepseek_v2 import make_params
+    from vats_tpu_torch.configs import deepseek_v2_lite
+    from vats_tpu_torch.inference import ServingEngine
+    from vats_tpu_torch.models import TextLM
+
+    cfg = deepseek_v2_lite()
+    k9, k7 = kernel_fns["mla_decode_attention"], kernel_fns["moe_grouped_gemm"]
+    model = TextLM(cfg, device="meta")
+    model.load_state_dict(make_params(dc.asdict(cfg), 7, torch.bfloat16, "cuda"), assign=True)
+    model.eval()
+    gen = torch.Generator().manual_seed(2027)
+    lens = torch.randint(30, 900, (MLA_ROWS,), generator=gen).tolist()
+    stream = [(torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist(), MLA_NEW)
+              for n in lens]
+    drives, got = {}, {}
+    for path, use_graph in (("graph", True), ("eager", False)):
+        eng = ServingEngine(model, max_batch=MLA_ROWS, max_context=1024, page_size=128,
+                            decode_block_steps=4, prompt_buckets=(256, 1024),
+                            max_prefill_tokens=4096, per_request_sampling=True)
+        eng.graphs.use_graph = use_graph
+        for fn in (k9, k9.plain, k7):
+            fn.launches = 0
+        drives[path] = drive(eng, stream)
+        dec, pre = eng.forwards["decode"], eng.forwards["prefill"]
+        got[path] = {"mla_decode_attention": k9.launches, "moe_grouped_gemm": k7.launches}
+        want = (cfg.num_layers * dec, 0, 2 * 26 * (dec + pre))
+        require((k9.launches, k9.plain.launches, k7.launches) == want,
+                f"mla [{path}]: K9, its plain version and K7 launched "
+                f"{(k9.launches, k9.plain.launches, k7.launches)} times over {dec} decode and "
+                f"{pre} prefill forwards, want {want}")
+        require(all(len(drives[path][r]) == MLA_NEW for r in drives[path]),
+                f"mla [{path}]: an answer is short")
+        log(f"mla [{path}]: {dec} decode and {pre} prefill forwards; launches "
+            f"{json.dumps(got[path])}; K9's plain version 0")
+        del eng
+    same_tokens("mla", drives)
+    log("mla: graph and eager drives give equal tokens")
+    del model
+    torch.cuda.empty_cache()
+    return got["graph"]
 
 
 def serve_lossless(model, stream, engine_kw, kernel_fns, L):
@@ -4021,6 +4150,7 @@ def main(argv=None) -> int:
         paged_decode_attention_commit_int8,
     )
     from vats_tpu_torch.ops import adamw as aw
+    from vats_tpu_torch.ops.mla_decode import mla_decode_attention
     from vats_tpu_torch.ops.moe_grouped import moe_grouped_gemm
     from vats_tpu_torch.ops.paged_prefill_attention import paged_prefill_attention
 
@@ -4077,6 +4207,12 @@ def main(argv=None) -> int:
              source="vats_tpu_torch/csrc/moe_grouped_gemm.cu",
              replaces="none (vats_tpu/nn/moe.py, lossless dispatch, XLA bmm)",
              fn=moe_grouped_gemm, path="serve"),
+        # K9: the JAX package has no latent attention; no TPU kernel to
+        # port.  Every decode forward of an MLA model runs it, one a layer
+        dict(name="mla_decode_attention", route="cuda",
+             source="vats_tpu_torch/csrc/mla_decode.cu",
+             replaces="none (vats_tpu has no latent attention)", fn=mla_decode_attention,
+             path="mla"),
         # K3's append mode: off the LM's decode since K3 became the fused
         # prologue (the main phase gates it at 0 launches); video generation's
         # temporal cache writes every cached forward through it
@@ -4173,11 +4309,12 @@ def main(argv=None) -> int:
             {k: v for k, v in k3.items() if k.startswith("paged")})
         results["paged_prefill_attention"] = time_k6(gen(16))
         results["moe_grouped_gemm"] = time_k7(gen(20))
+        results["mla_decode_attention"] = time_k9(gen(22))
         k8 = time_k8(gen(21))
         results["adamw_update"] = k8
         results["accumulate_grads"] = k8["accumulation"]
         log(f"phase kernels ended at {time.perf_counter() - t_start:.1f}s")
-    counts = {"main": {}, "serve": {}, "train": {}, "image_gen": {}, "video_gen": {},
+    counts = {"main": {}, "serve": {}, "mla": {}, "train": {}, "image_gen": {}, "video_gen": {},
               "multimodal": {}, "pipeline": {}, "vision": {}}
     every_kernel = [append_token_inplace, dense_decode_prologue, paged_decode_prologue,
                     dense_decode_prologue.table, paged_decode_prologue.table,
@@ -4190,6 +4327,7 @@ def main(argv=None) -> int:
         "main": lambda: run_main([r["fn"] for r in kernel_rows if r["path"] == "main"]
                                  + [append_token_inplace, paged_prefill_attention]),
         "serve": lambda: run_serve({r["name"]: r["fn"] for r in kernel_rows}),
+        "mla": lambda: run_mla({r["name"]: r["fn"] for r in kernel_rows}),
         "train": lambda: run_train([r["fn"] for r in kernel_rows] + [fa.flash_attention]),
         "context_parallel": run_context_parallel,
         "sharded": run_sharded,

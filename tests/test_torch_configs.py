@@ -166,3 +166,18 @@ def test_parallel_modules_are_ported():
         assert (REPO / "vats_tpu_torch" / rel) in _port_sources(), rel
     src = (REPO / "tests" / "torch_parallel_ranks.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|vats_tpu)\b", src, re.M)
+
+
+def test_latent_args_are_port_only_and_leave_model_args_alone():
+    """``LatentModelArgs`` (MLA, DeepSeek-V2) has no counterpart in the JAX
+    package; it extends ``ModelArgs`` without changing a field of it, so
+    ``ModelArgs`` still matches the JAX package's (above), and its modules
+    are held to the import rule with the rest of the port."""
+    assert not hasattr(jcfg, "LatentModelArgs")
+    base = {f.name: (f.default, f.default_factory) for f in dataclasses.fields(tcfg.ModelArgs)}
+    latent = {f.name: (f.default, f.default_factory)
+              for f in dataclasses.fields(tcfg.LatentModelArgs)}
+    assert {k: latent[k] for k in base} == base
+    assert _fields(tcfg.ModelArgs) == _fields(jcfg.ModelArgs)
+    for rel in ("configs/nlp.py", "nn/mla.py", "ops/mla_decode.py"):
+        assert (REPO / "vats_tpu_torch" / rel) in _port_sources(), rel

@@ -2721,3 +2721,112 @@ def test_multimodal_small_width_on_the_card_matches_the_cpu(gen, no_tf32):
             gaps[r] = top2[:, 0] - top2[:, 1]
     first = parity.first_difference_is_a_near_tie("multimodal", gen_g, gen_c, gaps)
     print(f"greedy codes equal up to step {first}")
+
+
+# --- K9: absorbed latent decode (ops/mla_decode.py) ---------------------------
+
+
+@pytest.mark.parametrize("b,h,layer,lengths", [
+    # v2lite.reasoning_256's decode: 256 rows, 16 heads, lengths 1-12,288,
+    # the 64-token stages' and 128-token tiles' edges and a chunk's first
+    (256, 16, 1, [1, 2, 63, 64, 65, 127, 128, 129, 767, 768, 769, 3071, 3072, 3073, 12287,
+                  12288]),
+    (5, 3, 0, [0, 1, 700, 5000, 12288]),  # fewer heads, an empty row
+])
+def test_k9_matches_its_plain_version(gen, b, h, layer, lengths):
+    """K9 against its plain version within TOL plus ``mla_p_allowance`` (the
+    two round p to bf16 against different maxima), a second call bit for
+    bit, at the published widths (576-wide latent, 512-wide values, pages
+    of 128, 96 pages a row: 12,288 tokens)."""
+    from torch_card_parity import check_close, mla_p_allowance
+    from vats_tpu_torch.ops import mla_decode as md
+
+    ps, pps, w, r, scale = 128, 96, 576, 512, 0.11472
+    lens = lengths + torch.randint(1, ps * pps + 1, (b - len(lengths),), generator=gen,
+                                   device="cuda").tolist()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pages = rand(gen, 2, b * pps + 1, ps, w, dtype=torch.bfloat16)
+    table = (1 + torch.randperm(b * pps, generator=gen, device="cuda")).to(
+        torch.int32).reshape(b, pps)
+    q = rand(gen, b, h, w, dtype=torch.bfloat16)
+    before = (md.mla_decode_attention.launches, md.mla_decode_attention.plain.launches)
+    got = md.mla_decode_attention(q, pages, layer, table, lengths, scale=scale, v_dim=r)
+    assert (md.mla_decode_attention.launches - before[0],
+            md.mla_decode_attention.plain.launches - before[1]) == (1, 0)
+    want = md.mla_decode_attention_ref(q, pages[layer], table, lengths, scale=scale, v_dim=r)
+    limit = dict(TOL[torch.bfloat16],
+                 extra=mla_p_allowance(q, pages[layer], table, lengths, scale, r))
+    check_close("K9", got, want, limit)
+    assert torch.equal(got, md.mla_decode_attention(q, pages, layer, table, lengths,
+                                                    scale=scale, v_dim=r))
+    if 0 in lens:
+        assert torch.equal(got[lens.index(0)], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("bad", ["fp32", "heads", "width", "v_dim", "page"])
+def test_k9_refuses_what_it_does_not_take(gen, bad):
+    """On the card a call K9 does not take raises (no plain fallback there):
+    an fp32 pool, 17 heads, another latent width, another value width, pages
+    of 64 tokens."""
+    from vats_tpu_torch.ops import mla_decode as md
+
+    b, h, w, r, ps, pps = 2, 16, 576, 512, 128, 2
+    h, w, r, ps = {"heads": (17, w, r, ps), "width": (h, 320, 256, ps),
+                   "v_dim": (h, w, 256, ps), "page": (h, w, r, 64)}.get(bad, (h, w, r, ps))
+    dt = torch.float32 if bad == "fp32" else torch.bfloat16
+    pages = rand(gen, 1, b * pps, ps, w, dtype=dt)
+    table = torch.arange(b * pps, dtype=torch.int32, device="cuda").reshape(b, pps)
+    lengths = torch.full((b,), 5, dtype=torch.int32, device="cuda")
+    q = rand(gen, b, h, w, dtype=dt)
+    before = (md.mla_decode_attention.launches, md.mla_decode_attention.plain.launches)
+    with pytest.raises(ValueError, match="K9 takes"):
+        md.mla_decode_attention(q, pages, 0, table, lengths, scale=0.1, v_dim=r)
+    assert (md.mla_decode_attention.launches, md.mla_decode_attention.plain.launches) == before
+
+
+def test_deepseek_v2_lite_engine_equals_the_reference_at_full_width(gen):
+    """DeepSeek-V2-Lite whole (27 layers, bf16, the benchmark's seeded
+    weights) through the engine: grouped prefills into the latent pool,
+    decode blocks from graphs through K9 and K7; each served greedy token's
+    logit under the fp32 reference (``benchmark/reference/deepseek_v2.py``,
+    TF32 off) lies below the best by no more, on average, than the cell's
+    limit (``benchmark/limits/v2lite.reasoning_256.json``)."""
+    import dataclasses
+    import json
+    import os
+
+    import numpy as np
+
+    from benchmark.reference.deepseek_v2 import DeepSeekV2Reference, make_params
+    from benchmark.reference.model import no_tf32
+    from vats_tpu_torch.configs import deepseek_v2_lite
+    from vats_tpu_torch.inference import ServingEngine
+    from vats_tpu_torch.models import TextLM
+
+    cfg = deepseek_v2_lite()
+    m = dataclasses.asdict(cfg)
+    params = make_params(m, 2027, torch.bfloat16, "cuda")
+    model = TextLM(cfg, device="meta")
+    model.load_state_dict(params, assign=True)
+    eng = ServingEngine(model.eval(), max_batch=4, max_context=2048, decode_block_steps=4,
+                        prompt_buckets=(512, 2048), max_prefill_tokens=4096)
+    lens = [37, 300, 900, 1500]
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in lens]
+    rids = [eng.submit(p, 48) for p in prompts]
+    out = eng.run()
+    del eng, model
+    torch.cuda.empty_cache()
+    no_tf32()
+    ref = DeepSeekV2Reference(m, params)
+    seqs = [torch.tensor(p + out[r][:-1], device="cuda") for p, r in zip(prompts, rids)]
+    gaps = []
+    for p, r, h in zip(prompts, rids, ref.hidden_all(seqs)):
+        logits = ref.readout(h[len(p) - 1:])
+        served = torch.tensor(out[r], device="cuda")
+        gaps.append((logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]).cpu())
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "benchmark", "limits", "v2lite.reasoning_256.json")) as f:
+        limit = json.load(f)["mean_logit_gap"]
+    mean = float(np.mean(torch.cat(gaps).numpy()))
+    assert mean <= limit, (mean, [float(g.max()) for g in gaps])

@@ -116,6 +116,27 @@ def check_close(label, got, want, limit):
     return worst
 
 
+def mla_p_allowance(q_abs, pages, table, lengths, scale, v_dim, rows=8):
+    """Per output element of K9 (``ops/mla_decode.py``): 2^-7 x the fp32
+    softmax's sum of p |v| over l.  K9 rounds each p to bf16 against its
+    chunk's running max, the plain version against the row's max: two
+    roundings of the same p, each within half a bf16 ulp (2^-8 relative),
+    so the p.v sums differ by at most this.  A fault in a mask, a page or a
+    tile gives errors of O(|v|)."""
+    b, h, w = q_abs.shape
+    cap = table.shape[1] * pages.shape[1]
+    out = torch.empty((b, h, v_dim), device=q_abs.device)
+    pos = torch.arange(cap, device=q_abs.device)
+    for r0 in range(0, b, rows):
+        r1 = min(b, r0 + rows)
+        kv = pages[table[r0:r1].long()].reshape(r1 - r0, cap, w).float()
+        s = torch.einsum("bhw,bsw->bhs", q_abs[r0:r1].float(), kv) * scale
+        s = torch.where((pos[None, :] < lengths[r0:r1, None])[:, None], s, -torch.inf)
+        p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+        out[r0:r1] = torch.einsum("bhs,bsv->bhv", p, kv[..., :v_dim].abs())
+    return out * 2.0 ** -7
+
+
 def check_paged_prefill(label, out, want, attends, vmax):
     """K6's output against its plain version (fp32 p, the attention's CPU
     path): a query that attends no key writes 0 (the plain version writes

@@ -151,6 +151,93 @@ class HybridModelArgs(ModelArgs):
         super().__post_init__()
 
 
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """DeepSeek's ``yarn_get_mscale``: 0.1 mscale ln(factor) + 1 above a
+    factor of 1, else 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclass(unsafe_hash=True)
+class LatentModelArgs(ModelArgs):
+    """A ``ModelArgs`` whose layers attend by multi-head latent attention
+    (MLA, DeepSeek-V2) over shared and routed experts: the port's extension
+    for DeepSeek-V2-style models, which the JAX package has no counterpart
+    of.
+
+    Attention (no q LoRA): q_proj maps d_model to ``num_heads`` heads of
+    ``qk_nope_head_dim + qk_rope_head_dim``; kv_a_proj maps it to a latent
+    of ``kv_lora_rank`` (RMSNorm'd) and one ``qk_rope_head_dim`` key part
+    shared by every head; kv_b_proj maps the latent to each head's
+    ``qk_nope_head_dim`` key part and ``v_head_dim`` value; o_proj maps the
+    heads' values back.  RoPE (interleaved pairs, YaRN when ``yarn_factor``
+    > 1) rotates the rope parts alone; its cos and sin are scaled by
+    yarn_mscale(factor, ``yarn_mscale``) / yarn_mscale(factor,
+    ``yarn_mscale_all_dim``), and the default softmax scale is
+    (nope + rope)^-0.5 times yarn_mscale(factor, ``yarn_mscale_all_dim``)
+    squared (when that is set).  A paged cache holds one latent vector a
+    token (``kv_lora_rank + qk_rope_head_dim``).
+
+    Feed-forward: the first ``first_k_dense_replace`` layers are a dense
+    SwiGLU of ``dense_d_ffn``; the rest route to ``num_experts`` experts of
+    ``d_ffn`` top ``top_k`` (weights renormalised only with
+    ``norm_topk_prob``; ``routed_scaling_factor`` must be 1, the only
+    value a configuration here uses) beside
+    ``n_shared_experts`` shared ones, one SwiGLU of ``n_shared_experts *
+    d_ffn`` that every token passes through.  ``query_groups`` is the
+    head count (MLA has no grouped KV heads)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    dense_d_ffn: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    yarn_factor: float = 1.0
+    yarn_original_max_position: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        self.query_groups = self.num_heads
+        if self.softmax_scale is None:
+            scale = (self.qk_nope_head_dim + self.qk_rope_head_dim) ** -0.5
+            if self.yarn_mscale_all_dim:
+                scale *= yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim) ** 2
+            self.softmax_scale = scale
+        if self.qk_rope_head_dim % 2:
+            raise ValueError(f"qk_rope_head_dim ({self.qk_rope_head_dim}) must be even "
+                             "for RoPE")
+        if not 0 <= self.first_k_dense_replace <= self.num_layers:
+            raise ValueError(f"first_k_dense_replace ({self.first_k_dense_replace}) out of "
+                             f"[0, {self.num_layers}]")
+        if self.first_k_dense_replace and self.dense_d_ffn <= 0:
+            raise ValueError("dense layers need a dense_d_ffn > 0")
+        if self.yarn_factor > 1 and self.yarn_original_max_position <= 0:
+            raise ValueError("YaRN needs yarn_original_max_position")
+        if self.routed_scaling_factor != 1:
+            raise ValueError(f"routed_scaling_factor ({self.routed_scaling_factor}) must be 1: "
+                             "no other value is implemented")
+        super().__post_init__()
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of the one vector a paged cache holds a token a layer."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def rope_scale(self) -> float:
+        """The factor on YaRN's cos and sin (1 without YaRN)."""
+        if self.yarn_factor <= 1:
+            return 1.0
+        return (yarn_mscale(self.yarn_factor, self.yarn_mscale)
+                / yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim))
+
+
 class LayerAttention(NamedTuple):
     """How one layer attends: ``left_window`` on every path but the paged
     decode, ``decode_window`` in the paged decode (K1), its RoPE
@@ -167,7 +254,10 @@ def layer_attention(cfg: ModelArgs, i: int) -> LayerAttention:
     ``left_window`` (when ``apply_window_in_xla``) everywhere but in the
     paged decode, which attends every settled token, as the JAX package's
     does; a :class:`HybridModelArgs` layer applies its kind's window on
-    every path."""
+    every path; a :class:`LatentModelArgs` layer attends the whole causal
+    context by MLA."""
+    if isinstance(cfg, LatentModelArgs):
+        return LayerAttention(-1, -1, "yarn" if cfg.yarn_factor > 1 else "1d", "attn.mla")
     if isinstance(cfg, HybridModelArgs):
         if cfg.layer_types[i] == SLIDING:
             return LayerAttention(cfg.left_window, cfg.left_window, "1d", "attn.window")
@@ -335,6 +425,57 @@ def mellum2_12b(**overrides) -> HybridModelArgs:
     )
     base.update(overrides)
     return HybridModelArgs(**base)
+
+
+def deepseek_v2_lite(**overrides) -> LatentModelArgs:
+    """DeepSeek-V2-Lite at its published values
+    (huggingface.co/deepseek-ai/DeepSeek-V2-Lite, config.json): 27 layers
+    of hidden 2048, MLA with 16 heads (no q LoRA, latent 512, nope 128,
+    rope 64, v 128), RoPE theta 10000 with YaRN (factor 40 over 4096, beta
+    32 / 1, mscale = mscale_all_dim = 0.707), layer 0 a dense SwiGLU of
+    10944, layers 1-26 64 experts of 1408 top-6 (softmax, not
+    renormalised, x 1) beside 2 shared experts, eps 1e-6, vocabulary
+    102400, untied head, no attention bias.  Serving settings: no dropout,
+    bf16, lossless routing."""
+    base = dict(
+        d_model=2048,
+        num_heads=16,
+        kv_lora_rank=512,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        d_ffn=1408,
+        num_layers=27,
+        num_experts=64,
+        top_k=6,
+        n_shared_experts=2,
+        first_k_dense_replace=1,
+        dense_d_ffn=10944,
+        norm_topk_prob=False,
+        routed_scaling_factor=1.0,
+        rope_base=10000.0,
+        yarn_factor=40.0,
+        yarn_original_max_position=4096,
+        yarn_beta_fast=32.0,
+        yarn_beta_slow=1.0,
+        yarn_mscale=0.707,
+        yarn_mscale_all_dim=0.707,
+        rms_norm_eps=1e-6,
+        vocab_size=102400,
+        max_seq_len=163840,
+        tie_weights=False,
+        use_qk_norm=False,
+        moe_double_norm=False,
+        use_mqa=False,
+        left_window=-1,
+        dropout=0.0,
+        gradient_checkpointing=False,
+        capacity_factor=-1.0,
+        dtype="bfloat16",
+        param_dtype="bfloat16",
+    )
+    base.update(overrides)
+    return LatentModelArgs(**base)
 
 
 NLP_TIERS = {

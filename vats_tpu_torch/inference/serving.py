@@ -19,7 +19,10 @@ JAX engine:
 What replaces the JAX machinery:
   * the pool (and the int8 scales pool) is one set of tensors updated in
     place by every forward (K1/K4 commit in the kernel, prefills append):
-    no donated buffers;
+    no donated buffers.  An MLA model (``LatentModelArgs``) gets a latent
+    pool (``ops/mla_decode.LatentPagedCache``: one vector a token a layer)
+    under the same allocator, preemption and prefix cache; without a
+    prefix cache its prefills attend their own window and read no page;
   * every program the JAX engine jits runs from the engine's
     :class:`~vats_tpu_torch.inference.graphs.GraphSet` on the card: one
     CUDA graph per tail prefill shape (bucket, padded group size), per
@@ -71,11 +74,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vats_tpu_torch.configs.nlp import layer_attention
+from vats_tpu_torch.configs.nlp import LatentModelArgs, layer_attention
 from vats_tpu_torch.device import resolve_dtype
 from vats_tpu_torch.inference.graphs import GraphSet, copy_to_static
 from vats_tpu_torch.inference.sampling import sample_logits, sample_logits_per_row
 from vats_tpu_torch.ops.decode_attention import PagedKVCache
+from vats_tpu_torch.ops.mla_decode import LatentPagedCache
 from vats_tpu_torch.utils.profiling import annotate
 
 
@@ -317,22 +321,34 @@ class ServingEngine:
         n_pages = total_pages if total_pages is not None else (
             max_batch * self.pages_per_row + 1
         )
-        proto = PagedKVCache.create(
-            num_layers=cfg.num_layers, batch_size=1,
-            max_seq_len=n_pages * page_size, kv_heads=cfg.query_groups,
-            head_dim=cfg.head_dim, page_size=page_size,
-            dtype=torch.int8 if kv_quant == "int8" else resolve_dtype(cfg.dtype),
-            device=self.device,
-        )
-        self.pool = proto.kv_pages
-        self.scales = proto.kv_scales  # None unless int8
+        #: the pool's kind: a latent pool (one vector a token a layer) for
+        #: MLA models, else K/V pages
+        self.latent = isinstance(cfg, LatentModelArgs)
+        if self.latent:
+            if kv_quant is not None:
+                raise ValueError("int8 KV pages quantize K and V; a latent pool holds neither")
+            self.pool = LatentPagedCache.create_pool(
+                cfg.num_layers, n_pages, page_size, cfg.latent_dim,
+                dtype=resolve_dtype(cfg.dtype), device=self.device)
+            self.scales = None
+        else:
+            proto = PagedKVCache.create(
+                num_layers=cfg.num_layers, batch_size=1,
+                max_seq_len=n_pages * page_size, kv_heads=cfg.query_groups,
+                head_dim=cfg.head_dim, page_size=page_size,
+                dtype=torch.int8 if kv_quant == "int8" else resolve_dtype(cfg.dtype),
+                device=self.device,
+            )
+            self.pool = proto.kv_pages
+            self.scales = proto.kv_scales  # None unless int8
         self.allocator = PageAllocator(n_pages)
         self.max_prefill_tokens = max_prefill_tokens
-        # K/V bytes a token holds in one layer of the pool (scales included),
+        # bytes a token holds in one layer of the pool (scales included),
         # and the decode window of every windowed layer
-        _, _, two, g, _, hdp = self.pool.shape
-        self._token_layer_bytes = two * g * (
-            hdp * self.pool.element_size() + (4 if self.scales is not None else 0))
+        per_page = self.pool[0, 0].numel() * self.pool.element_size()
+        if self.scales is not None:
+            per_page += self.scales[0, 0].numel() * self.scales.element_size()
+        self._token_layer_bytes = per_page // page_size
         self._decode_windows = [w for w in (layer_attention(cfg, i).decode_window
                                             for i in range(cfg.num_layers)) if w >= 0]
 
@@ -548,7 +564,12 @@ class ServingEngine:
             ev.synchronize()
         return host.numpy()
 
-    def _cache(self, tables: torch.Tensor, lengths: torch.Tensor) -> PagedKVCache:
+    def _cache(self, tables: torch.Tensor, lengths: torch.Tensor, fresh: bool = False):
+        """The pool as the model's paged cache over ``tables`` and
+        ``lengths``; ``fresh``: every row starts at 0, so a latent pool's
+        prefill attends its own window and reads no page."""
+        if self.latent:
+            return LatentPagedCache(self.pool, tables, lengths, fresh=fresh)
         return PagedKVCache(
             kv_pages=self.pool, page_table=tables, lengths=lengths,
             kv_scales=self.scales, head_dim=self.cfg.head_dim,
@@ -705,10 +726,12 @@ class ServingEngine:
         if self.per_request_sampling:
             bufs.update(self._sampling_buffers(rpad), pos=buf(torch.int32, rpad))
         out = buf(torch.int32, rpad)
+        # without prefix hits every row starts at 0
+        fresh = self.prefix_cache is None
 
         @torch.no_grad()
         def body():
-            cache = engine._cache(bufs["tables"], bufs["starts"])
+            cache = engine._cache(bufs["tables"], bufs["starts"], fresh)
             logits, _, _ = engine.model(
                 bufs["ids"], padding_mask=bufs["mask"], paged_cache=cache,
                 readout_positions=bufs["last_idx"],

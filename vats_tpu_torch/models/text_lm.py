@@ -33,12 +33,14 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from vats_tpu_torch.configs.nlp import ModelArgs, layer_attention
+from vats_tpu_torch.configs.nlp import LatentModelArgs, ModelArgs, layer_attention
 from vats_tpu_torch.device import resolve_device, resolve_dtype
+from vats_tpu_torch.nn.activations import FFNBlock
 from vats_tpu_torch.nn.attention import AttentionBlock, dense, embed_rows
 from vats_tpu_torch.nn.dropout import SITE_EMBED, Seed, dropout
 from vats_tpu_torch.nn.initializers import embed_init_, head_init_
 from vats_tpu_torch.nn.kv_cache import KVCache
+from vats_tpu_torch.nn.mla import MLABlock
 from vats_tpu_torch.nn.moe import MoEBlock
 from vats_tpu_torch.nn.norms import RMSNorm
 from vats_tpu_torch.parallel.layout import gathered
@@ -47,7 +49,11 @@ from vats_tpu_torch.parallel.layout import gathered
 class TransformerBlock(nn.Module):
     """Attention block followed by MoE block; threads cache and aux loss.
     Layer ``layer_idx`` attends by its kind (``configs.nlp.layer_attention``:
-    its windows, its RoPE, its span)."""
+    its windows, its RoPE, its span).  A ``LatentModelArgs`` layer attends
+    by MLA (``nn/mla.MLABlock``) and, below ``first_k_dense_replace``, runs
+    a dense SwiGLU (``nn/activations.FFNBlock``, ``ffn_block``) in place of
+    the experts; its experts carry the shared ones and the router's
+    options."""
 
     def __init__(self, cfg: ModelArgs, device=None, layer_idx: int = 0):
         super().__init__()
@@ -55,6 +61,17 @@ class TransformerBlock(nn.Module):
         self.kind = kind = layer_attention(cfg, layer_idx)
         dtype = resolve_dtype(cfg.dtype)
         param_dtype = resolve_dtype(cfg.param_dtype)
+        if isinstance(cfg, LatentModelArgs):
+            self.attn_block = MLABlock(cfg, device=device)
+            if layer_idx < cfg.first_k_dense_replace:
+                self.ffn_block = FFNBlock(cfg.d_model, cfg.dense_d_ffn, cfg.dropout,
+                                          cfg.rms_norm_eps, cfg.num_layers, dtype, param_dtype,
+                                          device=device)
+                return
+            extra = dict(shared_d_ffn=cfg.n_shared_experts * cfg.d_ffn,
+                         norm_topk_prob=cfg.norm_topk_prob)
+            self._moe_block(cfg, dtype, param_dtype, device, **extra)
+            return
         yarn = None
         if kind.rope == "yarn":
             yarn = (cfg.yarn_factor, cfg.yarn_original_max_position, cfg.yarn_beta_fast,
@@ -81,6 +98,9 @@ class TransformerBlock(nn.Module):
             yarn=yarn,
             span=kind.span,
         )
+        self._moe_block(cfg, dtype, param_dtype, device)
+
+    def _moe_block(self, cfg, dtype, param_dtype, device, **extra):
         self.moe_block = MoEBlock(
             d_model=cfg.d_model,
             d_ffn=cfg.d_ffn,
@@ -95,11 +115,18 @@ class TransformerBlock(nn.Module):
             dtype=dtype,
             param_dtype=param_dtype,
             device=device,
+            **extra,
         )
+
+    @property
+    def ffn(self) -> nn.Module:
+        """The layer's feed-forward block: its experts, or a dense layer's
+        SwiGLU."""
+        return self.ffn_block if hasattr(self, "ffn_block") else self.moe_block
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.attn_block.reset_parameters(generator)
-        self.moe_block.reset_parameters(generator)
+        self.ffn.reset_parameters(generator)
 
     def forward(
         self,
@@ -127,6 +154,10 @@ class TransformerBlock(nn.Module):
             deterministic=deterministic,
             dropout_seed=dropout_seed,
         )
+        if hasattr(self, "ffn_block"):
+            x = self.ffn_block(x, deterministic=deterministic, dropout_seed=dropout_seed,
+                               layer_idx=layer_idx)
+            return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
         x, aux_loss = self.moe_block(x, deterministic=deterministic,
                                      dropout_seed=dropout_seed, layer_idx=layer_idx)
         return x, new_cache, aux_loss

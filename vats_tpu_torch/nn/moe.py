@@ -3,6 +3,9 @@
 Counterpart of ``vats_tpu/nn/moe.py``:
   * ``TopKRouter``: linear d_model -> E in fp32, softmax, top-k, weights
     renormalized by their sum; coefficient-of-variation aux loss in training.
+    (Port-only option for DeepSeek-style routers: ``norm_topk_prob=False``
+    keeps the top-k probabilities as they are; the default is the JAX
+    package's rule.)
   * ``ExpertSwiGLU``: one stacked parameter set ``[E, ...]``.
   * ``MoELayer``: optional RMSNorm (the reference's double pre-norm), route,
     dispatch, combine.  Three dispatch modes, chosen under 'auto' exactly as
@@ -24,6 +27,10 @@ Counterpart of ``vats_tpu/nn/moe.py``:
     weights are the other modes'; the sums run in another order and round
     once (fp32 SwiGLU and combine).  ``mode_calls`` counts the resolved mode
     of each eager forward or capture.
+  * Shared experts (port-only, ``shared_d_ffn`` > 0): one SwiGLU
+    (``nn/activations.SwiGLU``) of that width over every token of the
+    layer's input, added to the routed experts' output (DeepSeek's
+    ``n_shared_experts`` x ``moe_intermediate_size``); span ``moe.shared``.
   * ``MoEBlock``: pre-RMSNorm -> MoELayer -> dropout -> residual.
 
 Sharded (``parallel/layout.py``, under ``parallel/sharded.py``'s step), the
@@ -71,6 +78,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vats_tpu_torch.nn.activations import SwiGLU
 from vats_tpu_torch.nn.dropout import SITE_MOE_BLOCK, SITE_MOE_LAYER, Seed, dropout
 from vats_tpu_torch.nn.initializers import input_proj_init_, output_proj_init_
 from vats_tpu_torch.nn.norms import RMSNorm
@@ -118,6 +126,7 @@ class TopKRouter(nn.Module):
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
         device=None,
+        norm_topk_prob: bool = True,
     ):
         super().__init__()
         self.num_experts = num_experts
@@ -125,6 +134,7 @@ class TopKRouter(nn.Module):
         self.use_aux_loss = use_aux_loss
         self.num_layers = num_layers
         self.dtype = dtype
+        self.norm_topk_prob = norm_topk_prob
         self.router = nn.Linear(
             d_model, num_experts, bias=True, dtype=param_dtype, device=device
         )
@@ -161,7 +171,9 @@ class TopKRouter(nn.Module):
         # expert first (torch.topk's among ties is unspecified, and differs)
         top_vals, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         top_vals, top_idx = top_vals[:, :self.top_k], top_idx[:, :self.top_k]
-        weights = top_vals / top_vals.sum(dim=-1, keepdim=True)
+        weights = top_vals
+        if self.norm_topk_prob:
+            weights = top_vals / top_vals.sum(dim=-1, keepdim=True)
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.use_aux_loss and not deterministic and self.num_experts > 1:
             mass = probs.sum(dim=0)
@@ -247,6 +259,8 @@ class MoELayer(nn.Module):
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
         device=None,
+        shared_d_ffn: int = 0,
+        norm_topk_prob: bool = True,
     ):
         super().__init__()
         if dispatch not in ("auto", "dense", "scatter", "sort"):
@@ -264,12 +278,15 @@ class MoELayer(nn.Module):
         )
         self.router = TopKRouter(
             d_model, num_experts, top_k, num_layers=num_layers, dtype=dtype,
-            param_dtype=param_dtype, device=device,
+            param_dtype=param_dtype, device=device, norm_topk_prob=norm_topk_prob,
         )
         self.experts = ExpertSwiGLU(
             d_model, d_ffn, num_experts, num_layers=num_layers, dtype=dtype,
             param_dtype=param_dtype, device=device,
         )
+        self.shared = (SwiGLU(d_model, shared_d_ffn, num_layers=num_layers, dtype=dtype,
+                              param_dtype=param_dtype, device=device)
+                       if shared_d_ffn > 0 else None)
         self.routing = None  # see record_routing
         self.mode_calls = {}  # resolved mode -> eager forwards and captures
 
@@ -279,6 +296,8 @@ class MoELayer(nn.Module):
                 self.norm.weight.fill_(1.0)
         self.router.reset_parameters(generator)
         self.experts.reset_parameters(generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
 
     def _capacity(self, n: int) -> int:
         e, k = self.num_experts, self.top_k
@@ -362,6 +381,9 @@ class MoELayer(nn.Module):
         else:
             out, aux_loss = self._parallel_dispatch(mode, flat, deterministic, capacity,
                                                     tok, emesh, ep, b, t)
+        if self.shared is not None:
+            with annotate("moe.shared"):
+                out = out.to(self.dtype) + self.shared(flat)
         out = out.reshape(b, t, d)
         out = dropout(out, self.dropout, deterministic=deterministic,
                       seed=dropout_seed, layer=layer_idx, site=SITE_MOE_LAYER)
@@ -545,6 +567,7 @@ class MoEBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
         param_dtype: torch.dtype = torch.float32,
         device=None,
+        **router_and_shared,
     ):
         super().__init__()
         self.dropout = dropout
@@ -553,7 +576,7 @@ class MoEBlock(nn.Module):
             d_model, d_ffn, num_experts, top_k, dropout=dropout, eps=eps,
             double_norm=double_norm, dispatch=dispatch,
             capacity_factor=capacity_factor, num_layers=num_layers, dtype=dtype,
-            param_dtype=param_dtype, device=device,
+            param_dtype=param_dtype, device=device, **router_and_shared,
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):

@@ -37,7 +37,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("decode_attention", "flash_attention", "flash_backward", "cache_append",
-           "paged_prefill_attention", "moe_grouped_gemm", "adamw")
+           "paged_prefill_attention", "moe_grouped_gemm", "adamw", "mla_decode")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
